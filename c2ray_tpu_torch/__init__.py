@@ -1,0 +1,14 @@
+"""c2ray_tpu_torch: the c2ray_tpu radiative transfer in PyTorch and CUDA.
+
+The port of ``c2ray_tpu`` (JAX, written for a TPU) to PyTorch on an
+NVIDIA H100.  It mirrors the JAX package's module paths, names and
+layouts; the JAX package stays the reference it is tested against.
+Plain tensor code is PyTorch; the two kernels of the 3D timestep, the
+pyramid sweep and the chemistry fixed point, are CUDA C++ under
+``csrc/``, built with nvcc on first use.  Each has a plain PyTorch
+version beside it, which CPU tensors take.
+
+This package imports torch and numpy, never jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,51 @@
+"""Carry tables and state across from the JAX package.
+
+Each function takes one of ``c2ray_tpu``'s records with array leaves
+(numpy arrays, or anything ``np.asarray`` accepts) and returns the
+port's record, or the reverse.  Nothing here imports JAX: the tests use
+these to feed both packages the same inputs.
+"""
+
+import numpy as np
+import torch
+
+from .radiation.quadrature import QuadTables, SourceQuad
+from .state import GridState
+from .sweep.source_sweep import RateGrids
+
+
+def _tensor(a, dtype, device):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def quad_tables_from_numpy(qt, dtype=torch.float64, device=None
+                           ) -> QuadTables:
+    """The port's QuadTables from ``c2ray_tpu``'s (fixed-node rule)."""
+    def source(sq):
+        if sq is None:
+            return None
+        opt = lambda a: None if a is None else _tensor(a, dtype, device)
+        return SourceQuad(
+            band_lo=int(sq.band_lo), band_hi=int(sq.band_hi),
+            sigma_hat=_tensor(sq.sigma_hat, dtype, device),
+            A_photo=_tensor(sq.A_photo, dtype, device),
+            A_heat_HI=opt(sq.A_heat_HI), A_heat_HeI=opt(sq.A_heat_HeI),
+            A_heat_HeII=opt(sq.A_heat_HeII))
+
+    arrays = {name: _tensor(getattr(qt, name), dtype, device)
+              for name in QuadTables._fields
+              if name not in ("bb", "pl", "qso")}
+    return QuadTables(bb=source(qt.bb), pl=source(qt.pl),
+                      qso=source(qt.qso), **arrays)
+
+
+def grid_state_from_numpy(state, dtype=torch.float64, device=None
+                          ) -> GridState:
+    """The port's GridState from ``c2ray_tpu``'s."""
+    return GridState(*(_tensor(a, dtype, device) for a in state))
+
+
+def rate_grids_to_numpy(rates: RateGrids) -> RateGrids:
+    """The port's RateGrids with float64 numpy leaves."""
+    return RateGrids(*(np.asarray(torch.as_tensor(a).detach().cpu(),
+                                  dtype=np.float64) for a in rates))

@@ -1,0 +1,358 @@
+// Pyramid short-characteristics sweep of a source batch, with the
+// isothermal quadrature band rates as a device function.
+//
+// Replaces c2ray_tpu/sweep/pyramid_sweep.py: trace_centered (:116) and
+// sweep_pyramid_source_batch (:496), with
+// c2ray_tpu/radiation/quadrature.py: _attenuation (:324) and the
+// isothermal branch of _one_source_quad (:330).
+//
+// Algorithm (the same as the plain version in pyramid_sweep.py): every
+// source owns an outgoing-column cube cd[s] (M^3 x 3, source-centred,
+// zeroed per sweep; index ctr + offset with ctr = M/2 - 1).  Layers
+// l = 1..Rf run in order; within a layer the x, y, z stages run in
+// order, one launch each over (source, sign, u, v).  A stage-m cell at
+// |offset_m| = l reads its four cinterp corners on layer l-1 along m,
+// shifted toward the source by 0 or 1 in u and v; the stage order
+// guarantees those cells are already written.  Rates go to a
+// per-source slab in absolute coordinates ((srcpos + offset) mod M is a
+// bijection for offsets in -(M/2-1)..M/2), summed over sources by the
+// caller in fixed order.  Photon and LLS losses are reduced per block
+// into a partials buffer, summed in fixed order by the caller: no
+// float atomics, so the sweep is deterministic.
+//
+// Bound: the K-node exponentials (2 * K * nlive per cell and source:
+// 396 for a 5e4 K blackbody at K = 6), i.e. the SFU / FP pipes, not
+// memory (each cell reads 4 corner 3-vectors and 5 fields).  The band
+// tables (<= 141 bands x (5 + 2K) values) sit in shared memory and are
+// read as broadcasts.
+
+#include "common.cuh"
+
+namespace c2ray {
+namespace {
+
+constexpr int kBlock = 256;
+constexpr double kSqrt2 = 1.4142135623730951;
+constexpr double kSqrt3 = 1.7320508075688772;
+constexpr double kMinWeightDenom = 0.6;
+constexpr double kTauPhotoLimit = 1.0e-7;
+
+template <typename T>
+struct Params {
+  const T* fields;    // (M^3, 5): ndens, h_av0, h_av1, he_av0, he_av1
+  const int* srcpos;  // (S, 3)
+  const T* nflux;     // (S, 3)
+  const T* bands;     // (nbt, 5 + 2K) live bands of every source type
+  T* cd;              // (S, M, M, M, 3) outgoing columns, zeroed
+  T* slab;            // (S, M^3, 4) per-source rates, zeroed
+  T* partials;        // (S, nslots, 2) photon / LLS loss per block
+  int M, S, Rf, Rb, K, nslots, ntypes, nbt;
+  int type_col[3], type_nb[3];
+  T dr, vol_over_scale, coldensh_lls, max_coldensh;
+};
+
+// Isothermal branch of _one_source_quad summed over the source types
+// (photoion_rates_quad): photo_cell_{HI,HeI,HeII}, photo_in, photo_out.
+template <typename T>
+__device__ void cell_rates_iso(const T* tab, const Params<T>& p,
+                               const T* nfl3, const T* cin, const T* cout,
+                               T vol, T out[5]) {
+  const int stride = 5 + 2 * p.K;
+  const T tiny = Limits<T>::tiny();
+  for (int q = 0; q < 5; ++q) out[q] = T(0);
+  int b0 = 0;
+  for (int t = 0; t < p.ntypes; ++t) {
+    const T nfl = nfl3[p.type_col[t]];
+    T acc[5] = {T(0), T(0), T(0), T(0), T(0)};
+    for (int b = 0; b < p.type_nb[t]; ++b) {
+      const T* rb = tab + (b0 + b) * stride;
+      const T sHI = rb[0], sHeI = rb[1], sHeII = rb[2];
+      const T mHeI = rb[3], mHeII = rb[4];
+      const T* sh = rb + 5;
+      const T* A = rb + 5 + p.K;
+      const T tau_in = cin[0] * sHI + cin[1] * sHeI + cin[2] * sHeII;
+      const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
+      const T tcHI = sHI * (cout[0] - cin[0]);
+      const T tcHeI = sHeI * (cout[1] - cin[1]);
+      const T tcHeII = sHeII * (cout[2] - cin[2]);
+      const T inv = T(1) / maxp(tcHI + tcHeI + tcHeII, tiny);
+      T g_in = T(0), g_thick = T(0), g_thin = T(0);
+      for (int k = 0; k < p.K; ++k) {
+        const T e_in = xexp(-minp(tau_in * sh[k], T(80)));
+        const T e_out = xexp(-minp(tau_out * sh[k], T(80)));
+        g_in += A[k] * e_in;
+        g_thick += A[k] * (e_in - e_out);
+        g_thin += A[k] * sh[k] * e_in;
+      }
+      const T dtau = tau_out - tau_in;
+      const T phi_in = nfl * g_in;
+      const T phi_all = xabs(dtau) > T(kTauPhotoLimit) ? nfl * g_thick
+                                                         : nfl * dtau * g_thin;
+      acc[0] += tcHI * inv * phi_all / vol;
+      acc[1] += mHeI * (tcHeI * inv) * phi_all / vol;
+      acc[2] += mHeII * (tcHeII * inv) * phi_all / vol;
+      acc[3] += phi_in;
+      acc[4] += phi_in - phi_all;
+    }
+    for (int q = 0; q < 5; ++q) out[q] += acc[q];
+    b0 += p.type_nb[t];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_tables(const Params<T>& p, T* tab) {
+  const int n = p.nbt * (5 + 2 * p.K);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tab[i] = p.bands[i];
+  __syncthreads();
+}
+
+__device__ __forceinline__ int wrap(int x, int M) {
+  const int r = x % M;
+  return r < 0 ? r + M : r;
+}
+
+// neutral columns per unit length at an absolute cell:
+// stack([h_av0, he_av0, he_av1]) * ndens * abu
+template <typename T>
+__device__ __forceinline__ void base_cols(const T* f, T bc[3]) {
+  bc[0] = f[1] * f[0] * T(1.0 - kAbuHe);
+  bc[1] = f[3] * f[0] * T(kAbuHe);
+  bc[2] = f[4] * f[0] * T(kAbuHe);
+}
+
+// Source cell (evolve_point.F90:140-151): seeds cd with the half-cell
+// columns and writes the source cell's own rates.
+template <typename T>
+__global__ void source_cell_kernel(Params<T> p) {
+  extern __shared__ unsigned char smem[];
+  T* tab = reinterpret_cast<T*>(smem);
+  load_tables(p, tab);
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= p.S) return;
+  const int M = p.M, ctr = M / 2 - 1;
+  const int* sp = p.srcpos + 3 * s;
+  const size_t flat =
+      (size_t(wrap(sp[0], M)) * M + wrap(sp[1], M)) * M + wrap(sp[2], M);
+  const T* f = p.fields + flat * 5;
+  T bc[3], cc0[3];
+  base_cols(f, bc);
+  const T half_dr = T(0.5) * p.dr;
+  for (int c = 0; c < 3; ++c) cc0[c] = bc[c] * half_dr;
+  T* cd0 = p.cd + ((((size_t)s * M + ctr) * M + ctr) * M + ctr) * 3;
+  for (int c = 0; c < 3; ++c) cd0[c] = cc0[c];
+  const T zero3[3] = {T(0), T(0), T(0)};
+  T r[5];
+  cell_rates_iso(tab, p, p.nflux + 3 * s, zero3, cc0, p.vol_over_scale, r);
+  T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
+  out[0] = r[0] / bc[0];
+  out[1] = r[1] / bc[1];
+  out[2] = r[2] / bc[2];
+  out[3] = T(0);
+}
+
+// One (layer l, stage m) step: threads over (sign, u, v) of the plane
+// pair |offset_m| = l, blockIdx.y = source.  The arithmetic is
+// compute_stage (pyramid_sweep.py:205-310).
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+stage_kernel(Params<T> p, int l, int m, int slot0) {
+  extern __shared__ unsigned char smem[];
+  T* tab = reinterpret_cast<T*>(smem);
+  T* red = tab + p.nbt * (5 + 2 * p.K);   // 2 * kBlock
+  load_tables(p, tab);
+
+  const int s = blockIdx.y;
+  const int M = p.M, ctr = M / 2 - 1;
+  const int W = 2 * l + 1;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  T ploss = T(0), lloss = T(0);
+
+  if (idx < 2 * W * W) {
+    const bool fwd = idx < W * W;
+    const int rem = fwd ? idx : idx - W * W;
+    const int u = rem / W - l, v = rem % W - l;
+    // window per stage: x |b|,|c| <= l-1; y |a| <= l, |c| <= l-1;
+    // z |a|,|b| <= l; offsets within -Rb..Rf
+    const int lim_u = (m == 0) ? l - 1 : l;
+    const int lim_v = (m == 2) ? l : l - 1;
+    const bool valid = abs(u) <= lim_u && abs(v) <= lim_v &&
+                       u >= -p.Rb && u <= p.Rf && v >= -p.Rb && v <= p.Rf &&
+                       (fwd ? l <= p.Rf : l <= p.Rb);
+    if (valid) {
+      const int sg = fwd ? 1 : -1;
+      const int au = (m == 0) ? 1 : 0;   // axis of u
+      const int av = (m == 2) ? 1 : 2;   // axis of v
+      const int su = (u > 0) - (u < 0), sv = (v > 0) - (v < 0);
+      auto cd_at = [&](int om, int ou, int ov) -> T* {
+        int q[3];
+        q[m] = om; q[au] = ou; q[av] = ov;
+        return p.cd +
+               ((((size_t)s * M + ctr + q[0]) * M + ctr + q[1]) * M +
+                ctr + q[2]) * 3;
+      };
+      const int om = sg * (l - 1);
+      const T* c4 = cd_at(om, u, v);             // W
+      const T* c3 = cd_at(om, u - su, v);        // C_mu
+      const T* c2 = cd_at(om, u, v - sv);        // C_mv
+      const T* c1 = cd_at(om, u - su, v - sv);   // C_mm
+
+      const T lf = T(l);
+      const T d_u = T(abs(u)), d_v = T(abs(v));
+      const T alam = (lf - T(0.5)) / lf;
+      const T du = T(2) * xabs(alam * d_u - (d_u - T(0.5)));
+      const T dv = T(2) * xabs(alam * d_v - (d_v - T(0.5)));
+      const T s1 = (T(1) - du) * (T(1) - dv);
+      const T s2 = du * (T(1) - dv);
+      const T s3 = (T(1) - du) * dv;
+      const T s4 = du * dv;
+      const T sig[3] = {T(kSigmaHI), T(kSigmaHeI), T(kSigmaHeII)};
+      const T wmin = T(kMinWeightDenom);
+      const bool on_diag = (l == 1) && (abs(u) == 1 || abs(v) == 1);
+      const bool full_diag = abs(u) == 1 && abs(v) == 1;
+      const T boost = on_diag ? (full_diag ? T(kSqrt3) : T(kSqrt2)) : T(1);
+      T cin[3];
+      for (int c = 0; c < 3; ++c) {
+        const T w1 = s1 / maxp(c1[c] * sig[c], wmin);
+        const T w2 = s2 / maxp(c2[c] * sig[c], wmin);
+        const T w3 = s3 / maxp(c3[c] * sig[c], wmin);
+        const T w4 = s4 / maxp(c4[c] * sig[c], wmin);
+        const T wsum = w1 + w2 + w3 + w4;
+        cin[c] = (c1[c] * w1 + c2[c] * w2 + c3[c] * w3 + c4[c] * w4) / wsum;
+        cin[c] = cin[c] * boost;
+      }
+      const T path_units = xsqrt((d_u * d_u + d_v * d_v) / (lf * lf) + T(1));
+      const T path = path_units * p.dr;
+      const bool has_lls = p.coldensh_lls > T(0);
+      const T lls_add = p.coldensh_lls * path_units;
+      if (has_lls) cin[0] += lls_add;
+
+      int o[3];
+      o[m] = sg * l; o[au] = u; o[av] = v;
+      const int* sp = p.srcpos + 3 * s;
+      const size_t flat = (size_t(wrap(sp[0] + o[0], M)) * M +
+                           wrap(sp[1] + o[1], M)) * M + wrap(sp[2] + o[2], M);
+      const T* f = p.fields + flat * 5;
+      T bc[3], cout[3];
+      base_cols(f, bc);
+      for (int c = 0; c < 3; ++c) cout[c] = cin[c] + bc[c] * path;
+
+      const T dist2 = d_u * d_u + d_v * d_v + lf * lf;
+      const T vol_ratio = T(4.0 * kPi) * dist2 * path_units;
+      T r[5];
+      cell_rates_iso(tab, p, p.nflux + 3 * s, cin, cout,
+                     vol_ratio * p.vol_over_scale, r);
+
+      const bool live = cin[0] < p.max_coldensh;
+      const T fl = live ? T(1) : T(0);
+      T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
+      out[0] = fl * r[0] / bc[0];
+      out[1] = fl * r[1] / bc[1];
+      out[2] = fl * r[2] / bc[2];
+      out[3] = T(0);
+
+      const bool on_bound = u == p.Rf || u == -p.Rb || v == p.Rf ||
+                            v == -p.Rb || (fwd ? l == p.Rf : l == p.Rb);
+      if (live && on_bound) ploss = r[4] / vol_ratio;
+      if (live && has_lls) {
+        const T tau_lls = T(kSigmaHI) * lls_add;
+        lloss = r[3] / vol_ratio * (-xexpm1(-tau_lls));
+      }
+      T* dst = cd_at(sg * l, u, v);
+      for (int c = 0; c < 3; ++c) dst[c] = cout[c];
+    }
+  }
+
+  // deterministic block reduction of the two losses
+  red[threadIdx.x] = ploss;
+  red[kBlock + threadIdx.x] = lloss;
+  __syncthreads();
+  for (int w = kBlock / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) {
+      red[threadIdx.x] += red[threadIdx.x + w];
+      red[kBlock + threadIdx.x] += red[kBlock + threadIdx.x + w];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    T* dst = p.partials + ((size_t)s * p.nslots + slot0 + blockIdx.x) * 2;
+    dst[0] = red[0];
+    dst[1] = red[kBlock];
+  }
+}
+
+inline int stage_blocks(int l) {
+  const int W = 2 * l + 1;
+  return (2 * W * W + kBlock - 1) / kBlock;
+}
+
+template <typename T>
+int run_sweep(const T* fields, const int* srcpos, const T* nflux,
+              const T* bands, T* cd, T* slab, T* partials, int M, int S,
+              int Rf, int Rb, int K, int ntypes, const int cols[3],
+              const int nbs[3], double dr, double vol_over_scale,
+              double coldensh_lls, double max_coldensh, cudaStream_t stream) {
+  Params<T> p;
+  p.fields = fields; p.srcpos = srcpos; p.nflux = nflux; p.bands = bands;
+  p.cd = cd; p.slab = slab; p.partials = partials;
+  p.M = M; p.S = S; p.Rf = Rf; p.Rb = Rb; p.K = K; p.ntypes = ntypes;
+  p.nbt = 0;
+  for (int t = 0; t < 3; ++t) {
+    p.type_col[t] = t < ntypes ? cols[t] : 0;
+    p.type_nb[t] = t < ntypes ? nbs[t] : 0;
+    p.nbt += p.type_nb[t];
+  }
+  p.nslots = 0;
+  for (int l = 1; l <= Rf; ++l) p.nslots += 3 * stage_blocks(l);
+  p.dr = T(dr); p.vol_over_scale = T(vol_over_scale);
+  p.coldensh_lls = T(coldensh_lls); p.max_coldensh = T(max_coldensh);
+
+  const size_t tab_bytes = size_t(p.nbt) * (5 + 2 * K) * sizeof(T);
+  source_cell_kernel<T><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = tab_bytes + 2 * kBlock * sizeof(T);
+  int slot = 0;
+  for (int l = 1; l <= Rf; ++l) {
+    const int nblk = stage_blocks(l);
+    for (int m = 0; m < 3; ++m) {
+      stage_kernel<T><<<dim3(nblk, S), kBlock, smem, stream>>>(p, l, m, slot);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      slot += nblk;
+    }
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+}  // namespace c2ray
+
+extern "C" {
+
+// number of per-block loss slots a sweep of forward extent Rf writes
+int pyramid_sweep_slots(int Rf) {
+  int n = 0;
+  for (int l = 1; l <= Rf; ++l) n += 3 * c2ray::stage_blocks(l);
+  return n;
+}
+
+// Returns the cudaError_t of the launches (0 on success).
+#define C2RAY_SWEEP_ENTRY(NAME, T)                                          \
+  int NAME(const T* fields, const int* srcpos, const T* nflux,             \
+           const T* bands, T* cd, T* slab, T* partials, int M, int S,      \
+           int Rf, int Rb, int K, int ntypes, int col0, int nb0, int col1, \
+           int nb1, int col2, int nb2, double dr, double vol_over_scale,   \
+           double coldensh_lls, double max_coldensh, void* stream) {       \
+    const int cols[3] = {col0, col1, col2};                                \
+    const int nbs[3] = {nb0, nb1, nb2};                                    \
+    return c2ray::run_sweep<T>(fields, srcpos, nflux, bands, cd, slab,     \
+                               partials, M, S, Rf, Rb, K, ntypes, cols,    \
+                               nbs, dr, vol_over_scale, coldensh_lls,      \
+                               max_coldensh,                               \
+                               static_cast<cudaStream_t>(stream));         \
+  }
+
+C2RAY_SWEEP_ENTRY(pyramid_sweep_f32, float)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_f64, double)
+
+}  // extern "C"

@@ -1,0 +1,93 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with nvcc into a shared library with a
+plain C interface, ``build/kernels/lib<name>_<hash>.so`` beside the
+package, on first use in a process.  The hash covers the sources and
+the flags, so an edited kernel never loads a stale build.  The library
+is bound with ctypes: every pointer and the stream are ``c_void_p``, and
+every entry point returns the ``cudaError_t`` of its launches, which
+`check` turns into an exception.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+# no --use_fast_math: it flushes denormals and swaps in __expf, which
+# breaks the FLT_MIN floors and doric's cancellation-free algebra
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256()
+    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The compiled ``csrc/<name>.cu``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    so = library_path(name)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        r = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        # ptxas -v: registers, shared memory and spills per kernel
+        so.with_suffix(".log").write_text(r.stdout + r.stderr)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{r.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _LIBS[name] = lib
+    return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler's report of the last build of ``csrc/<name>.cu``."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,146 @@
+"""The 3D multi-source timestep: iterate {sweep all sources, apply rates}
+until the grid converges.
+
+Port of ``c2ray_tpu/sweep/evolve3d.py`` (``evolve3D``,
+evolve.F90:78-229) for the pyramid engine.  The convergence loop runs
+in Python: its trip count is physical, data dependent and small.  The
+subbox radius is a runtime integer of the sweep, so nothing is built
+per radius.
+"""
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from ..state import GridState, begin_timestep, finish_timestep
+from .global_pass import ChemistryConfig, global_chemistry_pass
+from .pyramid_sweep import sweep_pyramid_source_batch
+from .source_sweep import SourceFields, SweepConfig
+
+# c2ray_parameters.f90:26 and evolve.F90:147,177
+CONVERGENCE_FRACTION = 2.5e-4
+MAX_GLOBAL_ITER = 500
+
+# evolve_source.F90:133-144: keep growing the subbox while more than
+# this fraction of the sources' photons escapes it
+MIN_FRACTION_OF_PHOTONS = 1.0e-10
+
+
+@dataclass(frozen=True)
+class Evolve3DConfig:
+    sweep: SweepConfig
+    chem: ChemistryConfig
+    convergence_fraction: float = CONVERGENCE_FRACTION
+    max_iterations: int = MAX_GLOBAL_ITER
+    # expanding-subbox trace (evolve_source.F90:114-144): start at
+    # subbox_start cells, double while the escaping photon fraction
+    # exceeds min_fraction_of_photons, capped at M/2
+    use_subbox: bool = True
+    subbox_start: int = 8
+    min_fraction_of_photons: float = MIN_FRACTION_OF_PHOTONS
+
+
+class Evolve3DStats(NamedTuple):
+    n_iterations: int
+    conv_flag: int
+    photon_loss: float
+    subbox_radius: int = 0
+    # photons/s absorbed in LLSs during the last iteration
+    # (photonstatistics.f90:59)
+    lls_loss: float = 0.0
+
+
+def _scaled_source_strength(sweep_cfg: SweepConfig, nflux) -> float:
+    """Total photon rate of the batch in the sweep's scaled flux units
+    (sum over source types of NormFlux * type rate / flux_scale)."""
+    t = sweep_cfg.tables
+    total = 0.0
+    for sq, j in ((t.bb, 0), (t.pl, 1), (t.qso, 2)):
+        if sq is None:
+            continue
+        total += float(torch.sum(sq.A_photo)) * float(torch.sum(nflux[:, j]))
+    return total
+
+
+def _subbox_radii(cfg: Evolve3DConfig):
+    R = cfg.sweep.mesh // 2
+    radii = []
+    r = cfg.subbox_start
+    while r < R:
+        radii.append(r)
+        r *= 2
+    radii.append(R)
+    return radii
+
+
+def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None):
+    """One {sweep + global chemistry pass} iteration; `radius` bounds
+    the trace (None = full).  The returned function maps
+    (state, srcpos, nflux, dt) to
+    (new state, conv_flag, photon_loss, lls_loss), all on the state's
+    device."""
+
+    def iteration(state: GridState, srcpos, nflux, dt):
+        fields = SourceFields(ndens=state.ndens, h_av0=state.h_av0,
+                              h_av1=state.h_av1, he_av0=state.he_av0,
+                              he_av1=state.he_av1)
+        rates = sweep_pyramid_source_batch(cfg.sweep, fields, srcpos, nflux,
+                                           radius=radius)
+        new_state, conv_flag = global_chemistry_pass(cfg.chem, state, rates,
+                                                     dt)
+        return new_state, conv_flag, rates.photon_loss, rates.lls_loss
+
+    return iteration
+
+
+def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt):
+    """Full evolve3D (evolve.F90:78-229).
+
+    srcpos: (S, 3) int; nflux: (S, 3).  Returns (new state,
+    Evolve3DStats).  With `cfg.use_subbox` each iteration's sweep runs
+    on an adaptive subbox radius: while the photon fraction escaping the
+    current radius exceeds `min_fraction_of_photons`, the radius doubles
+    and the sweep is redone (evolve_source.F90:114-144); the radius
+    carries over to the next iteration.
+    """
+    radii = _subbox_radii(cfg) if cfg.use_subbox else [cfg.sweep.mesh // 2]
+    total_strength = _scaled_source_strength(cfg.sweep, nflux)
+    loss_wall = cfg.min_fraction_of_photons * max(total_strength, 1e-300)
+    r_idx = 0
+
+    def iteration_at(i):
+        return make_evolve3d_iteration(
+            cfg, radius=None if i == len(radii) - 1 else radii[i])
+
+    n = state.mesh3
+    conv_criterion = min(int(cfg.convergence_fraction * n),
+                         int(srcpos.shape[0]))
+    state = begin_timestep(state)
+    conv_flag = n
+    niter = 0
+    ploss = lls_loss = 0.0
+    radius_used = 0
+    while True:
+        # convergence test at loop head (evolve.F90:154-182); at least
+        # two iterations so sources can interact
+        if conv_flag < conv_criterion and niter > 1:
+            break
+        if niter > cfg.max_iterations:
+            break
+        niter += 1
+        while True:
+            out = iteration_at(r_idx)(state, srcpos, nflux, dt)
+            if r_idx + 1 >= len(radii) or float(out[2]) <= loss_wall:
+                break
+            r_idx += 1
+        radius_used = radii[r_idx] if cfg.use_subbox else 0
+        state = out[0]
+        conv_flag = int(out[1])
+        ploss = float(out[2])
+        lls_loss = float(out[3])
+
+    state = finish_timestep(state)
+    return state, Evolve3DStats(n_iterations=niter, conv_flag=conv_flag,
+                                photon_loss=ploss, subbox_radius=radius_used,
+                                lls_loss=lls_loss)

@@ -1,0 +1,350 @@
+"""Pyramid short-characteristics sweep of a source batch.
+
+Port of ``c2ray_tpu/sweep/pyramid_sweep.py``.  The domain around each
+source splits into six dominant-axis pyramids (the partition cinterp's
+dominant-axis choice induces, column_density.f90:107,199,275, ties
+z > y > x).  A stage-m cell at |offset_m| = l reads its four cinterp
+corners on layer l-1 along m only, so the causal order is: layers
+l = 1..Rf, and within a layer stage x, then y, then z.
+
+The JAX version carries only plane windows through a scan, because 3D
+updates are expensive on a TPU.  Here every source keeps its 3D
+outgoing-column cube cd[s] (source-centred, index ctr + offset with
+ctr = M/2 - 1) and each (layer, stage) step reads its corners straight
+from it.  `trace_plain` does that with index tensors; `trace_cuda`
+launches the hand-written kernel ``csrc/pyramid_sweep.cu``, one launch
+per (layer, stage) over (source, sign, u, v).  Both return the same
+per-source rate slabs and losses, which `sweep_pyramid_source_batch`
+sums over sources in fixed order.
+
+Memory: cd is S x M^3 x 3 and the slab S x M^3 x 4 values: 470 MB at
+128^3 x 8 sources in float32, 3.8 GB at 256^3.
+"""
+
+import ctypes
+
+import torch
+
+from .. import constants as const
+from .. import cuda_build
+from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
+from .source_sweep import RateGrids, SourceFields, SweepConfig, _cell_rates
+
+# abundance weights per species column, order (HI, HeI, HeII)
+_ABU = (1.0 - const.abu_he, const.abu_he, const.abu_he)
+
+# sweeps run through the CUDA kernel (one count per trace_cuda call,
+# which launches the 3 * Rf stage kernels of one sweep)
+launches = 0
+
+
+def stack_sweep_fields(cfg: SweepConfig, fields: SourceFields):
+    """(M, M, M, 5) stacked field cube with the reference's epsilon
+    clamps (evolve_point.F90:120-132)."""
+    M = cfg.mesh
+    eps = cfg.epsilon
+    chans = [fields.ndens, torch.clamp(fields.h_av0, min=eps),
+             torch.clamp(fields.h_av1, min=eps),
+             torch.clamp(fields.he_av0, min=eps),
+             torch.clamp(fields.he_av1, min=eps)]
+    return torch.stack(chans, dim=-1).reshape(M, M, M, 5)
+
+
+def trace_extents(M: int, radius=None):
+    """Forward / backward trace extents (Rf, Rb): +M/2 / -(M/2-1) by
+    default (evolve_source.F90:103-109), cut to +-radius."""
+    R = M // 2
+    if radius is None:
+        return R, R - 1
+    return min(radius, R), min(radius, R - 1)
+
+
+def _same_device(fstack, srcpos, nflux, cfg):
+    for t in (srcpos, nflux, cfg.tables.sigma_HI):
+        if t.device != fstack.device:
+            raise ValueError(f"sources and tables must be on the fields' "
+                             f"device {fstack.device}, not {t.device}")
+
+
+def _scalars(cfg, dtype, device, dr, vol_over_scale):
+    """dr and dr^3/flux_scale as tensors; the volume is computed on the
+    host in float64 (the raw cube of a cm-scale dr overflows float32)."""
+    if dr is None:
+        dr, vol_over_scale = cfg.dr, cfg.vol / cfg.flux_scale
+    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    return as_t(dr), as_t(vol_over_scale)
+
+
+def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
+                dr=None, vol_over_scale=None):
+    """Plain PyTorch version of the sweep kernel.
+
+    fstack: (M, M, M, 5) stacked fields; srcpos: (S, 3) int; nflux:
+    (S, 3).  Returns (slab (S, M^3, 4) per-source rates in absolute
+    coordinates, photon_loss (S,), lls_loss (S,))."""
+    _same_device(fstack, srcpos, nflux, cfg)
+    M = fstack.shape[0]
+    ctr = M // 2 - 1
+    S = srcpos.shape[0]
+    dtype, device = fstack.dtype, fstack.device
+    dr, vos = _scalars(cfg, dtype, device, dr, vol_over_scale)
+    abu = torch.tensor(_ABU, dtype=dtype, device=device)
+    sig = torch.tensor(_SIGMAS, dtype=dtype, device=device)
+    f = fstack.reshape(M**3, 5)
+    sp = srcpos.to(dtype=torch.long)
+    nfl = nflux.to(dtype=dtype)
+    s_idx = torch.arange(S, device=device)
+
+    cd = torch.zeros((S, M, M, M, 3), dtype=dtype, device=device)
+    slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
+    ploss = torch.zeros(S, dtype=dtype, device=device)
+    lls = torch.zeros(S, dtype=dtype, device=device)
+
+    def flat_of(off):
+        """absolute flat index of (srcpos + off) mod M; off (..., 3)."""
+        pos = torch.remainder(sp.view((S,) + (1,) * (off.ndim - 1) + (3,))
+                              + off, M)
+        return (pos[..., 0] * M + pos[..., 1]) * M + pos[..., 2]
+
+    def base_cols(fc):
+        return (torch.stack([fc[..., 1], fc[..., 3], fc[..., 4]], dim=-1)
+                * fc[..., 0:1] * abu)
+
+    # source cell (evolve_point.F90:140-151) seeds cd with half-cell
+    # columns and gets its own rates
+    flat0 = flat_of(torch.zeros(3, dtype=torch.long, device=device))
+    f0 = f[flat0]
+    bc0 = base_cols(f0)
+    cc0 = bc0 * (0.5 * dr)
+    cd[s_idx, ctr, ctr, ctr] = cc0
+    phi0 = _cell_rates(cfg, torch.zeros_like(cc0), cc0, vos, nfl, f0[:, 2])
+    slab[s_idx, flat0] = torch.stack(
+        [phi0.photo_cell_HI / bc0[:, 0], phi0.photo_cell_HeI / bc0[:, 1],
+         phi0.photo_cell_HeII / bc0[:, 2], phi0.heat], dim=-1)
+
+    nfl_cells = nfl.view(S, 1, 1, 1, 3)
+    sign = torch.tensor([1, -1], device=device).view(2, 1, 1)
+    for l in range(1, Rf + 1):
+        o = torch.arange(-l, l + 1, device=device)
+        U, V = torch.meshgrid(o, o, indexing="ij")            # (W, W)
+        su, sv = torch.sign(U), torch.sign(V)
+        lf = torch.tensor(float(l), dtype=dtype, device=device)
+        d_u, d_v = U.abs().to(dtype), V.abs().to(dtype)
+        alam = (lf - 0.5) / lf
+        du = 2.0 * torch.abs(alam * d_u - (d_u - 0.5))
+        dv = 2.0 * torch.abs(alam * d_v - (d_v - 0.5))
+        s1 = (1.0 - du) * (1.0 - dv)
+        s2 = du * (1.0 - dv)
+        s3 = (1.0 - du) * dv
+        s4 = du * dv
+        on_diag = (l == 1) & ((d_u == 1.0) | (d_v == 1.0))
+        full_diag = (d_u == 1.0) & (d_v == 1.0)
+        boost = torch.where(
+            on_diag, torch.where(full_diag, torch.full_like(d_u, SQRT3),
+                                 torch.full_like(d_u, SQRT2)),
+            torch.ones_like(d_u))
+        path_units = torch.sqrt((d_u * d_u + d_v * d_v) / (lf * lf) + 1.0)
+        path = path_units * dr
+        dist2 = d_u * d_u + d_v * d_v + lf * lf
+        vol_ratio = 4.0 * const.pi * dist2 * path_units
+        in_dom = (U >= -Rb) & (U <= Rf) & (V >= -Rb) & (V <= Rf)
+        bnd_uv = (U == Rf) | (U == -Rb) | (V == Rf) | (V == -Rb)
+        sign_ok = torch.tensor([l <= Rf, l <= Rb], device=device)
+        on_bound = bnd_uv | torch.tensor(
+            [l == Rf, l == Rb], device=device).view(2, 1, 1)   # (2, W, W)
+        lls_add = (cfg.coldensh_LLS * path_units
+                   if cfg.coldensh_LLS > 0.0 else None)
+
+        for m in range(3):
+            au, av = (1, 2) if m == 0 else ((0, 2) if m == 1 else (0, 1))
+            lim_u = l - 1 if m == 0 else l
+            lim_v = l if m == 2 else l - 1
+            valid = (((U.abs() <= lim_u) & (V.abs() <= lim_v) & in_dom)[None]
+                     & sign_ok.view(2, 1, 1))                 # (2, W, W)
+
+            def offsets(om, ou, ov):
+                off = torch.empty((2,) + U.shape + (3,), dtype=torch.long,
+                                  device=device)
+                off[..., m] = om
+                off[..., au] = ou
+                off[..., av] = ov
+                return off
+
+            def corner(off):
+                # clamp: only invalid cells can point outside the cube
+                i = torch.clamp(ctr + off, 0, M - 1)
+                return cd[:, i[..., 0], i[..., 1], i[..., 2]]  # (S,2,W,W,3)
+
+            om = sign * (l - 1)
+            c4 = corner(offsets(om, U, V))                     # W
+            c3 = corner(offsets(om, U - su, V))                # C_mu
+            c2 = corner(offsets(om, U, V - sv))                # C_mv
+            c1 = corner(offsets(om, U - su, V - sv))           # C_mm
+
+            w = lambda s, c: s[..., None] / torch.clamp(c * sig,
+                                                        min=MIN_WEIGHT_DENOM)
+            w1, w2, w3, w4 = w(s1, c1), w(s2, c2), w(s3, c3), w(s4, c4)
+            wsum = w1 + w2 + w3 + w4
+            cd_in = (c1 * w1 + c2 * w2 + c3 * w3 + c4 * w4) / wsum
+            cd_in = cd_in * boost[..., None]
+            if lls_add is not None:
+                cd_in[..., 0] += lls_add
+
+            off = offsets(sign * l, U, V)
+            flat = flat_of(off)                                # (S,2,W,W)
+            fc = f[flat]
+            bcols = base_cols(fc)
+            cd_out = cd_in + bcols * path[..., None]
+            phi = _cell_rates(cfg, cd_in, cd_out, vol_ratio * vos,
+                              nfl_cells, fc[..., 2])
+
+            live = valid & (cd_in[..., 0] < cfg.max_coldensh)
+            fl = live.to(dtype)
+            rates = torch.stack(
+                [fl * phi.photo_cell_HI / bcols[..., 0],
+                 fl * phi.photo_cell_HeI / bcols[..., 1],
+                 fl * phi.photo_cell_HeII / bcols[..., 2],
+                 fl * phi.heat], dim=-1)
+            ploss = ploss + torch.where(
+                live & on_bound, phi.photo_out / vol_ratio,
+                0.0).sum(dim=(1, 2, 3))
+            if lls_add is not None:
+                # photons absorbed by the LLS fog (total_LLS_loss,
+                # photonstatistics.f90:250-267)
+                tau_lls = const.sigma_HI_at_ion_freq * lls_add
+                lls = lls + torch.where(
+                    live, phi.photo_in / vol_ratio * (-torch.expm1(-tau_lls)),
+                    0.0).sum(dim=(1, 2, 3))
+
+            # write the valid cells; the rest of cd and slab stays 0
+            ov = ctr + off[valid]                              # (nv, 3)
+            cd[:, ov[:, 0], ov[:, 1], ov[:, 2]] = cd_out[:, valid]
+            slab[s_idx[:, None], flat[:, valid]] = rates[:, valid]
+    return slab, ploss, lls
+
+
+def _packed_tables(cfg: SweepConfig, dtype):
+    """Live bands of every source type in use, one row each:
+    [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII, sighat(K), A(K)];
+    and the (nflux column, band count) of each type."""
+    qt = cfg.tables
+    rows, types = [], []
+    for sq, col, used in ((qt.bb, 0, cfg.has_bb), (qt.pl, 1, cfg.has_pl),
+                          (qt.qso, 2, cfg.has_qso)):
+        if sq is None or not used:
+            continue
+        sl = slice(sq.band_lo, sq.band_hi + 1)
+        per_band = torch.stack([qt.sigma_HI[sl], qt.sigma_HeI[sl],
+                                qt.sigma_HeII[sl], qt.mask_HeI[sl],
+                                qt.mask_HeII[sl]], dim=-1)
+        rows.append(torch.cat([per_band, sq.sigma_hat, sq.A_photo], dim=-1))
+        types.append((col, sq.sigma_hat.shape[0]))
+    if not rows:
+        raise ValueError("the sweep needs at least one source type")
+    K = (rows[0].shape[1] - 5) // 2
+    packed = torch.cat(rows).to(dtype=dtype).contiguous()
+    return packed, types, K
+
+
+_SHARED_MEM_LIMIT = 48 * 1024
+_BLOCK = 256   # kBlock of csrc/pyramid_sweep.cu
+
+
+def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
+               dr=None, vol_over_scale=None):
+    """The sweep kernel (``csrc/pyramid_sweep.cu``); same contract as
+    `trace_plain`.
+
+    Replaces pyramid_sweep.py:trace_centered + the source vmap of
+    sweep_pyramid_source_batch, with quadrature.py:_one_source_quad
+    (isothermal branch) inlined.  Bound on the card by the K-node
+    exponentials (about 400 per cell and source at the bench
+    configuration), so the design spends nothing on data movement that
+    a plane-window carry would save: corners are read straight from the
+    3D column cube, tables sit in shared memory, and the losses reduce
+    per block with no atomics.
+    """
+    global launches
+    if not cfg.isothermal:
+        raise NotImplementedError(
+            "the heating branch of the sweep kernel is not ported yet")
+    if not fstack.is_cuda:
+        raise ValueError("the sweep kernel takes CUDA tensors")
+    _same_device(fstack, srcpos, nflux, cfg)
+    M = fstack.shape[0]
+    S = srcpos.shape[0]
+    dtype, device = fstack.dtype, fstack.device
+    if not 0 < S <= 65535:
+        raise ValueError(f"the sweep kernel takes 1..65535 sources, not {S}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"sweep kernel takes float32/float64, not {dtype}")
+    if M % 2 or fstack.shape != (M, M, M, 5):
+        raise ValueError(f"fields must be (M, M, M, 5) with M even, got "
+                         f"{tuple(fstack.shape)}")
+    packed, types, K = _packed_tables(cfg, dtype)
+    smem = (packed.numel() + 2 * _BLOCK) * packed.element_size()
+    if smem > _SHARED_MEM_LIMIT:
+        raise ValueError(f"band tables need {smem} B of shared memory")
+    fields = fstack.contiguous()
+    sp = srcpos.to(dtype=torch.int32).contiguous()
+    nfl = nflux.to(dtype=dtype).contiguous()
+    dr_t, vos_t = _scalars(cfg, torch.float64, "cpu", dr, vol_over_scale)
+
+    lib = cuda_build.load("pyramid_sweep")
+    lib.pyramid_sweep_slots.argtypes = [ctypes.c_int]
+    lib.pyramid_sweep_slots.restype = ctypes.c_int
+    nslots = lib.pyramid_sweep_slots(Rf)
+    cd = torch.zeros((S, M, M, M, 3), dtype=dtype, device=device)
+    slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
+    partials = torch.zeros((S, max(nslots, 1), 2), dtype=dtype,
+                           device=device)
+    fn = (lib.pyramid_sweep_f32 if dtype == torch.float32
+          else lib.pyramid_sweep_f64)
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+                   + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    type_args = []
+    for t in range(3):
+        type_args += list(types[t]) if t < len(types) else [0, 0]
+    P = cuda_build.ptr
+    err = fn(P(fields), P(sp), P(nfl), P(packed), P(cd), P(slab),
+             P(partials), M, S, Rf, Rb, K, len(types), *type_args,
+             float(dr_t), float(vos_t), float(cfg.coldensh_LLS),
+             float(cfg.max_coldensh), cuda_build.stream_of(fields))
+    cuda_build.check(err, "pyramid_sweep")
+    launches += 1
+    losses = partials.sum(dim=1)
+    return slab, losses[:, 0], losses[:, 1]
+
+
+def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
+                               srcpos_batch, nflux_batch, radius: int = None,
+                               dr=None, vol_over_scale=None) -> RateGrids:
+    """Pyramid trace of a source batch (even cubic mesh; default trace
+    extents +M/2 / -(M/2-1), evolve_source.F90:103-109).
+
+    `radius` restricts the trace to a subbox of +-radius cells around
+    each source (evolve_source.F90:114-144): rates outside are zero and
+    photons crossing the subbox surface count as photon loss.  `dr` and
+    `vol_over_scale` override the configuration's cell size and its
+    host-computed dr^3/flux_scale.
+
+    CUDA tensors go through the kernel, CPU tensors through the plain
+    version; sources whose fluxes are all zero contribute nothing.
+    """
+    fstack = stack_sweep_fields(cfg, fields)
+    Rf, Rb = trace_extents(cfg.mesh, radius)
+    if fstack.is_cuda:
+        trace = trace_cuda
+    elif fstack.device.type == "cpu":
+        trace = trace_plain
+    else:
+        raise ValueError(f"no sweep for device {fstack.device}")
+    slab, ploss, lls = trace(cfg, fstack, srcpos_batch, nflux_batch, Rf, Rb,
+                             dr, vol_over_scale)
+    live = torch.any(nflux_batch > 0.0, dim=1)
+    rg = torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
+    return RateGrids(phih=rg[:, 0], phihe0=rg[:, 1], phihe1=rg[:, 2],
+                     phiheat=rg[:, 3],
+                     photon_loss=torch.where(live, ploss, 0.0).sum(),
+                     lls_loss=torch.where(live, lls, 0.0).sum())

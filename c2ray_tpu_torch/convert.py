@@ -9,6 +9,7 @@ these to feed both packages the same inputs.
 import numpy as np
 import torch
 
+from .cooling import CoolingTables
 from .radiation.quadrature import QuadTables, SourceQuad
 from .state import GridState
 from .sweep.source_sweep import RateGrids
@@ -37,6 +38,12 @@ def quad_tables_from_numpy(qt, dtype=torch.float64, device=None
               if name not in ("bb", "pl", "qso")}
     return QuadTables(bb=source(qt.bb), pl=source(qt.pl),
                       qso=source(qt.qso), **arrays)
+
+
+def cooling_tables_from_numpy(ct, dtype=torch.float64, device=None
+                              ) -> CoolingTables:
+    """The port's CoolingTables from ``c2ray_tpu``'s."""
+    return CoolingTables(*(_tensor(a, dtype, device) for a in ct))
 
 
 def grid_state_from_numpy(state, dtype=torch.float64, device=None

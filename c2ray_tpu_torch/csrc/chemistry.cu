@@ -1,28 +1,44 @@
-// Isothermal per-cell chemistry fixed point with the pass write-back.
+// Per-cell chemistry fixed point with the pass write-back: the
+// isothermal variant, and the heating variant (template flag kHeat)
+// with the thermal sub-cycle and its cooling-table lookup inside.
 //
 // Replaces c2ray_tpu/sweep/global_pass.py: _chem_iteration (:140) inside
 // the in-graph lockstep of _do_chemistry_global (:637-655), and
 // _finalize_pass (:658), with c2ray_tpu/chemistry.py: doric (:150),
 // electrondens (:51), prepare_doric_factors (:84), and
-// c2ray_tpu/rates.py: rate_coefficients (:44).
+// c2ray_tpu/rates.py: rate_coefficients (:44); with kHeat also
+// c2ray_tpu/thermal.py: thermal_init (:84), thermal_substeps (:119),
+// thermal_finalize (:177), and c2ray_tpu/cooling.py: coolin (:120).
 //
 // One thread runs one cell's fixed point: clamped IonState
-// (state.py:65-76), isothermal rate fits, then up to max_iter rounds of
-// {two doric solves averaged, damped blend from iteration damp_after
-// on, 1% convergence test}, leaving on the cell's own convergence.  A
-// frozen cell never changes in JAX's masked lockstep, so the per-thread
-// iteration index equals the lockstep's global one and the result
-// matches cell for cell.  The write-back and conv_flag follow; conv_flag
+// (state.py:65-76), then up to max_iter rounds of {rate fits (once at
+// t_iso when isothermal, at the cell's averaged T each round when
+// heating), two doric solves averaged, damped blend from iteration
+// damp_after on, and when heating the electron density of the blended
+// ions and the thermal sub-cycle, then the 1% convergence test},
+// leaving on the cell's own convergence.  A frozen cell never changes
+// in JAX's masked lockstep, so the per-thread iteration index equals
+// the lockstep's global one and the result matches cell for cell.  The
+// same holds one level down: the thermal sub-cycle is a per-thread loop
+// of at most kMaxSubsteps steps, and the lockstep's cap on its global
+// index equals the cell's own step count while it is active
+// (thermal.py:119-126).  The write-back and conv_flag follow; conv_flag
 // is a block count (__syncthreads_count) plus an integer atomicAdd, and
-// the largest per-cell iteration count an integer atomicMax: exact and
-// deterministic.
+// the largest per-cell iteration and sub-step counts integer
+// atomicMax: exact and deterministic.
 //
 // Bound: arithmetic per cell (two doric solves per iteration, each with
-// 3 exp + 3 expm1 + a sqrt and ~20 divisions) times the cell's
-// iteration count; memory is one read of 20 and one write of 12 values
-// per cell.  Cells of a warp that converge early idle until the warp's
-// slowest cell finishes: the cost of the convergence tail is per warp,
-// not per grid, which is what the TPU's compaction loop tried to buy.
+// 3 exp + 3 expm1 + a sqrt and ~20 divisions; heating adds 16 powers
+// and 6 exps of the rate fits per iteration and, per sub-step, a log10,
+// 10 table reads and ~15 operations) times the cell's iteration and
+// sub-step counts; memory is one read of 20 (heating 22) and one write
+// of 12 values per cell, plus the 801 x 5 cooling table, read through
+// the read-only cache (16 KB in f32, 32 KB in f64).  Cells of a warp
+// that converge early idle until the warp's slowest cell finishes: the
+// cost of the convergence tail is per warp, not per grid, which is what
+// the TPU's compaction loop tried to buy.  A warp holding one hot
+// I-front cell runs its ~100+ sub-steps while the rest idle; the third
+// counter reports the largest sub-step count so a run shows it.
 //
 // doric keeps the two-sector scaling, the quadratic-root identity and
 // expm1 of c2ray_tpu/chemistry.py: float32 needs each of them.
@@ -48,6 +64,16 @@ constexpr double kSigmaHHeLya = 9.907e-22;
 constexpr double kSigmaHeHeLya = 1.301e-20;
 constexpr double kSigmaHeHe2 = 1.690780687052975e-18;
 constexpr double kSigmaHHe2 = 1.230695924714239e-19;
+constexpr double kBoltzmann = 1.381e-16;                 // k_B
+constexpr double kGamma1 = 5.0 / 3.0 - 1.0;              // gamma - 1
+// c2ray_tpu/cooling.py: 801 points over log10 T in [1, 9]
+constexpr int kTempPoints = 801;
+constexpr double kMinTempLog = 1.0;
+constexpr double kDTempLog = (9.0 - 1.0) / (801 - 1);
+// c2ray_tpu/thermal.py (c2ray_parameters.f90:87-89)
+constexpr double kMiniTemp = 1.0;
+constexpr double kRelativeDEnergy = 0.1;
+constexpr int kMaxSubsteps = 10000;
 
 template <typename T>
 struct Ion {
@@ -284,7 +310,7 @@ __device__ IonState<T> doric(T dt, T ne, const IonState<T>& ion, T pHI,
 template <typename T>
 __device__ __forceinline__ T half(T a, T b) { return T(0.5) * (a + b); }
 
-// global_pass.py:_doric_half (isothermal: the fixed rates)
+// global_pass.py:_doric_half with the iteration's rates
 template <typename T>
 __device__ IonState<T> doric_half(T dt, T ndens, T clump, T pHI, T pHeI,
                                   T pHeII, const Rates<T>& r,
@@ -341,22 +367,111 @@ __device__ __forceinline__ bool big_change(T nw, T old) {
          nw > T(kMinFractionOfAtoms);
 }
 
+// cooling.py:coolin, one cell: linear in log10 T over the (801, 5)
+// table (species last), truncating int cast, row clipped to [0, 799],
+// signed fraction (so T < 10 K and T > 1e9 K extrapolate as in JAX)
+template <typename T>
+__device__ T coolin(const T* __restrict__ tab, T nucldens, T eldens,
+                    const Ion<T>& x, T temp) {
+  const T tpos = (xlog10(temp) - T(kMinTempLog)) / T(kDTempLog);
+  const int it = min(max(int(tpos), 0), kTempPoints - 2);
+  const T d = tpos - T(it);
+  const T xs[5] = {x.h0 * T(1.0 - kAbuHe), x.h1 * T(1.0 - kAbuHe),
+                   x.he0 * T(kAbuHe), x.he1 * T(kAbuHe), x.he2 * T(kAbuHe)};
+  const T* lo = tab + it * 5;
+  T sum = T(0);
+  for (int s = 0; s < 5; ++s) {
+    const T a = __ldg(lo + s), b = __ldg(lo + 5 + s);
+    sum += (a + (b - a) * d) * xs[s];
+  }
+  return nucldens * eldens * sum;
+}
+
+// thermal.py:temper2pressr / pressr2temper
+template <typename T>
+__device__ __forceinline__ T temper2pressr(T temp, T nd, T ne) {
+  return (nd + ne) * T(kBoltzmann) * temp;
+}
+
+template <typename T>
+__device__ __forceinline__ T pressr2temper(T p, T nd, T ne) {
+  return p / (T(kBoltzmann) * (nd + ne));
+}
+
+template <typename T>
+struct ThermalOut {
+  T end_t, avg_t;
+  int nsub;
+};
+
+// thermal.py:thermal for one cell: thermal_init, the sub-cycle of
+// thermal_substeps as a loop of the cell's own steps, thermal_finalize.
+// ne_cool is coolin's electron density (the blended ions' average).
+template <typename T>
+__device__ ThermalOut<T> thermal(T dt, T T0, T ne_cool, T nd,
+                                 const IonState<T>& ion, T heating,
+                                 const T* __restrict__ tab, T ccf) {
+  const T ne_old = electrondens(nd, ion.old);
+  const T ne_av = electrondens(nd, ion.avg);
+  const T ne_end = electrondens(nd, ion.cur);
+  const T u0 = temper2pressr(T0, nd, ne_old) / T(kGamma1);
+  // fixed during the sub-cycle, from the initial energy
+  const T cosmo_cool_rate = ccf * u0;
+  ThermalOut<T> r;
+  r.nsub = 0;
+  if (!(T0 > T(kMiniTemp))) {   // never enters the loop
+    r.end_t = T0;
+    r.avg_t = T0;
+    return r;
+  }
+  // floor at minitemp with the consistent u = p / gamma1
+  const T u_floor = temper2pressr(T(kMiniTemp), nd, ne_av) / T(kGamma1);
+  T u = u0, temp = T0, avg_sum = T(0), cum = T(0);
+  while (r.nsub < kMaxSubsteps) {
+    const T cooling = coolin(tab, nd, ne_cool, ion.avg, temp) +
+                      cosmo_cool_rate;
+    const T rate = maxp(xabs(cooling - heating), Limits<T>::rate_floor());
+    const T dt_thermal = T(kRelativeDEnergy) * u / rate;
+    const T dt_ode = minp(dt_thermal, dt - cum);
+    T u_new = u + dt_ode * (heating - cooling);
+    T avg_new = avg_sum + T(0.5) * temp * dt_ode;
+    T t_new = pressr2temper(u_new * T(kGamma1), nd, ne_av);
+    avg_new = avg_new + T(0.5) * t_new * dt_ode;
+    if (t_new < T(kMiniTemp)) {
+      u_new = u_floor;
+      t_new = T(kMiniTemp);
+    }
+    const T cum_new = cum + dt_ode;
+    const bool done = cum_new >= dt || xabs(cum_new - dt) < T(1e-6) * dt;
+    u = u_new;
+    temp = t_new;
+    avg_sum = avg_new;
+    cum = cum_new;
+    ++r.nsub;
+    if (done) break;
+  }
+  r.avg_t = dt > T(0) ? avg_sum / dt : T0;
+  r.end_t = pressr2temper(u * T(kGamma1), nd, ne_end);
+  return r;
+}
+
 // Input rows (n cells each): 0 ndens, 1-5 h0 h1 he0 he1 he2,
 // 6-10 h_av0..he_av2, 11-15 h_int0..he_int2, 16 t_av, 17 phih,
-// 18 phihe0, 19 phihe1.  Output rows: 0-4 h_int0..he_int2,
-// 5-9 h_av0..he_av2, 10 t_inter, 11 t_av.
-// counters[0] += conv_flag, counters[1] = max(iterations).
-template <typename T>
+// 18 phihe0, 19 phihe1; heating also 20 t_final, 21 phiheat.  Output
+// rows: 0-4 h_int0..he_int2, 5-9 h_av0..he_av2, 10 t_inter, 11 t_av.
+// counters[0] += conv_flag, counters[1] = max(iterations),
+// counters[2] = max(thermal sub-steps of one iteration), heating only.
+template <typename T, bool kHeat>
 __global__ void __launch_bounds__(kBlock)
-chemistry_iso_kernel(const T* __restrict__ in, const T* __restrict__ clumping,
-                     int clump_stride, T* __restrict__ out,
-                     int* __restrict__ counters, long long n, T dt, T t_iso,
-                     T eps, T one_m_eps, int max_iter, int damp_after,
-                     T damp_factor) {
+chemistry_kernel(const T* __restrict__ in, const T* __restrict__ clumping,
+                 int clump_stride, const T* __restrict__ cool_tab,
+                 T* __restrict__ out, int* __restrict__ counters, long long n,
+                 T dt, T t_iso, T ccf, T eps, T one_m_eps, int max_iter,
+                 int damp_after, T damp_factor) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < n;
   bool changed = false;
-  int nit = 0;
+  int nit = 0, nsub = 0;
   if (in_range) {
     auto row = [&](int k) { return in[(long long)k * n + i]; };
     const T ndens = row(0);
@@ -371,23 +486,47 @@ chemistry_iso_kernel(const T* __restrict__ in, const T* __restrict__ clumping,
     ion.old = clamped(1);
     ion.avg = clamped(6);
     ion.cur = clamped(11);
-    const Rates<T> rates = rate_coefficients(t_iso);
-    const T temper1 = t_iso, avg_t = t_iso;
+    // _chem_setup: the isothermal temperature and its fixed rates, or
+    // temper0 = temper1 = t_final and avg_t = t_av
+    Rates<T> rates;
+    T temper0, temper1, avg_t, pheat = T(0);
+    if constexpr (kHeat) {
+      temper0 = row(20);
+      temper1 = temper0;
+      avg_t = row(16);
+      pheat = row(21);
+    } else {
+      rates = rate_coefficients(t_iso);
+      temper0 = temper1 = avg_t = t_iso;
+    }
 
     while (nit < max_iter) {
       const T damp = nit >= damp_after ? damp_factor : T(0);
+      if constexpr (kHeat) rates = rate_coefficients(avg_t);
       IonState<T> nw = doric_half(dt, ndens, clump, pHI, pHeI, pHeII, rates,
                                   ion, eps, one_m_eps);
       nw.cur = blend(nw.cur, ion.cur, damp);
       nw.avg = blend(nw.avg, ion.avg, damp);
       nw.old = blend(nw.old, ion.old, damp);
-      // _conv_freeze; isothermal: temper1_new == temper1 == t_iso
+      // _chem_iteration: isothermal T stays temper0 == t_iso
+      T temper1_new = temper0, avg_t_new = avg_t;
+      if constexpr (kHeat) {
+        const ThermalOut<T> th =
+            thermal(dt, temper0, electrondens(ndens, nw.avg), ndens, nw,
+                    pheat, cool_tab, ccf);
+        temper1_new = blend(th.end_t, temper1, damp);
+        avg_t_new = blend(th.avg_t, avg_t, damp);
+        nsub = max(nsub, th.nsub);
+      }
+      // _conv_freeze
       const bool done = conv(nw.avg.h0, ion.avg.h0) &&
                         conv(nw.avg.he0, ion.avg.he0) &&
                         conv(nw.avg.he2, ion.avg.he2) &&
-                        xabs((temper1 - temper1) / temper1) <
+                        xabs((temper1_new - temper1) / temper1_new) <
                             T(kMinFractionalChange);
       ion = nw;
+      temper1 = temper1_new;
+      avg_t = avg_t_new;
       ++nit;
       if (done) break;
     }
@@ -405,22 +544,30 @@ chemistry_iso_kernel(const T* __restrict__ in, const T* __restrict__ clumping,
     for (int k = 0; k < 12; ++k) out[(long long)k * n + i] = vals[k];
   }
   const int block_changed = __syncthreads_count(changed);
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = 16; off > 0; off >>= 1) {
     nit = max(nit, __shfl_down_sync(0xffffffffu, nit, off));
-  if ((threadIdx.x & 31) == 0 && nit > 0) atomicMax(&counters[1], nit);
+    if constexpr (kHeat)
+      nsub = max(nsub, __shfl_down_sync(0xffffffffu, nsub, off));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (nit > 0) atomicMax(&counters[1], nit);
+    if (kHeat && nsub > 0) atomicMax(&counters[2], nsub);
+  }
   if (threadIdx.x == 0 && block_changed) atomicAdd(&counters[0],
                                                    block_changed);
 }
 
-template <typename T>
-int run_chemistry(const T* in, const T* clumping, int clump_stride, T* out,
-                  int* counters, long long n, double dt, double t_iso,
-                  double epsilon, int max_iter, int damp_after,
-                  double damp_factor, cudaStream_t stream) {
+template <typename T, bool kHeat>
+int run_chemistry(const T* in, const T* clumping, int clump_stride,
+                  const T* cool_tab, T* out, int* counters, long long n,
+                  double dt, double t_iso, double ccf, double epsilon,
+                  int max_iter, int damp_after, double damp_factor,
+                  cudaStream_t stream) {
   const long long blocks = (n + kBlock - 1) / kBlock;
-  chemistry_iso_kernel<T><<<(unsigned)blocks, kBlock, 0, stream>>>(
-      in, clumping, clump_stride, out, counters, n, T(dt), T(t_iso),
-      T(epsilon), T(1.0 - epsilon), max_iter, damp_after, T(damp_factor));
+  chemistry_kernel<T, kHeat><<<(unsigned)blocks, kBlock, 0, stream>>>(
+      in, clumping, clump_stride, cool_tab, out, counters, n, T(dt),
+      T(t_iso), T(ccf), T(epsilon), T(1.0 - epsilon), max_iter, damp_after,
+      T(damp_factor));
   return cudaGetLastError();
 }
 
@@ -429,19 +576,23 @@ int run_chemistry(const T* in, const T* clumping, int clump_stride, T* out,
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success).
-#define C2RAY_CHEM_ENTRY(NAME, T)                                          \
-  int NAME(const T* in, const T* clumping, int clump_stride, T* out,      \
-           int* counters, long long n, double dt, double t_iso,           \
-           double epsilon, int max_iter, int damp_after,                  \
-           double damp_factor, void* stream) {                            \
-    return c2ray::run_chemistry<T>(in, clumping, clump_stride, out,       \
-                                   counters, n, dt, t_iso, epsilon,       \
-                                   max_iter, damp_after, damp_factor,     \
-                                   static_cast<cudaStream_t>(stream));    \
+// Returns the cudaError_t of the launch (0 on success).  cool_tab is
+// the (801, 5) cooling table (read by the heating variant only).
+#define C2RAY_CHEM_ENTRY(NAME, T, HEAT)                                    \
+  int NAME(const T* in, const T* clumping, int clump_stride,              \
+           const T* cool_tab, T* out, int* counters, long long n,         \
+           double dt, double t_iso, double ccf, double epsilon,           \
+           int max_iter, int damp_after, double damp_factor,              \
+           void* stream) {                                                \
+    return c2ray::run_chemistry<T, HEAT>(                                 \
+        in, clumping, clump_stride, cool_tab, out, counters, n, dt,       \
+        t_iso, ccf, epsilon, max_iter, damp_after, damp_factor,           \
+        static_cast<cudaStream_t>(stream));                               \
   }
 
-C2RAY_CHEM_ENTRY(chemistry_iso_f32, float)
-C2RAY_CHEM_ENTRY(chemistry_iso_f64, double)
+C2RAY_CHEM_ENTRY(chemistry_iso_f32, float, false)
+C2RAY_CHEM_ENTRY(chemistry_iso_f64, double, false)
+C2RAY_CHEM_ENTRY(chemistry_heat_f32, float, true)
+C2RAY_CHEM_ENTRY(chemistry_heat_f64, double, true)
 
 }  // extern "C"

@@ -1,10 +1,13 @@
 // Pyramid short-characteristics sweep of a source batch, with the
-// isothermal quadrature band rates as a device function.
+// quadrature band rates as a device function: the isothermal variant,
+// and the heating variant (template flag kHeat).
 //
 // Replaces c2ray_tpu/sweep/pyramid_sweep.py: trace_centered (:116) and
 // sweep_pyramid_source_batch (:496), with
-// c2ray_tpu/radiation/quadrature.py: _attenuation (:324) and the
-// isothermal branch of _one_source_quad (:330).
+// c2ray_tpu/radiation/quadrature.py: _attenuation (:324) and
+// _one_source_quad (:330) -- its isothermal branch, and with kHeat its
+// heating branch too (:401-449: per-species thick/thin heating, the
+// Ricotti y1R/y2R secondary ionization and heating).
 //
 // Algorithm (the same as the plain version in pyramid_sweep.py): every
 // source owns an outgoing-column cube cd[s] (M^3 x 3, source-centred,
@@ -23,8 +26,18 @@
 // Bound: the K-node exponentials (2 * K * nlive per cell and source:
 // 396 for a 5e4 K blackbody at K = 6), i.e. the SFU / FP pipes, not
 // memory (each cell reads 4 corner 3-vectors and 5 fields).  The band
-// tables (<= 141 bands x (5 + 2K) values) sit in shared memory and are
-// read as broadcasts.
+// tables sit in shared memory and are read as broadcasts.
+//
+// Heating variant: the heating sums reuse the same K-node e_in and
+// e_out, so it adds no exponentials -- 6 more FMA chains per node, the
+// per-band species split and f-factor sums, and 6 powers per cell for
+// y1R/y2R (once per cell, not per band).  What bounds it on the card is
+// the same FP / SFU work plus ~20 more live accumulators per thread
+// (register pressure; ptxas' count is printed by chip_smoke.py).  Its
+// table row grows from 5 + 2K to 17 + 5K values (47 at K = 6): 6 KB for
+// the bench's 33 blackbody bands in f32, up to 53 KB for 141 bands in
+// f64, above the default 48 KB of dynamic shared memory, so the
+// kernels opt in to the card's 227 KB with cudaFuncSetAttribute.
 
 #include "common.cuh"
 
@@ -36,13 +49,17 @@ constexpr double kSqrt2 = 1.4142135623730951;
 constexpr double kSqrt3 = 1.7320508075688772;
 constexpr double kMinWeightDenom = 0.6;
 constexpr double kTauPhotoLimit = 1.0e-7;
+constexpr double kTauHeatLimit = 1.0e-4;   // photo.py:TAU_HEAT_LIMIT
+// ion_freq * hplanck of HI and HeI (c2ray_tpu/constants.py)
+constexpr double kIonEnergyHI = 0.241838e15 * 13.598 * 6.6260755e-27;
+constexpr double kIonEnergyHeI = 0.241838e15 * 24.587 * 6.6260755e-27;
 
 template <typename T>
 struct Params {
   const T* fields;    // (M^3, 5): ndens, h_av0, h_av1, he_av0, he_av1
   const int* srcpos;  // (S, 3)
   const T* nflux;     // (S, 3)
-  const T* bands;     // (nbt, 5 + 2K) live bands of every source type
+  const T* bands;     // (nbt, stride) live bands of every source type
   T* cd;              // (S, M, M, M, 3) outgoing columns, zeroed
   T* slab;            // (S, M^3, 4) per-source rates, zeroed
   T* partials;        // (S, nslots, 2) photon / LLS loss per block
@@ -51,25 +68,74 @@ struct Params {
   T dr, vol_over_scale, coldensh_lls, max_coldensh;
 };
 
-// Isothermal branch of _one_source_quad summed over the source types
-// (photoion_rates_quad): photo_cell_{HI,HeI,HeII}, photo_in, photo_out.
+// Values per band row: [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII,
+// sighat(K), A(K)], and with heating after those [A_heat_HI(K),
+// A_heat_HeI(K), A_heat_HeII(K), f1ion(3), f2ion(3), f1heat(3),
+// f2heat(3)] (pyramid_sweep.py:_packed_tables).
+template <bool kHeat>
+__host__ __device__ __forceinline__ int row_stride(int K) {
+  return kHeat ? 17 + 5 * K : 5 + 2 * K;
+}
+
+// Ricotti et al. 2002 secondary-ionization fits of one cell
+// (quadrature.py:421-426): y[i] = y1R(i), y[3 + i] = y2R(i)
 template <typename T>
-__device__ void cell_rates_iso(const T* tab, const Params<T>& p,
-                               const T* nfl3, const T* cin, const T* cout,
-                               T vol, T out[5]) {
-  const int stride = 5 + 2 * p.K;
+__device__ __forceinline__ T y1R(T x, T c, T b, T d) {
+  return c * xpow(T(1) - xpow(x, b), d);
+}
+
+template <typename T>
+__device__ __forceinline__ T y2R(T x, T c, T a, T b) {
+  const T xeb = T(1) - xpow(x, b);
+  return c * xpow(x, a) * xeb * xeb;
+}
+
+template <typename T>
+__device__ __forceinline__ void ricotti(T x, T y[6]) {
+  y[0] = y1R(x, T(0.3908), T(0.4092), T(1.7592));
+  y[1] = y1R(x, T(0.0554), T(0.4614), T(1.6660));
+  y[2] = y1R(x, T(1.0), T(0.2663), T(1.3163));
+  y[3] = y2R(x, T(0.6941), T(0.2), T(0.38));
+  y[4] = y2R(x, T(0.0984), T(0.2), T(0.38));
+  y[5] = y2R(x, T(3.9811), T(0.4), T(0.34));
+}
+
+// s += x with the rounding carried in c (Kahan).  The heat adds one term
+// per band (33 for a 5e4 K blackbody) in sequence; as a plain running
+// sum it loses ~2 float32 ulp of the largest heat, 9x the plain
+// version's error, whose torch.sum reduces the bands in a tree.
+template <typename T>
+__device__ __forceinline__ void kahan_add(T& s, T& c, T x) {
+  const T y = x - c;
+  const T t = s + y;
+  c = (t - s) - y;
+  s = t;
+}
+
+// _one_source_quad summed over the source types (photoion_rates_quad):
+// out = photo_cell_{HI,HeI,HeII}, photo_in, photo_out and, with kHeat,
+// heat; `y` holds the cell's ricotti() values (heating only).
+template <typename T, bool kHeat>
+__device__ void cell_rates(const T* tab, const Params<T>& p, const T* nfl3,
+                           const T* cin, const T* cout, T vol, const T* y,
+                           T out[kHeat ? 6 : 5]) {
+  constexpr int kOut = kHeat ? 6 : 5;
+  const int K = p.K;
+  const int stride = row_stride<kHeat>(K);
   const T tiny = Limits<T>::tiny();
-  for (int q = 0; q < 5; ++q) out[q] = T(0);
+  for (int q = 0; q < kOut; ++q) out[q] = T(0);
   int b0 = 0;
   for (int t = 0; t < p.ntypes; ++t) {
     const T nfl = nfl3[p.type_col[t]];
     T acc[5] = {T(0), T(0), T(0), T(0), T(0)};
+    // heat (compensated), f_ion_HI, f_ion_HeI (quadrature.py:437-439)
+    T hacc[3] = {T(0), T(0), T(0)}, hcomp = T(0);
     for (int b = 0; b < p.type_nb[t]; ++b) {
       const T* rb = tab + (b0 + b) * stride;
       const T sHI = rb[0], sHeI = rb[1], sHeII = rb[2];
       const T mHeI = rb[3], mHeII = rb[4];
       const T* sh = rb + 5;
-      const T* A = rb + 5 + p.K;
+      const T* A = rb + 5 + K;
       const T tau_in = cin[0] * sHI + cin[1] * sHeI + cin[2] * sHeII;
       const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
       const T tcHI = sHI * (cout[0] - cin[0]);
@@ -77,12 +143,21 @@ __device__ void cell_rates_iso(const T* tab, const Params<T>& p,
       const T tcHeII = sHeII * (cout[2] - cin[2]);
       const T inv = T(1) / maxp(tcHI + tcHeI + tcHeII, tiny);
       T g_in = T(0), g_thick = T(0), g_thin = T(0);
-      for (int k = 0; k < p.K; ++k) {
+      // per species: sum A_heat (e_in - e_out), sum A_heat sighat e_in
+      T h_thick[3] = {T(0), T(0), T(0)}, h_thin[3] = {T(0), T(0), T(0)};
+      for (int k = 0; k < K; ++k) {
         const T e_in = xexp(-minp(tau_in * sh[k], T(80)));
         const T e_out = xexp(-minp(tau_out * sh[k], T(80)));
         g_in += A[k] * e_in;
         g_thick += A[k] * (e_in - e_out);
         g_thin += A[k] * sh[k] * e_in;
+        if constexpr (kHeat) {
+          for (int sp = 0; sp < 3; ++sp) {
+            const T Ah = rb[5 + (2 + sp) * K + k];
+            h_thick[sp] += Ah * (e_in - e_out);
+            h_thin[sp] += Ah * sh[k] * e_in;
+          }
+        }
       }
       const T dtau = tau_out - tau_in;
       const T phi_in = nfl * g_in;
@@ -93,15 +168,44 @@ __device__ void cell_rates_iso(const T* tab, const Params<T>& p,
       acc[2] += mHeII * (tcHeII * inv) * phi_all / vol;
       acc[3] += phi_in;
       acc[4] += phi_in - phi_all;
+      if constexpr (kHeat) {
+        // species_heat (quadrature.py:404-415): thick/thin at the heat
+        // limit, masked like the photo rates
+        const bool hthick = xabs(dtau) > T(kTauHeatLimit);
+        const T tc[3] = {tcHI, tcHeI, tcHeII};
+        const T mk[3] = {T(1), mHeI, mHeII};
+        T ph[3];
+        for (int sp = 0; sp < 3; ++sp) {
+          const T thick = tc[sp] * inv * nfl * h_thick[sp] / vol;
+          const T thin = nfl * tc[sp] * h_thin[sp] / vol;
+          ph[sp] = mk[sp] * (hthick ? thick : thin);
+        }
+        const T* f = rb + 5 + 5 * K;
+        const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];
+        const T fra2 = f[3] * ph[0] + f[4] * ph[1] + f[5] * ph[2];
+        const T fra3 = f[6] * ph[0] + f[7] * ph[1] + f[8] * ph[2];
+        const T fra4 = f[9] * ph[0] + f[10] * ph[1] + f[11] * ph[2];
+        kahan_add(hacc[0], hcomp,
+                  ph[0] + ph[1] + ph[2] - y[2] * fra3 + y[5] * fra4);
+        hacc[1] += y[0] * fra1 - y[3] * fra2;
+        hacc[2] += y[1] * fra1 - y[4] * fra2;
+      }
     }
-    for (int q = 0; q < 5; ++q) out[q] += acc[q];
+    if constexpr (kHeat) {
+      out[0] += acc[0] + hacc[1] / T(kIonEnergyHI);
+      out[1] += acc[1] + hacc[2] / T(kIonEnergyHeI);
+      for (int q = 2; q < 5; ++q) out[q] += acc[q];
+      out[5] += hacc[0];
+    } else {
+      for (int q = 0; q < 5; ++q) out[q] += acc[q];
+    }
     b0 += p.type_nb[t];
   }
 }
 
-template <typename T>
+template <typename T, bool kHeat>
 __device__ __forceinline__ void load_tables(const Params<T>& p, T* tab) {
-  const int n = p.nbt * (5 + 2 * p.K);
+  const int n = p.nbt * row_stride<kHeat>(p.K);
   for (int i = threadIdx.x; i < n; i += blockDim.x) tab[i] = p.bands[i];
   __syncthreads();
 }
@@ -121,12 +225,13 @@ __device__ __forceinline__ void base_cols(const T* f, T bc[3]) {
 }
 
 // Source cell (evolve_point.F90:140-151): seeds cd with the half-cell
-// columns and writes the source cell's own rates.
-template <typename T>
+// columns and writes the source cell's own rates (its heat unmasked,
+// c2ray_tpu/sweep/pyramid_sweep.py:444).
+template <typename T, bool kHeat>
 __global__ void source_cell_kernel(Params<T> p) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  load_tables(p, tab);
+  load_tables<T, kHeat>(p, tab);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= p.S) return;
   const int M = p.M, ctr = M / 2 - 1;
@@ -141,25 +246,32 @@ __global__ void source_cell_kernel(Params<T> p) {
   T* cd0 = p.cd + ((((size_t)s * M + ctr) * M + ctr) * M + ctr) * 3;
   for (int c = 0; c < 3; ++c) cd0[c] = cc0[c];
   const T zero3[3] = {T(0), T(0), T(0)};
-  T r[5];
-  cell_rates_iso(tab, p, p.nflux + 3 * s, zero3, cc0, p.vol_over_scale, r);
+  T y[6];
+  if constexpr (kHeat) ricotti(f[2], y);
+  T r[kHeat ? 6 : 5];
+  cell_rates<T, kHeat>(tab, p, p.nflux + 3 * s, zero3, cc0, p.vol_over_scale,
+                       y, r);
   T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
   out[0] = r[0] / bc[0];
   out[1] = r[1] / bc[1];
   out[2] = r[2] / bc[2];
-  out[3] = T(0);
+  if constexpr (kHeat) {
+    out[3] = r[5];
+  } else {
+    out[3] = T(0);
+  }
 }
 
 // One (layer l, stage m) step: threads over (sign, u, v) of the plane
 // pair |offset_m| = l, blockIdx.y = source.  The arithmetic is
 // compute_stage (pyramid_sweep.py:205-310).
-template <typename T>
+template <typename T, bool kHeat>
 __global__ void __launch_bounds__(kBlock)
 stage_kernel(Params<T> p, int l, int m, int slot0) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  T* red = tab + p.nbt * (5 + 2 * p.K);   // 2 * kBlock
-  load_tables(p, tab);
+  T* red = tab + p.nbt * row_stride<kHeat>(p.K);   // 2 * kBlock
+  load_tables<T, kHeat>(p, tab);
 
   const int s = blockIdx.y;
   const int M = p.M, ctr = M / 2 - 1;
@@ -238,9 +350,11 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
 
       const T dist2 = d_u * d_u + d_v * d_v + lf * lf;
       const T vol_ratio = T(4.0 * kPi) * dist2 * path_units;
-      T r[5];
-      cell_rates_iso(tab, p, p.nflux + 3 * s, cin, cout,
-                     vol_ratio * p.vol_over_scale, r);
+      T y[6];
+      if constexpr (kHeat) ricotti(f[2], y);
+      T r[kHeat ? 6 : 5];
+      cell_rates<T, kHeat>(tab, p, p.nflux + 3 * s, cin, cout,
+                           vol_ratio * p.vol_over_scale, y, r);
 
       const bool live = cin[0] < p.max_coldensh;
       const T fl = live ? T(1) : T(0);
@@ -248,7 +362,11 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
       out[0] = fl * r[0] / bc[0];
       out[1] = fl * r[1] / bc[1];
       out[2] = fl * r[2] / bc[2];
-      out[3] = T(0);
+      if constexpr (kHeat) {
+        out[3] = fl * r[5];
+      } else {
+        out[3] = T(0);
+      }
 
       const bool on_bound = u == p.Rf || u == -p.Rb || v == p.Rf ||
                             v == -p.Rb || (fwd ? l == p.Rf : l == p.Rb);
@@ -285,7 +403,7 @@ inline int stage_blocks(int l) {
   return (2 * W * W + kBlock - 1) / kBlock;
 }
 
-template <typename T>
+template <typename T, bool kHeat>
 int run_sweep(const T* fields, const int* srcpos, const T* nflux,
               const T* bands, T* cd, T* slab, T* partials, int M, int S,
               int Rf, int Rb, int K, int ntypes, const int cols[3],
@@ -306,16 +424,30 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   p.dr = T(dr); p.vol_over_scale = T(vol_over_scale);
   p.coldensh_lls = T(coldensh_lls); p.max_coldensh = T(max_coldensh);
 
-  const size_t tab_bytes = size_t(p.nbt) * (5 + 2 * K) * sizeof(T);
-  source_cell_kernel<T><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
   const size_t smem = tab_bytes + 2 * kBlock * sizeof(T);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    // above the default: opt in to the card's larger dynamic shared
+    // memory (the wrapper keeps smem within the opt-in limit)
+    err = cudaFuncSetAttribute(source_cell_kernel<T, kHeat>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(tab_bytes));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(stage_kernel<T, kHeat>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  source_cell_kernel<T, kHeat><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   int slot = 0;
   for (int l = 1; l <= Rf; ++l) {
     const int nblk = stage_blocks(l);
     for (int m = 0; m < 3; ++m) {
-      stage_kernel<T><<<dim3(nblk, S), kBlock, smem, stream>>>(p, l, m, slot);
+      stage_kernel<T, kHeat><<<dim3(nblk, S), kBlock, smem, stream>>>(
+          p, l, m, slot);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
       slot += nblk;
@@ -337,7 +469,7 @@ int pyramid_sweep_slots(int Rf) {
 }
 
 // Returns the cudaError_t of the launches (0 on success).
-#define C2RAY_SWEEP_ENTRY(NAME, T)                                          \
+#define C2RAY_SWEEP_ENTRY(NAME, T, HEAT)                                    \
   int NAME(const T* fields, const int* srcpos, const T* nflux,             \
            const T* bands, T* cd, T* slab, T* partials, int M, int S,      \
            int Rf, int Rb, int K, int ntypes, int col0, int nb0, int col1, \
@@ -345,14 +477,15 @@ int pyramid_sweep_slots(int Rf) {
            double coldensh_lls, double max_coldensh, void* stream) {       \
     const int cols[3] = {col0, col1, col2};                                \
     const int nbs[3] = {nb0, nb1, nb2};                                    \
-    return c2ray::run_sweep<T>(fields, srcpos, nflux, bands, cd, slab,     \
-                               partials, M, S, Rf, Rb, K, ntypes, cols,    \
-                               nbs, dr, vol_over_scale, coldensh_lls,      \
-                               max_coldensh,                               \
-                               static_cast<cudaStream_t>(stream));         \
+    return c2ray::run_sweep<T, HEAT>(                                      \
+        fields, srcpos, nflux, bands, cd, slab, partials, M, S, Rf, Rb, K, \
+        ntypes, cols, nbs, dr, vol_over_scale, coldensh_lls, max_coldensh, \
+        static_cast<cudaStream_t>(stream));                                \
   }
 
-C2RAY_SWEEP_ENTRY(pyramid_sweep_f32, float)
-C2RAY_SWEEP_ENTRY(pyramid_sweep_f64, double)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_f32, float, false)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_f64, double, false)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_heat_f32, float, true)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_heat_f64, double, true)
 
 }  // extern "C"

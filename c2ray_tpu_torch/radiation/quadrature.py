@@ -11,8 +11,9 @@ Gauss-Legendre sum,
 with the reference's integrand (radiation_tables.f90:593-783).  The
 tables are built on the host in float64 and cast once.  The functions
 below are the plain PyTorch version of the per-cell rate evaluation; on
-the GPU the same arithmetic (isothermal branch) runs as a device
-function inside the pyramid-sweep kernel (``csrc/pyramid_sweep.cu``).
+the GPU the same arithmetic, isothermal or with heating, runs as a
+device function inside the pyramid-sweep kernel
+(``csrc/pyramid_sweep.cu``).
 """
 
 import dataclasses

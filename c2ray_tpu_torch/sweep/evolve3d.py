@@ -77,24 +77,30 @@ def _subbox_radii(cfg: Evolve3DConfig):
 def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None):
     """One {sweep + global chemistry pass} iteration; `radius` bounds
     the trace (None = full).  The returned function maps
-    (state, srcpos, nflux, dt) to
+    (state, srcpos, nflux, dt, dr=None, vol_over_scale=None,
+    cosmo_cool_factor=None) to
     (new state, conv_flag, photon_loss, lls_loss), all on the state's
-    device."""
+    device.  `dr` and its host-computed dr^3/flux_scale override the
+    sweep's cell size; `cosmo_cool_factor` overrides the chemistry
+    config's (JAX evolve3d.py:182-184)."""
 
-    def iteration(state: GridState, srcpos, nflux, dt):
+    def iteration(state: GridState, srcpos, nflux, dt, dr=None,
+                  vol_over_scale=None, cosmo_cool_factor=None):
         fields = SourceFields(ndens=state.ndens, h_av0=state.h_av0,
                               h_av1=state.h_av1, he_av0=state.he_av0,
                               he_av1=state.he_av1)
         rates = sweep_pyramid_source_batch(cfg.sweep, fields, srcpos, nflux,
-                                           radius=radius)
+                                           radius=radius, dr=dr,
+                                           vol_over_scale=vol_over_scale)
         new_state, conv_flag = global_chemistry_pass(cfg.chem, state, rates,
-                                                     dt)
+                                                     dt, cosmo_cool_factor)
         return new_state, conv_flag, rates.photon_loss, rates.lls_loss
 
     return iteration
 
 
-def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt):
+def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt,
+             dr=None, cosmo_cool_factor=None):
     """Full evolve3D (evolve.F90:78-229).
 
     srcpos: (S, 3) int; nflux: (S, 3).  Returns (new state,
@@ -103,11 +109,23 @@ def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt):
     current radius exceeds `min_fraction_of_photons`, the radius doubles
     and the sweep is redone (evolve_source.F90:114-144); the radius
     carries over to the next iteration.
+
+    `dr` (float) overrides the sweep's cell size, passed on with its
+    dr^3/flux_scale computed on the host in float64 (the cosmological
+    driver rescales it every step).  `cosmo_cool_factor` (float) is the
+    step's adiabatic cooling factor 2(dz/dt)/(1+z)
+    (cosmology.f90:207-234, thermal.f90:76).
     """
     radii = _subbox_radii(cfg) if cfg.use_subbox else [cfg.sweep.mesh // 2]
     total_strength = _scaled_source_strength(cfg.sweep, nflux)
     loss_wall = cfg.min_fraction_of_photons * max(total_strength, 1e-300)
     r_idx = 0
+    kw = {}
+    if dr is not None:
+        kw = {"dr": float(dr),
+              "vol_over_scale": float(dr) ** 3 / cfg.sweep.flux_scale}
+    if cosmo_cool_factor is not None:
+        kw["cosmo_cool_factor"] = float(cosmo_cool_factor)
 
     def iteration_at(i):
         return make_evolve3d_iteration(
@@ -130,7 +148,7 @@ def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt):
             break
         niter += 1
         while True:
-            out = iteration_at(r_idx)(state, srcpos, nflux, dt)
+            out = iteration_at(r_idx)(state, srcpos, nflux, dt, **kw)
             if r_idx + 1 >= len(radii) or float(out[2]) <= loss_wall:
                 break
             r_idx += 1

@@ -2,21 +2,22 @@
 
 Port of ``c2ray_tpu/sweep/global_pass.py`` (``global_pass`` ->
 ``evolve0D_global`` -> ``do_chemistry``, evolve.F90:435-501,
-evolve_point.F90:325-646), isothermal only for now.
+evolve_point.F90:325-646).
 
-Every cell iterates {electron density -> rates -> two doric passes
-averaged} to its own 1% fixed point (cap `max_iter`), with damped
-Picard from iteration DAMP_AFTER on.  `chemistry_pass_plain` runs the
-JAX package's in-graph lockstep (all cells step together, converged
-cells frozen); `chemistry_pass_cuda` runs one thread per cell that
-leaves on its own convergence (``csrc/chemistry.cu``).  A frozen cell
-never changes, so the two agree cell for cell.  The TPU's host loop
-with compaction buckets exists only for the TPU and is not ported.
+Every cell iterates {electron density -> T-dependent rates -> two doric
+passes averaged -> thermal} to its own 1% fixed point (cap `max_iter`),
+with damped Picard from iteration DAMP_AFTER on; an isothermal config
+holds T fixed and runs no thermal sub-cycle.  `chemistry_pass_plain`
+runs the JAX package's in-graph lockstep (all cells step together,
+converged cells frozen); `chemistry_pass_cuda` runs one thread per cell
+that leaves on its own convergence (``csrc/chemistry.cu``).  A frozen
+cell never changes, so the two agree cell for cell.  The TPU's host
+loop with compaction buckets exists only for the TPU and is not ported.
 """
 
 import ctypes
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,8 +25,10 @@ from .. import constants as const
 from .. import cuda_build
 from ..chemistry import (IonFractions, IonState, coldens, doric,
                          electrondens, prepare_doric_factors)
+from ..cooling import CoolingTables, stacked
 from ..rates import rate_coefficients
 from ..state import GridState
+from ..thermal import thermal
 from .source_sweep import RateGrids
 
 # c2ray_parameters.f90:36,44
@@ -42,8 +45,9 @@ MAX_CHEM_ITER = 400
 DAMP_AFTER = 50
 DAMP_FACTOR = 0.5
 
-# chemistry passes run through the CUDA kernel
+# chemistry passes run through the CUDA kernel: isothermal, heating
 launches = 0
+launches_heat = 0
 
 
 @dataclass(frozen=True)
@@ -52,12 +56,16 @@ class ChemistryConfig:
     epsilon: float = 1.0e-20
     isothermal_temperature: float = 1.0e4
     max_iter: int = MAX_CHEM_ITER
+    # cooling curves of the thermal sub-cycle (heating configs)
+    cooling: Optional[CoolingTables] = None
+    # 2 (dz/dt)/(1+z), the adiabatic cosmological cooling factor
+    # (cosmology.f90:207-234); a pass may override it per timestep
+    cosmo_cool_factor: float = 0.0
 
-
-def _require_isothermal(cfg: ChemistryConfig):
-    if not cfg.isothermal:
-        raise NotImplementedError(
-            "the heating chemistry (thermal sub-cycle) is not ported yet")
+    def __post_init__(self):
+        if not self.isothermal and self.cooling is None:
+            raise ValueError("a heating ChemistryConfig (isothermal=False) "
+                             "needs cooling tables")
 
 
 def _doric_half(cfg: ChemistryConfig, dt, ndens, clumping,
@@ -130,34 +138,62 @@ def _conv_freeze(cfg: ChemistryConfig, carry, ion_new, temper1_new,
 
 
 def _chem_iteration(cfg: ChemistryConfig, dt, ndens, clumping,
-                    phi_HI, phi_HeI, phi_HeII, temper0, fixed_rates, carry,
-                    damp=None):
-    """One masked fixed-point iteration (evolve_point.F90:487-640).
-    carry = (ion, temper1, avg_t, active); `damp` blends toward the
-    previous iterate (see DAMP_AFTER), 0 or None = plain iteration."""
-    _require_isothermal(cfg)
+                    phi_HI, phi_HeI, phi_HeII, phi_heat, temper0,
+                    fixed_rates, cosmo_cool_factor, carry, damp=None):
+    """One masked fixed-point iteration (evolve_point.F90:487-640):
+    {electron density -> T-dependent rates -> two doric passes averaged
+    -> thermal} with converged cells frozen.  carry = (ion, temper1,
+    avg_t, active); `damp` blends toward the previous iterate (see
+    DAMP_AFTER), 0 or None = plain iteration.
+
+    Returns (carry, n_substeps): the thermal sub-cycle runs on the
+    active cells only (the freeze discards the rest, as in the JAX
+    package's split trip, global_pass.py:284-287), so n_substeps is the
+    largest sub-step count of an active cell."""
     ion, temper1, avg_t, active = carry
-    ion_new, _ = _doric_half(cfg, dt, ndens, clumping, phi_HI, phi_HeI,
-                             phi_HeII, fixed_rates, ion, avg_t)
+    ion_new, de = _doric_half(cfg, dt, ndens, clumping, phi_HI, phi_HeI,
+                              phi_HeII, fixed_rates, ion, avg_t)
+    blend = lambda new, old: new + damp * (old - new)
     if damp is not None:
-        ion_new = _map_ion(lambda new, old: new + damp * (old - new),
-                           ion_new, ion)
-    return _conv_freeze(cfg, carry, ion_new, temper0, avg_t)
+        ion_new = _map_ion(blend, ion_new, ion)
+        de = electrondens(ndens, ion_new.avg)
+
+    temper1_new = temper0
+    avg_t_new = avg_t
+    n_sub = 0
+    if not cfg.isothermal:
+        sub = lambda x: x[active] if x.ndim else x
+        tr = thermal(dt, temper0[active], de[active], ndens[active],
+                     _map_ion(sub, ion_new), phi_heat[active], cfg.cooling,
+                     cosmo_cool_factor)
+        temper1_new = temper1.masked_scatter(active, tr.end_temper)
+        avg_t_new = avg_t.masked_scatter(active, tr.avg_temper)
+        n_sub = tr.n_substeps
+        if damp is not None:
+            temper1_new = blend(temper1_new, temper1)
+            avg_t_new = blend(avg_t_new, avg_t)
+
+    return _conv_freeze(cfg, carry, ion_new, temper1_new, avg_t_new), n_sub
 
 
 def _chem_setup(cfg: ChemistryConfig, state: GridState):
-    """(temper1_0, avg_t_0, fixed_rates) at the isothermal temperature."""
-    _require_isothermal(cfg)
-    temper1_0 = torch.full_like(state.ndens, cfg.isothermal_temperature)
-    return temper1_0, temper1_0, rate_coefficients(temper1_0)
+    """(temper1_0, avg_t_0, fixed_rates): the isothermal temperature and
+    its rates, or the state's t_final (evolve_point.F90:479) and t_av."""
+    if cfg.isothermal:
+        temper1_0 = torch.full_like(state.ndens, cfg.isothermal_temperature)
+        return temper1_0, temper1_0, rate_coefficients(temper1_0)
+    return state.t_final, state.t_av, None
 
 
 def _do_chemistry_global(cfg: ChemistryConfig, dt, state: GridState,
-                         phi_HI, phi_HeI, phi_HeII):
+                         phi_HI, phi_HeI, phi_HeII, phi_heat,
+                         cosmo_cool_factor=None):
     """The in-graph lockstep of the JAX package
     (global_pass.py:637-655): every cell steps until none is active or
     `max_iter` is reached.  Returns (IonState, t_inter, t_av,
-    n_iterations)."""
+    n_iterations, largest thermal sub-step count of a cell)."""
+    if cosmo_cool_factor is None:
+        cosmo_cool_factor = cfg.cosmo_cool_factor
     ion = state.ion_state(cfg.epsilon)
     ndens = state.ndens
     temper1, avg_t, fixed_rates = _chem_setup(cfg, state)
@@ -165,16 +201,18 @@ def _do_chemistry_global(cfg: ChemistryConfig, dt, state: GridState,
     dt = torch.as_tensor(dt, dtype=ndens.dtype, device=ndens.device)
     active = torch.ones_like(ndens, dtype=torch.bool)
     carry = (ion, temper1, avg_t, active)
-    nit = 0
+    nit = max_sub = 0
     while nit < cfg.max_iter and bool(torch.any(carry[3])):
         damp = torch.tensor(DAMP_FACTOR if nit >= DAMP_AFTER else 0.0,
                             dtype=ndens.dtype, device=ndens.device)
-        carry = _chem_iteration(cfg, dt, ndens, state.clumping, phi_HI,
-                                phi_HeI, phi_HeII, temper0, fixed_rates,
-                                carry, damp=damp)
+        carry, n_sub = _chem_iteration(
+            cfg, dt, ndens, state.clumping, phi_HI, phi_HeI, phi_HeII,
+            phi_heat, temper0, fixed_rates, cosmo_cool_factor, carry,
+            damp=damp)
+        max_sub = max(max_sub, n_sub)
         nit += 1
     ion, temper1, avg_t, _ = carry
-    return ion, temper1, avg_t, nit
+    return ion, temper1, avg_t, nit, max_sub
 
 
 def _finalize_pass(state: GridState, ion: IonState, t_inter, t_av
@@ -204,41 +242,50 @@ def _finalize_pass(state: GridState, ion: IonState, t_inter, t_av
 
 
 def chemistry_pass_plain(cfg: ChemistryConfig, state: GridState,
-                         rates: RateGrids, dt):
+                         rates: RateGrids, dt, cosmo_cool_factor=None):
     """Plain PyTorch version of the chemistry kernel.  Returns
-    (new state, conv_flag, n_iterations)."""
-    ion, t_inter, t_av, nit = _do_chemistry_global(
-        cfg, dt, state, rates.phih, rates.phihe0, rates.phihe1)
+    (new state, conv_flag, n_iterations, largest thermal sub-step count
+    of a cell in one iteration; 0 when isothermal)."""
+    ion, t_inter, t_av, nit, n_sub = _do_chemistry_global(
+        cfg, dt, state, rates.phih, rates.phihe0, rates.phihe1,
+        rates.phiheat, cosmo_cool_factor)
     new_state, conv_flag = _finalize_pass(state, ion, t_inter, t_av)
-    return new_state, conv_flag, torch.tensor(nit, dtype=torch.int32,
-                                              device=state.ndens.device)
+    as_t = lambda v: torch.tensor(v, dtype=torch.int32,
+                                  device=state.ndens.device)
+    return new_state, conv_flag, as_t(nit), as_t(n_sub)
 
 
 def chemistry_pass_cuda(cfg: ChemistryConfig, state: GridState,
-                        rates: RateGrids, dt):
+                        rates: RateGrids, dt, cosmo_cool_factor=None):
     """The chemistry kernel (``csrc/chemistry.cu``); same contract as
     `chemistry_pass_plain`, with the tensors it returns on the card.
 
     Replaces global_pass.py:_do_chemistry_global's lockstep of
-    _chem_iteration plus _finalize_pass.  Bound on the card by the
-    per-cell arithmetic times the cell's own iteration count; one thread
-    per cell that exits on its own convergence pays for the convergence
-    tail per warp, where the TPU paid per grid or compacted on the host.
+    _chem_iteration plus _finalize_pass, with thermal.py's sub-cycle
+    and cooling.py:coolin inside when heating.  Bound on the card by the
+    per-cell arithmetic times the cell's own iteration (and, heating,
+    sub-step) count; one thread per cell that exits on its own
+    convergence pays for the convergence tail per warp, where the TPU
+    paid per grid or compacted on the host.
     """
-    global launches
-    _require_isothermal(cfg)
+    global launches, launches_heat
     ndens = state.ndens
     dtype, device = ndens.dtype, ndens.device
     if not ndens.is_cuda:
         raise ValueError("the chemistry kernel takes CUDA tensors")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"chemistry kernel takes float32/float64, not {dtype}")
+    heat = not cfg.isothermal
+    if cosmo_cool_factor is None:
+        cosmo_cool_factor = cfg.cosmo_cool_factor
     n = ndens.shape[0]
     rows = [state.ndens, state.h0, state.h1, state.he0, state.he1, state.he2,
             state.h_av0, state.h_av1, state.he_av0, state.he_av1,
             state.he_av2, state.h_int0, state.h_int1, state.he_int0,
             state.he_int1, state.he_int2, state.t_av,
             rates.phih, rates.phihe0, rates.phihe1]
+    if heat:
+        rows += [state.t_final, rates.phiheat]
     for r in rows:
         if r.shape != (n,) or r.dtype != dtype or r.device != device:
             raise ValueError("state and rates must be (n,) tensors of one "
@@ -247,44 +294,53 @@ def chemistry_pass_cuda(cfg: ChemistryConfig, state: GridState,
     clumping = state.clumping.to(dtype=dtype).reshape(-1).contiguous()
     if clumping.device != device or clumping.numel() not in (1, n):
         raise ValueError(f"clumping must be a scalar or ({n},) on {device}")
+    cool = (stacked(cfg.cooling).to(dtype=dtype, device=device).contiguous()
+            if heat else inp)
     out = torch.empty((12, n), dtype=dtype, device=device)
-    counters = torch.zeros(2, dtype=torch.int32, device=device)
+    counters = torch.zeros(3, dtype=torch.int32, device=device)
 
     lib = cuda_build.load("chemistry")
-    fn = (lib.chemistry_iso_f32 if dtype == torch.float32
-          else lib.chemistry_iso_f64)
+    name = ("chemistry_heat_" if heat else "chemistry_iso_") + (
+        "f32" if dtype == torch.float32 else "f64")
+    fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                   + [ctypes.c_double] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_double] * 4 + [ctypes.c_int] * 2
                    + [ctypes.c_double, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     P = cuda_build.ptr
-    err = fn(P(inp), P(clumping), int(clumping.numel() == n), P(out),
-             P(counters), n, float(dt),
-             float(cfg.isothermal_temperature), float(cfg.epsilon),
-             int(cfg.max_iter), int(DAMP_AFTER), float(DAMP_FACTOR),
-             cuda_build.stream_of(inp))
-    cuda_build.check(err, "chemistry")
-    launches += 1
+    err = fn(P(inp), P(clumping), int(clumping.numel() == n), P(cool),
+             P(out), P(counters), n, float(dt),
+             float(cfg.isothermal_temperature), float(cosmo_cool_factor),
+             float(cfg.epsilon), int(cfg.max_iter), int(DAMP_AFTER),
+             float(DAMP_FACTOR), cuda_build.stream_of(inp))
+    cuda_build.check(err, name)
+    if heat:
+        launches_heat += 1
+    else:
+        launches += 1
     new_state = state._replace(
         h_int0=out[0], h_int1=out[1], he_int0=out[2], he_int1=out[3],
         he_int2=out[4], h_av0=out[5], h_av1=out[6], he_av0=out[7],
         he_av1=out[8], he_av2=out[9], t_inter=out[10], t_av=out[11])
-    return new_state, counters[0], counters[1]
+    return new_state, counters[0], counters[1], counters[2]
 
 
 def global_chemistry_pass(cfg: ChemistryConfig, state: GridState,
-                          rates: RateGrids, dt
+                          rates: RateGrids, dt, cosmo_cool_factor=None
                           ) -> Tuple[GridState, torch.Tensor]:
     """evolve0D_global over the whole grid (evolve_point.F90:325-440).
 
     Returns (new state, conv_flag = number of non-converged cells).
-    CUDA tensors go through the kernel, CPU tensors through the plain
-    version."""
+    `cosmo_cool_factor` (None = the config's) is the per-timestep
+    adiabatic cooling factor.  CUDA tensors go through the kernel, CPU
+    tensors through the plain version."""
     if state.ndens.is_cuda:
-        new_state, conv_flag, _ = chemistry_pass_cuda(cfg, state, rates, dt)
+        pass_fn = chemistry_pass_cuda
     elif state.ndens.device.type == "cpu":
-        new_state, conv_flag, _ = chemistry_pass_plain(cfg, state, rates, dt)
+        pass_fn = chemistry_pass_plain
     else:
         raise ValueError(f"no chemistry for device {state.ndens.device}")
+    new_state, conv_flag, _, _ = pass_fn(cfg, state, rates, dt,
+                                         cosmo_cool_factor)
     return new_state, conv_flag

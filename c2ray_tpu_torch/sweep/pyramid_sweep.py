@@ -33,9 +33,11 @@ from .source_sweep import RateGrids, SourceFields, SweepConfig, _cell_rates
 # abundance weights per species column, order (HI, HeI, HeII)
 _ABU = (1.0 - const.abu_he, const.abu_he, const.abu_he)
 
-# sweeps run through the CUDA kernel (one count per trace_cuda call,
-# which launches the 3 * Rf stage kernels of one sweep)
+# sweeps run through the CUDA kernel, isothermal and heating (one count
+# per trace_cuda call, which launches the 3 * Rf stage kernels of one
+# sweep)
 launches = 0
+launches_heat = 0
 
 
 def stack_sweep_fields(cfg: SweepConfig, fields: SourceFields):
@@ -223,10 +225,30 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     return slab, ploss, lls
 
 
-def _packed_tables(cfg: SweepConfig, dtype):
-    """Live bands of every source type in use, one row each:
-    [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII, sighat(K), A(K)];
-    and the (nflux column, band count) of each type."""
+_F_FACTORS = ("f1ion_HI", "f1ion_HeI", "f1ion_HeII",
+              "f2ion_HI", "f2ion_HeI", "f2ion_HeII",
+              "f1heat_HI", "f1heat_HeI", "f1heat_HeII",
+              "f2heat_HI", "f2heat_HeI", "f2heat_HeII")
+
+
+def _heats(cfg: SweepConfig) -> bool:
+    """Whether the sweep evaluates heating: a heating config with
+    heating tables (isothermal tables give zero heat, as in
+    quadrature.py:_one_source_quad)."""
+    qt = cfg.tables
+    return not cfg.isothermal and all(
+        sq.A_heat_HI is not None for sq, used in
+        ((qt.bb, cfg.has_bb), (qt.pl, cfg.has_pl), (qt.qso, cfg.has_qso))
+        if sq is not None and used)
+
+
+def _packed_tables(cfg: SweepConfig, dtype, heat: bool = False):
+    """Live bands of every source type in use, one row each, in the
+    layout the sweep kernel reads:
+    [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII, sighat(K), A(K)],
+    and with `heat` after those
+    [A_heat_HI(K), A_heat_HeI(K), A_heat_HeII(K), the 12 f-factors in
+    _F_FACTORS order]; and the (nflux column, band count) of each type."""
     qt = cfg.tables
     rows, types = [], []
     for sq, col, used in ((qt.bb, 0, cfg.has_bb), (qt.pl, 1, cfg.has_pl),
@@ -234,20 +256,39 @@ def _packed_tables(cfg: SweepConfig, dtype):
         if sq is None or not used:
             continue
         sl = slice(sq.band_lo, sq.band_hi + 1)
-        per_band = torch.stack([qt.sigma_HI[sl], qt.sigma_HeI[sl],
-                                qt.sigma_HeII[sl], qt.mask_HeI[sl],
-                                qt.mask_HeII[sl]], dim=-1)
-        rows.append(torch.cat([per_band, sq.sigma_hat, sq.A_photo], dim=-1))
+        per_band = [qt.sigma_HI[sl], qt.sigma_HeI[sl], qt.sigma_HeII[sl],
+                    qt.mask_HeI[sl], qt.mask_HeII[sl]]
+        cols = [torch.stack(per_band, dim=-1), sq.sigma_hat, sq.A_photo]
+        if heat:
+            cols += [sq.A_heat_HI, sq.A_heat_HeI, sq.A_heat_HeII,
+                     torch.stack([getattr(qt, f)[sl] for f in _F_FACTORS],
+                                 dim=-1)]
+        rows.append(torch.cat(cols, dim=-1))
         types.append((col, sq.sigma_hat.shape[0]))
+        K = sq.sigma_hat.shape[1]
     if not rows:
         raise ValueError("the sweep needs at least one source type")
-    K = (rows[0].shape[1] - 5) // 2
     packed = torch.cat(rows).to(dtype=dtype).contiguous()
     return packed, types, K
 
 
-_SHARED_MEM_LIMIT = 48 * 1024
+# the opt-in dynamic shared memory of a block on the H100 (232448 B);
+# above 48 KB the kernels are opted in with cudaFuncSetAttribute
+_SHARED_MEM_LIMIT = 227 * 1024
 _BLOCK = 256   # kBlock of csrc/pyramid_sweep.cu
+
+
+def _kernel_tables(cfg: SweepConfig, dtype):
+    """(packed, types, K, heat) for the sweep kernel; raises, with the
+    byte count, when the band tables and the loss-reduction buffer
+    exceed a block's shared memory."""
+    heat = _heats(cfg)
+    packed, types, K = _packed_tables(cfg, dtype, heat)
+    smem = (packed.numel() + 2 * _BLOCK) * packed.element_size()
+    if smem > _SHARED_MEM_LIMIT:
+        raise ValueError(f"band tables need {smem} B of shared memory, "
+                         f"over the {_SHARED_MEM_LIMIT} B a block can have")
+    return packed, types, K, heat
 
 
 def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
@@ -257,17 +298,15 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
 
     Replaces pyramid_sweep.py:trace_centered + the source vmap of
     sweep_pyramid_source_batch, with quadrature.py:_one_source_quad
-    (isothermal branch) inlined.  Bound on the card by the K-node
-    exponentials (about 400 per cell and source at the bench
-    configuration), so the design spends nothing on data movement that
-    a plane-window carry would save: corners are read straight from the
-    3D column cube, tables sit in shared memory, and the losses reduce
-    per block with no atomics.
+    inlined: its isothermal branch, or with heating its heating branch
+    too (the per-species heating and the secondary-ionization terms).
+    Bound on the card by the K-node exponentials (about 400 per cell
+    and source at the bench configuration), so the design spends
+    nothing on data movement that a plane-window carry would save:
+    corners are read straight from the 3D column cube, tables sit in
+    shared memory, and the losses reduce per block with no atomics.
     """
-    global launches
-    if not cfg.isothermal:
-        raise NotImplementedError(
-            "the heating branch of the sweep kernel is not ported yet")
+    global launches, launches_heat
     if not fstack.is_cuda:
         raise ValueError("the sweep kernel takes CUDA tensors")
     _same_device(fstack, srcpos, nflux, cfg)
@@ -281,10 +320,7 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     if M % 2 or fstack.shape != (M, M, M, 5):
         raise ValueError(f"fields must be (M, M, M, 5) with M even, got "
                          f"{tuple(fstack.shape)}")
-    packed, types, K = _packed_tables(cfg, dtype)
-    smem = (packed.numel() + 2 * _BLOCK) * packed.element_size()
-    if smem > _SHARED_MEM_LIMIT:
-        raise ValueError(f"band tables need {smem} B of shared memory")
+    packed, types, K, heat = _kernel_tables(cfg, dtype)
     fields = fstack.contiguous()
     sp = srcpos.to(dtype=torch.int32).contiguous()
     nfl = nflux.to(dtype=dtype).contiguous()
@@ -298,8 +334,9 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
     partials = torch.zeros((S, max(nslots, 1), 2), dtype=dtype,
                            device=device)
-    fn = (lib.pyramid_sweep_f32 if dtype == torch.float32
-          else lib.pyramid_sweep_f64)
+    name = ("pyramid_sweep_heat_" if heat else "pyramid_sweep_") + (
+        "f32" if dtype == torch.float32 else "f64")
+    fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                    + [ctypes.c_double] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -311,8 +348,11 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
              P(partials), M, S, Rf, Rb, K, len(types), *type_args,
              float(dr_t), float(vos_t), float(cfg.coldensh_LLS),
              float(cfg.max_coldensh), cuda_build.stream_of(fields))
-    cuda_build.check(err, "pyramid_sweep")
-    launches += 1
+    cuda_build.check(err, name)
+    if heat:
+        launches_heat += 1
+    else:
+        launches += 1
     losses = partials.sum(dim=1)
     return slab, losses[:, 0], losses[:, 1]
 

@@ -8,6 +8,12 @@ O(1), and near the sources doric's mode sums cancel terms of up to
 ~1e4, so float64 rounding reaches ~1e-12 in h_int0 = 1 - h_int1.
 The mirror-symmetry check of tests/test_sweep3d.py runs on the port
 alone.
+
+The heating timestep uses the 16^3 single-source setup of
+tests/test_thermal_3d.py (1e5 K blackbody, T0 = 100 K) and the same
+tolerances (measured: fields within 1.2e-14 absolute, temperatures
+within 1e-13 relative); the port's result must also pass that test's
+physics checks.
 """
 
 import jax.numpy as jnp
@@ -15,6 +21,7 @@ import numpy as np
 import torch
 
 from c2ray_tpu import constants as const
+from c2ray_tpu.cooling import setup_cooling_tables
 from c2ray_tpu.radiation import BlackBodySED, SEDConfig
 from c2ray_tpu.radiation.quadrature import build_quadrature_tables
 from c2ray_tpu.state import initial_grid_state as j_state
@@ -99,6 +106,97 @@ def test_evolve3d_matches_jax():
                                rtol=1e-9)
     for name in t_new._fields:
         _close(getattr(t_new, name), getattr(j_new, name), name)
+
+
+def test_evolve3d_dr_override_matches_jax():
+    """`dr` rescales the cell size (the cosmological driver's per-step
+    proper length), passed on with its host-f64 dr^3/flux_scale."""
+    jcfg, tcfg, js, srcpos, nflux = _setup()
+    dt, dr = 1.0e14, 1.3 * jcfg.sweep.dr
+    j_new, j_stats = j_evolve3d(jcfg, js, jnp.asarray(srcpos, jnp.int32),
+                                jnp.asarray(nflux), dt, dr=dr)
+    t_new, t_stats = evolve3d(tcfg, convert.grid_state_from_numpy(js),
+                              torch.as_tensor(srcpos),
+                              torch.as_tensor(nflux), dt, dr=dr)
+    base, _ = evolve3d(tcfg, convert.grid_state_from_numpy(js),
+                       torch.as_tensor(srcpos), torch.as_tensor(nflux), dt)
+    assert not torch.equal(base.h1, t_new.h1), "dr must change the result"
+    assert (t_stats.n_iterations, t_stats.conv_flag,
+            t_stats.subbox_radius) == (j_stats.n_iterations,
+                                       j_stats.conv_flag,
+                                       j_stats.subbox_radius)
+    np.testing.assert_allclose(t_stats.photon_loss, j_stats.photon_loss,
+                               rtol=1e-9)
+    for name in t_new._fields:
+        _close(getattr(t_new, name), getattr(j_new, name), name)
+
+
+def _heating_setup():
+    """tests/test_thermal_3d.py:16-34 in both packages."""
+    tables, _, bands = build_quadrature_tables(
+        SEDConfig(bb=BlackBodySED(T_eff=1.0e5, S_star=1.0e49)),
+        isothermal=False, dtype=jnp.float64)
+    cooling = setup_cooling_tables(jnp.float64)
+    kw = dict(mesh=M, dr=12.0 * const.kpc / M, isothermal=False,
+              flux_scale=bands.flux_scale)
+    jcfg = JEvolveConfig(
+        sweep=JSweepConfig(tables=tables, **kw),
+        chem=JChemConfig(cooling=cooling, isothermal=False),
+        shells=build_shell_table(M))
+    tcfg = Evolve3DConfig(
+        sweep=SweepConfig(tables=convert.quad_tables_from_numpy(tables), **kw),
+        chem=ChemistryConfig(
+            isothermal=False,
+            cooling=convert.cooling_tables_from_numpy(cooling)))
+    js = j_state(np.full((M, M, M), 1.0e-3), 0.0, 0.0, 0.0, 100.0,
+                 dtype=jnp.float64)
+    return jcfg, tcfg, js, np.array([[M // 2] * 3]), np.array([[1.0, 0.0,
+                                                                 0.0]])
+
+
+def test_heating_iteration_matches_jax():
+    """One heating iteration with a cosmological cooling factor."""
+    jcfg, tcfg, js, srcpos, nflux = _heating_setup()
+    dt, ccf = 5.0e6 * const.YEAR, 1.0e-16
+    ref = j_make_iteration(jcfg)(js, jnp.asarray(srcpos, jnp.int32),
+                                 jnp.asarray(nflux), jnp.asarray(dt),
+                                 cosmo_cool_factor=jnp.asarray(ccf))
+    got = make_evolve3d_iteration(tcfg)(convert.grid_state_from_numpy(js),
+                                        torch.as_tensor(srcpos),
+                                        torch.as_tensor(nflux), dt,
+                                        cosmo_cool_factor=ccf)
+    assert int(got[1]) == int(ref[1])
+    np.testing.assert_allclose(float(got[2]), float(ref[2]), rtol=1e-10)
+    assert float(np.max(np.asarray(ref[0].t_av))) > 1.0e4   # it heats
+    for name in got[0]._fields:
+        _close(getattr(got[0], name), getattr(ref[0], name), name)
+
+
+def test_heating_evolve3d_matches_jax():
+    jcfg, tcfg, js, srcpos, nflux = _heating_setup()
+    dt = 5.0e6 * const.YEAR
+    j_new, j_stats = j_evolve3d(jcfg, js, jnp.asarray(srcpos, jnp.int32),
+                                jnp.asarray(nflux), dt)
+    t_new, t_stats = evolve3d(tcfg, convert.grid_state_from_numpy(js),
+                              torch.as_tensor(srcpos),
+                              torch.as_tensor(nflux), dt)
+    assert (t_stats.n_iterations, t_stats.conv_flag,
+            t_stats.subbox_radius) == (j_stats.n_iterations,
+                                       j_stats.conv_flag,
+                                       j_stats.subbox_radius)
+    for name in t_new._fields:
+        _close(getattr(t_new, name), getattr(j_new, name), name)
+
+    # the physics checks of tests/test_thermal_3d.py, on the port
+    T = t_new.t_final.reshape(M, M, M).numpy()
+    h1 = t_new.h1.reshape(M, M, M).numpy()
+    he2 = t_new.he2.reshape(M, M, M).numpy()
+    c = M // 2
+    assert 1.5e4 < T[c, c, c] < 6.0e4
+    assert h1[c, c, c] > 0.99
+    assert he2[c, c, c] > 0.5
+    assert T[0, 0, 0] < 5.0 * 100.0
+    assert np.all(np.isfinite(T))
 
 
 def test_multi_source_symmetry():

@@ -9,6 +9,7 @@ without JAX, run the card tests with
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -18,7 +19,8 @@ import pytest
 import torch
 
 from c2ray_tpu_torch import constants as const
-from c2ray_tpu_torch.radiation import BlackBodySED, SEDConfig
+from c2ray_tpu_torch.cooling import setup_cooling_tables
+from c2ray_tpu_torch.radiation import BlackBodySED, PowerLawSED, SEDConfig
 from c2ray_tpu_torch.radiation.quadrature import build_quadrature_tables
 from c2ray_tpu_torch.state import initial_grid_state
 from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
@@ -47,15 +49,16 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def _config(M, dtype, device, S_star=3e51):
+def _config(M, dtype, device, S_star=3e51, heating=False):
     tables, _, bands = build_quadrature_tables(
         SEDConfig(bb=BlackBodySED(T_eff=5e4, S_star=S_star)),
-        isothermal=True, dtype=dtype, device=device)
+        isothermal=not heating, dtype=dtype, device=device)
     sweep = SweepConfig(tables=tables, mesh=M, dr=50.0 * const.kpc / M,
-                        isothermal=True, flux_scale=bands.flux_scale)
-    return Evolve3DConfig(sweep=sweep,
-                          chem=ChemistryConfig(isothermal=True),
-                          subbox_start=2)
+                        isothermal=not heating, flux_scale=bands.flux_scale)
+    chem = (ChemistryConfig(isothermal=False,
+                            cooling=setup_cooling_tables(dtype, device))
+            if heating else ChemistryConfig(isothermal=True))
+    return Evolve3DConfig(sweep=sweep, chem=chem, subbox_start=2)
 
 
 def _sources(M, S, dtype, device, seed=7):
@@ -76,6 +79,20 @@ def _random_state(M, dtype, device, seed=5):
     he2 = rng.uniform(0.0, 0.3, n) * (1.0 - he1)
     return initial_grid_state(10.0 ** rng.uniform(-4, -2, n), h1, he1, he2,
                               1.0e4, dtype=dtype, device=device)
+
+
+def _assert_traces_close(k, p, tol):
+    """Two traces agree within `tol` relative, with `tol` of each part's
+    largest value as its absolute floor: the rates (1/s), the heat
+    (erg cm^-3 s^-1, ~1e-15 of the rates) and the two losses each on
+    their own scale."""
+    k_slab, p_slab = k[0], p[0]
+    for a, b, what in ((k_slab[..., :3], p_slab[..., :3], "rates"),
+                       (k_slab[..., 3], p_slab[..., 3], "heat"),
+                       (k[1], p[1], "photon_loss"), (k[2], p[2], "lls_loss")):
+        torch.testing.assert_close(a, b, rtol=tol,
+                                   atol=tol * float(b.abs().max()),
+                                   msg=what)
 
 
 def test_plain_path_launches_no_kernel():
@@ -118,6 +135,112 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (pyramid_sweep.launches, global_pass.launches) == before
 
 
+def test_heating_wrappers_refuse_cpu_tensors():
+    M = 4
+    cfg = _config(M, torch.float64, "cpu", heating=True)
+    state = _random_state(M, torch.float64, "cpu")
+    fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
+                          state.he_av0, state.he_av1)
+    fstack = pyramid_sweep.stack_sweep_fields(cfg.sweep, fields)
+    srcpos, nflux = _sources(M, 1, torch.float64, "cpu")
+    rates = pyramid_sweep.sweep_pyramid_source_batch(cfg.sweep, fields,
+                                                     srcpos, nflux)
+    counts = lambda: (pyramid_sweep.launches_heat, global_pass.launches_heat)
+    before = counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        pyramid_sweep.trace_cuda(cfg.sweep, fstack, srcpos, nflux, 2, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        global_pass.chemistry_pass_cuda(cfg.chem, state, rates, 1.0e14)
+    assert counts() == before
+
+
+@pytest.mark.parametrize("heat", [False, True])
+def test_packed_tables_layout(heat):
+    """Each row of the sweep kernel's band table holds, in order, the
+    values csrc/pyramid_sweep.cu reads: sigma (3), masks (2), sighat (K),
+    A (K), and with heating A_heat per species (3K) and the 12
+    f-factors; rows run over the live bands of each source type."""
+    tables, _, bands = build_quadrature_tables(
+        SEDConfig(bb=BlackBodySED(T_eff=5e4, S_star=1e48),
+                  pl=PowerLawSED(index=2.5, S_star=1e47)),
+        isothermal=not heat, dtype=torch.float64)
+    cfg = SweepConfig(tables=tables, mesh=8, dr=1.0e21,
+                      isothermal=not heat, flux_scale=bands.flux_scale,
+                      has_pl=True)
+    assert pyramid_sweep._heats(cfg) == heat
+    packed, types, K = pyramid_sweep._packed_tables(cfg, torch.float64, heat)
+    assert K == tables.bb.sigma_hat.shape[1]
+    assert packed.shape[1] == (17 + 5 * K if heat else 5 + 2 * K)
+    assert [t[0] for t in types] == [0, 1]
+    row = 0
+    for sq, (col, nb) in zip((tables.bb, tables.pl), types):
+        assert nb == sq.band_hi - sq.band_lo + 1
+        for j in range(nb):
+            b = sq.band_lo + j
+            r = packed[row]
+            expect = [tables.sigma_HI[b], tables.sigma_HeI[b],
+                      tables.sigma_HeII[b], tables.mask_HeI[b],
+                      tables.mask_HeII[b]]
+            assert torch.equal(r[:5], torch.stack(expect))
+            assert torch.equal(r[5:5 + K], sq.sigma_hat[j])
+            assert torch.equal(r[5 + K:5 + 2 * K], sq.A_photo[j])
+            if heat:
+                for s, A in enumerate((sq.A_heat_HI, sq.A_heat_HeI,
+                                       sq.A_heat_HeII)):
+                    lo = 5 + (2 + s) * K
+                    assert torch.equal(r[lo:lo + K], A[j])
+                f = torch.stack([getattr(tables, n)[b]
+                                 for n in pyramid_sweep._F_FACTORS])
+                assert torch.equal(r[5 + 5 * K:], f)
+            row += 1
+    assert row == packed.shape[0]
+
+
+def _three_type_config(M, dtype, device, n_nodes=6):
+    """Blackbody, power-law and QSO sources with heating tables (the
+    power laws over all 47 bands, from the HI threshold up): in f64 at
+    K = 6 the 127 band rows exceed the default 48 KB of shared memory."""
+    lo = const.ion_freq_HI
+    tables, _, bands = build_quadrature_tables(
+        SEDConfig(bb=BlackBodySED(T_eff=5e4, S_star=1e48),
+                  pl=PowerLawSED(index=2.5, S_star=1e47, min_freq=lo),
+                  qso=PowerLawSED(index=1.8, S_star=1e47, min_freq=lo)),
+        isothermal=False, dtype=dtype, device=device, n_nodes=n_nodes)
+    return SweepConfig(tables=tables, mesh=M, dr=50.0 * const.kpc / M,
+                       isothermal=False, flux_scale=bands.flux_scale,
+                       has_pl=True, has_qso=True)
+
+
+def test_sweep_shared_memory_limit():
+    """Tables over the default 48 KB pass (the kernels opt in to the
+    card's larger dynamic shared memory); over the opt-in limit the
+    wrapper raises with the byte count."""
+    packed, _, K, heat = pyramid_sweep._kernel_tables(
+        _three_type_config(8, torch.float64, "cpu"), torch.float64)
+    smem = (packed.numel() + 2 * 256) * 8
+    assert heat and K == 6 and packed.shape == (127, 17 + 5 * K)
+    assert 48 * 1024 < smem <= pyramid_sweep._SHARED_MEM_LIMIT
+    with pytest.raises(ValueError, match=r"need \d+ B of shared memory"):
+        pyramid_sweep._kernel_tables(
+            _three_type_config(8, torch.float64, "cpu", n_nodes=48),
+            torch.float64)
+
+
+def test_heating_sweep_without_heating_tables_has_no_heat():
+    """A heating config over isothermal tables gives zero heat in the
+    plain version, so the kernel wrapper takes the isothermal variant."""
+    cfg = _config(4, torch.float64, "cpu")
+    hot = dataclasses.replace(cfg.sweep, isothermal=False)
+    assert not pyramid_sweep._heats(hot)
+    state = _random_state(4, torch.float64, "cpu")
+    fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
+                          state.he_av0, state.he_av1)
+    srcpos, nflux = _sources(4, 1, torch.float64, "cpu")
+    rates = pyramid_sweep.sweep_pyramid_source_batch(hot, fields, srcpos,
+                                                     nflux)
+    assert float(rates.phiheat.abs().max()) == 0.0
+
+
 def test_chip_smoke_refuses_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: chip_smoke.py would run for real")
@@ -135,50 +258,79 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heating", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("radius", [None, 4])
-def test_sweep_kernel_matches_plain(cuda_device, dtype, radius):
+def test_sweep_kernel_matches_plain(cuda_device, dtype, radius, heating):
     M = 16
-    cfg = _config(M, dtype, cuda_device, S_star=1e48)
+    cfg = _config(M, dtype, cuda_device, S_star=1e48, heating=heating)
     state = _random_state(M, dtype, cuda_device)
     fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
                           state.he_av0, state.he_av1)
     fstack = pyramid_sweep.stack_sweep_fields(cfg.sweep, fields)
     srcpos, nflux = _sources(M, 3, dtype, cuda_device)
     Rf, Rb = pyramid_sweep.trace_extents(M, radius)
-    before = pyramid_sweep.launches
+    counts = lambda: (pyramid_sweep.launches, pyramid_sweep.launches_heat)
+    before = counts()
     k = pyramid_sweep.trace_cuda(cfg.sweep, fstack, srcpos, nflux, Rf, Rb)
-    assert pyramid_sweep.launches == before + 1
+    assert counts() == (before[0] + (not heating), before[1] + heating)
     p = pyramid_sweep.trace_plain(cfg.sweep, fstack, srcpos, nflux, Rf, Rb)
     # float64: rounding only.  float32: columns summed over up to M/2
     # layers with and without FMA contraction, amplified by tau <= 80
     # in e^-tau; measured kernel-vs-plain at 32^3 stays below 1e-6 of
     # the largest value
-    tol = 1e-10 if dtype == torch.float64 else 1e-4
-    for a, b in zip(k, p):
-        torch.testing.assert_close(a, b, rtol=tol,
-                                   atol=tol * float(b.abs().max()))
+    if heating:
+        assert float(p[0][..., 3].abs().max()) > 0.0
+    _assert_traces_close(k, p, 1e-10 if dtype == torch.float64 else 1e-4)
 
 
 @pytest.mark.gpu
+def test_sweep_kernel_with_large_tables_matches_plain(cuda_device):
+    """Three source types in f64 with heating: the band tables need more
+    than the default 48 KB of shared memory."""
+    M = 8
+    cfg = _three_type_config(M, torch.float64, cuda_device)
+    state = _random_state(M, torch.float64, cuda_device)
+    fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
+                          state.he_av0, state.he_av1)
+    fstack = pyramid_sweep.stack_sweep_fields(cfg, fields)
+    srcpos, _ = _sources(M, 2, torch.float64, cuda_device)
+    nflux = torch.tensor([[1.0, 0.5, 0.2], [0.7, 0.3, 1.0]],
+                         dtype=torch.float64, device=cuda_device)
+    Rf, Rb = pyramid_sweep.trace_extents(M)
+    k = pyramid_sweep.trace_cuda(cfg, fstack, srcpos, nflux, Rf, Rb)
+    p = pyramid_sweep.trace_plain(cfg, fstack, srcpos, nflux, Rf, Rb)
+    assert float(p[0][..., 3].abs().max()) > 0.0
+    _assert_traces_close(k, p, 1e-10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heating", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_chemistry_kernel_matches_plain(cuda_device, dtype):
+def test_chemistry_kernel_matches_plain(cuda_device, dtype, heating):
     M = 16
-    cfg = _config(M, dtype, cuda_device)
+    cfg = _config(M, dtype, cuda_device, heating=heating)
     state = _random_state(M, dtype, cuda_device, seed=6)
     srcpos, nflux = _sources(M, 3, dtype, cuda_device)
     fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
                           state.he_av0, state.he_av1)
     rates = pyramid_sweep.sweep_pyramid_source_batch(cfg.sweep, fields,
                                                      srcpos, nflux)
-    before = global_pass.launches
-    k = global_pass.chemistry_pass_cuda(cfg.chem, state, rates, 1.0e14)
-    assert global_pass.launches == before + 1
-    p = global_pass.chemistry_pass_plain(cfg.chem, state, rates, 1.0e14)
+    # heating: a step short enough that the f64 fixed point converges
+    # well before the damped regime (tests/test_torch_chemistry.py)
+    dt = 1.0e13 if heating else 1.0e14
+    counts = lambda: (global_pass.launches, global_pass.launches_heat)
+    before = counts()
+    k = global_pass.chemistry_pass_cuda(cfg.chem, state, rates, dt)
+    assert counts() == (before[0] + (not heating), before[1] + heating)
+    p = global_pass.chemistry_pass_plain(cfg.chem, state, rates, dt)
     if dtype == torch.float64:
         assert (int(k[1]), int(k[2])) == (int(p[1]), int(p[2]))
+    assert (int(k[3]) > 0) == heating
     # float32: a cell whose 1% convergence test flips stops one
-    # fixed-point iteration apart; fractions are O(1)
+    # fixed-point iteration apart; fractions are O(1), temperatures
+    # compared relatively
     tol = 1e-10 if dtype == torch.float64 else 2e-2
-    for a, b in zip(k[0], p[0]):
-        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    for a, b, name in zip(k[0], p[0], state._fields):
+        atol = 0.0 if name.startswith("t_") else tol
+        torch.testing.assert_close(a, b, rtol=tol, atol=atol, msg=name)

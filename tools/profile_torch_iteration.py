@@ -1,0 +1,90 @@
+"""Profile the port's 3D iteration on one GPU: device time by kernel.
+
+    python3 tools/profile_torch_iteration.py [--heating] [--iters N]
+
+Runs the bench configuration of ``chip_smoke.py`` (128^3 x 8 sources,
+float32, isothermal or with heating) through `make_evolve3d_iteration`:
+one warm-up iteration, then N iterations timed without the profiler
+and the same N iterations again under ``torch.profiler``.  Prints the
+device time per iteration of each kernel, the wall per iteration
+(unprofiled and profiled), and the device's idle share (1 - device
+time / unprofiled wall, so the profiler's own overhead is not counted
+as idle; the port runs on one stream, so device time does not overlap
+itself).
+"""
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--heating", action="store_true")
+    ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--mesh", type=int, default=128)
+    ap.add_argument("--sources", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_iteration: needs a CUDA GPU")
+
+    import chip_smoke as cs
+    from c2ray_tpu_torch.state import initial_grid_state
+    from c2ray_tpu_torch.sweep import make_evolve3d_iteration
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    M, S = args.mesh, args.sources
+    cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev, args.heating)
+    rng = np.random.RandomState(7)
+    srcpos = torch.as_tensor(rng.randint(0, M, size=(S, 3)), device=dev)
+    nflux = torch.as_tensor(np.concatenate(
+        [rng.uniform(0.5, 2.0, (S, 1)), np.zeros((S, 2))], axis=1),
+        dtype=torch.float32, device=dev)
+    state = initial_grid_state(np.full((M,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
+                               1.0e4, dtype=torch.float32, device=dev)
+    iteration = make_evolve3d_iteration(cfg)
+    start = iteration(state, srcpos, nflux, 1.0e14)[0]
+
+    def run():
+        """Wall seconds per iteration of the N iterations after the
+        warm-up (each run starts from the same state)."""
+        state = start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            state = iteration(state, srcpos, nflux, 1.0e14)[0]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / args.iters
+
+    wall = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_profiled = run()
+
+    # device-side rows only: the CPU operators that launched the kernels
+    # carry the same device time again
+    rows = sorted(((e.self_device_time_total / args.iters,
+                    e.count // args.iters, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"{cs.smi_line()}; {'heating' if args.heating else 'isothermal'} "
+          f"{M}^3 x {S} float32, {args.iters} profiled iterations")
+    print(f"wall per iteration {wall * 1e3:.3f} ms ({wall_profiled * 1e3:.3f} "
+          f"ms profiled), device time {busy:.3f} ms, idle share "
+          f"{1.0 - busy / (wall * 1e3):.4f} of the unprofiled wall")
+    for us, count, key in rows[:20]:
+        print(f"  {us / 1e3:9.3f} ms  {count:5d} launches  {key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -52,7 +52,17 @@ def grid_state_from_numpy(state, dtype=torch.float64, device=None
     return GridState(*(_tensor(a, dtype, device) for a in state))
 
 
+def rate_grids_from_numpy(rates, dtype=torch.float64, device=None
+                          ) -> RateGrids:
+    """The port's RateGrids from ``c2ray_tpu``'s (photon_loss_bands
+    stays None when the sweep did not track bands)."""
+    return RateGrids(*(None if a is None else _tensor(a, dtype, device)
+                       for a in rates))
+
+
 def rate_grids_to_numpy(rates: RateGrids) -> RateGrids:
-    """The port's RateGrids with float64 numpy leaves."""
-    return RateGrids(*(np.asarray(torch.as_tensor(a).detach().cpu(),
+    """The port's RateGrids with float64 numpy leaves (None stays
+    None)."""
+    return RateGrids(*(None if a is None else
+                       np.asarray(torch.as_tensor(a).detach().cpu(),
                                   dtype=np.float64) for a in rates))

@@ -1,13 +1,17 @@
 // Pyramid short-characteristics sweep of a source batch, with the
 // quadrature band rates as a device function: the isothermal variant,
-// and the heating variant (template flag kHeat).
+// the heating variant (template flag kHeat), each with the band-resolved
+// escape (template flag kTrack) or without, and each with a per-cell LLS
+// column (a nullable pointer) or the homogeneous one.
 //
 // Replaces c2ray_tpu/sweep/pyramid_sweep.py: trace_centered (:116) and
 // sweep_pyramid_source_batch (:496), with
 // c2ray_tpu/radiation/quadrature.py: _attenuation (:324) and
 // _one_source_quad (:330) -- its isothermal branch, and with kHeat its
 // heating branch too (:401-449: per-species thick/thin heating, the
-// Ricotti y1R/y2R secondary ionization and heating).
+// Ricotti y1R/y2R secondary ionization and heating); with kTrack its
+// track_bands output (:388-394, pyramid_sweep.py:289-295); with the LLS
+// pointer the per-cell LLS channel (pyramid_sweep.py:170,256-267).
 //
 // Algorithm (the same as the plain version in pyramid_sweep.py): every
 // source owns an outgoing-column cube cd[s] (M^3 x 3, source-centred,
@@ -38,6 +42,23 @@
 // the bench's 33 blackbody bands in f32, up to 53 KB for 141 bands in
 // f64, above the default 48 KB of dynamic shared memory, so the
 // kernels opt in to the card's 227 KB with cudaFuncSetAttribute.
+//
+// Per-cell LLS: the cell being entered adds lls[cell] * path_units to
+// its incoming HI column and loses phi_in (1 - e^-tau_LLS) to the fog,
+// as the homogeneous column does; one load per cell, no exponential
+// more than the homogeneous path (the expm1 of the LLS loss).
+//
+// Band tracking (kTrack): a live cell on the trace boundary (the only
+// cells whose escape counts) stages its outgoing photon rate per band
+// (phi_in - phi_all, summed over the source types that share a band,
+// / vol_ratio) in a shared [nb_all][kBlock] array; a block holding such
+// a cell reduces the array by a fixed tree into its per-block partial
+// (S, nslots, nb_all), which the caller sums in fixed order:
+// deterministic, no float atomics.  Boundary cells lie only in the last
+// layer or two, so every other block skips the staging and the
+// reduction after one __syncthreads_or (a reduction in every block cost
+// +24% of the isothermal stage kernels at 128^3 x 8).  nb_all * kBlock
+// values of shared memory (96 KB in float64 at 47 bands).
 
 #include "common.cuh"
 
@@ -60,11 +81,15 @@ struct Params {
   const int* srcpos;  // (S, 3)
   const T* nflux;     // (S, 3)
   const T* bands;     // (nbt, stride) live bands of every source type
+  const T* lls;       // (M^3) per-cell LLS columns, or null
   T* cd;              // (S, M, M, M, 3) outgoing columns, zeroed
   T* slab;            // (S, M^3, 4) per-source rates, zeroed
   T* partials;        // (S, nslots, 2) photon / LLS loss per block
-  int M, S, Rf, Rb, K, nslots, ntypes, nbt;
-  int type_col[3], type_nb[3];
+  T* band_partials;   // (S, nslots, nb_all) band escape per block (kTrack)
+  int M, S, Rf, Rb, K, nslots, ntypes, nbt, nb_all;
+  // per source type: nflux column, live band count, first band in the
+  // full band axis
+  int type_col[3], type_nb[3], type_lo[3];
   T dr, vol_over_scale, coldensh_lls, max_coldensh;
 };
 
@@ -114,11 +139,13 @@ __device__ __forceinline__ void kahan_add(T& s, T& c, T x) {
 
 // _one_source_quad summed over the source types (photoion_rates_quad):
 // out = photo_cell_{HI,HeI,HeII}, photo_in, photo_out and, with kHeat,
-// heat; `y` holds the cell's ricotti() values (heating only).
-template <typename T, bool kHeat>
+// heat; `y` holds the cell's ricotti() values (heating only).  With
+// kTrack and a non-null bstage each band's photo_out is added to
+// bstage[band * kBlock], band in the full band axis.
+template <typename T, bool kHeat, bool kTrack>
 __device__ void cell_rates(const T* tab, const Params<T>& p, const T* nfl3,
                            const T* cin, const T* cout, T vol, const T* y,
-                           T out[kHeat ? 6 : 5]) {
+                           T out[kHeat ? 6 : 5], T* bstage) {
   constexpr int kOut = kHeat ? 6 : 5;
   const int K = p.K;
   const int stride = row_stride<kHeat>(K);
@@ -168,6 +195,9 @@ __device__ void cell_rates(const T* tab, const Params<T>& p, const T* nfl3,
       acc[2] += mHeII * (tcHeII * inv) * phi_all / vol;
       acc[3] += phi_in;
       acc[4] += phi_in - phi_all;
+      if constexpr (kTrack) {
+        if (bstage) bstage[(p.type_lo[t] + b) * kBlock] += phi_in - phi_all;
+      }
       if constexpr (kHeat) {
         // species_heat (quadrature.py:404-415): thick/thin at the heat
         // limit, masked like the photo rates
@@ -249,8 +279,8 @@ __global__ void source_cell_kernel(Params<T> p) {
   T y[6];
   if constexpr (kHeat) ricotti(f[2], y);
   T r[kHeat ? 6 : 5];
-  cell_rates<T, kHeat>(tab, p, p.nflux + 3 * s, zero3, cc0, p.vol_over_scale,
-                       y, r);
+  cell_rates<T, kHeat, false>(tab, p, p.nflux + 3 * s, zero3, cc0,
+                              p.vol_over_scale, y, r, nullptr);
   T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
   out[0] = r[0] / bc[0];
   out[1] = r[1] / bc[1];
@@ -265,12 +295,14 @@ __global__ void source_cell_kernel(Params<T> p) {
 // One (layer l, stage m) step: threads over (sign, u, v) of the plane
 // pair |offset_m| = l, blockIdx.y = source.  The arithmetic is
 // compute_stage (pyramid_sweep.py:205-310).
-template <typename T, bool kHeat>
+template <typename T, bool kHeat, bool kTrack>
 __global__ void __launch_bounds__(kBlock)
 stage_kernel(Params<T> p, int l, int m, int slot0) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
   T* red = tab + p.nbt * row_stride<kHeat>(p.K);   // 2 * kBlock
+  T* bst = red + 2 * kBlock;                       // nb_all * kBlock (kTrack)
+  T* mine = bst + threadIdx.x;                     // this thread's column
   load_tables<T, kHeat>(p, tab);
 
   const int s = blockIdx.y;
@@ -278,6 +310,7 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
   const int W = 2 * l + 1;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   T ploss = T(0), lloss = T(0);
+  bool contrib = false;   // a live boundary cell: its escape counts
 
   if (idx < 2 * W * W) {
     const bool fwd = idx < W * W;
@@ -334,15 +367,17 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
       }
       const T path_units = xsqrt((d_u * d_u + d_v * d_v) / (lf * lf) + T(1));
       const T path = path_units * p.dr;
-      const bool has_lls = p.coldensh_lls > T(0);
-      const T lls_add = p.coldensh_lls * path_units;
-      if (has_lls) cin[0] += lls_add;
 
       int o[3];
       o[m] = sg * l; o[au] = u; o[av] = v;
       const int* sp = p.srcpos + 3 * s;
       const size_t flat = (size_t(wrap(sp[0] + o[0], M)) * M +
                            wrap(sp[1] + o[1], M)) * M + wrap(sp[2] + o[2], M);
+      // LLS column of the cell being entered, or the homogeneous one
+      const bool has_lls = p.lls != nullptr || p.coldensh_lls > T(0);
+      const T lls_add =
+          (p.lls != nullptr ? p.lls[flat] : p.coldensh_lls) * path_units;
+      if (has_lls) cin[0] += lls_add;
       const T* f = p.fields + flat * 5;
       T bc[3], cout[3];
       base_cols(f, bc);
@@ -350,13 +385,22 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
 
       const T dist2 = d_u * d_u + d_v * d_v + lf * lf;
       const T vol_ratio = T(4.0 * kPi) * dist2 * path_units;
+      const bool live = cin[0] < p.max_coldensh;
+      const bool on_bound = u == p.Rf || u == -p.Rb || v == p.Rf ||
+                            v == -p.Rb || (fwd ? l == p.Rf : l == p.Rb);
+      contrib = live && on_bound;
+      if constexpr (kTrack) {
+        if (contrib) {
+          for (int b = 0; b < p.nb_all; ++b) mine[b * kBlock] = T(0);
+        }
+      }
       T y[6];
       if constexpr (kHeat) ricotti(f[2], y);
       T r[kHeat ? 6 : 5];
-      cell_rates<T, kHeat>(tab, p, p.nflux + 3 * s, cin, cout,
-                           vol_ratio * p.vol_over_scale, y, r);
+      cell_rates<T, kHeat, kTrack>(tab, p, p.nflux + 3 * s, cin, cout,
+                                   vol_ratio * p.vol_over_scale, y, r,
+                                   contrib ? mine : nullptr);
 
-      const bool live = cin[0] < p.max_coldensh;
       const T fl = live ? T(1) : T(0);
       T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
       out[0] = fl * r[0] / bc[0];
@@ -368,9 +412,12 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
         out[3] = T(0);
       }
 
-      const bool on_bound = u == p.Rf || u == -p.Rb || v == p.Rf ||
-                            v == -p.Rb || (fwd ? l == p.Rf : l == p.Rb);
-      if (live && on_bound) ploss = r[4] / vol_ratio;
+      if (contrib) ploss = r[4] / vol_ratio;
+      if constexpr (kTrack) {
+        if (contrib) {
+          for (int b = 0; b < p.nb_all; ++b) mine[b * kBlock] /= vol_ratio;
+        }
+      }
       if (live && has_lls) {
         const T tau_lls = T(kSigmaHI) * lls_add;
         lloss = r[3] / vol_ratio * (-xexpm1(-tau_lls));
@@ -396,6 +443,30 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
     dst[0] = red[0];
     dst[1] = red[kBlock];
   }
+  if constexpr (kTrack) {
+    // only a block with a live boundary cell has band escape; the
+    // others leave their partial at the caller's zero (the condition is
+    // uniform over the block, so the barriers below are safe)
+    if (__syncthreads_or(contrib)) {
+      if (!contrib) {
+        for (int b = 0; b < p.nb_all; ++b) mine[b * kBlock] = T(0);
+      }
+      __syncthreads();
+      // the same fixed tree over each band's column
+      for (int w = kBlock / 2; w > 0; w >>= 1) {
+        for (int i = threadIdx.x; i < p.nb_all * w; i += kBlock) {
+          const int b = i / w, j = i - b * w;
+          bst[b * kBlock + j] += bst[b * kBlock + j + w];
+        }
+        __syncthreads();
+      }
+      T* dst = p.band_partials +
+               ((size_t)s * p.nslots + slot0 + blockIdx.x) * p.nb_all;
+      for (int b = threadIdx.x; b < p.nb_all; b += kBlock) {
+        dst[b] = bst[b * kBlock];
+      }
+    }
+  }
 }
 
 inline int stage_blocks(int l) {
@@ -403,20 +474,24 @@ inline int stage_blocks(int l) {
   return (2 * W * W + kBlock - 1) / kBlock;
 }
 
-template <typename T, bool kHeat>
+template <typename T, bool kHeat, bool kTrack>
 int run_sweep(const T* fields, const int* srcpos, const T* nflux,
-              const T* bands, T* cd, T* slab, T* partials, int M, int S,
-              int Rf, int Rb, int K, int ntypes, const int cols[3],
-              const int nbs[3], double dr, double vol_over_scale,
+              const T* bands, const T* lls, T* cd, T* slab, T* partials,
+              T* band_partials, int M, int S, int Rf, int Rb, int K,
+              int ntypes, int nb_all, const int cols[3], const int nbs[3],
+              const int los[3], double dr, double vol_over_scale,
               double coldensh_lls, double max_coldensh, cudaStream_t stream) {
   Params<T> p;
   p.fields = fields; p.srcpos = srcpos; p.nflux = nflux; p.bands = bands;
-  p.cd = cd; p.slab = slab; p.partials = partials;
+  p.lls = lls; p.cd = cd; p.slab = slab; p.partials = partials;
+  p.band_partials = band_partials;
   p.M = M; p.S = S; p.Rf = Rf; p.Rb = Rb; p.K = K; p.ntypes = ntypes;
+  p.nb_all = nb_all;
   p.nbt = 0;
   for (int t = 0; t < 3; ++t) {
     p.type_col[t] = t < ntypes ? cols[t] : 0;
     p.type_nb[t] = t < ntypes ? nbs[t] : 0;
+    p.type_lo[t] = t < ntypes ? los[t] : 0;
     p.nbt += p.type_nb[t];
   }
   p.nslots = 0;
@@ -425,7 +500,8 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   p.coldensh_lls = T(coldensh_lls); p.max_coldensh = T(max_coldensh);
 
   const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
-  const size_t smem = tab_bytes + 2 * kBlock * sizeof(T);
+  const size_t smem = tab_bytes + 2 * kBlock * sizeof(T) +
+                      (kTrack ? size_t(nb_all) * kBlock * sizeof(T) : 0);
   cudaError_t err;
   if (smem > 48 * 1024) {
     // above the default: opt in to the card's larger dynamic shared
@@ -434,7 +510,7 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(tab_bytes));
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(stage_kernel<T, kHeat>,
+    err = cudaFuncSetAttribute(stage_kernel<T, kHeat, kTrack>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(smem));
     if (err != cudaSuccess) return err;
@@ -446,7 +522,7 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   for (int l = 1; l <= Rf; ++l) {
     const int nblk = stage_blocks(l);
     for (int m = 0; m < 3; ++m) {
-      stage_kernel<T, kHeat><<<dim3(nblk, S), kBlock, smem, stream>>>(
+      stage_kernel<T, kHeat, kTrack><<<dim3(nblk, S), kBlock, smem, stream>>>(
           p, l, m, slot);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
@@ -468,24 +544,33 @@ int pyramid_sweep_slots(int Rf) {
   return n;
 }
 
-// Returns the cudaError_t of the launches (0 on success).
-#define C2RAY_SWEEP_ENTRY(NAME, T, HEAT)                                    \
+// Returns the cudaError_t of the launches (0 on success).  lls and
+// band_partials may be null (no per-cell LLS; no band tracking).
+#define C2RAY_SWEEP_ENTRY(NAME, T, HEAT, TRACK)                             \
   int NAME(const T* fields, const int* srcpos, const T* nflux,             \
-           const T* bands, T* cd, T* slab, T* partials, int M, int S,      \
-           int Rf, int Rb, int K, int ntypes, int col0, int nb0, int col1, \
-           int nb1, int col2, int nb2, double dr, double vol_over_scale,   \
-           double coldensh_lls, double max_coldensh, void* stream) {       \
+           const T* bands, const T* lls, T* cd, T* slab, T* partials,      \
+           T* band_partials, int M, int S, int Rf, int Rb, int K,          \
+           int ntypes, int nb_all, int col0, int nb0, int lo0, int col1,   \
+           int nb1, int lo1, int col2, int nb2, int lo2, double dr,        \
+           double vol_over_scale, double coldensh_lls, double max_coldensh, \
+           void* stream) {                                                 \
     const int cols[3] = {col0, col1, col2};                                \
     const int nbs[3] = {nb0, nb1, nb2};                                    \
-    return c2ray::run_sweep<T, HEAT>(                                      \
-        fields, srcpos, nflux, bands, cd, slab, partials, M, S, Rf, Rb, K, \
-        ntypes, cols, nbs, dr, vol_over_scale, coldensh_lls, max_coldensh, \
+    const int los[3] = {lo0, lo1, lo2};                                    \
+    return c2ray::run_sweep<T, HEAT, TRACK>(                               \
+        fields, srcpos, nflux, bands, lls, cd, slab, partials,             \
+        band_partials, M, S, Rf, Rb, K, ntypes, nb_all, cols, nbs, los,    \
+        dr, vol_over_scale, coldensh_lls, max_coldensh,                    \
         static_cast<cudaStream_t>(stream));                                \
   }
 
-C2RAY_SWEEP_ENTRY(pyramid_sweep_f32, float, false)
-C2RAY_SWEEP_ENTRY(pyramid_sweep_f64, double, false)
-C2RAY_SWEEP_ENTRY(pyramid_sweep_heat_f32, float, true)
-C2RAY_SWEEP_ENTRY(pyramid_sweep_heat_f64, double, true)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_f32, float, false, false)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_f64, double, false, false)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_heat_f32, float, true, false)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_heat_f64, double, true, false)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_track_f32, float, false, true)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_track_f64, double, false, true)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_heat_track_f32, float, true, true)
+C2RAY_SWEEP_ENTRY(pyramid_sweep_heat_track_f64, double, true, true)
 
 }  // extern "C"

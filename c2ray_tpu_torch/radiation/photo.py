@@ -36,11 +36,17 @@ class PhotRates(NamedTuple):
     heat: torch.Tensor
     photo_in: torch.Tensor
     photo_out: torch.Tensor
+    # (..., nbands) outgoing photon rate over the full band axis when the
+    # rates were asked to track bands, else a 0-d zero
+    photo_out_bands: torch.Tensor = 0.0
 
     def __add__(self, other):
         return PhotRates(*(a + b for a, b in zip(self, other)))
 
 
-def zero_photrates(shape, dtype=torch.float64, device=None) -> PhotRates:
+def zero_photrates(shape, dtype=torch.float64, device=None,
+                   nbands=0) -> PhotRates:
     z = torch.zeros(shape, dtype=dtype, device=device)
-    return PhotRates(z, z, z, z, z, z)
+    zb = (torch.zeros(tuple(shape) + (nbands,), dtype=dtype, device=device)
+          if nbands else torch.zeros((), dtype=dtype, device=device))
+    return PhotRates(z, z, z, z, z, z, zb)

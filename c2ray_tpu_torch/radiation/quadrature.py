@@ -200,9 +200,12 @@ def _attenuation(sq: SourceQuad, tau):
 def _one_source_quad(qt: QuadTables, sq: SourceQuad, nflux,
                      cd_in_HI, cd_out_HI, cd_in_HeI, cd_out_HeI,
                      cd_in_HeII, cd_out_HeII,
-                     vol, i_state, do_heating) -> PhotRates:
+                     vol, i_state, do_heating, track_bands=False
+                     ) -> PhotRates:
     """Photo + heating rates for one source type, on its live band
-    range only (radiation_tables.f90:194-256)."""
+    range only (radiation_tables.f90:194-256).  `track_bands` also
+    returns the outgoing photon rate per band, this type's live slice
+    padded into the full band axis."""
     sl = slice(sq.band_lo, sq.band_hi + 1)
     dtype = cd_in_HI.dtype
     sig_HI = qt.sigma_HI[sl]
@@ -247,11 +250,20 @@ def _one_source_quad(qt: QuadTables, sq: SourceQuad, nflux,
     photo_cell_HeI = (mask_HeI * scaling_HeI * phi_all / volk).sum(-1)
     photo_cell_HeII = (mask_HeII * scaling_HeII * phi_all / volk).sum(-1)
 
+    if track_bands:
+        # pad this source type's live slice into the full band axis
+        # (c2ray_tpu/radiation/quadrature.py:388-394)
+        pob = torch.zeros(phi_out.shape[:-1] + (qt.sigma_HI.shape[0],),
+                          dtype=dtype, device=phi_out.device)
+        pob[..., sl] = phi_out
+    else:
+        pob = torch.zeros((), dtype=dtype, device=phi_out.device)
     out = PhotRates(
         photo_cell_HI=photo_cell_HI, photo_cell_HeI=photo_cell_HeI,
         photo_cell_HeII=photo_cell_HeII,
         heat=torch.zeros_like(photo_cell_HI),
-        photo_in=phi_in.sum(-1), photo_out=phi_out.sum(-1))
+        photo_in=phi_in.sum(-1), photo_out=phi_out.sum(-1),
+        photo_out_bands=pob)
 
     if not do_heating or sq.A_heat_HI is None:
         return out
@@ -312,11 +324,15 @@ def photoion_rates_quad(
     nflux_pl=None,
     nflux_qso=None,
     do_heating: bool = True,
+    track_bands: bool = False,
 ) -> PhotRates:
     """Cell photo-ionization and heating rates from the in/out columns
     (the contract of the reference's photoion_rates,
     radiation_photoionrates.f90:108-823).  Scalars broadcast to the
-    column shape; device and dtype follow `colum_in_HI`."""
+    column shape; device and dtype follow `colum_in_HI`.
+    `track_bands` also fills PhotRates.photo_out_bands, the outgoing
+    photon rate over the full band axis (the input of the photon-loss
+    redistribution, sweep/photon_losses.py)."""
     cd_in_HI = colum_in_HI
     shape = cd_in_HI.shape
     dtype, device = cd_in_HI.dtype, cd_in_HI.device
@@ -325,7 +341,8 @@ def photoion_rates_quad(
     vol = bcast(vol)
     i_state = bcast(i_state)
 
-    phi = zero_photrates(shape, dtype, device)
+    phi = zero_photrates(shape, dtype, device,
+                         nbands=qt.sigma_HI.shape[0] if track_bands else 0)
     for sq, nflux in ((qt.bb, nflux_bb), (qt.pl, nflux_pl),
                       (qt.qso, nflux_qso)):
         if sq is None or nflux is None:
@@ -333,5 +350,6 @@ def photoion_rates_quad(
         phi = phi + _one_source_quad(
             qt, sq, bcast(nflux),
             cd_in_HI, colum_out_HI, colum_in_HeI, colum_out_HeI,
-            colum_in_HeII, colum_out_HeII, vol, i_state, do_heating)
+            colum_in_HeII, colum_out_HeII, vol, i_state, do_heating,
+            track_bands)
     return phi

@@ -5,9 +5,11 @@ Port of ``c2ray_tpu/sweep/evolve3d.py`` (``evolve3D``,
 evolve.F90:78-229) for the pyramid engine.  The convergence loop runs
 in Python: its trip count is physical, data dependent and small.  The
 subbox radius is a runtime integer of the sweep, so nothing is built
-per radius.
+per radius (JAX's `iteration_cache` of compiled programs has no
+counterpart: `evolve3d` accepts it and ignores it).
 """
 
+import time as _time
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -15,8 +17,9 @@ import torch
 
 from ..state import GridState, begin_timestep, finish_timestep
 from .global_pass import ChemistryConfig, global_chemistry_pass
+from .photon_losses import distribute_photon_losses
 from .pyramid_sweep import sweep_pyramid_source_batch
-from .source_sweep import SourceFields, SweepConfig
+from .source_sweep import RateGrids, SourceFields, SweepConfig
 
 # c2ray_parameters.f90:26 and evolve.F90:147,177
 CONVERGENCE_FRACTION = 2.5e-4
@@ -39,6 +42,10 @@ class Evolve3DConfig:
     use_subbox: bool = True
     subbox_start: int = 8
     min_fraction_of_photons: float = MIN_FRACTION_OF_PHOTONS
+    # recycle escaped photons into the grid (sweep/photon_losses.py);
+    # needs sweep.track_band_loss.  The reported photon_loss stays the
+    # raw escape (it drives the expanding subbox and the photon budget)
+    add_photon_losses: bool = False
 
 
 class Evolve3DStats(NamedTuple):
@@ -74,33 +81,51 @@ def _subbox_radii(cfg: Evolve3DConfig):
     return radii
 
 
-def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None):
+def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None,
+                            return_rates=False):
     """One {sweep + global chemistry pass} iteration; `radius` bounds
     the trace (None = full).  The returned function maps
     (state, srcpos, nflux, dt, dr=None, vol_over_scale=None,
-    cosmo_cool_factor=None) to
+    cosmo_cool_factor=None, lls_grid=None) to
     (new state, conv_flag, photon_loss, lls_loss), all on the state's
-    device.  `dr` and its host-computed dr^3/flux_scale override the
-    sweep's cell size; `cosmo_cool_factor` overrides the chemistry
-    config's (JAX evolve3d.py:182-184)."""
+    device, and with `return_rates` the iteration's RateGrids after
+    them (what a mid-iteration dump stores).  `dr` and its
+    host-computed dr^3/flux_scale override the sweep's cell size;
+    `cosmo_cool_factor` overrides the chemistry config's
+    (JAX evolve3d.py:182-184); `lls_grid` (mesh^3,) gives each cell's
+    LLS column."""
+    if cfg.add_photon_losses and not cfg.sweep.track_band_loss:
+        raise ValueError(
+            "add_photon_losses needs the pyramid engine with "
+            "SweepConfig(track_band_loss=True)")
 
     def iteration(state: GridState, srcpos, nflux, dt, dr=None,
-                  vol_over_scale=None, cosmo_cool_factor=None):
+                  vol_over_scale=None, cosmo_cool_factor=None,
+                  lls_grid=None):
         fields = SourceFields(ndens=state.ndens, h_av0=state.h_av0,
                               h_av1=state.h_av1, he_av0=state.he_av0,
                               he_av1=state.he_av1)
         rates = sweep_pyramid_source_batch(cfg.sweep, fields, srcpos, nflux,
                                            radius=radius, dr=dr,
-                                           vol_over_scale=vol_over_scale)
+                                           vol_over_scale=vol_over_scale,
+                                           lls_grid=lls_grid)
+        if cfg.add_photon_losses:
+            vos = (vol_over_scale if vol_over_scale is not None
+                   else cfg.sweep.vol / cfg.sweep.flux_scale)
+            rates = distribute_photon_losses(cfg.sweep.tables, rates, fields,
+                                             vos)
         new_state, conv_flag = global_chemistry_pass(cfg.chem, state, rates,
                                                      dt, cosmo_cool_factor)
-        return new_state, conv_flag, rates.photon_loss, rates.lls_loss
+        out = (new_state, conv_flag, rates.photon_loss, rates.lls_loss)
+        return out + (rates,) if return_rates else out
 
     return iteration
 
 
 def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt,
-             dr=None, cosmo_cool_factor=None):
+             iteration_fn=None, dr=None, cosmo_cool_factor=None,
+             iteration_cache=None, initial_radius=None, lls_grid=None,
+             dump_dir=None, dump_interval_s=900.0, start_from_dump=False):
     """Full evolve3D (evolve.F90:78-229).
 
     srcpos: (S, 3) int; nflux: (S, 3).  Returns (new state,
@@ -108,37 +133,85 @@ def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt,
     on an adaptive subbox radius: while the photon fraction escaping the
     current radius exceeds `min_fraction_of_photons`, the radius doubles
     and the sweep is redone (evolve_source.F90:114-144); the radius
-    carries over to the next iteration.
+    carries over to the next iteration.  `initial_radius` seeds it (the
+    driver passes the previous step's).  `iteration_fn` replaces the
+    adaptive iteration by a fixed one; `iteration_cache` is accepted for
+    the JAX signature and ignored.
 
     `dr` (float) overrides the sweep's cell size, passed on with its
     dr^3/flux_scale computed on the host in float64 (the cosmological
     driver rescales it every step).  `cosmo_cool_factor` (float) is the
     step's adiabatic cooling factor 2(dz/dt)/(1+z)
-    (cosmology.f90:207-234, thermal.f90:76).
+    (cosmology.f90:207-234, thermal.f90:76).  `lls_grid` (mesh^3,) is
+    each cell's LLS column for every sweep of the step.
+
+    `dump_dir` enables the reference's mid-iteration checkpoints: every
+    `dump_interval_s` wall seconds the pre-iteration state and that
+    iteration's rate grids go to alternating iterdump slots
+    (evolve.F90:199-212, 233-275).  `start_from_dump=True` resumes
+    mid-timestep: the dumped rates are re-applied with one chemistry
+    pass and the loop continues from the dumped iteration count
+    (evolve.F90:279-367).
     """
-    radii = _subbox_radii(cfg) if cfg.use_subbox else [cfg.sweep.mesh // 2]
+    from ..io.checkpoint import load_iterdump, save_iterdump
+
+    del iteration_cache   # nothing is compiled per radius
+    if iteration_fn is not None and dump_dir is not None:
+        raise ValueError(
+            "dump_dir requires the internally-built iteration "
+            "(return_rates=True); pass dump_dir OR iteration_fn, not "
+            "both")
+    adaptive = iteration_fn is None and cfg.use_subbox
+    want_rates = dump_dir is not None
+    radii = _subbox_radii(cfg) if adaptive else [cfg.sweep.mesh // 2]
+    if iteration_fn is None:
+        iterations = [make_evolve3d_iteration(
+            cfg, radius=None if i == len(radii) - 1 else r,
+            return_rates=want_rates) for i, r in enumerate(radii)]
+    else:
+        iterations = [iteration_fn]
     total_strength = _scaled_source_strength(cfg.sweep, nflux)
     loss_wall = cfg.min_fraction_of_photons * max(total_strength, 1e-300)
     r_idx = 0
+    if adaptive and initial_radius is not None:
+        while r_idx + 1 < len(radii) and radii[r_idx] < initial_radius:
+            r_idx += 1
     kw = {}
     if dr is not None:
         kw = {"dr": float(dr),
               "vol_over_scale": float(dr) ** 3 / cfg.sweep.flux_scale}
     if cosmo_cool_factor is not None:
         kw["cosmo_cool_factor"] = float(cosmo_cool_factor)
-
-    def iteration_at(i):
-        return make_evolve3d_iteration(
-            cfg, radius=None if i == len(radii) - 1 else radii[i])
+    if lls_grid is not None:
+        kw["lls_grid"] = lls_grid
 
     n = state.mesh3
     conv_criterion = min(int(cfg.convergence_fraction * n),
                          int(srcpos.shape[0]))
-    state = begin_timestep(state)
-    conv_flag = n
     niter = 0
+    conv_flag = n
+    if start_from_dump:
+        # mid-timestep resume: the pre-iteration state and its rates,
+        # re-applied with one chemistry pass (evolve.F90:137-141)
+        niter, st_np, rt_np, meta = load_iterdump(
+            dump_dir, GridState, RateGrids, with_meta=True)
+        dtype, device = state.ndens.dtype, state.ndens.device
+        as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+        state = GridState(*(as_t(x) for x in st_np))
+        rates = RateGrids(*(None if x is None else as_t(x) for x in rt_np))
+        state, conv_dev = global_chemistry_pass(
+            cfg.chem, state, rates, dt,
+            None if cosmo_cool_factor is None else float(cosmo_cool_factor))
+        conv_flag = int(conv_dev)
+        if adaptive and meta.get("subbox_radius"):
+            while (r_idx + 1 < len(radii)
+                   and radii[r_idx] < int(meta["subbox_radius"])):
+                r_idx += 1
+    else:
+        state = begin_timestep(state)
     ploss = lls_loss = 0.0
     radius_used = 0
+    last_dump = _time.time()
     while True:
         # convergence test at loop head (evolve.F90:154-182); at least
         # two iterations so sources can interact
@@ -147,16 +220,24 @@ def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt,
         if niter > cfg.max_iterations:
             break
         niter += 1
+        prev_state = state
         while True:
-            out = iteration_at(r_idx)(state, srcpos, nflux, dt, **kw)
-            if r_idx + 1 >= len(radii) or float(out[2]) <= loss_wall:
+            out = iterations[r_idx](state, srcpos, nflux, dt, **kw)
+            if r_idx + 1 >= len(iterations) or float(out[2]) <= loss_wall:
                 break
             r_idx += 1
-        radius_used = radii[r_idx] if cfg.use_subbox else 0
+        radius_used = radii[r_idx] if adaptive else 0
         state = out[0]
         conv_flag = int(out[1])
         ploss = float(out[2])
         lls_loss = float(out[3])
+        # mid-iteration checkpoint (write_iteration_dump,
+        # evolve.F90:199-212): the pre-iteration state and this
+        # iteration's rates determine the post-iteration state
+        if want_rates and _time.time() - last_dump >= dump_interval_s:
+            save_iterdump(dump_dir, niter, prev_state, out[4],
+                          subbox_radius=radius_used)
+            last_dump = _time.time()
 
     state = finish_timestep(state)
     return state, Evolve3DStats(n_iterations=niter, conv_flag=conv_flag,

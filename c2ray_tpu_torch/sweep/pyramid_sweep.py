@@ -14,11 +14,14 @@ ctr = M/2 - 1) and each (layer, stage) step reads its corners straight
 from it.  `trace_plain` does that with index tensors; `trace_cuda`
 launches the hand-written kernel ``csrc/pyramid_sweep.cu``, one launch
 per (layer, stage) over (source, sign, u, v).  Both return the same
-per-source rate slabs and losses, which `sweep_pyramid_source_batch`
-sums over sources in fixed order.
+per-source rate slabs and losses (optionally the per-band escape and a
+per-cell LLS column), which `sweep_pyramid_source_batch` sums over
+sources in fixed order.
 
 Memory: cd is S x M^3 x 3 and the slab S x M^3 x 4 values: 470 MB at
-128^3 x 8 sources in float32, 3.8 GB at 256^3.
+128^3 x 8 sources in float32, 3.8 GB at 256^3.  A batch is swept in
+groups of sources (JAX's `_source_chunk`) so that a group's cd and slab
+stay under `_GROUP_BYTES`; the groups' sums are added in order.
 """
 
 import ctypes
@@ -33,11 +36,18 @@ from .source_sweep import RateGrids, SourceFields, SweepConfig, _cell_rates
 # abundance weights per species column, order (HI, HeI, HeII)
 _ABU = (1.0 - const.abu_he, const.abu_he, const.abu_he)
 
-# sweeps run through the CUDA kernel, isothermal and heating (one count
-# per trace_cuda call, which launches the 3 * Rf stage kernels of one
-# sweep)
+# sweeps run through the CUDA kernel, one count per trace_cuda call
+# (which launches the 3 * Rf stage kernels of one sweep) in the counter
+# of its variant: with a per-cell LLS grid, else with band tracking,
+# else heating, else isothermal
 launches = 0
 launches_heat = 0
+launches_lls = 0
+launches_track = 0
+
+# auto source group: a group's cd and slab (7 values per cell and
+# source) stay under this many bytes
+_GROUP_BYTES = 4 * 2**30
 
 
 def stack_sweep_fields(cfg: SweepConfig, fields: SourceFields):
@@ -78,12 +88,15 @@ def _scalars(cfg, dtype, device, dr, vol_over_scale):
 
 
 def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
-                dr=None, vol_over_scale=None):
+                dr=None, vol_over_scale=None, lls=None, track=False):
     """Plain PyTorch version of the sweep kernel.
 
     fstack: (M, M, M, 5) stacked fields; srcpos: (S, 3) int; nflux:
-    (S, 3).  Returns (slab (S, M^3, 4) per-source rates in absolute
-    coordinates, photon_loss (S,), lls_loss (S,))."""
+    (S, 3); `lls` (M^3,) per-cell LLS columns (position-dependent LLS,
+    evolve_point.F90:177-180), in place of cfg.coldensh_LLS; `track`
+    also returns the per-band escape.  Returns (slab (S, M^3, 4)
+    per-source rates in absolute coordinates, photon_loss (S,),
+    lls_loss (S,), photon_loss_bands (S, nbands) or None)."""
     _same_device(fstack, srcpos, nflux, cfg)
     M = fstack.shape[0]
     ctr = M // 2 - 1
@@ -100,7 +113,10 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     cd = torch.zeros((S, M, M, M, 3), dtype=dtype, device=device)
     slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
     ploss = torch.zeros(S, dtype=dtype, device=device)
-    lls = torch.zeros(S, dtype=dtype, device=device)
+    lloss = torch.zeros(S, dtype=dtype, device=device)
+    plb = (torch.zeros((S, cfg.tables.sigma_HI.shape[0]), dtype=dtype,
+                       device=device) if track else None)
+    lls_cells = None if lls is None else lls.reshape(-1)
 
     def flat_of(off):
         """absolute flat index of (srcpos + off) mod M; off (..., 3)."""
@@ -154,8 +170,8 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
         sign_ok = torch.tensor([l <= Rf, l <= Rb], device=device)
         on_bound = bnd_uv | torch.tensor(
             [l == Rf, l == Rb], device=device).view(2, 1, 1)   # (2, W, W)
-        lls_add = (cfg.coldensh_LLS * path_units
-                   if cfg.coldensh_LLS > 0.0 else None)
+        lls_scalar = (cfg.coldensh_LLS * path_units
+                      if cfg.coldensh_LLS > 0.0 else None)
 
         for m in range(3):
             au, av = (1, 2) if m == 0 else ((0, 2) if m == 1 else (0, 1))
@@ -189,16 +205,19 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
             wsum = w1 + w2 + w3 + w4
             cd_in = (c1 * w1 + c2 * w2 + c3 * w3 + c4 * w4) / wsum
             cd_in = cd_in * boost[..., None]
-            if lls_add is not None:
-                cd_in[..., 0] += lls_add
-
             off = offsets(sign * l, U, V)
             flat = flat_of(off)                                # (S,2,W,W)
+            # the LLS column of the cell being entered
+            # (pyramid_sweep.py:253-267), or the homogeneous one
+            lls_add = (lls_cells[flat] * path_units if lls_cells is not None
+                       else lls_scalar)
+            if lls_add is not None:
+                cd_in[..., 0] += lls_add
             fc = f[flat]
             bcols = base_cols(fc)
             cd_out = cd_in + bcols * path[..., None]
             phi = _cell_rates(cfg, cd_in, cd_out, vol_ratio * vos,
-                              nfl_cells, fc[..., 2])
+                              nfl_cells, fc[..., 2], track_bands=track)
 
             live = valid & (cd_in[..., 0] < cfg.max_coldensh)
             fl = live.to(dtype)
@@ -210,11 +229,16 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
             ploss = ploss + torch.where(
                 live & on_bound, phi.photo_out / vol_ratio,
                 0.0).sum(dim=(1, 2, 3))
+            if track:
+                plb = plb + torch.where(
+                    (live & on_bound)[..., None],
+                    phi.photo_out_bands / vol_ratio[..., None],
+                    0.0).sum(dim=(1, 2, 3))
             if lls_add is not None:
                 # photons absorbed by the LLS fog (total_LLS_loss,
                 # photonstatistics.f90:250-267)
                 tau_lls = const.sigma_HI_at_ion_freq * lls_add
-                lls = lls + torch.where(
+                lloss = lloss + torch.where(
                     live, phi.photo_in / vol_ratio * (-torch.expm1(-tau_lls)),
                     0.0).sum(dim=(1, 2, 3))
 
@@ -222,7 +246,7 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
             ov = ctr + off[valid]                              # (nv, 3)
             cd[:, ov[:, 0], ov[:, 1], ov[:, 2]] = cd_out[:, valid]
             slab[s_idx[:, None], flat[:, valid]] = rates[:, valid]
-    return slab, ploss, lls
+    return slab, ploss, lloss, plb
 
 
 _F_FACTORS = ("f1ion_HI", "f1ion_HeI", "f1ion_HeII",
@@ -248,7 +272,8 @@ def _packed_tables(cfg: SweepConfig, dtype, heat: bool = False):
     [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII, sighat(K), A(K)],
     and with `heat` after those
     [A_heat_HI(K), A_heat_HeI(K), A_heat_HeII(K), the 12 f-factors in
-    _F_FACTORS order]; and the (nflux column, band count) of each type."""
+    _F_FACTORS order]; and the (nflux column, band count, first band in
+    the full band axis) of each type."""
     qt = cfg.tables
     rows, types = [], []
     for sq, col, used in ((qt.bb, 0, cfg.has_bb), (qt.pl, 1, cfg.has_pl),
@@ -264,7 +289,7 @@ def _packed_tables(cfg: SweepConfig, dtype, heat: bool = False):
                      torch.stack([getattr(qt, f)[sl] for f in _F_FACTORS],
                                  dim=-1)]
         rows.append(torch.cat(cols, dim=-1))
-        types.append((col, sq.sigma_hat.shape[0]))
+        types.append((col, sq.sigma_hat.shape[0], sq.band_lo))
         K = sq.sigma_hat.shape[1]
     if not rows:
         raise ValueError("the sweep needs at least one source type")
@@ -278,13 +303,15 @@ _SHARED_MEM_LIMIT = 227 * 1024
 _BLOCK = 256   # kBlock of csrc/pyramid_sweep.cu
 
 
-def _kernel_tables(cfg: SweepConfig, dtype):
+def _kernel_tables(cfg: SweepConfig, dtype, track: bool = False):
     """(packed, types, K, heat) for the sweep kernel; raises, with the
-    byte count, when the band tables and the loss-reduction buffer
-    exceed a block's shared memory."""
+    byte count, when the band tables, the loss-reduction buffer and
+    (with `track`) the per-band staging buffer exceed a block's shared
+    memory."""
     heat = _heats(cfg)
     packed, types, K = _packed_tables(cfg, dtype, heat)
-    smem = (packed.numel() + 2 * _BLOCK) * packed.element_size()
+    nstage = cfg.tables.sigma_HI.shape[0] * _BLOCK if track else 0
+    smem = (packed.numel() + 2 * _BLOCK + nstage) * packed.element_size()
     if smem > _SHARED_MEM_LIMIT:
         raise ValueError(f"band tables need {smem} B of shared memory, "
                          f"over the {_SHARED_MEM_LIMIT} B a block can have")
@@ -292,21 +319,23 @@ def _kernel_tables(cfg: SweepConfig, dtype):
 
 
 def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
-               dr=None, vol_over_scale=None):
+               dr=None, vol_over_scale=None, lls=None, track=False):
     """The sweep kernel (``csrc/pyramid_sweep.cu``); same contract as
     `trace_plain`.
 
     Replaces pyramid_sweep.py:trace_centered + the source vmap of
     sweep_pyramid_source_batch, with quadrature.py:_one_source_quad
     inlined: its isothermal branch, or with heating its heating branch
-    too (the per-species heating and the secondary-ionization terms).
-    Bound on the card by the K-node exponentials (about 400 per cell
-    and source at the bench configuration), so the design spends
-    nothing on data movement that a plane-window carry would save:
-    corners are read straight from the 3D column cube, tables sit in
-    shared memory, and the losses reduce per block with no atomics.
+    too (the per-species heating and the secondary-ionization terms);
+    with `lls` the per-cell LLS channel, with `track` the band-resolved
+    escape (track_bands).  Bound on the card by the K-node exponentials
+    (about 400 per cell and source at the bench configuration), so the
+    design spends nothing on data movement that a plane-window carry
+    would save: corners are read straight from the 3D column cube,
+    tables sit in shared memory, and the losses reduce per block with no
+    atomics.
     """
-    global launches, launches_heat
+    global launches, launches_heat, launches_lls, launches_track
     if not fstack.is_cuda:
         raise ValueError("the sweep kernel takes CUDA tensors")
     _same_device(fstack, srcpos, nflux, cfg)
@@ -320,7 +349,13 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     if M % 2 or fstack.shape != (M, M, M, 5):
         raise ValueError(f"fields must be (M, M, M, 5) with M even, got "
                          f"{tuple(fstack.shape)}")
-    packed, types, K, heat = _kernel_tables(cfg, dtype)
+    if lls is not None:
+        lls = lls.reshape(-1)
+        if lls.shape != (M**3,) or lls.dtype != dtype or lls.device != device:
+            raise ValueError(f"lls must be ({M**3},) {dtype} on {device}")
+        lls = lls.contiguous()
+    packed, types, K, heat = _kernel_tables(cfg, dtype, track)
+    nb_all = cfg.tables.sigma_HI.shape[0]
     fields = fstack.contiguous()
     sp = srcpos.to(dtype=torch.int32).contiguous()
     nfl = nflux.to(dtype=dtype).contiguous()
@@ -329,37 +364,55 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     lib = cuda_build.load("pyramid_sweep")
     lib.pyramid_sweep_slots.argtypes = [ctypes.c_int]
     lib.pyramid_sweep_slots.restype = ctypes.c_int
-    nslots = lib.pyramid_sweep_slots(Rf)
+    nslots = max(lib.pyramid_sweep_slots(Rf), 1)
     cd = torch.zeros((S, M, M, M, 3), dtype=dtype, device=device)
     slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
-    partials = torch.zeros((S, max(nslots, 1), 2), dtype=dtype,
-                           device=device)
-    name = ("pyramid_sweep_heat_" if heat else "pyramid_sweep_") + (
-        "f32" if dtype == torch.float32 else "f64")
+    partials = torch.zeros((S, nslots, 2), dtype=dtype, device=device)
+    band_partials = (torch.zeros((S, nslots, nb_all), dtype=dtype,
+                                 device=device) if track else None)
+    name = ("pyramid_sweep_" + ("heat_" if heat else "")
+            + ("track_" if track else "")
+            + ("f32" if dtype == torch.float32 else "f64"))
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
                    + [ctypes.c_double] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    type_args = []
-    for t in range(3):
-        type_args += list(types[t]) if t < len(types) else [0, 0]
+    type_args = [a for t in types for a in t] + [0, 0, 0] * (3 - len(types))
     P = cuda_build.ptr
-    err = fn(P(fields), P(sp), P(nfl), P(packed), P(cd), P(slab),
-             P(partials), M, S, Rf, Rb, K, len(types), *type_args,
+    null = ctypes.c_void_p(None)
+    err = fn(P(fields), P(sp), P(nfl), P(packed),
+             null if lls is None else P(lls), P(cd), P(slab), P(partials),
+             null if band_partials is None else P(band_partials),
+             M, S, Rf, Rb, K, len(types), nb_all, *type_args,
              float(dr_t), float(vos_t), float(cfg.coldensh_LLS),
              float(cfg.max_coldensh), cuda_build.stream_of(fields))
     cuda_build.check(err, name)
-    if heat:
+    if lls is not None:
+        launches_lls += 1
+    elif track:
+        launches_track += 1
+    elif heat:
         launches_heat += 1
     else:
         launches += 1
     losses = partials.sum(dim=1)
-    return slab, losses[:, 0], losses[:, 1]
+    plb = band_partials.sum(dim=1) if track else None
+    return slab, losses[:, 0], losses[:, 1], plb
+
+
+def _source_group(cfg: SweepConfig, S: int, M: int, itemsize: int) -> int:
+    """Sources swept together (JAX's `_source_chunk`): cfg.source_chunk,
+    or 0 for as many as keep a group's cd and slab (S x M^3 x 7 values)
+    under _GROUP_BYTES."""
+    if cfg.source_chunk:
+        return max(1, min(int(cfg.source_chunk), S))
+    return max(1, min(S, _GROUP_BYTES // (M**3 * 7 * itemsize)))
 
 
 def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
                                srcpos_batch, nflux_batch, radius: int = None,
-                               dr=None, vol_over_scale=None) -> RateGrids:
+                               dr=None, vol_over_scale=None,
+                               lls_grid=None) -> RateGrids:
     """Pyramid trace of a source batch (even cubic mesh; default trace
     extents +M/2 / -(M/2-1), evolve_source.F90:103-109).
 
@@ -367,24 +420,51 @@ def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
     each source (evolve_source.F90:114-144): rates outside are zero and
     photons crossing the subbox surface count as photon loss.  `dr` and
     `vol_over_scale` override the configuration's cell size and its
-    host-computed dr^3/flux_scale.
+    host-computed dr^3/flux_scale.  `lls_grid` (mesh^3,) gives each
+    cell's LLS column (the position-dependent LLS model, type 2,
+    mat_ini_test.F90:667-763, and the driver's z-evolving type 1), in
+    place of cfg.coldensh_LLS.  With cfg.track_band_loss the result
+    carries photon_loss_bands.
 
     CUDA tensors go through the kernel, CPU tensors through the plain
-    version; sources whose fluxes are all zero contribute nothing.
+    version; sources whose fluxes are all zero contribute nothing, and a
+    batch of no sources gives zero rates without launching anything.
+    The batch is swept in groups of `_source_group` sources; each
+    group's sum over its sources is added to the total in group order
+    (with one group, the plain sum over sources).
     """
+    M = cfg.mesh
     fstack = stack_sweep_fields(cfg, fields)
-    Rf, Rb = trace_extents(cfg.mesh, radius)
+    dtype, device = fstack.dtype, fstack.device
+    Rf, Rb = trace_extents(M, radius)
     if fstack.is_cuda:
         trace = trace_cuda
-    elif fstack.device.type == "cpu":
+    elif device.type == "cpu":
         trace = trace_plain
     else:
-        raise ValueError(f"no sweep for device {fstack.device}")
-    slab, ploss, lls = trace(cfg, fstack, srcpos_batch, nflux_batch, Rf, Rb,
-                             dr, vol_over_scale)
-    live = torch.any(nflux_batch > 0.0, dim=1)
-    rg = torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
+        raise ValueError(f"no sweep for device {device}")
+    track = cfg.track_band_loss
+    lls = (None if lls_grid is None else
+           torch.as_tensor(lls_grid, dtype=dtype, device=device).reshape(-1))
+    rg = torch.zeros((M**3, 4), dtype=dtype, device=device)
+    pl = torch.zeros((), dtype=dtype, device=device)
+    ll = torch.zeros((), dtype=dtype, device=device)
+    plb = (torch.zeros(cfg.tables.sigma_HI.shape[0], dtype=dtype,
+                       device=device) if track else None)
+    S = srcpos_batch.shape[0]
+    group = _source_group(cfg, S, M, fstack.element_size())
+    for g0 in range(0, S, group):
+        sp = srcpos_batch[g0:g0 + group]
+        nf = nflux_batch[g0:g0 + group]
+        slab, ploss, lloss, plb_g = trace(cfg, fstack, sp, nf, Rf, Rb, dr,
+                                          vol_over_scale, lls=lls,
+                                          track=track)
+        live = torch.any(nf > 0.0, dim=1)
+        rg = rg + torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
+        pl = pl + torch.where(live, ploss, 0.0).sum()
+        ll = ll + torch.where(live, lloss, 0.0).sum()
+        if track:
+            plb = plb + torch.where(live[:, None], plb_g, 0.0).sum(dim=0)
     return RateGrids(phih=rg[:, 0], phihe0=rg[:, 1], phihe1=rg[:, 2],
-                     phiheat=rg[:, 3],
-                     photon_loss=torch.where(live, ploss, 0.0).sum(),
-                     lls_loss=torch.where(live, lls, 0.0).sum())
+                     phiheat=rg[:, 3], photon_loss=pl, lls_loss=ll,
+                     photon_loss_bands=plb)

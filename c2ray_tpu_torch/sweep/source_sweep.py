@@ -7,7 +7,7 @@ engine is not ported yet.
 """
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,6 +37,12 @@ class SweepConfig:
     has_bb: bool = True
     has_pl: bool = False
     has_qso: bool = False
+    # sources swept together per group (0 = auto: the group's column
+    # cube and rate slab, S x M^3 x 7 values, under a fixed byte budget)
+    source_chunk: int = 0
+    # track the escaping-photon rate over the full band axis: the input
+    # of the photon-loss redistribution (sweep/photon_losses.py)
+    track_band_loss: bool = False
 
     @property
     def vol(self) -> float:
@@ -63,6 +69,9 @@ class RateGrids(NamedTuple):
     phiheat: torch.Tensor
     photon_loss: torch.Tensor
     lls_loss: torch.Tensor
+    # (nbands,) escaping-photon rate per band when the sweep ran with
+    # track_band_loss, else None
+    photon_loss_bands: Optional[torch.Tensor] = None
 
 
 def zero_rate_grids(mesh: int, dtype, device=None) -> RateGrids:
@@ -72,7 +81,8 @@ def zero_rate_grids(mesh: int, dtype, device=None) -> RateGrids:
                      photon_loss=s, lls_loss=s)
 
 
-def _cell_rates(cfg: SweepConfig, cd_in, cd_out, vol_ph, nflux, i_state):
+def _cell_rates(cfg: SweepConfig, cd_in, cd_out, vol_ph, nflux, i_state,
+                track_bands=False):
     """cd_in/cd_out: (..., 3) species columns; nflux: (..., 3) per
     source type (BB, PL, QSO), broadcast against the cells."""
     return photoion_rates_quad(
@@ -84,4 +94,5 @@ def _cell_rates(cfg: SweepConfig, cd_in, cd_out, vol_ph, nflux, i_state):
         nflux_pl=nflux[..., 1] if cfg.has_pl else None,
         nflux_qso=nflux[..., 2] if cfg.has_qso else None,
         do_heating=not cfg.isothermal,
+        track_bands=track_bands,
     )

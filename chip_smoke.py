@@ -30,15 +30,43 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Then each kernel's time and its plain version's at its main path's
 shapes, and their agreement there within the stated float32
-tolerances.  The last line is
+tolerances.  The Run3D slice adds:
+
+7. kernel vs plain at 32^3 x 3 sources, float64 and float32,
+   isothermal and heating: the sweep with a per-cell LLS grid and with
+   band tracking (rates, heat, photon / LLS loss, band loss); the
+   photon-loss kernel, also on fully ionized cells; grouped vs
+   ungrouped sweeps, and a batch of no sources;
+8. photon-loss main path: the bench configuration with
+   `track_band_loss` and `add_photon_losses`, timed as in 4; the
+   redistributed photons equal the tracked escape; then the band-
+   tracking sweep's and the photon-loss kernel's times;
+9. driver physics: `Run3D` on the configuration of
+   ``tools/tpu_run3d_check.py`` (32^3, heating, T0 = 100 K, two
+   sources) in float32 on the card against the port's plain float64
+   on the CPU, which runs in a process of its own from the start of
+   the script;
+10. driver at full width: `Run3D.run()` at 128^3, heating, float32, on
+   a seeded synthetic CubeP3M tree (3 redshifts from z = 9, density
+   cubes with noise and blobs, 64-halo catalogs with suppression,
+   clumping and LLS type 1), 2 slices x 2 steps; then the per-cell LLS
+   sweep's time at the shapes of its last step.
+
+Each entry of the `kernels` line carries its bound: the larger of the
+bytes the function must move over the card's memory rate and its
+operations over their peak rate (`bound`).  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,6 +105,71 @@ def event_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
+# tensor cores; the special-function units (exp, reciprocal) give 16
+# results per SM and clock at compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput), x 132 SMs x
+# 1.98 GHz.  The main path runs float32.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+SFU_PER_S = 16 * 132 * 1.98e9
+
+
+def bound(nbytes, flops, sfu):
+    """(bound_ms, bound_by) of a float32 kernel: the larger of the bytes
+    over the memory rate and the operations over their peak rate (the
+    float32 pipes and the special-function units run side by side, so
+    the slower of the two)."""
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / FP32_FLOPS_PER_S, sfu / SFU_PER_S)
+    return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def sweep_bound(sweep_cfg, S, Rf, Rb, lls=False, track=False):
+    """Bound of one float32 sweep of S sources over (Rf + Rb + 1)^3
+    cells each.  Bytes: the 5 field channels (and the LLS grid) read
+    once, the (S, M^3, 4) rate slab written once.  Operations: at each
+    of the K nodes of each live band, cell and source, 2 exponentials
+    (e_in, e_out) on the special-function units and 10 flops of the
+    photo sums (25 with the heating sums) on the float32 pipes; an
+    expm1 per cell with LLS, an add per band and cell with tracking."""
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    heat = ps._heats(sweep_cfg)
+    packed, _, K = ps._packed_tables(sweep_cfg, torch.float32, heat)
+    M, nlive = sweep_cfg.mesh, packed.shape[0]
+    cells = S * (Rf + Rb + 1) ** 3
+    nodes = cells * nlive * K
+    nbytes = 4 * (M**3 * (6 if lls else 5) + S * M**3 * 4)
+    flops = nodes * (25 if heat else 10) + (cells * nlive if track else 0)
+    return bound(nbytes, flops, 2 * nodes + (cells if lls else 0))
+
+
+# one fixed-point iteration of one cell (csrc/chemistry.cu, lower
+# estimates): two doric solves, each a square root, 3 exponentials and
+# 3 expm1, and about 200 flops; the bound counts one iteration per
+# cell, the least any cell does
+CHEM_SFU_PER_ITERATION = 14
+CHEM_FLOPS_PER_ITERATION = 200
+
+
+def chemistry_bound(n, heat):
+    """Bound of one float32 chemistry pass over n cells: 20 state and
+    rate rows read (22 with heating), 12 rows written; one iteration
+    per cell."""
+    return bound(4 * n * ((22 if heat else 20) + 12),
+                 n * CHEM_FLOPS_PER_ITERATION, n * CHEM_SFU_PER_ITERATION)
+
+
+def photon_losses_bound(n, nb):
+    """Bound of one float32 photon-loss redistribution over n cells and
+    nb bands: 4 field rows read, 3 rate rows read and written; per cell
+    and band the 3-term denominator (5 flops), its reciprocal (one
+    special-function result) and 3 multiply-adds (6 flops)."""
+    return bound(4 * n * 10, n * nb * 11, n * nb)
 
 
 # the bench configuration's source and box (bench.py:70-136): S_star,
@@ -138,21 +231,28 @@ def rel_err(a, b):
     return float((a - b).abs().max()) / (scale if scale > 0 else 1.0)
 
 
+SWEEP_PARTS = ("rates", "heat", "photon_loss", "lls_loss", "band_loss")
+
+
 def _sweep_parts(out, unit):
-    """(rates, heat, photon_loss, lls_loss) of a trace; losses are in
-    the tables' flux units, brought to float64 physical by `unit`."""
-    slab, ploss, lls = out
-    return (slab[..., :3], slab[..., 3], ploss.double() * unit,
-            lls.double() * unit)
+    """(rates, heat, photon_loss, lls_loss[, band_loss]) of a trace;
+    losses are in the tables' flux units, brought to float64 physical
+    by `unit`; the band loss when the trace tracked bands."""
+    slab, ploss, lls = out[:3]
+    parts = (slab[..., :3], slab[..., 3], ploss.double() * unit,
+             lls.double() * unit)
+    if len(out) > 3 and out[3] is not None:
+        parts += (out[3].double() * unit,)
+    return parts
 
 
-def compare_sweep(cfg64, cfg32, M, dev, radius, lls):
+def compare_sweep(cfg64, cfg32, M, dev, radius, lls, lls_grid=None,
+                  track=False):
     """Sweep kernel vs plain at float64 (tight) and float32 (against
     the float64 plain result, as accurate as the float32 plain
-    version), the heating column on its own.  Returns the worst float32
-    relative error of the kernel."""
-    import dataclasses
-
+    version), the heating column on its own; with `lls_grid` (numpy,
+    M^3) the per-cell LLS variant, with `track` the band-tracking one.
+    Returns the worst float32 relative error of the kernel."""
     from c2ray_tpu_torch.sweep import pyramid_sweep as ps
 
     out = {}
@@ -163,23 +263,29 @@ def compare_sweep(cfg64, cfg32, M, dev, radius, lls):
         fstack = ps.stack_sweep_fields(cfg, fields_of(state))
         Rf, Rb = ps.trace_extents(M, radius)
         unit = cfg.flux_scale / cfg64.sweep.flux_scale
+        kw = dict(track=track, lls=None if lls_grid is None else
+                  torch.as_tensor(lls_grid, dtype=dtype, device=dev))
         out[name] = (
-            _sweep_parts(ps.trace_cuda(cfg, fstack, srcpos, nflux, Rf, Rb),
-                         unit),
-            _sweep_parts(ps.trace_plain(cfg, fstack, srcpos, nflux, Rf, Rb),
-                         unit))
+            _sweep_parts(ps.trace_cuda(cfg, fstack, srcpos, nflux, Rf, Rb,
+                                       **kw), unit),
+            _sweep_parts(ps.trace_plain(cfg, fstack, srcpos, nflux, Rf, Rb,
+                                        **kw), unit))
     (k64, p64), (k32, p32) = out["f64"], out["f32"]
-    what = ("rates", "heat", "photon_loss", "lls_loss")
+    if len(k64) != (5 if track else 4):
+        raise AssertionError("the kernel's band loss is missing")
+    label = (f"radius={radius} lls={lls:g}"
+             + (" lls grid" if lls_grid is not None else "")
+             + (" track" if track else ""))
     # float64: the JAX package's own pyramid-vs-octant tolerance
-    for a, b, w in zip(k64, p64, what):
+    for a, b, w in zip(k64, p64, SWEEP_PARTS):
         scale = float(b.abs().max())
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10 * scale,
-                                   msg=f"f64 sweep {w} radius={radius}")
+                                   msg=f"f64 sweep {w} {label}")
     worst = 0.0
-    for a64, a, b, ref, w in zip(k64, k32, p32, p64, what):
+    for a64, a, b, ref, w in zip(k64, k32, p32, p64, SWEEP_PARTS):
         ek = rel_err(a.double(), ref)
         ep = rel_err(b.double(), ref)
-        log(f"  sweep radius={radius} lls={lls:g} {w}: f64 kernel-plain "
+        log(f"  sweep {label} {w}: f64 kernel-plain "
             f"{rel_err(a64, ref):.3e}; vs f64 plain: f32 kernel {ek:.3e}, "
             f"f32 plain {ep:.3e}")
         # float32: the kernel's error against float64 within twice the
@@ -212,8 +318,8 @@ def compare_chemistry(cfg64, cfg32, M, dev, dt=1.0e14, ccf=None):
         state, srcpos, nflux = random_case(M, 3, dtype, dev, seed=6)
         fstack = ps.stack_sweep_fields(cfg.sweep, fields_of(state))
         Rf, Rb = ps.trace_extents(M)
-        slab, pl, ll = ps.trace_plain(cfg.sweep, fstack, srcpos, nflux, Rf,
-                                      Rb)
+        slab, pl, ll, _ = ps.trace_plain(cfg.sweep, fstack, srcpos, nflux,
+                                         Rf, Rb)
         rg = slab.sum(dim=0)
         rates = RateGrids(rg[:, 0], rg[:, 1], rg[:, 2], rg[:, 3], pl.sum(),
                           ll.sum())
@@ -273,35 +379,175 @@ def phase_compare(dev, M=32, heating=False):
     return sweep_err32, chem_err32
 
 
+def _zero_ion_rates(rates):
+    """`rates` with zero photo-ionization grids, so a redistribution
+    into them leaves exactly what it added."""
+    z = lambda t: torch.zeros_like(t)
+    return rates._replace(phih=z(rates.phih), phihe0=z(rates.phihe0),
+                          phihe1=z(rates.phihe1))
+
+
+def _added(rates):
+    return torch.stack([rates.phih, rates.phihe0, rates.phihe1], dim=-1)
+
+
+def compare_photon_losses(cfg64, cfg32, M, dev):
+    """The photon-loss kernel vs plain on the band escape of a float64
+    sweep (radius 8), on random fields and on fully ionized ones (all
+    neutral fractions 1e-20: JAX's unscaled float32 contraction gives
+    inf there).  float64 within rtol 1e-12; float32 within twice the
+    plain float32 error against float64 plus 1e-6, and finite.  Returns
+    the worst float32 relative error of the kernel."""
+    from c2ray_tpu_torch.sweep import RateGrids
+    from c2ray_tpu_torch.sweep import photon_losses as pl
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    sweep64 = dataclasses.replace(cfg64.sweep, track_band_loss=True)
+    state, srcpos, nflux = random_case(M, 3, torch.float64, dev, seed=9)
+    plb = ps.sweep_pyramid_source_batch(sweep64, fields_of(state), srcpos,
+                                        nflux, radius=8).photon_loss_bands
+    worst = 0.0
+    for case in ("random", "ionized"):
+        res = {}
+        for name, cfg, dtype in (("f64", cfg64, torch.float64),
+                                 ("f32", cfg32, torch.float32)):
+            st = random_case(M, 3, dtype, dev, seed=9)[0]
+            f = fields_of(st)
+            if case == "ionized":
+                tiny = torch.full_like(f.h_av0, 1.0e-20)
+                f = f._replace(h_av0=tiny, he_av0=tiny, he_av1=tiny)
+            # the escape in this dtype's flux units (the float32 tables
+            # are scaled by the source strength, the float64 ones not)
+            fs = cfg.sweep.flux_scale
+            z = torch.zeros(M**3, dtype=dtype, device=dev)
+            rates = RateGrids(z, z, z, z, z.sum(), z.sum(),
+                              (plb * (sweep64.flux_scale / fs)).to(dtype))
+            vos = cfg.sweep.vol / fs
+            res[name] = [_added(fn(cfg.sweep.tables, _zero_ion_rates(rates),
+                                   f, vos))
+                         for fn in (pl.distribute_photon_losses_cuda,
+                                    pl.distribute_photon_losses_plain)]
+        (k64, p64), (k32, p32) = res["f64"], res["f32"]
+        torch.testing.assert_close(k64, p64, rtol=1e-12, atol=0.0,
+                                   msg=f"f64 photon losses ({case})")
+        ek, ep = rel_err(k32.double(), p64), rel_err(p32.double(), p64)
+        log(f"  photon losses ({case}): f64 kernel-plain "
+            f"{rel_err(k64, p64):.3e}; vs f64 plain: f32 kernel {ek:.3e}, "
+            f"f32 plain {ep:.3e}")
+        if not (bool(torch.isfinite(k32).all()) and ek <= 2.0 * ep + 1e-6):
+            raise AssertionError(f"f32 photon losses ({case}): kernel error "
+                                 f"{ek:.3e} vs plain {ep:.3e}")
+        worst = max(worst, ek)
+    return worst
+
+
+def compare_groups(cfg64, cfg32, M, dev, S=5):
+    """A tracked sweep of S sources in groups of 2 vs in one group,
+    through the kernels (the groups' sums add in another order: float64
+    within rtol 1e-12, float32 within the kernel-vs-plain rule, 1e-4
+    with 1e-4 of the largest value as the floor); and a batch of no
+    sources gives zero rates without a launch."""
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    for name, cfg, dtype in (("f64", cfg64, torch.float64),
+                             ("f32", cfg32, torch.float32)):
+        sweep = dataclasses.replace(cfg.sweep, track_band_loss=True)
+        state, srcpos, nflux = random_case(M, S, dtype, dev, seed=10)
+        f = fields_of(state)
+        one = ps.sweep_pyramid_source_batch(sweep, f, srcpos, nflux,
+                                            radius=8)
+        grouped = ps.sweep_pyramid_source_batch(
+            dataclasses.replace(sweep, source_chunk=2), f, srcpos, nflux,
+            radius=8)
+        tol = 1e-12 if dtype == torch.float64 else 1e-4
+        worst = 0.0
+        for a, b, w in zip(grouped, one, one._fields):
+            torch.testing.assert_close(a, b, rtol=tol,
+                                       atol=tol * float(b.abs().max()),
+                                       msg=f"{name} grouped sweep {w}")
+            worst = max(worst, rel_err(a, b))
+        log(f"  grouped (2) vs one group, {S} sources {name}: largest "
+            f"difference {worst:.3e} of each part's largest value")
+        before = launch_counts()
+        empty = ps.sweep_pyramid_source_batch(sweep, f, srcpos[:0],
+                                              nflux[:0])
+        if launch_counts() != before or any(
+                float(t.abs().max()) != 0.0 for t in empty):
+            raise AssertionError("a batch of no sources launched or gave "
+                                 "non-zero rates")
+
+
+def phase_compare_slice(dev, M=32, heating=False):
+    """Phase 7: the per-cell LLS and band-tracking sweep variants, the
+    photon-loss kernel and source groups, kernel vs plain at M^3 x 3
+    sources.  Returns the worst float32 errors (LLS sweep, tracked
+    sweep, photon losses)."""
+    cfg64, _ = setup(M, 1e48, 5e4, 10.0, torch.float64, dev, heating)
+    cfg32, _ = setup(M, 1e48, 5e4, 10.0, torch.float32, dev, heating)
+    # a position-dependent (type 2) LLS grid: 1e14-1e17 cm^-2 per cell,
+    # tau_LLS 6e-4 to 0.6
+    grid = 10.0 ** np.random.RandomState(8).uniform(14.0, 17.0, M**3)
+    lls_err = max(compare_sweep(cfg64, cfg32, M, dev, r, 0.0, lls_grid=grid)
+                  for r in (None, 8))
+    track_err = max(compare_sweep(cfg64, cfg32, M, dev, r, 0.0, track=True)
+                    for r in (None, 8))
+    pl_err = compare_photon_losses(cfg64, cfg32, M, dev)
+    compare_groups(cfg64, cfg32, M, dev)
+    log(f"LLS / band-tracking / photon-loss kernels vs plain"
+        f"{' (heating)' if heating else ''}: ok")
+    return lls_err, track_err, pl_err
+
+
 def launch_counts():
-    from c2ray_tpu_torch.sweep import global_pass, pyramid_sweep
+    from c2ray_tpu_torch.sweep import global_pass, photon_losses, pyramid_sweep
 
     return {"pyramid_sweep": pyramid_sweep.launches,
             "pyramid_sweep_heat": pyramid_sweep.launches_heat,
+            "pyramid_sweep_lls": pyramid_sweep.launches_lls,
+            "pyramid_sweep_track": pyramid_sweep.launches_track,
             "chemistry": global_pass.launches,
-            "chemistry_heat": global_pass.launches_heat}
+            "chemistry_heat": global_pass.launches_heat,
+            "photon_losses": photon_losses.launches}
 
 
 def reset_launch_counts():
-    from c2ray_tpu_torch.sweep import global_pass, pyramid_sweep
+    from c2ray_tpu_torch.sweep import global_pass, photon_losses, pyramid_sweep
 
     pyramid_sweep.launches = pyramid_sweep.launches_heat = 0
+    pyramid_sweep.launches_lls = pyramid_sweep.launches_track = 0
     global_pass.launches = global_pass.launches_heat = 0
+    photon_losses.launches = 0
 
 
-def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
-    """Phases 4 and 5: the bench configuration in float32 through the
-    public entry points, isothermal or with heating; returns what the
+def check_launches(name, counts, mine):
+    """Every kernel in `mine` launched by the run, no other."""
+    log(f"  launches: {counts}")
+    for k, c in counts.items():
+        if (c <= 0) if k in mine else (c != 0):
+            raise AssertionError(f"{name} launched {k} {c} times")
+
+
+def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
+               photon_losses=False):
+    """Phases 4, 5 and 8: the bench configuration in float32 through the
+    public entry points, isothermal or with heating, or (phase 8) with
+    band tracking and the photon-loss redistribution; returns what the
     kernel timings need and the launch counts of this run."""
     from c2ray_tpu_torch import photonstats
     from c2ray_tpu_torch.rates import rate_coefficients
     from c2ray_tpu_torch.state import initial_grid_state
     from c2ray_tpu_torch.sweep import (evolve3d, global_pass,
                                        make_evolve3d_iteration,
-                                       pyramid_sweep)
+                                       photon_losses as pls, pyramid_sweep)
 
-    name = "heating main path" if heating else "main path"
+    name = ("photon-loss main path" if photon_losses else
+            "heating main path" if heating else "main path")
     cfg, sed = setup(mesh, *BENCH_SOURCE, torch.float32, dev, heating)
+    if photon_losses:
+        cfg = dataclasses.replace(
+            cfg, add_photon_losses=True,
+            sweep=dataclasses.replace(cfg.sweep, track_band_loss=True))
+    vos = cfg.sweep.vol / cfg.sweep.flux_scale
     rng = np.random.RandomState(7)
     srcpos = torch.as_tensor(rng.randint(0, mesh, size=(n_src, 3)),
                              device=dev)
@@ -325,12 +571,16 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
     rate = mesh**3 * n_src / spi
     # per-phase walls of n_iter more iterations, with the chemistry
     # kernel's iteration and thermal sub-step counters
-    sweep_w, chem_w, chem_it, chem_sub = [], [], [], []
+    sweep_w, chem_w, chem_it, chem_sub, pl_w = [], [], [], [], []
     st = s
     for _ in range(n_iter):
         rates, w = synced(pyramid_sweep.sweep_pyramid_source_batch,
                           cfg.sweep, fields_of(st), srcpos, nflux)
         sweep_w.append(w)
+        if photon_losses:
+            rates, w = synced(pls.distribute_photon_losses, cfg.sweep.tables,
+                              rates, fields_of(st), vos)
+            pl_w.append(w)
         (st, _, nit, nsub), w = synced(global_pass.chemistry_pass_cuda,
                                        cfg.chem, st, rates, dt)
         chem_w.append(w)
@@ -346,6 +596,9 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
         f"cell-source-updates/s, {spi:.6f} s/iteration")
     log(f"  sweep wall per iteration: {np.mean(sweep_w):.6f} s "
         f"({', '.join(f'{w:.4f}' for w in sweep_w)})")
+    if photon_losses:
+        log(f"  photon-loss redistribution wall per iteration: "
+            f"{np.mean(pl_w):.6f} s ({', '.join(f'{w:.5f}' for w in pl_w)})")
     log(f"  chemistry wall per iteration: {np.mean(chem_w):.6f} s "
         f"({', '.join(f'{w:.4f}' for w in chem_w)}); largest chemistry "
         f"iterations {chem_it}, thermal sub-steps {chem_sub}")
@@ -367,12 +620,14 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
         if not all(math.isfinite(float(v)) for v in budget):
             raise AssertionError("heating timestep's photon budget is not "
                                  "finite")
-    log(f"  launches: {counts}")
-    mine = (("pyramid_sweep_heat", "chemistry_heat") if heating
-            else ("pyramid_sweep", "chemistry"))
-    for k, c in counts.items():
-        if (c <= 0) if k in mine else (c != 0):
-            raise AssertionError(f"{name} launched {k} {c} times")
+    if photon_losses:
+        check_redistribution(cfg, s, srcpos, nflux, vos)
+        mine = ("pyramid_sweep_track", "photon_losses",
+                "chemistry_heat" if heating else "chemistry")
+    else:
+        mine = (("pyramid_sweep_heat", "chemistry_heat") if heating
+                else ("pyramid_sweep", "chemistry"))
+    check_launches(name, counts, mine)
     for t in (*s, *s_evo):
         if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name} produced non-finite state")
@@ -381,7 +636,11 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
         raise AssertionError(f"{name} produced non-finite diagnostics")
     if s.h1.shape != (mesh**3,) or s_evo.h1.shape != (mesh**3,):
         raise AssertionError(f"{name} state has the wrong shape")
-    return cfg, s, srcpos, nflux, dt, {k: counts[k] for k in mine}
+    # the photon-loss path's chemistry launches are not the isothermal
+    # path's: keep them apart
+    return cfg, s, srcpos, nflux, dt, {
+        (k + "@photon_losses" if photon_losses and k.startswith("chemistry")
+         else k): counts[k] for k in mine}
 
 
 def phase_physics(dev, M=20):
@@ -570,6 +829,368 @@ def phase_kernel_times(cfg, s, srcpos, nflux, dt):
             (chem_ms, chem_plain_ms, chem_abs, temp_rel))
 
 
+def check_redistribution(cfg, s, srcpos, nflux, vos):
+    """Phase 8's budget: a tracked sweep of the main path's state, its
+    band escape summing to its photon loss, redistributed by the kernel
+    into zero grids: the photons the grid absorbs (sum over cells and
+    species of dphi N V) equal the tracked escape within rtol 1e-4
+    (float32 sums over 2M cells and 47 bands)."""
+    from c2ray_tpu_torch.sweep import photon_losses as pls
+    from c2ray_tpu_torch.sweep import pyramid_sweep
+
+    f = fields_of(s)
+    rates = pyramid_sweep.sweep_pyramid_source_batch(cfg.sweep, f, srcpos,
+                                                     nflux)
+    lost = float(rates.photon_loss_bands.double().sum())
+    added = _added(pls.distribute_photon_losses_cuda(
+        cfg.sweep.tables, _zero_ion_rates(rates), f, vos))
+    absorbed = float((added.double()
+                      * pls.neutral_densities(f).double()).sum()) * vos
+    log(f"  redistributed photons {absorbed:.6e} vs tracked escape "
+        f"{lost:.6e} vs photon_loss {float(rates.photon_loss):.6e} "
+        f"(flux units)")
+    if not (lost > 0.0 and math.isclose(absorbed, lost, rel_tol=1e-4)
+            and math.isclose(lost, float(rates.photon_loss), rel_tol=1e-4)):
+        raise AssertionError("the photon-loss redistribution does not "
+                             "close the budget")
+
+
+def _timed_plain(fn, groups):
+    """(outputs of fn(g) for each g in groups, their total wall in ms)
+    between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(g) for g in groups]
+    torch.cuda.synchronize()
+    return outs, 1e3 * (time.perf_counter() - t0)
+
+
+def sweep_times(sweep_cfg, fstack, srcpos, nflux, Rf, Rb, dr=None,
+                vos=None, lls=None, track=False, plain_group=8):
+    """A sweep variant's kernel time (CUDA events, mean of 3 after a
+    warm-up) and its plain version's (one pass, in groups of
+    `plain_group` sources to bound its intermediates), and their largest
+    difference; each part within the float32 tolerance of phase 3's
+    main-path check, 1e-4 with 1e-4 of its largest value as the floor.
+    Returns (ms, plain_ms, max |kernel - plain| of the rates (1/s))."""
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    args = (sweep_cfg, fstack)
+    kw = dict(dr=dr, vol_over_scale=vos, lls=lls, track=track)
+    ms = event_ms(lambda: ps.trace_cuda(*args, srcpos, nflux, Rf, Rb, **kw),
+                  3)
+    k = ps.trace_cuda(*args, srcpos, nflux, Rf, Rb, **kw)
+    S = srcpos.shape[0]
+    outs, plain_ms = _timed_plain(
+        lambda g: ps.trace_plain(*args, srcpos[g:g + plain_group],
+                                 nflux[g:g + plain_group], Rf, Rb, **kw),
+        range(0, S, plain_group))
+    p = tuple(None if outs[0][i] is None else torch.cat([o[i] for o in outs])
+              for i in range(4))
+    for a, b, w in zip(_sweep_parts(k, 1.0), _sweep_parts(p, 1.0),
+                       SWEEP_PARTS):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()),
+                                   msg=f"sweep {w} at {sweep_cfg.mesh}^3")
+    return ms, plain_ms, float((k[0][..., :3] - p[0][..., :3]).abs().max())
+
+
+def phase_track_times(cfg, s, srcpos, nflux):
+    """The band-tracking sweep and the photon-loss kernel at phase 8's
+    shapes: kernel, plain version and (photon losses) the two-matmul
+    composition of the JAX function, `torch.reciprocal(N @ sig) @ W`;
+    the kernel's added rates within rtol 1e-5 of the plain version's (47
+    positive terms summed in another order)."""
+    from c2ray_tpu_torch.sweep import photon_losses as pls
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    mesh, S = cfg.sweep.mesh, srcpos.shape[0]
+    fstack = ps.stack_sweep_fields(cfg.sweep, fields_of(s))
+    Rf, Rb = ps.trace_extents(mesh)
+    sw = sweep_times(cfg.sweep, fstack, srcpos, nflux, Rf, Rb, track=True)
+    sw_bound = sweep_bound(cfg.sweep, S, Rf, Rb, track=True)
+    log(f"band-tracking sweep at {mesh}^3 x {S}: kernel {sw[0]:.3f} ms, "
+        f"plain {sw[1]:.3f} ms, bound {sw_bound[0]:.3f} ms "
+        f"({sw_bound[1]}), max |kernel - plain| {sw[2]:.3e} (f32 rates)")
+
+    f = fields_of(s)
+    tables = cfg.sweep.tables
+    vos = cfg.sweep.vol / cfg.sweep.flux_scale
+    rates = ps.sweep_pyramid_source_batch(cfg.sweep, f, srcpos, nflux)
+    k = _added(pls.distribute_photon_losses_cuda(
+        tables, _zero_ion_rates(rates), f, vos))
+    p = _added(pls.distribute_photon_losses_plain(
+        tables, _zero_ion_rates(rates), f, vos))
+    torch.testing.assert_close(k, p, rtol=1e-5,
+                               atol=1e-5 * float(p.abs().max()),
+                               msg=f"photon losses at {mesh}^3")
+    pl_abs = float((k - p).abs().max())
+    ms = event_ms(lambda: pls.distribute_photon_losses_cuda(
+        tables, rates, f, vos), 20)
+    plain_ms = event_ms(lambda: pls.distribute_photon_losses_plain(
+        tables, rates, f, vos), 20)
+    N = pls.neutral_densities(f)
+    sig, W = pls.scaled_sigma_and_weights(tables, rates.photon_loss_bands,
+                                          mesh**3, vos, torch.float32)
+    library_ms = event_ms(lambda: torch.reciprocal(N @ sig) @ W, 20)
+    nb = tables.sigma_HI.shape[0]
+    pl_bound = photon_losses_bound(mesh**3, nb)
+    log(f"photon losses at {mesh}^3 x {nb} bands: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, two matmuls {library_ms:.4f} ms, bound "
+        f"{pl_bound[0]:.4f} ms ({pl_bound[1]}), max |kernel - plain| "
+        f"{pl_abs:.3e} (f32 rates)")
+    return (sw, sw_bound), ((ms, plain_ms, pl_abs), pl_bound, library_ms)
+
+
+def driver_physics(dtype, device, workdir, mesh=32):
+    """The run of tools/tpu_run3d_check.py through the port's Run3D: the
+    test backend (10 Mpc/h, z = 9), heating from T0 = 100 K, a 5e4 K
+    blackbody of nominal 3e49 photons/s, two sources at NormFlux 3e5
+    and 1.5e5, one slice of 2 steps.  Returns its diagnostics."""
+    from c2ray_tpu_torch.driver import Run3D, Run3DConfig
+    from c2ray_tpu_torch.nbody import test_nbody
+    from c2ray_tpu_torch.radiation import BlackBodySED, SEDConfig
+    from c2ray_tpu_torch.sources import SourceList
+
+    results = os.path.join(workdir, "results")
+    r = Run3D(Run3DConfig(
+        mesh=mesh, nbody=test_nbody(),
+        sed=SEDConfig(bb=BlackBodySED(T_eff=5e4, S_star=3e49)),
+        isothermal=False, initial_temperature=1.0e2, steps_per_slice=2,
+        results_dir=results, dump_dir=workdir, dtype=dtype, device=device))
+    r.init_uniform_material()
+    c = mesh // 2
+    t0 = time.perf_counter()
+    stats = r.run_slice(0, SourceList(
+        srcpos=np.array([[c, c, c], [c // 2, c, c]], dtype=np.int32),
+        nflux=np.array([[3.0e5, 0.0, 0.0], [1.5e5, 0.0, 0.0]])))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    xh1 = r.state.h1.double().cpu().numpy().reshape((mesh,) * 3)
+    T = r.state.t_final.double().cpu().numpy().reshape((mesh,) * 3)
+    return {"wall_s": wall, "ion_frac": float((xh1 > 0.5).mean()),
+            "xh1_centre": float(xh1[c, c, c]), "xh1_corner": float(xh1[0, 0, 0]),
+            "T_centre": float(T[c, c, c]), "T_corner": float(T[0, 0, 0]),
+            "finite": bool(np.isfinite(xh1).all() and np.isfinite(T).all()),
+            "steps": [tuple(st) for st in stats],
+            "outputs": sorted(os.listdir(results))}
+
+
+def cpu_reference(out_path):
+    """The float64 plain run of phase 9 on the CPU, in a process of its
+    own; writes its diagnostics as JSON to `out_path`."""
+    torch.set_num_threads(4)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out_path)) as tmp:
+        res = driver_physics(torch.float64, "cpu", tmp)
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def start_cpu_reference(workdir):
+    """Start phase 9's CPU reference in a child process that sees no GPU;
+    returns (process, result path, log path)."""
+    out = os.path.join(workdir, "driver_physics_f64.json")
+    logp = os.path.join(workdir, "driver_physics_f64.log")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(logp, "w") as lf:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--cpu-reference", out], env=env,
+                                stdout=lf, stderr=subprocess.STDOUT)
+    return proc, out, logp
+
+
+def phase_driver_physics(dev, workdir, ref):
+    """Phase 9: the Run3D physics check in float32 on the card against
+    the port's plain float64 on the CPU (the reference process started
+    with the script): ionized volume fraction 0.15-0.35 and within 0.02
+    of float64, centre x_HII > 0.8 and T 5e3-6e4 K, corner x_HII < 0.1
+    and T < 1e3 K, the output files written (the criteria of
+    tools/tpu_run3d_check.py, calibrated there on a CPU float64 run:
+    ionized fraction 0.241)."""
+    got = driver_physics(torch.float32, dev,
+                         os.path.join(workdir, "driver_physics_f32"))
+    proc, out, logp = ref
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=1000)
+    waited = time.perf_counter() - t0
+    if rc != 0 or not os.path.exists(out):
+        with open(logp) as f:
+            log(f.read())
+        raise AssertionError(f"the CPU float64 reference failed (exit {rc})")
+    with open(out) as f:
+        want = json.load(f)
+    log(f"driver physics 32^3: card f32 {got['wall_s']:.1f} s, CPU f64 "
+        f"plain {want['wall_s']:.1f} s (waited {waited:.1f} s for it)")
+    for k in ("ion_frac", "xh1_centre", "xh1_corner", "T_centre",
+              "T_corner"):
+        log(f"  {k}: f32 card {got[k]:.6g}, f64 CPU {want[k]:.6g}")
+    log(f"  steps f32: {got['steps']}")
+    log(f"  steps f64: {want['steps']}")
+    log(f"  outputs: {got['outputs']}")
+    ok = (got["finite"] and 0.15 < got["ion_frac"] < 0.35
+          and abs(got["ion_frac"] - want["ion_frac"]) < 0.02
+          and got["xh1_centre"] > 0.8 and got["xh1_corner"] < 0.1
+          and 5.0e3 < got["T_centre"] < 6.0e4 and got["T_corner"] < 1.0e3
+          and len(got["outputs"]) >= 2)
+    if not ok:
+        raise AssertionError("driver physics check failed")
+
+
+def synth_cubep3m_tree(base, mesh, zreds, n_halos=64, seed=12):
+    """A seeded CubeP3M-format input tree under `base`: the redshift
+    list, one density cube per redshift in grid units (mean 1 with 20%
+    noise and 8 overdense Gaussian blobs) and one halo catalog per
+    redshift: 48 massive halos (200-1000 grid masses, half of them at
+    the blobs) and 16 suppressible low-mass ones (5-20 grid masses), each
+    one cell from a massive halo, so slice 1 suppresses those that
+    slice 0 ionized.  Halo masses grow 10% per slice."""
+    from c2ray_tpu_torch.io.fortran_records import write_unformatted_cube
+    from c2ray_tpu_torch.io.readers import _zred_str
+
+    rng = np.random.RandomState(seed)
+    dens_dir = os.path.join(base, "coarser_densities", "halos_removed")
+    src_dir = os.path.join(base, "sources")
+    os.makedirs(dens_dir)
+    os.makedirs(src_dir)
+    zfile = os.path.join(base, "redshifts.txt")
+    with open(zfile, "w") as f:
+        f.write(f"{len(zreds)}\n" + "\n".join(f"{z:.3f}" for z in zreds))
+    blobs = rng.randint(0, mesh, size=(8, 3))
+    n_big = n_halos * 3 // 4
+    big = np.concatenate([blobs[rng.randint(0, 8, n_big // 2)],
+                          rng.randint(0, mesh, size=(n_big - n_big // 2, 3))])
+    small = (big[rng.randint(0, n_big, n_halos - n_big)]
+             + rng.choice([-1, 1], size=(n_halos - n_big, 3))) % mesh
+    m_big = rng.uniform(200.0, 1000.0, n_big)
+    m_small = rng.uniform(5.0, 20.0, n_halos - n_big)
+    ax = np.arange(mesh)
+    for i, z in enumerate(zreds):
+        cube = 1.0 + 0.2 * rng.standard_normal((mesh,) * 3)
+        for b in blobs:
+            d = [np.minimum(np.abs(ax - c), mesh - np.abs(ax - c)) for c in b]
+            r2 = (d[0][:, None, None] ** 2 + d[1][None, :, None] ** 2
+                  + d[2][None, None, :] ** 2)
+            cube += 3.0 * np.exp(-r2 / (2.0 * 3.0**2))
+        write_unformatted_cube(
+            os.path.join(dens_dir, f"{_zred_str(z)}n_all.dat"),
+            np.maximum(cube, 0.1).astype(np.float32), dtype=np.float32)
+        grow = 1.1 ** i
+        rows = ([(*(p + 1), m * grow, 0.0) for p, m in zip(big, m_big)]
+                + [(*(p + 1), 0.0, m * grow) for p, m in zip(small, m_small)])
+        with open(os.path.join(src_dir, f"{_zred_str(z)}_wsubgrid_sources.dat"),
+                  "w") as f:
+            f.write(f"{len(rows)}\n")
+            for row in rows:
+                f.write("%d %d %d %.6e %.6e\n" % row)
+    return zfile, base + os.sep
+
+
+def phase_driver_full(dev, workdir, mesh=128):
+    """Phase 10: Run3D.run() at full width, heating, float32, on a
+    synthetic CubeP3M tree, through the config loader a run file would
+    use.  Cuts from a production run: 128^3 instead of 250^3 and more,
+    64 halos instead of a full catalog (the script's time limit); the
+    seeded tree stands in for N-body outputs the repository does not
+    hold.  The per-cell LLS sweep and the heating chemistry must have
+    been launched."""
+    from c2ray_tpu_torch import driver as drv
+    from c2ray_tpu_torch.config import run3d_config_from_dict
+
+    zfile, base = synth_cubep3m_tree(os.path.join(workdir, "nbody"), mesh,
+                                     [9.0, 8.95, 8.9])
+    results = os.path.join(workdir, "run3d_results")
+    cfg = run3d_config_from_dict({
+        "mesh": mesh, "cosmology": "WMAP3plus",
+        "nbody": {"type": "cubep3m", "redshift_file": zfile,
+                  "boxsize": 10.0, "n_box": mesh, "base_dir": base,
+                  "source_dir": os.path.join(base, "sources") + os.sep},
+        "sed": {"bb": {"T_eff": 5.0e4, "S_star": 1.0e48}},
+        "isothermal": False, "initial_temperature": 100.0,
+        "steps_per_slice": 2, "density_input": "files",
+        "source_input": "catalog",
+        "halo_model": {"uv_model": "Iliev et al"},
+        "clumping": {"type_of_clumping": 1, "clumping_factor": 1.0},
+        "lls": {"type_of_LLS": 1},
+        "streams": {"axis_cut": True, "ion_cubes": True,
+                    "temper_rate_cubes": True, "midplane_cuts": True,
+                    "density_cuts": True},
+        "results_dir": results, "dump_dir": workdir,
+        "dtype": "float32", "device": str(dev)})
+    r = drv.Run3D(cfg)
+
+    # per-step walls and each slice's sources, read around the calls
+    # Run3D.run() makes
+    steps, used = [], []
+    evolve, run_slice = drv.evolve3d, r.run_slice
+
+    def timed_evolve(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evolve(*a, **k)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, out[1]))
+        return out
+
+    def recorded_slice(nz, sources, **k):
+        used.append(sources)
+        out = run_slice(nz, sources, **k)
+        b = r.last_budget
+        log(f"  slice {nz}: {r.last_suppression}; budget {b}; photcons "
+            f"flag {r.photcons_flag}")
+        return out
+
+    reset_launch_counts()
+    drv.evolve3d, r.run_slice = timed_evolve, recorded_slice
+    t0 = time.perf_counter()
+    try:
+        all_stats = r.run()
+        torch.cuda.synchronize()
+    finally:
+        drv.evolve3d = evolve
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"Run3D.run() {mesh}^3 heating float32: {len(all_stats)} slices x "
+        f"{cfg.steps_per_slice} steps in {wall:.3f} s")
+    for i, (w, st) in enumerate(steps):
+        log(f"  step {i}: {w:.3f} s, {st}")
+    outputs = sorted(os.listdir(results))
+    log(f"  outputs ({len(outputs)}): {outputs}")
+    check_launches("driver", counts, ("pyramid_sweep_lls", "chemistry_heat"))
+    for t in r.state:
+        if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
+            raise AssertionError("the driver produced non-finite state")
+    if not (len(all_stats) == 2 and len(steps) == 4 and len(outputs) >= 10
+            and all(math.isfinite(float(v)) for v in r.last_budget)
+            and r.last_suppression.n_total == 64):
+        raise AssertionError("the driver run is incomplete")
+    return r, used[-1], {"pyramid_sweep_lls": counts["pyramid_sweep_lls"]}
+
+
+def phase_lls_times(r, sources):
+    """The per-cell LLS sweep (heating, float32) at the shapes of the
+    driver's last step: its state, LLS grid, sources, subbox radius and
+    proper cell size."""
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    sweep = r.evolve_cfg.sweep
+    dev = r.device
+    fstack = ps.stack_sweep_fields(sweep, fields_of(r.state))
+    Rf, Rb = ps.trace_extents(sweep.mesh, r._subbox_radius)
+    srcpos = torch.as_tensor(sources.srcpos, dtype=torch.int32, device=dev)
+    nflux = torch.as_tensor(sources.nflux, dtype=torch.float32, device=dev)
+    dr = float(r.dr_proper)
+    t = sweep_times(sweep, fstack, srcpos, nflux, Rf, Rb, dr=dr,
+                    vos=dr**3 / sweep.flux_scale, lls=r._current_lls_grid())
+    b = sweep_bound(sweep, srcpos.shape[0], Rf, Rb, lls=True)
+    log(f"LLS sweep (heating) at {sweep.mesh}^3 x {srcpos.shape[0]} sources, "
+        f"radius {r._subbox_radius}: kernel {t[0]:.3f} ms, plain {t[1]:.3f} "
+        f"ms, bound {b[0]:.3f} ms ({b[1]}), max |kernel - plain| "
+        f"{t[2]:.3e} (f32 rates)")
+    return t, b
+
+
 def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -577,7 +1198,7 @@ def build_kernels():
     from c2ray_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    names = ("pyramid_sweep", "chemistry")
+    names = ("pyramid_sweep", "chemistry", "photon_losses")
     with ThreadPoolExecutor(len(names)) as pool:
         for f in [pool.submit(cuda_build.load, n) for n in names]:
             f.result()
@@ -586,17 +1207,22 @@ def build_kernels():
         kernel = ""
         for line in cuda_build.build_log(name).splitlines():
             m = re.search(r"Compiling entry .*?\d([a-z_]+_kernel)I([fd])"
-                          r"(?:Lb([01])E)?", line)
+                          r"(?:Lb([01])E)?(?:Lb([01])E)?", line)
             if m:
                 dtype = "float" if m.group(2) == "f" else "double"
                 heat = ", heat" if m.group(3) == "1" else ""
-                kernel = f"{m.group(1)}<{dtype}{heat}>"
+                track = ", track" if m.group(4) == "1" else ""
+                kernel = f"{m.group(1)}<{dtype}{heat}{track}>"
             elif kernel and ("registers" in line or "spill" in line):
                 log(f"  {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
+    if sys.argv[1:2] == ["--cpu-reference"]:
+        # phase 9's float64 reference, started by the script itself
+        cpu_reference(sys.argv[2])
+        return
     # -- 1. card
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -606,7 +1232,27 @@ def main():
     log(f"card: {smi_line()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    ref = start_cpu_reference(workdir)                              # 9.
+    try:
+        kernels = run_phases(dev, workdir, ref)
+    finally:
+        if ref[0].poll() is None:
+            ref[0].kill()
+        ref[0].wait()
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
+
+def run_phases(dev, workdir, ref):
+    """Phases 2-10; returns the entries of the `kernels` line."""
     def phase(label, fn, *args, **kw):
         t0 = time.perf_counter()
         out = fn(*args, **kw)
@@ -623,17 +1269,36 @@ def main():
         "heating main path", phase_main, dev, heating=True)        # 5.
     phase("Stroemgren", phase_physics, dev)                         # 6.
     phase("heating physics", phase_heating_physics, dev)
+    errs = [phase("compare LLS, tracking, photon losses",           # 7.
+                  phase_compare_slice, dev),
+            phase("compare LLS, tracking, photon losses heating",
+                  phase_compare_slice, dev, heating=True)]
+    lls_err, track_err, pl_err = (max(e) for e in zip(*errs))
+    pcfg, ps_, psrc, pnfl, _, pcounts = phase(                      # 8.
+        "photon-loss main path", phase_main, dev, photon_losses=True)
+    phase("driver physics", phase_driver_physics, dev, workdir, ref)  # 9.
+    r, last_sources, dcounts = phase("driver", phase_driver_full,  # 10.
+                                     dev, workdir)
+    # the kernel times last, when phase 9's CPU reference process no
+    # longer shares the host with the launches
     iso_t = phase("kernel times", phase_kernel_times, cfg, s, srcpos,
                   nflux, dt)
     heat_t = phase("heating kernel times", phase_kernel_times, hcfg, hs,
                    hsrc, hnfl, hdt)
-    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    track_t, pl_t = phase("photon-loss kernel times", phase_track_times,
+                          pcfg, ps_, psrc, pnfl)
+    lls_t = phase("LLS kernel times", phase_lls_times, r, last_sources)
 
-    counts.update(hcounts)
+    # each kernel's launches on its own path: phases 4, 5, 8 and 10
+    counts = {**counts, **hcounts, **pcounts, **dcounts}
+    M = cfg.sweep.mesh
+    Rf, Rb = (M // 2, M // 2 - 1)
     kernels = []
-    for (sw, ch), sw_err, ch_err, sfx in (
-            (iso_t, sweep_err32, chem_err32, ""),
-            (heat_t, hsweep_err32, hchem_err32, "_heat")):
+    for (sw, ch), sw_err, ch_err, sfx, c in (
+            (iso_t, sweep_err32, chem_err32, "", cfg),
+            (heat_t, hsweep_err32, hchem_err32, "_heat", hcfg)):
+        sb = sweep_bound(c.sweep, srcpos.shape[0], Rf, Rb)
+        cb = chemistry_bound(M**3, bool(sfx))
         kernels += [
             {"name": "pyramid_sweep" + sfx, "route": "cuda",
              "source": "c2ray_tpu_torch/csrc/pyramid_sweep.cu",
@@ -642,7 +1307,8 @@ def main():
              "launches": counts["pyramid_sweep" + sfx], "max_abs_err": sw[2],
              "max_rel_err_heat": sw[3],
              "max_rel_err_f32_32cube": sw_err,
-             "ms": sw[0], "plain_ms": sw[1]},
+             "ms": sw[0], "plain_ms": sw[1], "bound_ms": sb[0],
+             "bound_by": sb[1], "library_ms": None},
             {"name": "chemistry" + sfx, "route": "cuda",
              "source": "c2ray_tpu_torch/csrc/chemistry.cu",
              "replaces": ("c2ray_tpu/thermal.py:119" if sfx
@@ -650,13 +1316,33 @@ def main():
              "launches": counts["chemistry" + sfx], "max_abs_err": ch[2],
              "max_rel_err_temperature": ch[3],
              "max_err_f32_32cube": ch_err,
-             "ms": ch[0], "plain_ms": ch[1]},
+             "ms": ch[0], "plain_ms": ch[1], "bound_ms": cb[0],
+             "bound_by": cb[1], "library_ms": None},
         ]
-    print(json.dumps({"kernels": kernels}))
-    print(smi_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    (lms, lplain, labs), lb = lls_t
+    (tms, tplain, tabs), tb = track_t
+    (pms, pplain, pabs), pb, plib = pl_t
+    kernels += [
+        {"name": "pyramid_sweep_lls", "route": "cuda",
+         "source": "c2ray_tpu_torch/csrc/pyramid_sweep.cu",
+         "replaces": "c2ray_tpu/sweep/pyramid_sweep.py:116",
+         "launches": counts["pyramid_sweep_lls"], "max_abs_err": labs,
+         "max_err_f32_32cube": lls_err, "ms": lms, "plain_ms": lplain,
+         "bound_ms": lb[0], "bound_by": lb[1], "library_ms": None},
+        {"name": "pyramid_sweep_track", "route": "cuda",
+         "source": "c2ray_tpu_torch/csrc/pyramid_sweep.cu",
+         "replaces": "c2ray_tpu/radiation/quadrature.py:330",
+         "launches": counts["pyramid_sweep_track"], "max_abs_err": tabs,
+         "max_err_f32_32cube": track_err, "ms": tms, "plain_ms": tplain,
+         "bound_ms": tb[0], "bound_by": tb[1], "library_ms": None},
+        {"name": "photon_losses", "route": "cuda",
+         "source": "c2ray_tpu_torch/csrc/photon_losses.cu",
+         "replaces": "c2ray_tpu/sweep/photon_losses.py:45",
+         "launches": counts["photon_losses"], "max_abs_err": pabs,
+         "max_err_f32_32cube": pl_err, "ms": pms, "plain_ms": pplain,
+         "bound_ms": pb[0], "bound_by": pb[1], "library_ms": plib},
+    ]
+    return kernels
 
 
 if __name__ == "__main__":

@@ -173,8 +173,8 @@ def test_packed_tables_layout(heat):
     assert packed.shape[1] == (17 + 5 * K if heat else 5 + 2 * K)
     assert [t[0] for t in types] == [0, 1]
     row = 0
-    for sq, (col, nb) in zip((tables.bb, tables.pl), types):
-        assert nb == sq.band_hi - sq.band_lo + 1
+    for sq, (col, nb, lo) in zip((tables.bb, tables.pl), types):
+        assert nb == sq.band_hi - sq.band_lo + 1 and lo == sq.band_lo
         for j in range(nb):
             b = sq.band_lo + j
             r = packed[row]
@@ -302,6 +302,109 @@ def test_sweep_kernel_with_large_tables_matches_plain(cuda_device):
     p = pyramid_sweep.trace_plain(cfg, fstack, srcpos, nflux, Rf, Rb)
     assert float(p[0][..., 3].abs().max()) > 0.0
     _assert_traces_close(k, p, 1e-10)
+
+
+def _rel_err(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
+def _traces(cfg, state, srcpos, nflux, radius, **kw):
+    """(kernel, plain) traces of one sweep variant."""
+    fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
+                          state.he_av0, state.he_av1)
+    fstack = pyramid_sweep.stack_sweep_fields(cfg, fields)
+    Rf, Rb = pyramid_sweep.trace_extents(cfg.mesh, radius)
+    return (pyramid_sweep.trace_cuda(cfg, fstack, srcpos, nflux, Rf, Rb, **kw),
+            pyramid_sweep.trace_plain(cfg, fstack, srcpos, nflux, Rf, Rb,
+                                      **kw))
+
+
+def _parts(trace):
+    """rates, heat, photon loss, LLS loss and (tracked) band loss."""
+    slab = trace[0]
+    out = [slab[..., :3], slab[..., 3], trace[1], trace[2]]
+    return out + ([trace[3]] if trace[3] is not None else [])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["lls", "track"])
+@pytest.mark.parametrize("heating", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lls_and_track_sweep_kernels_match_plain(cuda_device, dtype, heating,
+                                                  variant):
+    """The per-cell LLS and band-tracking variants against the plain
+    version: float64 within rtol 1e-10 of each part's largest value;
+    float32 within twice the plain float32 version's error against the
+    float64 plain result (plus 1e-6 of the largest value)."""
+    M = 16
+    rng = np.random.RandomState(3)
+    lls64 = torch.as_tensor(10.0 ** rng.uniform(14.0, 17.0, M**3),
+                            device=cuda_device)
+    counter = "launches_lls" if variant == "lls" else "launches_track"
+    parts = {}
+    for dt in (torch.float64, dtype):
+        cfg = _config(M, dt, cuda_device, S_star=1e48, heating=heating)
+        kw = (dict(lls=lls64.to(dt)) if variant == "lls"
+              else dict(track=True))
+        state = _random_state(M, dt, cuda_device)
+        srcpos, nflux = _sources(M, 3, dt, cuda_device)
+        before = getattr(pyramid_sweep, counter)
+        k, p = _traces(cfg.sweep, state, srcpos, nflux, 4, **kw)
+        assert getattr(pyramid_sweep, counter) == before + 1
+        parts[dt] = (_parts(k), _parts(p))
+    (k64, p64), (k, p) = parts[torch.float64], parts[dtype]
+    assert len(k64) == (5 if variant == "track" else 4)
+    if variant == "lls":
+        assert float(p64[3].abs().max()) > 0.0
+    if heating:
+        assert float(p64[1].abs().max()) > 0.0
+    for a, b, ref in zip(k, p, p64):
+        if dtype == torch.float64:
+            torch.testing.assert_close(a, b, rtol=1e-10,
+                                       atol=1e-10 * float(b.abs().max()))
+        else:
+            ek, ep = _rel_err(a.double(), ref), _rel_err(b.double(), ref)
+            assert ek <= 2.0 * ep + 1e-6, (ek, ep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ionized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_photon_loss_kernel_matches_plain(cuda_device, dtype, ionized):
+    """The photon-loss kernel against the plain version on a tracked
+    sweep's band escape, also on fully ionized cells (neutral fractions
+    1e-20): float64 within rtol 1e-12, float32 within 1e-5 (47 positive
+    terms summed in another order) and finite."""
+    from c2ray_tpu_torch.sweep import photon_losses
+
+    M = 16
+    cfg = _config(M, dtype, cuda_device, S_star=1e48)
+    sweep = dataclasses.replace(cfg.sweep, track_band_loss=True)
+    state = _random_state(M, dtype, cuda_device)
+    fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
+                          state.he_av0, state.he_av1)
+    srcpos, nflux = _sources(M, 3, dtype, cuda_device)
+    rates = pyramid_sweep.sweep_pyramid_source_batch(sweep, fields, srcpos,
+                                                     nflux, radius=4)
+    if ionized:
+        tiny = torch.full_like(fields.h_av0, 1.0e-20)
+        fields = fields._replace(h_av0=tiny, he_av0=tiny, he_av1=tiny)
+    vos = sweep.vol / sweep.flux_scale
+
+    def added(fn):
+        z = lambda t: torch.zeros_like(t)
+        out = fn(sweep.tables, rates._replace(
+            phih=z(rates.phih), phihe0=z(rates.phihe0),
+            phihe1=z(rates.phihe1)), fields, vos)
+        return torch.stack([out.phih, out.phihe0, out.phihe1])
+
+    before = photon_losses.launches
+    k = added(photon_losses.distribute_photon_losses_cuda)
+    assert photon_losses.launches == before + 1
+    p = added(photon_losses.distribute_photon_losses_plain)
+    assert bool(torch.isfinite(k).all()) and float(p.abs().max()) > 0.0
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(k, p, rtol=tol, atol=tol * float(p.abs().max()))
 
 
 @pytest.mark.gpu

@@ -1,9 +1,13 @@
 """Profile the port's 3D iteration on one GPU: device time by kernel.
 
-    python3 tools/profile_torch_iteration.py [--heating] [--iters N]
+    python3 tools/profile_torch_iteration.py [--heating] [--lls]
+        [--photon-losses] [--iters N]
 
 Runs the bench configuration of ``chip_smoke.py`` (128^3 x 8 sources,
-float32, isothermal or with heating) through `make_evolve3d_iteration`:
+float32, isothermal or with heating) through `make_evolve3d_iteration`;
+`--lls` gives the sweep a per-cell LLS grid (seeded, 1e14-1e17 cm^-2
+per cell: the LLS variant of the sweep kernel), `--photon-losses` turns
+on band tracking and the photon-loss redistribution:
 one warm-up iteration, then N iterations timed without the profiler
 and the same N iterations again under ``torch.profiler``.  Prints the
 device time per iteration of each kernel, the wall per iteration
@@ -27,12 +31,16 @@ import torch  # noqa: E402
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--heating", action="store_true")
+    ap.add_argument("--lls", action="store_true")
+    ap.add_argument("--photon-losses", action="store_true")
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--mesh", type=int, default=128)
     ap.add_argument("--sources", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_iteration: needs a CUDA GPU")
+
+    import dataclasses
 
     import chip_smoke as cs
     from c2ray_tpu_torch.state import initial_grid_state
@@ -43,6 +51,15 @@ def main():
     dev = torch.device("cuda", 0)
     M, S = args.mesh, args.sources
     cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev, args.heating)
+    if args.photon_losses:
+        cfg = dataclasses.replace(
+            cfg, add_photon_losses=True,
+            sweep=dataclasses.replace(cfg.sweep, track_band_loss=True))
+    kw = {}
+    if args.lls:
+        kw["lls_grid"] = torch.as_tensor(
+            10.0 ** np.random.RandomState(8).uniform(14.0, 17.0, M**3),
+            dtype=torch.float32, device=dev)
     rng = np.random.RandomState(7)
     srcpos = torch.as_tensor(rng.randint(0, M, size=(S, 3)), device=dev)
     nflux = torch.as_tensor(np.concatenate(
@@ -51,7 +68,7 @@ def main():
     state = initial_grid_state(np.full((M,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
                                1.0e4, dtype=torch.float32, device=dev)
     iteration = make_evolve3d_iteration(cfg)
-    start = iteration(state, srcpos, nflux, 1.0e14)[0]
+    start = iteration(state, srcpos, nflux, 1.0e14, **kw)[0]
 
     def run():
         """Wall seconds per iteration of the N iterations after the
@@ -60,7 +77,7 @@ def main():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            state = iteration(state, srcpos, nflux, 1.0e14)[0]
+            state = iteration(state, srcpos, nflux, 1.0e14, **kw)[0]
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / args.iters
 
@@ -77,8 +94,11 @@ def main():
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
-    print(f"{cs.smi_line()}; {'heating' if args.heating else 'isothermal'} "
-          f"{M}^3 x {S} float32, {args.iters} profiled iterations")
+    variant = ("heating" if args.heating else "isothermal") + (
+        " + LLS grid" if args.lls else "") + (
+        " + photon losses" if args.photon_losses else "")
+    print(f"{cs.smi_line()}; {variant} {M}^3 x {S} float32, {args.iters} "
+          f"profiled iterations")
     print(f"wall per iteration {wall * 1e3:.3f} ms ({wall_profiled * 1e3:.3f} "
           f"ms profiled), device time {busy:.3f} ms, idle share "
           f"{1.0 - busy / (wall * 1e3):.4f} of the unprofiled wall")

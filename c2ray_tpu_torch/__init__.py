@@ -3,11 +3,11 @@
 The port of ``c2ray_tpu`` (JAX, written for a TPU) to PyTorch on an
 NVIDIA H100.  It mirrors the JAX package's module paths, names and
 layouts; the JAX package stays the reference it is tested against.
-Plain tensor code is PyTorch; the two kernels of the 3D timestep, the
-pyramid sweep and the chemistry fixed point (with heating: the thermal
-sub-cycle inside it), are CUDA C++ under ``csrc/``, each with an
-isothermal and a heating variant, built with nvcc on first use.  Each
-has a plain PyTorch version beside it, which CPU tensors take.
+Plain tensor code is PyTorch; the kernels -- the 3D timestep's pyramid
+sweep and chemistry fixed point (with heating: the thermal sub-cycle
+inside it), the photon-loss redistribution and the 1D program's radial
+march -- are CUDA C++ under ``csrc/``, built with nvcc on first use.
+Each has a plain PyTorch version beside it, which CPU tensors take.
 
 This package imports torch and numpy, never jax.
 """

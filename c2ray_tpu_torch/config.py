@@ -6,8 +6,8 @@ section 5 'Config') collapses into `driver.Run3DConfig`, and this module
 adds a single plain-data entry point so a whole run is one JSON file
 (the replacement for `inputs/input_example*` decks,
 files_for_3D/C2Ray.F90:110-121).  ``dtype`` may be given by name
-("float32", "float64").  The 1D problem's loader waits for the port of
-the 1D program (ROADMAP).
+("float32", "float64").  `oned_problem_from_dict` builds the 1D
+program's problem.
 """
 
 import json
@@ -19,6 +19,7 @@ from .io.writers import OutputStreams
 from .material import ClumpingModel, LLSModel
 from .nbody import (cubep3m_nbody, gadget_nbody, pmfast_nbody, test4_nbody,
                     test_nbody)
+from .onedim.material import OneDProblem
 from .radiation.sed import BlackBodySED, PowerLawSED, SEDConfig
 
 _NBODY_FACTORIES = {
@@ -91,3 +92,13 @@ def run3d_config_from_dict(d: dict) -> Run3DConfig:
 def run3d_config_from_json(path: str) -> Run3DConfig:
     with open(path) as f:
         return run3d_config_from_dict(json.load(f))
+
+
+def oned_problem_from_dict(d: dict) -> OneDProblem:
+    """A 1D problem from plain data: OneDProblem's fields, the cosmology
+    by name (COSMOLOGIES) and gamma_uvb as a list."""
+    d = dict(d)
+    cosmo = COSMOLOGIES.get(d.pop("cosmology", "WMAP3plus"),
+                            DEFAULT_COSMOLOGY)
+    gamma = tuple(d.pop("gamma_uvb", (0.0, 0.0, 0.0)))
+    return OneDProblem(cosmology=cosmo, gamma_uvb=gamma, **d)

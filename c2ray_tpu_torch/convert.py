@@ -10,7 +10,9 @@ import numpy as np
 import torch
 
 from .cooling import CoolingTables
+from .onedim.evolve import State1D
 from .radiation.quadrature import QuadTables, SourceQuad
+from .radiation.tables import RadiationTables, SourceTypeTables
 from .state import GridState
 from .sweep.source_sweep import RateGrids
 
@@ -66,3 +68,34 @@ def rate_grids_to_numpy(rates: RateGrids) -> RateGrids:
     return RateGrids(*(None if a is None else
                        np.asarray(torch.as_tensor(a).detach().cpu(),
                                   dtype=np.float64) for a in rates))
+
+
+def radiation_tables_from_numpy(rt, dtype=torch.float64, device=None
+                                ) -> RadiationTables:
+    """The port's RadiationTables (tau tables) from ``c2ray_tpu``'s; the
+    heating columns become int64."""
+    def source(st):
+        if st is None:
+            return None
+        return SourceTypeTables(*(None if a is None else
+                                  _tensor(a, dtype, device) for a in st))
+
+    arrays = {name: (torch.tensor(np.asarray(getattr(rt, name)),
+                                  dtype=torch.int64, device=device)
+                     if name.startswith("hbin") else
+                     _tensor(getattr(rt, name), dtype, device))
+              for name in RadiationTables._fields
+              if name not in ("bb", "pl", "qso")}
+    return RadiationTables(bb=source(rt.bb), pl=source(rt.pl),
+                           qso=source(rt.qso), **arrays)
+
+
+def state1d_from_numpy(state, dtype=torch.float64, device=None) -> State1D:
+    """The port's State1D from ``c2ray_tpu``'s."""
+    return State1D(*(_tensor(a, dtype, device) for a in state))
+
+
+def state1d_to_numpy(state: State1D) -> State1D:
+    """The port's State1D with float64 numpy leaves."""
+    return State1D(*(np.asarray(torch.as_tensor(a).detach().cpu(),
+                                dtype=np.float64) for a in state))

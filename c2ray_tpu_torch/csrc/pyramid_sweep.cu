@@ -1,5 +1,6 @@
 // Pyramid short-characteristics sweep of a source batch, with the
-// quadrature band rates as a device function: the isothermal variant,
+// quadrature band rates as a device function (cell_rates of
+// csrc/band_rates.cuh, shared with the 1D march): the isothermal variant,
 // the heating variant (template flag kHeat), each with the band-resolved
 // escape (template flag kTrack) or without, and each with a per-cell LLS
 // column (a nullable pointer) or the homogeneous one.
@@ -60,7 +61,7 @@
 // +24% of the isothermal stage kernels at 128^3 x 8).  nb_all * kBlock
 // values of shared memory (96 KB in float64 at 47 bands).
 
-#include "common.cuh"
+#include "band_rates.cuh"
 
 namespace c2ray {
 namespace {
@@ -69,11 +70,6 @@ constexpr int kBlock = 256;
 constexpr double kSqrt2 = 1.4142135623730951;
 constexpr double kSqrt3 = 1.7320508075688772;
 constexpr double kMinWeightDenom = 0.6;
-constexpr double kTauPhotoLimit = 1.0e-7;
-constexpr double kTauHeatLimit = 1.0e-4;   // photo.py:TAU_HEAT_LIMIT
-// ion_freq * hplanck of HI and HeI (c2ray_tpu/constants.py)
-constexpr double kIonEnergyHI = 0.241838e15 * 13.598 * 6.6260755e-27;
-constexpr double kIonEnergyHeI = 0.241838e15 * 24.587 * 6.6260755e-27;
 
 template <typename T>
 struct Params {
@@ -86,156 +82,14 @@ struct Params {
   T* slab;            // (S, M^3, 4) per-source rates, zeroed
   T* partials;        // (S, nslots, 2) photon / LLS loss per block
   T* band_partials;   // (S, nslots, nb_all) band escape per block (kTrack)
-  int M, S, Rf, Rb, K, nslots, ntypes, nbt, nb_all;
-  // per source type: nflux column, live band count, first band in the
-  // full band axis
-  int type_col[3], type_nb[3], type_lo[3];
+  int M, S, Rf, Rb, nslots, nbt, nb_all;
+  BandTables bt;   // the packed band rows' layout
   T dr, vol_over_scale, coldensh_lls, max_coldensh;
 };
 
-// Values per band row: [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII,
-// sighat(K), A(K)], and with heating after those [A_heat_HI(K),
-// A_heat_HeI(K), A_heat_HeII(K), f1ion(3), f2ion(3), f1heat(3),
-// f2heat(3)] (pyramid_sweep.py:_packed_tables).
-template <bool kHeat>
-__host__ __device__ __forceinline__ int row_stride(int K) {
-  return kHeat ? 17 + 5 * K : 5 + 2 * K;
-}
-
-// Ricotti et al. 2002 secondary-ionization fits of one cell
-// (quadrature.py:421-426): y[i] = y1R(i), y[3 + i] = y2R(i)
-template <typename T>
-__device__ __forceinline__ T y1R(T x, T c, T b, T d) {
-  return c * xpow(T(1) - xpow(x, b), d);
-}
-
-template <typename T>
-__device__ __forceinline__ T y2R(T x, T c, T a, T b) {
-  const T xeb = T(1) - xpow(x, b);
-  return c * xpow(x, a) * xeb * xeb;
-}
-
-template <typename T>
-__device__ __forceinline__ void ricotti(T x, T y[6]) {
-  y[0] = y1R(x, T(0.3908), T(0.4092), T(1.7592));
-  y[1] = y1R(x, T(0.0554), T(0.4614), T(1.6660));
-  y[2] = y1R(x, T(1.0), T(0.2663), T(1.3163));
-  y[3] = y2R(x, T(0.6941), T(0.2), T(0.38));
-  y[4] = y2R(x, T(0.0984), T(0.2), T(0.38));
-  y[5] = y2R(x, T(3.9811), T(0.4), T(0.34));
-}
-
-// s += x with the rounding carried in c (Kahan).  The heat adds one term
-// per band (33 for a 5e4 K blackbody) in sequence; as a plain running
-// sum it loses ~2 float32 ulp of the largest heat, 9x the plain
-// version's error, whose torch.sum reduces the bands in a tree.
-template <typename T>
-__device__ __forceinline__ void kahan_add(T& s, T& c, T x) {
-  const T y = x - c;
-  const T t = s + y;
-  c = (t - s) - y;
-  s = t;
-}
-
-// _one_source_quad summed over the source types (photoion_rates_quad):
-// out = photo_cell_{HI,HeI,HeII}, photo_in, photo_out and, with kHeat,
-// heat; `y` holds the cell's ricotti() values (heating only).  With
-// kTrack and a non-null bstage each band's photo_out is added to
-// bstage[band * kBlock], band in the full band axis.
-template <typename T, bool kHeat, bool kTrack>
-__device__ void cell_rates(const T* tab, const Params<T>& p, const T* nfl3,
-                           const T* cin, const T* cout, T vol, const T* y,
-                           T out[kHeat ? 6 : 5], T* bstage) {
-  constexpr int kOut = kHeat ? 6 : 5;
-  const int K = p.K;
-  const int stride = row_stride<kHeat>(K);
-  const T tiny = Limits<T>::tiny();
-  for (int q = 0; q < kOut; ++q) out[q] = T(0);
-  int b0 = 0;
-  for (int t = 0; t < p.ntypes; ++t) {
-    const T nfl = nfl3[p.type_col[t]];
-    T acc[5] = {T(0), T(0), T(0), T(0), T(0)};
-    // heat (compensated), f_ion_HI, f_ion_HeI (quadrature.py:437-439)
-    T hacc[3] = {T(0), T(0), T(0)}, hcomp = T(0);
-    for (int b = 0; b < p.type_nb[t]; ++b) {
-      const T* rb = tab + (b0 + b) * stride;
-      const T sHI = rb[0], sHeI = rb[1], sHeII = rb[2];
-      const T mHeI = rb[3], mHeII = rb[4];
-      const T* sh = rb + 5;
-      const T* A = rb + 5 + K;
-      const T tau_in = cin[0] * sHI + cin[1] * sHeI + cin[2] * sHeII;
-      const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
-      const T tcHI = sHI * (cout[0] - cin[0]);
-      const T tcHeI = sHeI * (cout[1] - cin[1]);
-      const T tcHeII = sHeII * (cout[2] - cin[2]);
-      const T inv = T(1) / maxp(tcHI + tcHeI + tcHeII, tiny);
-      T g_in = T(0), g_thick = T(0), g_thin = T(0);
-      // per species: sum A_heat (e_in - e_out), sum A_heat sighat e_in
-      T h_thick[3] = {T(0), T(0), T(0)}, h_thin[3] = {T(0), T(0), T(0)};
-      for (int k = 0; k < K; ++k) {
-        const T e_in = xexp(-minp(tau_in * sh[k], T(80)));
-        const T e_out = xexp(-minp(tau_out * sh[k], T(80)));
-        g_in += A[k] * e_in;
-        g_thick += A[k] * (e_in - e_out);
-        g_thin += A[k] * sh[k] * e_in;
-        if constexpr (kHeat) {
-          for (int sp = 0; sp < 3; ++sp) {
-            const T Ah = rb[5 + (2 + sp) * K + k];
-            h_thick[sp] += Ah * (e_in - e_out);
-            h_thin[sp] += Ah * sh[k] * e_in;
-          }
-        }
-      }
-      const T dtau = tau_out - tau_in;
-      const T phi_in = nfl * g_in;
-      const T phi_all = xabs(dtau) > T(kTauPhotoLimit) ? nfl * g_thick
-                                                         : nfl * dtau * g_thin;
-      acc[0] += tcHI * inv * phi_all / vol;
-      acc[1] += mHeI * (tcHeI * inv) * phi_all / vol;
-      acc[2] += mHeII * (tcHeII * inv) * phi_all / vol;
-      acc[3] += phi_in;
-      acc[4] += phi_in - phi_all;
-      if constexpr (kTrack) {
-        if (bstage) bstage[(p.type_lo[t] + b) * kBlock] += phi_in - phi_all;
-      }
-      if constexpr (kHeat) {
-        // species_heat (quadrature.py:404-415): thick/thin at the heat
-        // limit, masked like the photo rates
-        const bool hthick = xabs(dtau) > T(kTauHeatLimit);
-        const T tc[3] = {tcHI, tcHeI, tcHeII};
-        const T mk[3] = {T(1), mHeI, mHeII};
-        T ph[3];
-        for (int sp = 0; sp < 3; ++sp) {
-          const T thick = tc[sp] * inv * nfl * h_thick[sp] / vol;
-          const T thin = nfl * tc[sp] * h_thin[sp] / vol;
-          ph[sp] = mk[sp] * (hthick ? thick : thin);
-        }
-        const T* f = rb + 5 + 5 * K;
-        const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];
-        const T fra2 = f[3] * ph[0] + f[4] * ph[1] + f[5] * ph[2];
-        const T fra3 = f[6] * ph[0] + f[7] * ph[1] + f[8] * ph[2];
-        const T fra4 = f[9] * ph[0] + f[10] * ph[1] + f[11] * ph[2];
-        kahan_add(hacc[0], hcomp,
-                  ph[0] + ph[1] + ph[2] - y[2] * fra3 + y[5] * fra4);
-        hacc[1] += y[0] * fra1 - y[3] * fra2;
-        hacc[2] += y[1] * fra1 - y[4] * fra2;
-      }
-    }
-    if constexpr (kHeat) {
-      out[0] += acc[0] + hacc[1] / T(kIonEnergyHI);
-      out[1] += acc[1] + hacc[2] / T(kIonEnergyHeI);
-      for (int q = 2; q < 5; ++q) out[q] += acc[q];
-      out[5] += hacc[0];
-    } else {
-      for (int q = 0; q < 5; ++q) out[q] += acc[q];
-    }
-    b0 += p.type_nb[t];
-  }
-}
-
 template <typename T, bool kHeat>
 __device__ __forceinline__ void load_tables(const Params<T>& p, T* tab) {
-  const int n = p.nbt * row_stride<kHeat>(p.K);
+  const int n = p.nbt * row_stride<kHeat>(p.bt.K);
   for (int i = threadIdx.x; i < n; i += blockDim.x) tab[i] = p.bands[i];
   __syncthreads();
 }
@@ -279,7 +133,7 @@ __global__ void source_cell_kernel(Params<T> p) {
   T y[6];
   if constexpr (kHeat) ricotti(f[2], y);
   T r[kHeat ? 6 : 5];
-  cell_rates<T, kHeat, false>(tab, p, p.nflux + 3 * s, zero3, cc0,
+  cell_rates<T, kHeat, false>(tab, p.bt, p.nflux + 3 * s, zero3, cc0,
                               p.vol_over_scale, y, r, nullptr);
   T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
   out[0] = r[0] / bc[0];
@@ -300,7 +154,7 @@ __global__ void __launch_bounds__(kBlock)
 stage_kernel(Params<T> p, int l, int m, int slot0) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  T* red = tab + p.nbt * row_stride<kHeat>(p.K);   // 2 * kBlock
+  T* red = tab + p.nbt * row_stride<kHeat>(p.bt.K);   // 2 * kBlock
   T* bst = red + 2 * kBlock;                       // nb_all * kBlock (kTrack)
   T* mine = bst + threadIdx.x;                     // this thread's column
   load_tables<T, kHeat>(p, tab);
@@ -397,9 +251,9 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
       T y[6];
       if constexpr (kHeat) ricotti(f[2], y);
       T r[kHeat ? 6 : 5];
-      cell_rates<T, kHeat, kTrack>(tab, p, p.nflux + 3 * s, cin, cout,
-                                   vol_ratio * p.vol_over_scale, y, r,
-                                   contrib ? mine : nullptr);
+      cell_rates<T, kHeat, kTrack, kBlock>(tab, p.bt, p.nflux + 3 * s, cin,
+                                           cout, vol_ratio * p.vol_over_scale,
+                                           y, r, contrib ? mine : nullptr);
 
       const T fl = live ? T(1) : T(0);
       T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
@@ -485,14 +339,14 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   p.fields = fields; p.srcpos = srcpos; p.nflux = nflux; p.bands = bands;
   p.lls = lls; p.cd = cd; p.slab = slab; p.partials = partials;
   p.band_partials = band_partials;
-  p.M = M; p.S = S; p.Rf = Rf; p.Rb = Rb; p.K = K; p.ntypes = ntypes;
+  p.M = M; p.S = S; p.Rf = Rf; p.Rb = Rb; p.bt.K = K; p.bt.ntypes = ntypes;
   p.nb_all = nb_all;
   p.nbt = 0;
   for (int t = 0; t < 3; ++t) {
-    p.type_col[t] = t < ntypes ? cols[t] : 0;
-    p.type_nb[t] = t < ntypes ? nbs[t] : 0;
-    p.type_lo[t] = t < ntypes ? los[t] : 0;
-    p.nbt += p.type_nb[t];
+    p.bt.type_col[t] = t < ntypes ? cols[t] : 0;
+    p.bt.type_nb[t] = t < ntypes ? nbs[t] : 0;
+    p.bt.type_lo[t] = t < ntypes ? los[t] : 0;
+    p.nbt += p.bt.type_nb[t];
   }
   p.nslots = 0;
   for (int l = 1; l <= Rf; ++l) p.nslots += 3 * stage_blocks(l);

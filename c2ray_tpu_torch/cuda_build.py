@@ -24,6 +24,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # breaks the FLT_MIN floors and doric's cancellation-free algebra
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the opt-in dynamic shared memory of a block on the H100 (232448 B);
+# above 48 KB a kernel is opted in with cudaFuncSetAttribute
+SHARED_MEM_LIMIT = 227 * 1024
 
 _LIBS = {}
 

@@ -116,12 +116,13 @@ class PhotonConservationError(RuntimeError):
 
 
 def _device_of(name) -> torch.device:
-    """The configured device; a CUDA device when CUDA is absent raises
-    (the run never drops to the CPU on its own)."""
+    """The configured device (Run3DConfig.device, OneDRun.setup's
+    device); a CUDA device when CUDA is absent raises (the run never
+    drops to the CPU on its own)."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"Run3DConfig.device={name!r} but CUDA is not available; pass "
+            f"device={name!r} but CUDA is not available; pass "
             f"device='cpu' to run the plain versions on the CPU")
     return dev
 

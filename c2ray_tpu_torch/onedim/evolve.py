@@ -1,0 +1,420 @@
+"""1D radial sweep: `evolve1d`, one timestep of the 1D program.
+
+Port of ``c2ray_tpu/onedim/evolve.py`` (``code/files_for_1D/evolve_new.F90``):
+a single outward sweep over radius with strict i-1 -> i causality; the
+carry is the outgoing column-density triplet, and each shell runs its
+fixed point (photo rates -> two doric passes averaged -> thermal, until
+converged, evolve_new.F90:239-394).  `evolve1d_plain` is a Python loop
+over the shells with each fixed point on 0-d tensors; `evolve1d_cuda`
+runs the whole march in one launch of the hand-written kernel
+``csrc/evolve1d.cu`` (one warp; the quadrature or tau-table rate route,
+isothermal or with heating).  `evolve1d` takes the kernel for CUDA
+tensors and the plain version for CPU tensors.
+
+Reference deviations (documented, both are reference bugs):
+- evolve_new.F90:267-268 divides the He rates by ion%he_av(nx) with a
+  stale loop index (out-of-bounds read); we use he_av(0)/he_av(1) as the
+  3D code does (evolve_point.F90:268-270).
+- evolve_new.F90:307 uses ion%he_av(1) where the first doric pass used
+  ion%he(1); we use the current fractions in both passes like the 3D
+  do_chemistry (evolve_point.F90:556-569).
+"""
+
+import ctypes
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from .. import constants as const
+from .. import cuda_build
+from ..chemistry import (IonFractions, IonState, coldens, doric,
+                         electrondens, prepare_doric_factors)
+from ..cooling import CoolingTables, stacked
+from ..radiation.bands import F_FACTORS
+from ..radiation.photo import photoion_rates
+from ..radiation.quadrature import (QuadTables, packed_band_rows,
+                                    photoion_rates_quad, rates_heat)
+from ..radiation.tables import RadiationTables
+from ..rates import rate_coefficients
+from ..sweep.global_pass import MIN_FRACTION_OF_ATOMS, MIN_FRACTIONAL_CHANGE
+from ..thermal import thermal
+
+# evolve_new.F90:156
+MAX_COLDENSH_1D = 2.0e26
+MAX_CELL_ITER = 4000
+
+# timesteps run through the CUDA kernel, one count per variant:
+# quadrature isothermal / heating, tau tables isothermal / heating
+launches = 0
+launches_heat = 0
+launches_table = 0
+launches_table_heat = 0
+
+
+class State1D(NamedTuple):
+    """Grid state for the 1D problem (material module arrays)."""
+
+    ndens: torch.Tensor   # (mesh,)
+    temper: torch.Tensor  # (mesh,)
+    xh: torch.Tensor      # (mesh, 2)
+    xhe: torch.Tensor     # (mesh, 3)
+
+
+@dataclass(frozen=True)
+class OneDContext:
+    """Static configuration + tables for the 1D solver."""
+
+    tables: object  # RadiationTables or QuadTables
+    cooling: Optional[CoolingTables]
+    dr: float
+    vol: torch.Tensor               # (mesh,) shell volumes / flux_scale
+    clumping: float = 1.0
+    isothermal: bool = True
+    gamma_uvb: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    epsilon: float = 1.0e-20
+    cosmo_cool_factor: float = 0.0
+    boundary_tauHI: float = 0.0
+    boundary_tauHeI: float = 0.0
+    boundary_tauHeII: float = 0.0
+    has_bb: bool = True
+    has_pl: bool = False
+    has_qso: bool = False
+    max_cell_iter: int = MAX_CELL_ITER
+    # the radiation tables' flux scale: `vol` is stored DIVIDED by it,
+    # on the host in float64 (raw shell volumes ~1e66 cm^3 overflow
+    # float32; the scaled tables x scaled volumes cancel exactly)
+    flux_scale: float = 1.0
+    # the kernel's packed tables, made at the first launch and kept for
+    # the next ones (see `_kernel_tables`); a context made from this one
+    # by dataclasses.replace (test 4's new dr and vol) shares them
+    kernel_cache: dict = field(default_factory=dict, compare=False,
+                               repr=False)
+
+
+def _cell_photorates(ctx: OneDContext, cd_in, cc_cell, vol_ph, i_state):
+    """photoion_rates for one cell given incoming columns and cell columns."""
+    fn = (photoion_rates_quad if isinstance(ctx.tables, QuadTables)
+          else photoion_rates)
+    return fn(
+        ctx.tables,
+        cd_in[0], cd_in[0] + cc_cell[0],
+        cd_in[1], cd_in[1] + cc_cell[1],
+        cd_in[2], cd_in[2] + cc_cell[2],
+        vol_ph, i_state,
+        nflux_bb=1.0 if ctx.has_bb else None,
+        nflux_pl=1.0 if ctx.has_pl else None,
+        nflux_qso=1.0 if ctx.has_qso else None,
+        do_heating=not ctx.isothermal,
+    )
+
+
+def _cell_columns(ctx, ions: IonFractions, ndens_p):
+    """Column densities of one cell per species (evolve_new.F90:253-255)."""
+    return (coldens(ctx.dr, ions.h0, ndens_p, 1.0 - const.abu_he),
+            coldens(ctx.dr, ions.he0, ndens_p, const.abu_he),
+            coldens(ctx.dr, ions.he1, ndens_p, const.abu_he))
+
+
+def _conv(new, old):
+    return (torch.abs(new - old) / new < MIN_FRACTIONAL_CHANGE) | (
+        new < MIN_FRACTION_OF_ATOMS)
+
+
+def _solve_cell(ctx: OneDContext, dt, cd_in, ndens_p, vol_ph, temper0, ion0):
+    """Fixed-point iteration for one cell (evolve_new.F90:237-394).
+    Returns (ion, temper1, iterations, thermal sub-step counts: the
+    largest of one iteration, the sum)."""
+    guvb = ctx.gamma_uvb
+    ion, temper1, avg_temper = ion0, temper0, temper0
+    nit, nsub, nsub_sum, done = 0, 0, 0, False
+    # isothermal: avg_temper stays temper0, so the fits never change
+    rates = rate_coefficients(avg_temper)
+    while not done and nit < ctx.max_cell_iter:
+        prev_avg = ion.avg
+        temper2 = temper1
+
+        # ------- photo block (evolve_new.F90:252-274)
+        cc_av = _cell_columns(ctx, ion.avg, ndens_p)
+        phi = _cell_photorates(ctx, cd_in, cc_av, vol_ph, ion.avg.h1)
+        photo_HI = phi.photo_cell_HI / (ion.avg.h0 * ndens_p
+                                        * (1.0 - const.abu_he)) + guvb[0]
+        photo_HeI = phi.photo_cell_HeI / (ion.avg.he0 * ndens_p
+                                          * const.abu_he) + guvb[1]
+        photo_HeII = phi.photo_cell_HeII / (ion.avg.he1 * ndens_p
+                                            * const.abu_he) + guvb[2]
+
+        de = electrondens(ndens_p, ion.avg)
+        if not ctx.isothermal:
+            rates = rate_coefficients(avg_temper)
+
+        # ------- doric pass 1 (factors from current fractions)
+        fac = prepare_doric_factors(*_cell_columns(ctx, ion.cur, ndens_p))
+        ion1 = doric(dt, de, ion, photo_HI, photo_HeI, photo_HeII, fac,
+                     rates, ctx.clumping, ctx.epsilon)
+        de = electrondens(ndens_p, ion1.avg)
+
+        # ------- doric pass 2, then average (evolve_new.F90:303-333)
+        fac2 = prepare_doric_factors(*_cell_columns(ctx, ion1.cur, ndens_p))
+        ion2 = doric(dt, de, ion1, photo_HI, photo_HeI, photo_HeII, fac2,
+                     rates, ctx.clumping, ctx.epsilon)
+
+        half = lambda a, b: 0.5 * (a + b)
+        cur = IonFractions(*(half(a, b) for a, b in zip(ion2.cur, ion1.cur)))
+        # the reference averages h_av(0), he_av(0), he_av(1) only
+        # (evolve_new.F90:330-332); h_av(1)/he_av(2) keep pass-2 values
+        avg = IonFractions(
+            h0=half(ion2.avg.h0, ion1.avg.h0),
+            h1=ion2.avg.h1,
+            he0=half(ion2.avg.he0, ion1.avg.he0),
+            he1=half(ion2.avg.he1, ion1.avg.he1),
+            he2=ion2.avg.he2,
+        )
+        ion_new = IonState(cur=cur, avg=avg, old=ion.old)
+        de = electrondens(ndens_p, avg)
+
+        # ------- thermal (evolve_new.F90:336-347)
+        temper1_new = temper0
+        avg_temper_new = avg_temper
+        if not ctx.isothermal:
+            tr = thermal(dt, temper0, de, ndens_p, ion_new, phi.heat,
+                         ctx.cooling, ctx.cosmo_cool_factor)
+            temper1_new = tr.end_temper
+            avg_temper_new = tr.avg_temper
+            nsub = max(nsub, tr.n_substeps)
+            nsub_sum += tr.n_substeps
+
+        # ------- convergence (evolve_new.F90:349-370)
+        done = bool(_conv(avg.h0, prev_avg.h0)
+                    & _conv(avg.he0, prev_avg.he0)
+                    & _conv(avg.he1, prev_avg.he1)
+                    & _conv(avg.he2, prev_avg.he2)
+                    & (torch.abs(temper1_new - temper2) / temper1_new
+                       < MIN_FRACTIONAL_CHANGE))
+        ion, temper1, avg_temper = ion_new, temper1_new, avg_temper_new
+        nit += 1
+    return ion, temper1, nit, nsub, nsub_sum
+
+
+def _boundary_columns(ctx: OneDContext):
+    return (ctx.boundary_tauHI / const.sigma_HI_at_ion_freq,
+            ctx.boundary_tauHeI / const.sigma_HeI_at_ion_freq,
+            ctx.boundary_tauHeII / const.sigma_HeII_at_ion_freq)
+
+
+def evolve1d_plain(ctx: OneDContext, state: State1D, dt):
+    """The radial march as a loop over the shells (the JAX package's
+    lax.scan, make_evolve1d:190-236).  Returns (new state, per-shell
+    iterations (int32), counters): counters = [summed iterations,
+    largest iterations of a shell, largest thermal sub-step count of
+    an iteration, summed thermal sub-steps] (int32)."""
+    dtype, device = state.ndens.dtype, state.ndens.device
+    cd_in = tuple(torch.tensor(b, dtype=dtype, device=device)
+                  for b in _boundary_columns(ctx))
+    xh_new, xhe_new, temper_new, nits = [], [], [], []
+    nsub_max = nsub_sum = 0
+    for i in range(state.ndens.shape[0]):
+        ndens_p, temper0 = state.ndens[i], state.temper[i]
+        xh, xhe = state.xh[i], state.xhe[i]
+        f0 = IonFractions(h0=xh[0], h1=xh[1], he0=xhe[0], he1=xhe[1],
+                          he2=xhe[2])
+        ion0 = IonState(cur=f0, avg=f0, old=f0)
+
+        shielded = bool(cd_in[0] > MAX_COLDENSH_1D)
+        ion, temper1, nit, nsub, nsum = _solve_cell(ctx, dt, cd_in, ndens_p,
+                                                    ctx.vol[i], temper0, ion0)
+        # fully shielded cells are left untouched (evolve_new.F90:395-404)
+        final = f0 if shielded else ion.cur
+        final_avg = f0 if shielded else ion.avg
+        temper1 = temper0 if shielded else temper1
+
+        # outgoing columns add the time-averaged cell column
+        # (evolve_new.F90:417-424)
+        cc = _cell_columns(ctx, final_avg, ndens_p)
+        cd_in = (cd_in[0] + cc[0], cd_in[1] + cc[1], cd_in[2] + cc[2])
+
+        xh_new.append(torch.stack([final.h0, final.h1]))
+        xhe_new.append(torch.stack([final.he0, final.he1, final.he2]))
+        temper_new.append(temper1)
+        nits.append(nit)
+        nsub_max = max(nsub_max, nsub)
+        nsub_sum += nsum
+    new_state = State1D(ndens=state.ndens, temper=torch.stack(temper_new),
+                        xh=torch.stack(xh_new), xhe=torch.stack(xhe_new))
+    nits_t = torch.tensor(nits, dtype=torch.int32, device=device)
+    counters = torch.tensor([sum(nits), max(nits, default=0), nsub_max,
+                             nsub_sum],
+                            dtype=torch.int32, device=device)
+    return new_state, nits_t, counters
+
+
+class KernelTables1D(NamedTuple):
+    """The 1D kernel's table inputs: the band rows (quadrature: the
+    packed rows of `packed_band_rows`; tables: (nb, 17) rows of sigmas,
+    masks and the f-factors), on the table route the heating columns
+    (nb, 3) int32, the photo tables (ntypes, 2, NumTau + 1, nb) and with
+    heating the heating tables (ntypes, 2, NumTau + 1, nheat), with
+    heating the stacked cooling table; and the layout integers of the
+    entry point (nbt, K, ntypes, the types' band counts and first bands,
+    nb, nheat)."""
+
+    bands: torch.Tensor
+    hbin: Optional[torch.Tensor]
+    photo: Optional[torch.Tensor]
+    heat: Optional[torch.Tensor]
+    cool: Optional[torch.Tensor]
+    layout: Tuple[int, ...]
+
+
+def _table_route(ctx: OneDContext, dtype, device, heat: bool):
+    """The table variant's (bands, hbin, photo, heat tables, layout)."""
+    rt = ctx.tables
+    types = [t for t, used in ((rt.bb, ctx.has_bb), (rt.pl, ctx.has_pl),
+                               (rt.qso, ctx.has_qso))
+             if t is not None and used]
+    if not types:
+        raise ValueError("the 1D kernel needs at least one source type")
+    if heat and any(t.heat_thick is None for t in types):
+        raise ValueError("a heating 1D run needs heating tables "
+                         "(build_radiation_tables(isothermal=False))")
+    to = lambda t: t.to(dtype=dtype, device=device).contiguous()
+    cols = [rt.sigma_HI, rt.sigma_HeI, rt.sigma_HeII, rt.mask_HeI,
+            rt.mask_HeII] + [getattr(rt, f) for f in F_FACTORS]
+    bands = to(torch.stack(cols, dim=-1))
+    hbin = torch.stack([rt.hbin_HI, rt.hbin_HeI, rt.hbin_HeII],
+                       dim=-1).to(dtype=torch.int32, device=device)
+    photo = to(torch.stack([torch.stack([t.photo_thick, t.photo_thin])
+                            for t in types]))
+    heat_tab = (to(torch.stack([torch.stack([t.heat_thick, t.heat_thin])
+                                for t in types])) if heat else None)
+    nheat = heat_tab.shape[-1] if heat else 0
+    layout = (0, 0, len(types)) + (0,) * 6 + (bands.shape[0], nheat)
+    return bands, hbin.contiguous(), photo, heat_tab, layout
+
+
+def _pack_kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
+    heat = not ctx.isothermal
+    if heat and ctx.cooling is None:
+        raise ValueError("a heating 1D run needs cooling tables")
+    if isinstance(ctx.tables, RadiationTables):
+        bands, hbin, photo, heat_tab, layout = _table_route(ctx, dtype,
+                                                            device, heat)
+    else:
+        flags = (ctx.has_bb, ctx.has_pl, ctx.has_qso)
+        if heat and not rates_heat(ctx.tables, False, *flags):
+            raise ValueError("a heating 1D run needs quadrature tables with "
+                             "heating data (isothermal=False)")
+        bands, types, K = packed_band_rows(ctx.tables, dtype, heat, *flags)
+        bands = bands.to(device)
+        smem = bands.numel() * bands.element_size()
+        if smem > cuda_build.SHARED_MEM_LIMIT:
+            raise ValueError(f"band tables need {smem} B of shared memory, "
+                             f"over the {cuda_build.SHARED_MEM_LIMIT} B a "
+                             "block can have")
+        pad = [0] * (3 - len(types))
+        layout = ((bands.shape[0], K, len(types))
+                  + tuple([t[1] for t in types] + pad)
+                  + tuple([t[2] for t in types] + pad) + (0, 0))
+        hbin = photo = heat_tab = None
+    cool = (stacked(ctx.cooling).to(dtype=dtype, device=device).contiguous()
+            if heat else None)
+    return KernelTables1D(bands, hbin, photo, heat_tab, cool, layout)
+
+
+def _kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
+    """The kernel's table inputs, packed once and kept in
+    ctx.kernel_cache under the identity of the tables and cooling tables
+    they were made from, the physics flags, the dtype and the device: a
+    context with other tables never reads stale rows."""
+    key = (id(ctx.tables), id(ctx.cooling), ctx.isothermal, ctx.has_bb,
+           ctx.has_pl, ctx.has_qso, dtype, device)
+    hit = ctx.kernel_cache.get(key)
+    if hit is None:
+        # the entry holds the tables, so their ids stay unique
+        hit = (ctx.tables, ctx.cooling,
+               _pack_kernel_tables(ctx, dtype, device))
+        ctx.kernel_cache[key] = hit
+    return hit[2]
+
+
+def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
+    """The 1D kernel (``csrc/evolve1d.cu``); same contract as
+    `evolve1d_plain`, with the tensors it returns on the card.
+
+    Replaces onedim/evolve.py:make_evolve1d's scan of _solve_cell, with
+    the rates of quadrature.py:photoion_rates_quad or, for
+    RadiationTables, of photo.py:photoion_rates.  One launch of one warp
+    per timestep: the march is one serial chain, as the JAX scan is, so
+    the kernel is bound by the latency of the fixed-point iterations,
+    not by the card's throughput; the lanes share the bands of each rate
+    evaluation and run the chemistry redundantly on identical values.
+    The tables are packed at the first launch and kept (`_kernel_tables`).
+    """
+    global launches, launches_heat, launches_table, launches_table_heat
+    nd = state.ndens
+    dtype, device = nd.dtype, nd.device
+    if not nd.is_cuda:
+        raise ValueError("the 1D kernel takes CUDA tensors")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the 1D kernel takes float32/float64, not {dtype}")
+    mesh = nd.shape[0]
+    for t, shape in ((nd, (mesh,)), (state.temper, (mesh,)),
+                     (state.xh, (mesh, 2)), (state.xhe, (mesh, 3)),
+                     (ctx.vol, (mesh,))):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+            raise ValueError(f"the 1D state and volumes must be {dtype} on "
+                             f"{device}, shapes (mesh,), (mesh, 2), (mesh, 3)")
+    heat = not ctx.isothermal
+    table = isinstance(ctx.tables, RadiationTables)
+    kt = _kernel_tables(ctx, dtype, device)
+    null = ctypes.c_void_p(None)
+    P = lambda t: null if t is None else cuda_build.ptr(t)
+    ins = [t.contiguous() for t in (nd, state.temper, state.xh, state.xhe,
+                                    ctx.vol)]
+    xh_out = torch.empty((mesh, 2), dtype=dtype, device=device)
+    xhe_out = torch.empty((mesh, 3), dtype=dtype, device=device)
+    temper_out = torch.empty(mesh, dtype=dtype, device=device)
+    nits = torch.empty(mesh, dtype=torch.int32, device=device)
+    counters = torch.zeros(4, dtype=torch.int32, device=device)
+
+    lib = cuda_build.load("evolve1d")
+    name = ("evolve1d_" + ("table_" if table else "quad_")
+            + ("heat_" if heat else "iso_")
+            + ("f32" if dtype == torch.float32 else "f64"))
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 13
+                   + [ctypes.c_double] * 11 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    bnd = _boundary_columns(ctx)
+    err = fn(*(P(t) for t in ins), P(kt.bands), P(kt.hbin), P(kt.photo),
+             P(kt.heat), P(kt.cool), P(xh_out), P(xhe_out),
+             P(temper_out), P(nits), P(counters), mesh, *kt.layout,
+             int(ctx.max_cell_iter), float(ctx.dr), float(dt),
+             float(ctx.clumping), *(float(g) for g in ctx.gamma_uvb),
+             float(ctx.epsilon), float(ctx.cosmo_cool_factor),
+             *(float(b) for b in bnd), cuda_build.stream_of(nd))
+    cuda_build.check(err, name)
+    if table:
+        if heat:
+            launches_table_heat += 1
+        else:
+            launches_table += 1
+    elif heat:
+        launches_heat += 1
+    else:
+        launches += 1
+    new_state = State1D(ndens=state.ndens, temper=temper_out, xh=xh_out,
+                        xhe=xhe_out)
+    return new_state, nits, counters
+
+
+def evolve1d(ctx: OneDContext, state: State1D, dt):
+    """One timestep of the 1D program: (new state, per-shell iterations,
+    counters) -- the JAX package's (state, nits) plus the counters of
+    `evolve1d_plain`.  CUDA tensors go through the kernel, CPU tensors
+    through the plain version."""
+    if state.ndens.is_cuda:
+        return evolve1d_cuda(ctx, state, dt)
+    if state.ndens.device.type == "cpu":
+        return evolve1d_plain(ctx, state, dt)
+    raise ValueError(f"no 1D timestep for device {state.ndens.device}")

@@ -253,6 +253,12 @@ _F_B3 = {
                                 0.0141],
 }
 
+# the f-factor names, in the order the kernels' band rows hold them
+F_FACTORS = ("f1ion_HI", "f1ion_HeI", "f1ion_HeII",
+             "f2ion_HI", "f2ion_HeI", "f2ion_HeII",
+             "f1heat_HI", "f1heat_HeI", "f1heat_HeII",
+             "f2heat_HI", "f2heat_HeI", "f2heat_HeII")
+
 
 @dataclass(frozen=True)
 class Bands:

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import constants as const
-from .bands import Bands, make_bands
+from .bands import F_FACTORS, Bands, make_bands
 from .photo import (PhotRates, TAU_HEAT_LIMIT, TAU_PHOTO_LIMIT, _AR2, _BR1,
                     _BR2, _CR1, _CR2, _DR1, zero_photrates)
 from .sed import (SEDConfig, blackbody_photon_density, normalize_seds,
@@ -173,10 +173,7 @@ def build_quadrature_tables(sed: SEDConfig, bands: Optional[Bands] = None, *,
     zeros = np.zeros(nb)
     f = {name: getattr(bands, name) if getattr(bands, name) is not None
          else zeros
-         for name in ("f1ion_HI", "f1ion_HeI", "f1ion_HeII",
-                      "f2ion_HI", "f2ion_HeI", "f2ion_HeII",
-                      "f1heat_HI", "f1heat_HeI", "f1heat_HeII",
-                      "f2heat_HI", "f2heat_HeI", "f2heat_HeII")}
+         for name in F_FACTORS}
     arr = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
                                     dtype=dtype, device=device)
     qt = QuadTables(
@@ -189,6 +186,52 @@ def build_quadrature_tables(sed: SEDConfig, bands: Optional[Bands] = None, *,
     )
     bands = dataclasses.replace(bands, flux_scale=float(flux_scale))
     return qt, sed, bands
+
+
+def _types_in_use(qt: QuadTables, has_bb, has_pl, has_qso):
+    """(SourceQuad, nflux column) of each source type in use."""
+    return [(sq, col) for sq, col, used in ((qt.bb, 0, has_bb),
+                                            (qt.pl, 1, has_pl),
+                                            (qt.qso, 2, has_qso))
+            if sq is not None and used]
+
+
+def rates_heat(qt: QuadTables, isothermal: bool, has_bb=True, has_pl=False,
+               has_qso=False) -> bool:
+    """Whether the rates include heating: a heating run over tables with
+    heating data for every source type in use (isothermal tables give
+    zero heat, as in _one_source_quad)."""
+    return not isothermal and all(
+        sq.A_heat_HI is not None
+        for sq, _ in _types_in_use(qt, has_bb, has_pl, has_qso))
+
+
+def packed_band_rows(qt: QuadTables, dtype, heat: bool = False, has_bb=True,
+                     has_pl=False, has_qso=False):
+    """The live bands of every source type in use, one row each, in the
+    layout the kernels' cell_rates reads (csrc/band_rates.cuh):
+    [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII, sighat(K), A(K)],
+    and with `heat` after those
+    [A_heat_HI(K), A_heat_HeI(K), A_heat_HeII(K), the 12 f-factors in
+    F_FACTORS order]; and the (nflux column, band count, first band in
+    the full band axis) of each type.  Returns (rows, types, K)."""
+    rows, types = [], []
+    for sq, col in _types_in_use(qt, has_bb, has_pl, has_qso):
+        sl = slice(sq.band_lo, sq.band_hi + 1)
+        per_band = [qt.sigma_HI[sl], qt.sigma_HeI[sl], qt.sigma_HeII[sl],
+                    qt.mask_HeI[sl], qt.mask_HeII[sl]]
+        cols = [torch.stack(per_band, dim=-1), sq.sigma_hat, sq.A_photo]
+        if heat:
+            cols += [sq.A_heat_HI, sq.A_heat_HeI, sq.A_heat_HeII,
+                     torch.stack([getattr(qt, f)[sl] for f in F_FACTORS],
+                                 dim=-1)]
+        rows.append(torch.cat(cols, dim=-1))
+        types.append((col, sq.sigma_hat.shape[0], sq.band_lo))
+        K = sq.sigma_hat.shape[1]
+    if not rows:
+        raise ValueError("the rates need at least one source type")
+    packed = torch.cat(rows).to(dtype=dtype).contiguous()
+    return packed, types, K
 
 
 def _attenuation(sq: SourceQuad, tau):

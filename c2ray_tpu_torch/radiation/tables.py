@@ -1,11 +1,155 @@
-"""Usable band ranges per source type (``code/radiation_tables.f90``).
+"""Photoionization / heating rate tables (tau-indexed).
 
-Only the band-limit helpers of ``c2ray_tpu/radiation/tables.py`` are
-ported: the quadrature tables need them.  The tau-indexed rate tables
-belong to the parity path and are not ported yet.
+Port of ``c2ray_tpu/radiation/tables.py`` (``code/radiation_tables.f90``):
+for every frequency sub-band, integrate  SED(nu) * exp(-tau *
+sigma(nu)/sigma_0)  ("thick") and the same integrand multiplied by
+sigma(nu)/sigma_0 ("thin") over the sub-band, for a log-spaced grid of
+2001 optical depths (radiation_tables.f90:59-61, 593-660), plus heating
+variants weighted by h*(nu - nu_threshold) per absorbing species
+(radiation_tables.f90:664-783).
+
+Host code: the tables are integrated in float64 numpy, exactly as the
+JAX package integrates them, and cast once to torch tensors.  Band-range
+restrictions per source type (BB exp cutoff at h nu/kT > 25, PL/QSO
+frequency limits, radiation_tables.f90:194-256) are applied by zeroing
+table columns.  These tables feed the reference-parity rate route
+(`radiation/photo.py:photoion_rates`, and on the card the table variant
+of ``csrc/evolve1d.cu``); the quadrature route does not use them.
 """
 
-from .bands import Bands
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import constants as const
+from ..romberg import romberg_weights
+from .bands import F_FACTORS, Bands, NumFreq, NumTau, make_bands
+from .sed import (SEDConfig, blackbody_photon_density, normalize_seds,
+                  powerlaw_photon_density)
+
+minlogtau = -20.0  # radiation_tables.f90:59
+maxlogtau = 4.0    # radiation_tables.f90:60
+dlogtau = (maxlogtau - minlogtau) / NumTau
+
+
+class SourceTypeTables(NamedTuple):
+    """Rate tables for one source type (shapes: (NumTau+1, nbands) photo,
+    (NumTau+1, nheatbins) heat)."""
+
+    photo_thick: torch.Tensor
+    photo_thin: torch.Tensor
+    heat_thick: Optional[torch.Tensor]
+    heat_thin: Optional[torch.Tensor]
+
+
+class RadiationTables(NamedTuple):
+    """Everything the tau-table rate lookup needs."""
+
+    # per-source-type tables (None when the source type is absent)
+    bb: Optional[SourceTypeTables]
+    pl: Optional[SourceTypeTables]
+    qso: Optional[SourceTypeTables]
+    # band data needed at runtime, shape (nbands,)
+    sigma_HI: torch.Tensor
+    sigma_HeI: torch.Tensor
+    sigma_HeII: torch.Tensor
+    # secondary-ionization factors (zeros when isothermal), shape (nbands,)
+    f1ion_HI: torch.Tensor
+    f1ion_HeI: torch.Tensor
+    f1ion_HeII: torch.Tensor
+    f2ion_HI: torch.Tensor
+    f2ion_HeI: torch.Tensor
+    f2ion_HeII: torch.Tensor
+    f1heat_HI: torch.Tensor
+    f1heat_HeI: torch.Tensor
+    f1heat_HeII: torch.Tensor
+    f2heat_HI: torch.Tensor
+    f2heat_HeI: torch.Tensor
+    f2heat_HeII: torch.Tensor
+    # heating-table column index per (band, species), int64; invalid -> 0
+    hbin_HI: torch.Tensor
+    hbin_HeI: torch.Tensor
+    hbin_HeII: torch.Tensor
+    # species validity masks per band (float 0/1)
+    mask_HeI: torch.Tensor
+    mask_HeII: torch.Tensor
+
+
+def _tau_grid() -> np.ndarray:
+    """tau(0)=0, then 10^(minlogtau + dlogtau*(i-1))
+    (radiation_tables.f90:183-188)."""
+    tau = np.zeros(NumTau + 1)
+    i = np.arange(1, NumTau + 1)
+    tau[1:] = 10.0 ** (minlogtau + dlogtau * (i - 1))
+    return tau
+
+
+def _build_source_tables(bands: Bands, sed_photon_density, band_lo, band_hi,
+                         isothermal, dtype, device=None):
+    """Integrate the thick/thin photo and heating tables for one source.
+
+    ``sed_photon_density(freq)``: photon-sense SED already scaled
+    (includes 4 pi R*^2 or pl_scaling).
+    Bands outside [band_lo, band_hi] (inclusive, 0-based) get zero columns.
+    """
+    nb = bands.nbands
+    tau = _tau_grid()                       # (ntau,)
+    w = romberg_weights(NumFreq)            # (nf,)
+
+    photo_thick = np.zeros((NumTau + 1, nb))
+    photo_thin = np.zeros((NumTau + 1, nb))
+    heat_thick = None if isothermal else np.zeros((NumTau + 1, bands.nheatbins))
+    heat_thin = None if isothermal else np.zeros((NumTau + 1, bands.nheatbins))
+
+    thresholds = (const.ion_freq_HI, const.ion_freq_HeI, const.ion_freq_HeII)
+    # species whose heating bins exist per band region, and the power-law
+    # index of the cross-section frequency dependence used per band
+    # (radiation_tables.f90:264-388): band1 -> HI index, band2 -> HeI,
+    # band3 -> HeII.
+    for b in range(nb):
+        if b < band_lo or b > band_hi:
+            continue
+        freq = bands.freq_min[b] + bands.delta_freq[b] * np.arange(NumFreq + 1)
+        if b < bands.nbnd1:
+            pli = bands.pli_HI[b]
+            species = (0,)
+        elif b < bands.nbnd1 + bands.nbnd2:
+            pli = bands.pli_HeI[b]
+            species = (0, 1)
+        else:
+            pli = bands.pli_HeII[b]
+            species = (0, 1, 2)
+        # sigma(nu)/sigma_0 within the band (radiation_tables.f90:569-588)
+        csfd = (freq / bands.freq_min[b]) ** (-pli)          # (nf,)
+        sed = sed_photon_density(freq)                       # (nf,)
+
+        # exp(-tau * csfd) with overflow guard (radiation_tables.f90:607)
+        expo = tau[:, None] * csfd[None, :]                  # (ntau, nf)
+        atten = np.where(expo < 700.0, np.exp(-np.minimum(expo, 700.0)), 0.0)
+
+        integ_thick = sed[None, :] * atten                   # (ntau, nf)
+        integ_thin = integ_thick * csfd[None, :]
+        dnu = bands.delta_freq[b]
+        photo_thick[:, b] = (integ_thick * w[None, :]).sum(axis=1) * dnu
+        photo_thin[:, b] = (integ_thin * w[None, :]).sum(axis=1) * dnu
+
+        if not isothermal:
+            for s in species:
+                hw = const.hplanck * (freq - thresholds[s])  # (nf,)
+                col = bands.heat_bin_index(b, s)
+                heat_thick[:, col] = ((integ_thick * hw[None, :]) * w[None, :]
+                                      ).sum(axis=1) * dnu
+                heat_thin[:, col] = ((integ_thin * hw[None, :]) * w[None, :]
+                                     ).sum(axis=1) * dnu
+
+    to = lambda a: (None if a is None else
+                    torch.as_tensor(a, dtype=dtype, device=device))
+    return SourceTypeTables(photo_thick=to(photo_thick),
+                            photo_thin=to(photo_thin),
+                            heat_thick=to(heat_thick),
+                            heat_thin=to(heat_thin))
 
 
 def _bb_band_limits(bands: Bands, h_over_kT) -> tuple:
@@ -32,3 +176,82 @@ def _pl_band_limits(bands: Bands, min_freq, max_freq) -> tuple:
             lo = b
             break
     return lo, hi
+
+
+def build_radiation_tables(sed: SEDConfig, bands: Optional[Bands] = None, *,
+                           isothermal=False, dtype=torch.float64,
+                           flux_scale: Optional[float] = None,
+                           device=None) -> tuple:
+    """Full `rad_ini` equivalent (radiation_tables.f90:141-168).
+
+    Normalizes the SEDs against the band range and integrates all tables.
+    Returns (RadiationTables, normalized SEDConfig, Bands).
+
+    ``flux_scale``: tables are stored divided by this factor so their
+    values stay in float32 range (S_star ~ 1e48-1e57 overflows f32).
+    The rate lookup recovers physical cell rates by dividing the shell
+    volume by the same factor.  Defaults to 1.0 for float64 and to the
+    total source photon rate otherwise.
+    """
+    if bands is None:
+        bands = make_bands()
+    sed = normalize_seds(sed, bands.freq_min[0], bands.freq_max[-1],
+                         edges=bands.freq_max[:-1])
+
+    if flux_scale is None:
+        if dtype == torch.float64:
+            flux_scale = 1.0
+        else:
+            flux_scale = sum(s.S_star for s in (sed.bb, sed.pl, sed.qso)
+                             if s is not None)
+
+    bb_tables = pl_tables = qso_tables = None
+    inv = 1.0 / flux_scale
+    build = lambda fn, lo, hi: _build_source_tables(bands, fn, lo, hi,
+                                                    isothermal, dtype, device)
+    if sed.bb is not None:
+        lo, hi = _bb_band_limits(bands, sed.bb.h_over_kT)
+        R2 = sed.bb.R_star**2
+        bb_tables = build(
+            lambda f: inv * 4.0 * const.pi * R2
+            * blackbody_photon_density(f, sed.bb.h_over_kT), lo, hi)
+    if sed.pl is not None:
+        lo, hi = _pl_band_limits(bands, sed.pl.min_freq, sed.pl.max_freq)
+        pl_tables = build(
+            lambda f: inv * sed.pl.scaling
+            * powerlaw_photon_density(f, sed.pl.index), lo, hi)
+    if sed.qso is not None:
+        lo, hi = _pl_band_limits(bands, sed.qso.min_freq, sed.qso.max_freq)
+        qso_tables = build(
+            lambda f: inv * sed.qso.scaling
+            * powerlaw_photon_density(f, sed.qso.index), lo, hi)
+
+    nb = bands.nbands
+    n1, n2 = bands.nbnd1, bands.nbnd2
+    hbin_HI = np.array([bands.heat_bin_index(b, 0) for b in range(nb)])
+    hbin_HeI = np.array([bands.heat_bin_index(b, 1) if b >= n1 else 0
+                         for b in range(nb)])
+    hbin_HeII = np.array([bands.heat_bin_index(b, 2) if b >= n1 + n2 else 0
+                          for b in range(nb)])
+    mask_HeI = (np.arange(nb) >= n1).astype(np.float64)
+    mask_HeII = (np.arange(nb) >= n1 + n2).astype(np.float64)
+
+    zeros = np.zeros(nb)
+    f = {name: getattr(bands, name) if getattr(bands, name) is not None
+         else zeros
+         for name in F_FACTORS}
+
+    arr = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                    dtype=dtype, device=device)
+    idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    tables = RadiationTables(
+        bb=bb_tables, pl=pl_tables, qso=qso_tables,
+        sigma_HI=arr(bands.sigma_HI), sigma_HeI=arr(bands.sigma_HeI),
+        sigma_HeII=arr(bands.sigma_HeII),
+        hbin_HI=idx(hbin_HI), hbin_HeI=idx(hbin_HeI),
+        hbin_HeII=idx(hbin_HeII),
+        mask_HeI=arr(mask_HeI), mask_HeII=arr(mask_HeII),
+        **{k: arr(v) for k, v in f.items()},
+    )
+    bands = dataclasses.replace(bands, flux_scale=float(flux_scale))
+    return tables, sed, bands

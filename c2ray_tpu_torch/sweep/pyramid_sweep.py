@@ -30,6 +30,7 @@ import torch
 
 from .. import constants as const
 from .. import cuda_build
+from ..radiation.quadrature import packed_band_rows, rates_heat
 from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
 from .source_sweep import RateGrids, SourceFields, SweepConfig, _cell_rates
 
@@ -249,57 +250,12 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     return slab, ploss, lloss, plb
 
 
-_F_FACTORS = ("f1ion_HI", "f1ion_HeI", "f1ion_HeII",
-              "f2ion_HI", "f2ion_HeI", "f2ion_HeII",
-              "f1heat_HI", "f1heat_HeI", "f1heat_HeII",
-              "f2heat_HI", "f2heat_HeI", "f2heat_HeII")
+def sweep_heats(cfg: SweepConfig) -> bool:
+    """Whether the sweep evaluates heating (quadrature.rates_heat)."""
+    return rates_heat(cfg.tables, cfg.isothermal, cfg.has_bb, cfg.has_pl,
+                      cfg.has_qso)
 
 
-def _heats(cfg: SweepConfig) -> bool:
-    """Whether the sweep evaluates heating: a heating config with
-    heating tables (isothermal tables give zero heat, as in
-    quadrature.py:_one_source_quad)."""
-    qt = cfg.tables
-    return not cfg.isothermal and all(
-        sq.A_heat_HI is not None for sq, used in
-        ((qt.bb, cfg.has_bb), (qt.pl, cfg.has_pl), (qt.qso, cfg.has_qso))
-        if sq is not None and used)
-
-
-def _packed_tables(cfg: SweepConfig, dtype, heat: bool = False):
-    """Live bands of every source type in use, one row each, in the
-    layout the sweep kernel reads:
-    [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII, sighat(K), A(K)],
-    and with `heat` after those
-    [A_heat_HI(K), A_heat_HeI(K), A_heat_HeII(K), the 12 f-factors in
-    _F_FACTORS order]; and the (nflux column, band count, first band in
-    the full band axis) of each type."""
-    qt = cfg.tables
-    rows, types = [], []
-    for sq, col, used in ((qt.bb, 0, cfg.has_bb), (qt.pl, 1, cfg.has_pl),
-                          (qt.qso, 2, cfg.has_qso)):
-        if sq is None or not used:
-            continue
-        sl = slice(sq.band_lo, sq.band_hi + 1)
-        per_band = [qt.sigma_HI[sl], qt.sigma_HeI[sl], qt.sigma_HeII[sl],
-                    qt.mask_HeI[sl], qt.mask_HeII[sl]]
-        cols = [torch.stack(per_band, dim=-1), sq.sigma_hat, sq.A_photo]
-        if heat:
-            cols += [sq.A_heat_HI, sq.A_heat_HeI, sq.A_heat_HeII,
-                     torch.stack([getattr(qt, f)[sl] for f in _F_FACTORS],
-                                 dim=-1)]
-        rows.append(torch.cat(cols, dim=-1))
-        types.append((col, sq.sigma_hat.shape[0], sq.band_lo))
-        K = sq.sigma_hat.shape[1]
-    if not rows:
-        raise ValueError("the sweep needs at least one source type")
-    packed = torch.cat(rows).to(dtype=dtype).contiguous()
-    return packed, types, K
-
-
-# the opt-in dynamic shared memory of a block on the H100 (232448 B);
-# above 48 KB the kernels are opted in with cudaFuncSetAttribute
-_SHARED_MEM_LIMIT = 227 * 1024
 _BLOCK = 256   # kBlock of csrc/pyramid_sweep.cu
 
 
@@ -308,13 +264,15 @@ def _kernel_tables(cfg: SweepConfig, dtype, track: bool = False):
     byte count, when the band tables, the loss-reduction buffer and
     (with `track`) the per-band staging buffer exceed a block's shared
     memory."""
-    heat = _heats(cfg)
-    packed, types, K = _packed_tables(cfg, dtype, heat)
+    heat = sweep_heats(cfg)
+    packed, types, K = packed_band_rows(cfg.tables, dtype, heat, cfg.has_bb,
+                                        cfg.has_pl, cfg.has_qso)
     nstage = cfg.tables.sigma_HI.shape[0] * _BLOCK if track else 0
     smem = (packed.numel() + 2 * _BLOCK + nstage) * packed.element_size()
-    if smem > _SHARED_MEM_LIMIT:
-        raise ValueError(f"band tables need {smem} B of shared memory, "
-                         f"over the {_SHARED_MEM_LIMIT} B a block can have")
+    if smem > cuda_build.SHARED_MEM_LIMIT:
+        raise ValueError(f"band tables need {smem} B of shared memory, over "
+                         f"the {cuda_build.SHARED_MEM_LIMIT} B a block can "
+                         "have")
     return packed, types, K, heat
 
 

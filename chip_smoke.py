@@ -52,13 +52,41 @@ tolerances.  The Run3D slice adds:
    clumping and LLS type 1), 2 slices x 2 steps; then the per-cell LLS
    sweep's time at the shapes of its last step.
 
+The 1D slice adds, before phase 9's wait for its CPU reference:
+
+11. 1D kernel vs plain at mesh 128 over 2 steps, float64 and float32
+   (the plain version on the CPU): the quadrature and tau-table routes,
+   isothermal and heating, the monochromatic tables and test 4;
+12. 1D main path at full width: test 1 (Stroemgren, n = 1e-3, T = 1e4
+   K, 1e5 K blackbody of 5e48 photons/s, 10 kpc) at mesh 10000 in
+   float32 through `OneDRun`, 12 x 10 Myr, isothermal and heating on
+   the quadrature route and isothermal on the tau tables: step walls,
+   iterations, the front against the analytic one and the photon
+   budget;
+13. 1D physics: the four problems of ``tools/tpu_1d_check.py`` in
+   float32 on the card with its tolerances, and the test-1 front at
+   mesh 128, 512 and 10000;
+14. 1D kernel vs plain at full width, after phase 10: phase 12's three
+   variants in float64, one 10 Myr step of test 1 at mesh 10000 from
+   the initial state, the kernel on the card against the plain version
+   on the CPU, which runs in a process of its own per variant from the
+   end of phase 8; the heating temperatures within ten times the
+   spread that a few ulps of the volumes give the plain version (the
+   problem is ill-conditioned next to the source), measured alike.
+
+Then the 1D kernels' times at mesh 10000 after the others'.
+
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
-operations over their peak rate (`bound`).  The last line is
+operations over their peak rate (`bound`; for the 1D kernels the
+largest of that, the latency of the iterations' dependent chains and
+one warp's instruction issue, `oned_bound`).
+The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import dataclasses
+import heapq
 import json
 import math
 import os
@@ -136,10 +164,13 @@ def sweep_bound(sweep_cfg, S, Rf, Rb, lls=False, track=False):
     (e_in, e_out) on the special-function units and 10 flops of the
     photo sums (25 with the heating sums) on the float32 pipes; an
     expm1 per cell with LLS, an add per band and cell with tracking."""
+    from c2ray_tpu_torch.radiation.quadrature import packed_band_rows
     from c2ray_tpu_torch.sweep import pyramid_sweep as ps
 
-    heat = ps._heats(sweep_cfg)
-    packed, _, K = ps._packed_tables(sweep_cfg, torch.float32, heat)
+    heat = ps.sweep_heats(sweep_cfg)
+    packed, _, K = packed_band_rows(sweep_cfg.tables, torch.float32, heat,
+                                    sweep_cfg.has_bb, sweep_cfg.has_pl,
+                                    sweep_cfg.has_qso)
     M, nlive = sweep_cfg.mesh, packed.shape[0]
     cells = S * (Rf + Rb + 1) ** 3
     nodes = cells * nlive * K
@@ -499,6 +530,7 @@ def phase_compare_slice(dev, M=32, heating=False):
 
 
 def launch_counts():
+    from c2ray_tpu_torch.onedim import evolve as ev1
     from c2ray_tpu_torch.sweep import global_pass, photon_losses, pyramid_sweep
 
     return {"pyramid_sweep": pyramid_sweep.launches,
@@ -507,16 +539,23 @@ def launch_counts():
             "pyramid_sweep_track": pyramid_sweep.launches_track,
             "chemistry": global_pass.launches,
             "chemistry_heat": global_pass.launches_heat,
-            "photon_losses": photon_losses.launches}
+            "photon_losses": photon_losses.launches,
+            "evolve1d": ev1.launches,
+            "evolve1d_heat": ev1.launches_heat,
+            "evolve1d_table": ev1.launches_table,
+            "evolve1d_table_heat": ev1.launches_table_heat}
 
 
 def reset_launch_counts():
+    from c2ray_tpu_torch.onedim import evolve as ev1
     from c2ray_tpu_torch.sweep import global_pass, photon_losses, pyramid_sweep
 
     pyramid_sweep.launches = pyramid_sweep.launches_heat = 0
     pyramid_sweep.launches_lls = pyramid_sweep.launches_track = 0
     global_pass.launches = global_pass.launches_heat = 0
     photon_losses.launches = 0
+    ev1.launches = ev1.launches_heat = 0
+    ev1.launches_table = ev1.launches_table_heat = 0
 
 
 def check_launches(name, counts, mine):
@@ -1191,6 +1230,618 @@ def phase_lls_times(r, sources):
     return t, b
 
 
+# ---- the 1D program (phases 11-13)
+
+MYR = 1.0e6 * 3.15576e7     # s (c2ray_tpu_torch.constants.YEAR)
+
+# phase 11's variants: (test problem, isothermal, quadrature route,
+# monochromatic tables, dt in Myr); heating runs take 1 Myr steps, whose
+# fixed points converge in a few rounds (ROADMAP Queue 3)
+ONED_VARIANTS = {
+    "quadrature": (1, True, True, False, 10.0),
+    "quadrature heating": (1, False, True, False, 1.0),
+    "table": (1, True, False, False, 10.0),
+    "table heating": (1, False, False, False, 1.0),
+    "monochromatic": (1, True, True, True, 10.0),
+    "test 4": (4, True, True, False, 5.0),
+}
+# the kernel variant each runs, the name of its `kernels` entry
+ONED_KERNEL = {"quadrature": "evolve1d", "quadrature heating": "evolve1d_heat",
+               "table": "evolve1d_table",
+               "table heating": "evolve1d_table_heat",
+               "monochromatic": "evolve1d", "test 4": "evolve1d"}
+# phase 12's runs and phase 14's: (kernels entry, isothermal, quadrature)
+ONED_MAIN = (("evolve1d", True, True), ("evolve1d_heat", False, True),
+             ("evolve1d_table", True, False))
+ONED_FULL_MESH = 10000     # files_for_1D/sizes.f90:27
+
+
+def oned_problem(testnum, isothermal=True):
+    """(problem, r_out in kpc, blackbody S_star) of the four problems of
+    tools/tpu_1d_check.py (a 1e5 K blackbody each)."""
+    from c2ray_tpu_torch import constants as const
+    from c2ray_tpu_torch.onedim import OneDProblem
+
+    kpc = const.kpc
+    if testnum == 1:
+        return OneDProblem(testnum=1, dens_val=1.0e-3, temper_val=1e4,
+                           isothermal=isothermal), 10.0, 5.0e48
+    if testnum == 2:
+        return OneDProblem(testnum=2, dens_val=1.0e-3, r_core=kpc,
+                           temper_val=1e4, isothermal=isothermal), 8.0, 4.8e47
+    if testnum == 3:
+        n_core = 1.2e-3
+        S_star = 4.0 * const.pi * n_core**2 * kpc**3 * const.bh00 * 4.0 / 3.0
+        return OneDProblem(testnum=3, dens_val=n_core, r_core=kpc,
+                           temper_val=1e4, isothermal=isothermal), 6.0, S_star
+    return OneDProblem(testnum=4, dens_val=1.87e-4 / 1000.0, temper_val=1e4,
+                       isothermal=isothermal, zred00=9.0), 700.0, 3.0e50
+
+
+def oned_run(testnum, mesh, dtype, device, isothermal=True, quadrature=True,
+             mono=False):
+    """A `OneDRun` of a test problem on `device`; `mono`: the 13.6 eV
+    monochromatic tables (one band, K = 1, a zero HeI mask)."""
+    from c2ray_tpu_torch import constants as const
+    from c2ray_tpu_torch.grid import RadialGrid
+    from c2ray_tpu_torch.onedim.driver import OneDRun
+    from c2ray_tpu_torch.radiation import BlackBodySED, SEDConfig
+    from c2ray_tpu_torch.radiation.monochromatic import \
+        build_monochromatic_tables
+
+    problem, r_out, S_star = oned_problem(testnum, isothermal)
+    sed = SEDConfig(bb=BlackBodySED(T_eff=1.0e5, S_star=S_star))
+    run = OneDRun.setup(problem, RadialGrid(0.0, r_out * const.kpc, mesh),
+                        sed, dtype=dtype, use_quadrature=quadrature,
+                        device=device)
+    if mono:
+        qt, _, bands = build_monochromatic_tables(
+            sed, 13.6, isothermal=isothermal, dtype=dtype, device=device)
+        run.ctx = dataclasses.replace(
+            run.ctx, tables=qt, flux_scale=bands.flux_scale,
+            vol=torch.as_tensor(run.grid.vol / bands.flux_scale,
+                                dtype=dtype, device=device))
+    return run
+
+
+def oned_errors(state, ref):
+    """(largest |difference| of the fractions, largest relative one of
+    the temperatures) of a 1D state from the float64 reference."""
+    frac = max(float((getattr(state, f).double().cpu()
+                      - getattr(ref, f).double().cpu()).abs().max())
+               for f in ("xh", "xhe"))
+    t = ref.temper.double().cpu()
+    temp = float(((state.temper.double().cpu() - t).abs() / t).max())
+    return frac, temp
+
+
+def phase_compare_1d(dev, mesh=128, n_steps=2):
+    """Phase 11: the 1D kernel against its plain version (on the CPU),
+    each variant from the same initial state over n_steps timesteps.
+    float64: each shell's iteration count equal, fractions within 1e-10
+    relative with a 1e-12 floor, temperatures within 1e-10.  float32:
+    the kernel's error against the plain float64 run within twice the
+    plain float32 run's, plus 1e-5 (the lanes add the bands in another
+    order and FMA contraction rounds the columns differently; fractions
+    absolute, temperatures relative).  Returns, per variant, (the
+    kernel's worst float32 error, max |kernel - plain| in float32, the
+    kernel's and the plain version's float32 step walls in ms)."""
+    cpu = torch.device("cpu")
+    out = {}
+    for variant, (testnum, iso, quad, mono, dt_myr) in ONED_VARIANTS.items():
+        dt = dt_myr * MYR
+        runs = {(dtype, where): oned_run(testnum, mesh, dtype, where, iso,
+                                         quad, mono)
+                for dtype in (torch.float64, torch.float32)
+                for where in (dev, cpu)}
+        worst = kp_abs = 0.0
+        for step in range(n_steps):
+            nits, walls = {}, {}
+            for key, run in runs.items():
+                nits[key], walls[key] = synced(run.step, dt)
+            k64, p64 = runs[torch.float64, dev], runs[torch.float64, cpu]
+            k32, p32 = runs[torch.float32, dev], runs[torch.float32, cpu]
+            if not torch.equal(nits[torch.float64, dev].cpu(),
+                               nits[torch.float64, cpu]):
+                raise AssertionError(f"1D {variant} f64: iteration counts "
+                                     f"differ in step {step}")
+            for f in ("xh", "xhe", "temper"):
+                torch.testing.assert_close(
+                    getattr(k64.state, f).cpu(), getattr(p64.state, f),
+                    rtol=1e-10, atol=0.0 if f == "temper" else 1e-12,
+                    msg=f"1D {variant} f64 {f} step {step}")
+            fk, tk = oned_errors(k32.state, p64.state)
+            fp, tp = oned_errors(p32.state, p64.state)
+            kp_abs = max(kp_abs, oned_errors(k32.state, p32.state)[0])
+            f64f, f64t = oned_errors(k64.state, p64.state)
+            log(f"  1D {variant} step {step}: f64 kernel-plain fractions "
+                f"{f64f:.3e} T {f64t:.3e} (iterations "
+                f"{int(nits[torch.float64, cpu].sum())}, equal); f32 vs f64 "
+                f"plain: kernel fractions {fk:.3e} T {tk:.3e}, plain "
+                f"fractions {fp:.3e} T {tp:.3e}; f32 counters kernel "
+                f"{k32.last_counters.tolist()}, plain "
+                f"{p32.last_counters.tolist()}; f32 walls kernel "
+                f"{1e3 * walls[torch.float32, dev]:.3f} ms, plain (CPU) "
+                f"{1e3 * walls[torch.float32, cpu]:.1f} ms")
+            if not (fk <= 2.0 * fp + 1e-5 and tk <= 2.0 * tp + 1e-5):
+                raise AssertionError(f"1D {variant} f32: kernel error "
+                                     f"{fk:.3e}/{tk:.3e} vs plain "
+                                     f"{fp:.3e}/{tp:.3e}")
+            worst = max(worst, fk, tk)
+        out[variant] = (worst, kp_abs, 1e3 * walls[torch.float32, dev],
+                        1e3 * walls[torch.float32, cpu])
+    log("1D kernel vs plain: ok")
+    return out
+
+
+def phase_main_1d(dev, mesh=ONED_FULL_MESH, n_steps=12):
+    """Phase 12: the 1D main path at full width, test 1 in float32 at
+    the reference program's 10000 shells (files_for_1D/sizes.f90:27),
+    12 x 10 Myr through `OneDRun`, three ways.  Each run launches its
+    kernel variant once per step and no other kernel; the isothermal
+    fronts lie within 5% of the analytic one, the heating front (hotter
+    gas recombines more slowly) within 10% of it."""
+    from c2ray_tpu_torch.onedim.output import (front_comparison,
+                                               photon_statistics_1d)
+
+    out = {}
+    dt = 10.0 * MYR
+    for name, iso, quad in ONED_MAIN:
+        run = oned_run(1, mesh, torch.float32, dev, iso, quad)
+        reset_launch_counts()
+        walls, hosts, counters, capped = [], [], [], []
+        for _ in range(n_steps):
+            before = run.state
+            # the host's share: the time until step() returns (the launch
+            # is asynchronous; the first step also packs the tables)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nits = run.step(dt)
+            hosts.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counters.append(run.last_counters.tolist())
+            capped.append(int((nits == run.ctx.max_cell_iter).sum()))
+        counts = launch_counts()
+        stats = photon_statistics_1d(run, before, dt)
+        fc = front_comparison(run)
+        its = [c[0] for c in counters]
+        log(f"1D main path {name} (test 1, mesh {mesh}, float32, {n_steps} x "
+            f"10 Myr): step wall mean {1e3 * np.mean(walls):.3f} ms, largest "
+            f"{1e3 * max(walls):.3f} ms; iterations summed {sum(its)} "
+            f"(per step {its}), largest of a shell "
+            f"{max(c[1] for c in counters)}, shells at the "
+            f"{run.ctx.max_cell_iter}-iteration cap per step {capped}; "
+            f"thermal sub-steps largest "
+            f"{max(c[2] for c in counters)}, summed "
+            f"{sum(c[3] for c in counters)}")
+        log(f"  host time in step(): first step {1e3 * hosts[0]:.3f} ms "
+            f"(packs the tables), later steps mean "
+            f"{1e3 * np.mean(hosts[1:]):.3f} ms; host share of the step "
+            f"walls {sum(hosts) / sum(walls):.3e}")
+        log(f"  front {fc.numerical:.6e} cm vs analytic {fc.analytic:.6e} cm "
+            f"(relative error {fc.relative_error:.5f}); last step photon "
+            f"conservation {stats.photon_conservation:.6f} ({stats})")
+        check_launches(f"1D main path {name}", counts, (name,))
+        if counts[name] != n_steps:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
+                                 f"{n_steps} steps")
+        for t in run.state:
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"1D {name} produced non-finite state")
+        if run.state.xh.shape != (mesh, 2) or run.state.xhe.shape != (mesh, 3):
+            raise AssertionError(f"1D {name} state has the wrong shape")
+        limit = 0.05 if iso else 0.10
+        if not (fc.relative_error < limit
+                and math.isfinite(stats.photon_conservation)):
+            raise AssertionError(f"1D {name}: front error "
+                                 f"{fc.relative_error:.4f} (limit {limit})")
+        out[name] = {"run": run, "dt": dt, "launches": counts[name],
+                     "front": fc, "walls": walls,
+                     "host_share": sum(hosts) / sum(walls)}
+    return out
+
+
+def phase_physics_1d(dev, main):
+    """Phase 13: the four analytic fronts of tools/tpu_1d_check.py in
+    float32 on the card (mesh 128, its tolerances), and the test-1 front
+    at mesh 128, 512 and 10000 (phase 12)."""
+    from c2ray_tpu_torch.onedim.output import front_comparison
+
+    cases = ((1, 120e6, 12, 0.07), (2, 300e6, 15, 0.12),
+             (3, 300e6, 15, 0.22), (4, 50e6, 10, 0.17))
+    ok, fronts = True, {}
+    for testnum, years, n_steps, tol in cases:
+        run = oned_run(testnum, 128, torch.float32, dev)
+        for _ in range(n_steps):
+            run.step(years / 1e6 * MYR / n_steps)
+        err = front_comparison(run).relative_error
+        ok = ok and err < tol
+        if testnum == 1:
+            fronts[128] = err
+        log(f"  {'PASS' if err < tol else 'FAIL'} 1D test {testnum}: front "
+            f"relative error {err:.5f} (limit {tol})")
+    run = oned_run(1, 512, torch.float32, dev)
+    for _ in range(12):
+        run.step(10.0 * MYR)
+    fronts[512] = front_comparison(run).relative_error
+    fronts[10000] = main["evolve1d"]["front"].relative_error
+    log("  test-1 front error in float32 by mesh: " + ", ".join(
+        f"{m}: {e:.5f}" for m, e in sorted(fronts.items())))
+    if not ok:
+        raise AssertionError("1D physics check failed")
+
+
+# phase 14's conditioning runs of the heating variant: its plain step
+# over the first ONED_PREFIX shells (which depend on no later one) with
+# their volumes k float64 ulps off, k = +-1..+-ONED_ULPS
+ULP = "+ulp"
+ONED_PREFIX = 64
+ONED_ULPS = 8
+
+
+def oned_reference(name, out_path):
+    """Phase 14's plain run of one variant: one float64 10 Myr step of
+    test 1 at mesh 10000 from the initial state on the CPU, in a process
+    of its own; writes the state, the iteration counts and the wall to
+    `out_path` (.npz).  With ULP, the variant's conditioning runs
+    instead: the largest relative change of each of the first
+    ONED_PREFIX shells' temperatures over them."""
+    from c2ray_tpu_torch.onedim.evolve import State1D, evolve1d_plain
+
+    torch.set_num_threads(1)
+    base = name.removesuffix(ULP)
+    _, iso, quad = next(v for v in ONED_MAIN if v[0] == base)
+    run = oned_run(1, ONED_FULL_MESH, torch.float64, "cpu", iso, quad)
+    if name != base:
+        head = State1D(*(t[:ONED_PREFIX] for t in run.state))
+
+        def prefix_t(k):
+            ctx = dataclasses.replace(
+                run.ctx, vol=run.ctx.vol[:ONED_PREFIX] * (1.0 + k * 2.0**-52))
+            return evolve1d_plain(ctx, head, 10.0 * MYR)[0].temper.numpy()
+
+        t_ref = prefix_t(0)
+        ks = [k for k in range(-ONED_ULPS, ONED_ULPS + 1) if k]
+        spread = np.max([_rel(prefix_t(k), t_ref) for k in ks], axis=0)
+        np.savez(out_path + ".tmp.npz", spread=spread)
+    else:
+        t0 = time.perf_counter()
+        nits = run.step(10.0 * MYR)
+        wall = time.perf_counter() - t0
+        st = run.state
+        np.savez(out_path + ".tmp.npz", xh=st.xh.numpy(),
+                 xhe=st.xhe.numpy(), temper=st.temper.numpy(),
+                 nits=nits.numpy(), counters=run.last_counters.numpy(),
+                 wall=wall)
+    os.replace(out_path + ".tmp.npz", out_path)
+
+
+def start_oned_references(workdir):
+    """Start phase 14's plain runs, one process per variant and one for
+    the heating variant's conditioning, that see no GPU; returns {name:
+    (process, result path, log path)}."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    refs = {}
+    for name in [v[0] for v in ONED_MAIN] + ["evolve1d_heat" + ULP]:
+        out = os.path.join(workdir, f"{name}_f64_plain.npz")
+        logp = os.path.join(workdir, f"{name}_f64_plain.log")
+        with open(logp, "w") as lf:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--oned-reference",
+                 name, out], env=env, stdout=lf, stderr=subprocess.STDOUT)
+        refs[name] = (proc, out, logp)
+    return refs
+
+
+def _oned_reference_result(refs, name):
+    """The saved result of one of phase 14's plain runs, after waiting
+    for its process; (arrays, seconds waited)."""
+    proc, path, logp = refs[name]
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    if rc != 0 or not os.path.exists(path):
+        with open(logp) as f:
+            log(f.read())
+        raise AssertionError(f"the CPU float64 run of {name} failed "
+                             f"(exit {rc})")
+    return np.load(path), waited
+
+
+def _rel(a, b):
+    """Per-entry |a - b| / |b| where |b| lies above the fractions'
+    1e-10 floor (0 elsewhere)."""
+    a, b = np.asarray(a), np.asarray(b)
+    big = np.abs(b) > 1e-10
+    return np.where(big, np.abs(a - b) / np.where(big, np.abs(b), 1.0), 0.0)
+
+
+def phase_compare_1d_full(dev, refs):
+    """Phase 14: the 1D kernel against its plain version at the main
+    path's mesh: each variant of phase 12 in float64, one 10 Myr step of
+    test 1 at mesh 10000 from the initial state, the kernel on the card
+    and the plain version in its CPU process (started after phase 8).
+    Every shell's iteration count equal; fractions within 1e-10 relative
+    with a 1e-12 floor, temperatures within 1e-10 (phase 11's limits).
+    With heating the problem itself is ill-conditioned next to the source
+    (shell 0's temperature moves by ~3e-5 when its volume moves by an
+    ulp, with the same iteration and sub-step counts): the conditioning
+    runs measure that, and a temperature may differ by 1e-10 plus 10x
+    the largest relative change they show.  Returns, per kernel,
+    (max |kernel - plain| of the fractions, the largest relative
+    difference of values above 1e-10, the kernel's step wall in ms, the
+    plain version's in ms)."""
+    out = {}
+    for name, iso, quad in ONED_MAIN:
+        run = oned_run(1, ONED_FULL_MESH, torch.float64, dev, iso, quad)
+        nits, wall = synced(run.step, 10.0 * MYR)
+        ref, waited = _oned_reference_result(refs, name)
+        if not np.array_equal(nits.cpu().numpy(), ref["nits"]):
+            bad = np.nonzero(nits.cpu().numpy() != ref["nits"])[0]
+            raise AssertionError(f"{name} f64 mesh {ONED_FULL_MESH}: "
+                                 f"iteration counts differ at shells "
+                                 f"{bad[:10].tolist()}")
+        got = {f: getattr(run.state, f).cpu().numpy()
+               for f in ("xh", "xhe", "temper")}
+        t_tol, note = 1e-10, ""
+        if not iso:
+            spread = _oned_reference_result(refs, name + ULP)[0]["spread"]
+            dt_k = _rel(got["temper"], ref["temper"])
+            t_tol = 1e-10 + 10.0 * float(spread.max())
+            note = (f"; 1 to {ONED_ULPS} ulps of the volumes move the plain "
+                    f"temperatures of the first {ONED_PREFIX} shells by up "
+                    f"to {spread.max():.3e} relative (shell "
+                    f"{int(spread.argmax())}; {int((spread > 1e-10).sum())} "
+                    f"shells above 1e-10); the kernel's differ by "
+                    f"up to {dt_k.max():.3e} (shell {int(dt_k.argmax())}; "
+                    f"{int((dt_k > 1e-10).sum())} shells above 1e-10; "
+                    f"limit {t_tol:.3e}); thermal sub-steps summed: kernel "
+                    f"{int(run.last_counters[3])}, plain "
+                    f"{int(ref['counters'][3])}")
+        frac_abs = max(float(np.abs(got[f] - ref[f]).max())
+                       for f in ("xh", "xhe"))
+        rel = max(float(_rel(got[f], ref[f]).max()) for f in got)
+        log(f"{name} f64 mesh {ONED_FULL_MESH}, one 10 Myr step: kernel vs "
+            f"plain fractions {frac_abs:.3e} absolute, largest relative "
+            f"difference {rel:.3e} (values above 1e-10); iterations "
+            f"{int(ref['counters'][0])} (largest of a shell "
+            f"{int(ref['counters'][1])}), equal in every shell; walls "
+            f"kernel {1e3 * wall:.3f} ms, plain (CPU) "
+            f"{1e3 * float(ref['wall']):.1f} ms; waited {waited:.1f} s for "
+            f"the plain run{note}")
+        for f in got:
+            torch.testing.assert_close(
+                torch.from_numpy(got[f]), torch.from_numpy(ref[f]),
+                rtol=t_tol if f == "temper" else 1e-10,
+                atol=0.0 if f == "temper" else 1e-12,
+                msg=lambda m: f"{name} f64 mesh {ONED_FULL_MESH} {f}: {m}")
+        out[name] = (frac_abs, rel, 1e3 * wall, 1e3 * float(ref["wall"]))
+    log("1D kernel vs plain at full width: ok")
+    return out
+
+
+# The 1D kernel's latency bound: the dependent chain of one fixed-point
+# iteration, counted from csrc/evolve1d.cu, band_rates.cuh and
+# chemistry.cuh in float32 instructions that each wait for the one
+# before.  A division counts 6 (MUFU.RCP and the 5 FFMA of the IEEE
+# refinement: the build has no fast math), an exponential 6, a square
+# root 5, expm1 and log10 12 each, pow 25; a shuffle, a select, a
+# conversion and a load 1.  Independent work counts once: a lane's K
+# nodes, the three species' divisions, doric's three exp and three
+# expm1, its X/Y/Z divisions.  Isothermal, quadrature (from the start of
+# an iteration): the rates of a lane's two bands 34 (columns 4, tau 3,
+# min and exp 8, the node sum 7, the thick/thin select 2, / vol and the
+# sums 10); the warp sums 10 (5 shuffles and adds); the per-atom rates 7;
+# the first doric pass 52 (the ionization sums 4, the helium sector's
+# divisions 6, the matrix terms 6, the square root 6, the root identity
+# 10, r2 and X2's divisions 18, the solution and the clamps 10 -- its
+# doric factors come from the previous iteration); the second 55 (its
+# electron density and the same chain); the average, the 1% test and
+# the loop branch 13: 171.  The table route's positions (log10 and a
+# division) and reads take 47 for a lane's bands in place of 34: 184.
+# Heating adds 38 (the Ricotti powers, two pows in sequence, gate the
+# heating sums; the thermal call's set-up and end; the temperature test)
+# and 52 per thermal sub-step (coolin's log10, division, read and
+# 5-term sum, the step size's division, the update and pressr2temper's
+# division).  Each instruction waits at least 4 cycles, the dependent-
+# issue latency of the float32 pipe; MUFU, shuffles and loads wait
+# longer, so this stays a lower bound.  At the card's largest clock.
+ONED_CHAIN = {(False, False): 171, (False, True): 184,
+              (True, False): 209, (True, True): 209}
+ONED_CHAIN_SUBSTEP = 52
+CYCLES_PER_DEPENDENT_OP = 4
+SM_CLOCK_HZ = 1.98e9
+
+
+def _sass_blocks(listing):
+    """(basic blocks as (first, end) instruction indices, successors) of
+    one function of a `cuobjdump -sass` listing.  Calls (the slow paths
+    of division and the like) fall through: their callees are reached
+    only through them and so count for nothing."""
+    ins = []
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)([^;]*);", listing):
+        op = m.group(3)
+        t = re.search(r"0x([0-9a-f]+)", m.group(4)) if op == "BRA" else None
+        ins.append((int(m.group(1), 16), m.group(2) is not None, op,
+                    int(t.group(1), 16) if t else None))
+    at = {a: i for i, (a, _, _, _) in enumerate(ins)}
+    lead = {0}
+    for i, (_, _, op, t) in enumerate(ins):
+        if op in ("BRA", "EXIT", "RET"):
+            lead.add(i + 1)
+            if op == "BRA":
+                lead.add(at[t])
+    lead = sorted(x for x in lead if x < len(ins))
+    ends = lead[1:] + [len(ins)]
+    block_of = {s: k for k, s in enumerate(lead)}
+    succ = []
+    for s, e in zip(lead, ends):
+        _, pred, op, t = ins[e - 1]
+        nxt = [block_of[e]] if e < len(ins) else []
+        if op == "BRA":
+            succ.append([block_of[at[t]]] + (nxt if pred else []))
+        else:
+            succ.append(nxt if pred or op not in ("EXIT", "RET") else [])
+    return list(zip(lead, ends)), succ
+
+
+def sass_issue_floor(listing):
+    """One warp's issue floor of one fixed-point iteration: the fewest
+    instructions on a path through the fixed-point loop's body, from its
+    header to a branch back to it, in the SASS `listing` of one
+    evolve1d_kernel.  The loop is the largest natural loop inside the
+    march over the shells (the largest loop); inner loops count once,
+    rarely taken branches not at all.  A warp issues at most one
+    instruction per cycle, so an iteration takes at least this many."""
+    blocks, succ = _sass_blocks(listing)
+    n = len(blocks)
+    preds = [[] for _ in range(n)]
+    for k in range(n):
+        for j in succ[k]:
+            preds[j].append(k)
+    # dominators (Cooper, Harvey and Kennedy) over reverse postorder
+    post, seen, stack = [], {0}, [(0, iter(succ[0]))]
+    while stack:
+        v, it = stack[-1]
+        w = next((w for w in it if w not in seen), None)
+        if w is None:
+            post.append(stack.pop()[0])
+        else:
+            seen.add(w)
+            stack.append((w, iter(succ[w])))
+    rank = {v: i for i, v in enumerate(reversed(post))}
+    idom = {0: 0}
+    changed = True
+    while changed:
+        changed = False
+        for v in reversed(post[:-1]):
+            ps = [p for p in preds[v] if p in idom]
+            d = ps[0]
+            for p in ps[1:]:
+                while d != p:
+                    while rank[d] > rank[p]:
+                        d = idom[d]
+                    while rank[p] > rank[d]:
+                        p = idom[p]
+            if idom.get(v) != d:
+                idom[v], changed = d, True
+
+    def dominates(h, v):
+        while v != h and v != 0:
+            v = idom[v]
+        return v == h
+
+    back = {(s, h) for s in seen for h in succ[s] if dominates(h, s)}
+    loops = {}
+    for s, h in back:
+        body, todo = loops.setdefault(h, {h}), [s]
+        while todo:
+            v = todo.pop()
+            if v not in body:
+                body.add(v)
+                todo.extend(preds[v])
+    size = lambda v: blocks[v][1] - blocks[v][0]
+    (march, outer), *inner = sorted(
+        loops.items(), key=lambda kv: -sum(size(v) for v in kv[1]))
+    h, body = next((h, b) for h, b in inner if h != march and b <= outer)
+    dist, heap = {h: size(h)}, [(size(h), h)]
+    while heap:
+        d, v = heapq.heappop(heap)
+        if d > dist[v]:
+            continue
+        for w in succ[v]:
+            if w in body and (v, w) not in back and d + size(w) < dist.get(
+                    w, math.inf):
+                dist[w] = d + size(w)
+                heapq.heappush(heap, (dist[w], w))
+    return min(dist[s] for s, hh in back if hh == h and s in dist)
+
+
+def oned_issue_floors():
+    """sass_issue_floor of each float32 evolve1d_kernel instantiation of
+    this run's build: {(heat, table): instructions}."""
+    from c2ray_tpu_torch import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass",
+                           str(cuda_build.library_path("evolve1d"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    floors = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.match(r"\S*evolve1d_kernelIfLb([01])ELb([01])E", fn)
+        if m:
+            floors[m.group(1) == "1", m.group(2) == "1"] = \
+                sass_issue_floor(fn)
+    return floors
+
+
+def oned_bound(ctx, counters, heat, table, floors):
+    """(bound_ms, bound_by, which) of one float32 1D timestep with these
+    counters (this step's summed iterations and thermal sub-steps): the
+    largest of (a) `bound` on the work done -- the state read and written
+    once, per iteration the exponentials of every live band's K nodes
+    (quadrature) or two logarithms and 4-10 table reads per band (tables)
+    and CHEM_SFU_PER_ITERATION, per sub-step a logarithm and 20 flops --,
+    (b) the latency of the iterations' dependent chains (ONED_CHAIN) and
+    (c) one warp's issue floor, `floors` instructions per iteration at
+    one a cycle."""
+    from c2ray_tpu_torch.radiation.quadrature import packed_band_rows
+
+    its, subs = int(counters[0]), int(counters[3])
+    mesh = ctx.vol.shape[0]
+    if table:
+        nb = ctx.tables.sigma_HI.shape[0]
+        sfu_it, flops_it = 2 * nb, nb * (60 if heat else 20)
+    else:
+        packed, _, K = packed_band_rows(ctx.tables, torch.float32, heat,
+                                        ctx.has_bb, ctx.has_pl, ctx.has_qso)
+        nodes = packed.shape[0] * K
+        sfu_it, flops_it = 2 * nodes, nodes * (25 if heat else 10)
+    nbytes = 4 * mesh * (7 + 6) + 4 * mesh
+    work = bound(nbytes, its * (flops_it + CHEM_FLOPS_PER_ITERATION)
+                 + subs * 20,
+                 its * (sfu_it + CHEM_SFU_PER_ITERATION) + subs)
+    cycles = CYCLES_PER_DEPENDENT_OP * (its * ONED_CHAIN[heat, table]
+                                        + subs * ONED_CHAIN_SUBSTEP)
+    lat_ms = 1e3 * cycles / SM_CLOCK_HZ
+    issue_ms = 1e3 * its * floors[heat, table] / SM_CLOCK_HZ
+    return max((work[0], work[1], "throughput"),
+               (lat_ms, "operations", "latency of the dependent chain"),
+               (issue_ms, "operations", "one warp's instruction issue"))
+
+
+def phase_oned_times(main, compare):
+    """The 1D kernels' times at mesh 10000 (CUDA events, a wrapper call
+    on phase 12's final state, mean of 3 after a warm-up) beside their
+    bounds; the plain version's step wall from phase 11 (mesh 128, on
+    the CPU)."""
+    from c2ray_tpu_torch.onedim import evolve as ev1
+
+    floors = oned_issue_floors()
+    log(f"issue floors, SASS instructions per fixed-point iteration: "
+        f"{floors}")
+    rows = {}
+    for name, variant, heat, table in (
+            ("evolve1d", "quadrature", False, False),
+            ("evolve1d_heat", "quadrature heating", True, False),
+            ("evolve1d_table", "table", False, True)):
+        run, dt = main[name]["run"], main[name]["dt"]
+        ms = event_ms(lambda: ev1.evolve1d_cuda(run.ctx, run.state, dt), 3)
+        _, _, counters = ev1.evolve1d_cuda(run.ctx, run.state, dt)
+        b = oned_bound(run.ctx, counters.tolist(), heat, table, floors)
+        worst, kp_abs, k128, p128 = compare[variant]
+        log(f"{name} at mesh {run.ctx.vol.shape[0]}: {ms:.3f} ms per step "
+            f"({int(counters[0])} iterations, {int(counters[3])} thermal "
+            f"sub-steps), bound {b[0]:.3f} ms ({b[2]}); at mesh 128 kernel "
+            f"{k128:.3f} ms, plain (CPU) {p128:.1f} ms")
+        rows[name] = (ms, b, worst, kp_abs, k128, p128, counters.tolist())
+    return rows
+
+
+
 def build_kernels():
     """Phase 2: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1198,7 +1849,7 @@ def build_kernels():
     from c2ray_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    names = ("pyramid_sweep", "chemistry", "photon_losses")
+    names = ("pyramid_sweep", "chemistry", "photon_losses", "evolve1d")
     with ThreadPoolExecutor(len(names)) as pool:
         for f in [pool.submit(cuda_build.load, n) for n in names]:
             f.result()
@@ -1206,13 +1857,17 @@ def build_kernels():
     for name in names:
         kernel = ""
         for line in cuda_build.build_log(name).splitlines():
-            m = re.search(r"Compiling entry .*?\d([a-z_]+_kernel)I([fd])"
-                          r"(?:Lb([01])E)?(?:Lb([01])E)?", line)
+            m = re.search(r"Compiling entry .*?(stage_kernel|source_cell_kernel"
+                          r"|chemistry_kernel|photon_losses_kernel"
+                          r"|evolve1d_kernel)I([fd])(?:Lb([01])E)?"
+                          r"(?:Lb([01])E)?", line)
             if m:
                 dtype = "float" if m.group(2) == "f" else "double"
                 heat = ", heat" if m.group(3) == "1" else ""
-                track = ", track" if m.group(4) == "1" else ""
-                kernel = f"{m.group(1)}<{dtype}{heat}{track}>"
+                flag = ("table" if m.group(1).startswith("evolve1d")
+                        else "track")
+                second = f", {flag}" if m.group(4) == "1" else ""
+                kernel = f"{m.group(1)}<{dtype}{heat}{second}>"
             elif kernel and ("registers" in line or "spill" in line):
                 log(f"  {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -1222,6 +1877,10 @@ def main():
     if sys.argv[1:2] == ["--cpu-reference"]:
         # phase 9's float64 reference, started by the script itself
         cpu_reference(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--oned-reference"]:
+        # phase 14's float64 plain runs, started by the script itself
+        oned_reference(sys.argv[2], sys.argv[3])
         return
     # -- 1. card
     if not torch.cuda.is_available():
@@ -1237,12 +1896,14 @@ def main():
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     ref = start_cpu_reference(workdir)                              # 9.
+    oned_refs = {}     # phase 14's CPU runs, started after phase 8
     try:
-        kernels = run_phases(dev, workdir, ref)
+        kernels = run_phases(dev, workdir, ref, oned_refs)
     finally:
-        if ref[0].poll() is None:
-            ref[0].kill()
-        ref[0].wait()
+        for proc in [ref[0]] + [r[0] for r in oned_refs.values()]:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -1251,8 +1912,10 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run_phases(dev, workdir, ref):
-    """Phases 2-10; returns the entries of the `kernels` line."""
+def run_phases(dev, workdir, ref, oned_refs):
+    """Phases 2-14; returns the entries of the `kernels` line.  Phase
+    14's CPU runs start, into `oned_refs`, once the 3D main paths have
+    been timed, so that they do not share the host with those timings."""
     def phase(label, fn, *args, **kw):
         t0 = time.perf_counter()
         out = fn(*args, **kw)
@@ -1276,9 +1939,16 @@ def run_phases(dev, workdir, ref):
     lls_err, track_err, pl_err = (max(e) for e in zip(*errs))
     pcfg, ps_, psrc, pnfl, _, pcounts = phase(                      # 8.
         "photon-loss main path", phase_main, dev, photon_losses=True)
+    oned_refs.update(start_oned_references(workdir))                # 14.
+    # the 1D program while phase 9's CPU reference runs
+    compare_1d = phase("1D compare", phase_compare_1d, dev)          # 11.
+    main_1d = phase("1D main path", phase_main_1d, dev)              # 12.
+    phase("1D physics", phase_physics_1d, dev, main_1d)              # 13.
     phase("driver physics", phase_driver_physics, dev, workdir, ref)  # 9.
     r, last_sources, dcounts = phase("driver", phase_driver_full,  # 10.
                                      dev, workdir)
+    full_1d = phase("1D compare at full width", phase_compare_1d_full,
+                    dev, oned_refs)                                 # 14.
     # the kernel times last, when phase 9's CPU reference process no
     # longer shares the host with the launches
     iso_t = phase("kernel times", phase_kernel_times, cfg, s, srcpos,
@@ -1288,6 +1958,7 @@ def run_phases(dev, workdir, ref):
     track_t, pl_t = phase("photon-loss kernel times", phase_track_times,
                           pcfg, ps_, psrc, pnfl)
     lls_t = phase("LLS kernel times", phase_lls_times, r, last_sources)
+    oned_t = phase("1D kernel times", phase_oned_times, main_1d, compare_1d)
 
     # each kernel's launches on its own path: phases 4, 5, 8 and 10
     counts = {**counts, **hcounts, **pcounts, **dcounts}
@@ -1342,6 +2013,34 @@ def run_phases(dev, workdir, ref):
          "max_err_f32_32cube": pl_err, "ms": pms, "plain_ms": pplain,
          "bound_ms": pb[0], "bound_by": pb[1], "library_ms": plib},
     ]
+    # the 1D kernels: launches on phase 12's runs, time and bound at mesh
+    # 10000; the error against the plain version at mesh 10000 in float64
+    # (phase 14), and at mesh 128 in float32 beside the plain version's
+    # step wall there (phase 11)
+    for name, replaces in (
+            ("evolve1d", "c2ray_tpu/onedim/evolve.py:104"),
+            ("evolve1d_heat", "c2ray_tpu/onedim/evolve.py:104"),
+            ("evolve1d_table", "c2ray_tpu/radiation/photo.py:185")):
+        ms, b, worst, kp_abs, k128, p128, counters = oned_t[name]
+        f_abs, f_rel, k_full, p_full = full_1d[name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "c2ray_tpu_torch/csrc/evolve1d.cu",
+             "replaces": replaces, "launches": main_1d[name]["launches"],
+             "max_abs_err": f_abs,
+             "max_abs_err_of": "float64, mesh 10000, one 10 Myr step",
+             "max_rel_err_f64_mesh10000": f_rel,
+             "max_abs_err_f32_mesh128": kp_abs,
+             "max_err_f32_vs_f64_mesh128": worst,
+             "ms": ms, "plain_ms": p128,
+             "plain_shape": "mesh 128, one float32 step, on the CPU",
+             "ms_mesh128": k128,
+             "ms_f64_mesh10000_step0": k_full,
+             "plain_ms_f64_mesh10000_step0": p_full,
+             "host_share_of_step_wall": main_1d[name]["host_share"],
+             "bound_ms": b[0], "bound_by": b[1],
+             "bound_detail": b[2], "counters": counters,
+             "library_ms": None})
     return kernels
 
 

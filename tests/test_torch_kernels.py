@@ -19,9 +19,18 @@ import pytest
 import torch
 
 from c2ray_tpu_torch import constants as const
+from c2ray_tpu_torch import cuda_build
 from c2ray_tpu_torch.cooling import setup_cooling_tables
+from c2ray_tpu_torch.grid import RadialGrid
+from c2ray_tpu_torch.onedim import OneDProblem
+from c2ray_tpu_torch.onedim import evolve as onedim_evolve
+from c2ray_tpu_torch.onedim.driver import OneDRun
+from c2ray_tpu_torch.radiation.monochromatic import \
+    build_monochromatic_tables
 from c2ray_tpu_torch.radiation import BlackBodySED, PowerLawSED, SEDConfig
-from c2ray_tpu_torch.radiation.quadrature import build_quadrature_tables
+from c2ray_tpu_torch.radiation.bands import F_FACTORS
+from c2ray_tpu_torch.radiation.quadrature import (build_quadrature_tables,
+                                                  packed_band_rows)
 from c2ray_tpu_torch.state import initial_grid_state
 from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
                                    SourceFields, SweepConfig, evolve3d,
@@ -167,8 +176,9 @@ def test_packed_tables_layout(heat):
     cfg = SweepConfig(tables=tables, mesh=8, dr=1.0e21,
                       isothermal=not heat, flux_scale=bands.flux_scale,
                       has_pl=True)
-    assert pyramid_sweep._heats(cfg) == heat
-    packed, types, K = pyramid_sweep._packed_tables(cfg, torch.float64, heat)
+    assert pyramid_sweep.sweep_heats(cfg) == heat
+    packed, types, K = packed_band_rows(tables, torch.float64, heat,
+                                        has_pl=True)
     assert K == tables.bb.sigma_hat.shape[1]
     assert packed.shape[1] == (17 + 5 * K if heat else 5 + 2 * K)
     assert [t[0] for t in types] == [0, 1]
@@ -190,7 +200,7 @@ def test_packed_tables_layout(heat):
                     lo = 5 + (2 + s) * K
                     assert torch.equal(r[lo:lo + K], A[j])
                 f = torch.stack([getattr(tables, n)[b]
-                                 for n in pyramid_sweep._F_FACTORS])
+                                 for n in F_FACTORS])
                 assert torch.equal(r[5 + 5 * K:], f)
             row += 1
     assert row == packed.shape[0]
@@ -219,7 +229,7 @@ def test_sweep_shared_memory_limit():
         _three_type_config(8, torch.float64, "cpu"), torch.float64)
     smem = (packed.numel() + 2 * 256) * 8
     assert heat and K == 6 and packed.shape == (127, 17 + 5 * K)
-    assert 48 * 1024 < smem <= pyramid_sweep._SHARED_MEM_LIMIT
+    assert 48 * 1024 < smem <= cuda_build.SHARED_MEM_LIMIT
     with pytest.raises(ValueError, match=r"need \d+ B of shared memory"):
         pyramid_sweep._kernel_tables(
             _three_type_config(8, torch.float64, "cpu", n_nodes=48),
@@ -231,7 +241,7 @@ def test_heating_sweep_without_heating_tables_has_no_heat():
     plain version, so the kernel wrapper takes the isothermal variant."""
     cfg = _config(4, torch.float64, "cpu")
     hot = dataclasses.replace(cfg.sweep, isothermal=False)
-    assert not pyramid_sweep._heats(hot)
+    assert not pyramid_sweep.sweep_heats(hot)
     state = _random_state(4, torch.float64, "cpu")
     fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
                           state.he_av0, state.he_av1)
@@ -437,3 +447,136 @@ def test_chemistry_kernel_matches_plain(cuda_device, dtype, heating):
     for a, b, name in zip(k[0], p[0], state._fields):
         atol = 0.0 if name.startswith("t_") else tol
         torch.testing.assert_close(a, b, rtol=tol, atol=atol, msg=name)
+
+
+# the 1D variants of chip_smoke.py's phase 11: (test problem,
+# isothermal, quadrature route, monochromatic tables, dt in Myr), on
+# the problems of tests/test_onedim.py
+_ONED = {
+    "quadrature": (1, True, True, False, 10.0),
+    "quadrature_heating": (1, False, True, False, 1.0),
+    "table": (1, True, False, False, 10.0),
+    "table_heating": (1, False, False, False, 1.0),
+    "monochromatic": (1, True, True, True, 10.0),
+    "test4": (4, True, True, False, 5.0),
+}
+
+
+def _oned_run(variant, mesh, dtype, device):
+    testnum, iso, quad, mono, dt = _ONED[variant]
+    if testnum == 4:
+        problem = OneDProblem(testnum=4, dens_val=1.87e-7, temper_val=1e4,
+                              zred00=9.0)
+        r_out, S_star = 700.0, 3.0e50
+    else:
+        problem = OneDProblem(testnum=1, dens_val=1e-3, temper_val=1e4,
+                              isothermal=iso)
+        r_out, S_star = 10.0, 5.0e48
+    sed = SEDConfig(bb=BlackBodySED(T_eff=1e5, S_star=S_star))
+    run = OneDRun.setup(problem, RadialGrid(0.0, r_out * const.kpc, mesh),
+                        sed, dtype=dtype, use_quadrature=quad,
+                        device=device)
+    if mono:
+        # 13.6 eV: one band, K = 1, a zero HeI mask
+        qt, _, bands = build_monochromatic_tables(
+            sed, 13.6, isothermal=iso, dtype=dtype, device=device)
+        run.ctx = dataclasses.replace(
+            run.ctx, tables=qt, flux_scale=bands.flux_scale,
+            vol=torch.as_tensor(run.grid.vol / bands.flux_scale,
+                                dtype=dtype, device=device))
+    return run, dt * 1e6 * const.YEAR
+
+
+def _oned_counts():
+    return (onedim_evolve.launches, onedim_evolve.launches_heat,
+            onedim_evolve.launches_table, onedim_evolve.launches_table_heat)
+
+
+def test_1d_plain_path_launches_no_kernel():
+    before = _oned_counts()
+    run, dt = _oned_run("table_heating", 8, torch.float64, "cpu")
+    nits = run.step(dt)
+    assert _oned_counts() == before
+    assert int(nits.min()) >= 1 and int(run.last_counters[2]) > 0
+
+
+def test_1d_kernel_wrapper_refuses_cpu_tensors():
+    run, dt = _oned_run("quadrature", 8, torch.float64, "cpu")
+    before = _oned_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        onedim_evolve.evolve1d_cuda(run.ctx, run.state, dt)
+    assert _oned_counts() == before
+
+
+def test_1d_kernel_tables_are_packed_once():
+    """The kernel's table inputs are packed once and kept on the
+    context: test 4's per-step context (new dr and volumes) reuses them,
+    a context made with other tables gets its own, never stale rows."""
+    cpu = torch.device("cpu")
+    run, _ = _oned_run("test4", 8, torch.float64, "cpu")
+    kt = onedim_evolve._kernel_tables(run.ctx, torch.float64, cpu)
+    nbt, K, ntypes = kt.layout[:3]
+    assert kt.bands.shape == (nbt, 5 + 2 * K) and ntypes == 1
+    assert kt.hbin is None and kt.photo is None and kt.cool is None
+    moved = dataclasses.replace(run.ctx, dr=2.0 * run.ctx.dr,
+                                vol=2.0 * run.ctx.vol)
+    assert onedim_evolve._kernel_tables(moved, torch.float64, cpu) is kt
+    mono, _ = _oned_run("monochromatic", 8, torch.float64, "cpu")
+    swapped = dataclasses.replace(run.ctx, tables=mono.ctx.tables)
+    km = onedim_evolve._kernel_tables(swapped, torch.float64, cpu)
+    assert km.layout[:3] == (1, 1, 1) and km.bands.shape == (1, 7)
+    heat, _ = _oned_run("table_heating", 8, torch.float64, "cpu")
+    kh = onedim_evolve._kernel_tables(heat.ctx, torch.float32, cpu)
+    nb = heat.ctx.tables.sigma_HI.shape[0]
+    assert kh.bands.shape == (nb, 17) and kh.hbin.shape == (nb, 3)
+    assert kh.photo.shape == (1, 2, 2001, nb)
+    assert kh.heat.shape == (1, 2, 2001, kh.layout[-1])
+    assert kh.cool.shape == (801, 5) and kh.cool.dtype == torch.float32
+
+
+def _oned_errors(state, ref):
+    """Largest |difference| of the fractions and relative one of the
+    temperatures from the float64 reference state."""
+    frac = max(float((getattr(state, f).double().cpu()
+                      - getattr(ref, f)).abs().max()) for f in ("xh", "xhe"))
+    temp = float(((state.temper.double().cpu() - ref.temper).abs()
+                  / ref.temper).max())
+    return frac, temp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("variant", sorted(_ONED))
+def test_evolve1d_kernel_matches_plain(cuda_device, variant, dtype):
+    """Two timesteps at mesh 64 through the kernel and the plain version
+    (on the CPU).  float64: rtol 1e-10 (fractions with a 1e-12 floor)
+    and every shell's iteration count equal.  float32: the kernel's error
+    against the plain float64 run within twice the plain float32 run's
+    plus 1e-5 (the lanes add the bands in another order, and FMA
+    contraction rounds the columns differently)."""
+    mesh = 64
+    kern, dt = _oned_run(variant, mesh, dtype, cuda_device)
+    plain, _ = _oned_run(variant, mesh, dtype, "cpu")
+    ref, _ = (_oned_run(variant, mesh, torch.float64, "cpu")
+              if dtype == torch.float32 else (plain, None))
+    for _ in range(2):
+        before = _oned_counts()
+        nk = kern.step(dt)
+        torch.cuda.synchronize()
+        assert sum(_oned_counts()) == sum(before) + 1
+        n_plain = plain.step(dt)
+        if ref is not plain:
+            ref.step(dt)
+        assert int(kern.last_counters[0]) == int(nk.sum())
+        if dtype == torch.float64:
+            assert torch.equal(nk.cpu(), n_plain)
+            for f in ("xh", "xhe", "temper"):
+                torch.testing.assert_close(
+                    getattr(kern.state, f).cpu(), getattr(plain.state, f),
+                    rtol=1e-10, atol=0.0 if f == "temper" else 1e-12,
+                    msg=f)
+        else:
+            frac_k, temp_k = _oned_errors(kern.state, ref.state)
+            frac_p, temp_p = _oned_errors(plain.state, ref.state)
+            assert frac_k <= 2.0 * frac_p + 1e-5, (frac_k, frac_p)
+            assert temp_k <= 2.0 * temp_p + 1e-5, (temp_k, temp_p)

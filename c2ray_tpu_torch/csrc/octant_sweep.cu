@@ -1,0 +1,254 @@
+// Skewed-octant short-characteristics sweep of a source batch (even cubic
+// mesh, full periodic extents +M/2 / -(M/2-1)), with the quadrature band
+// rates through the shared cell step of csrc/short_char.cuh; isothermal,
+// or with kHeat the heating branch.
+//
+// Replaces c2ray_tpu/sweep/octant_sweep.py: sweep_octant_source_batch
+// (:113), computing the same function; it is not a copy of that XLA
+// program's plane-window scan and roll-and-stitch.
+//
+// Algorithm (the same as the plain version, octant_sweep.py:
+// octant_sweep_plain): around each source the 8 octants (signs of the
+// offset) are swept in the octant frame (a, b, c) = |offset| along
+// x, y, z, a cube of (R+1)^3 cells, R = M/2.  The causal hyperplane
+// a+b+c = s is a triangular slice stored as a plane P_s[b, c]; every
+// cinterp corner of a cell on plane s lies on plane s-1, s-2 or s-3 at
+// [b or b-1, c or c-1] (octant_sweep.py:188-206).  Each (source, octant)
+// keeps a ring of four planes ((R+1)^2 x 3 values each; 1.6 MB per
+// source at 128^3 in float32, against 25 MB for a column cube), and
+// planes s = 1..3R run in order, one launch each over (source, octant,
+// b, c): a valid cell (a in 0..R toward +, 0..R-1 toward -, and b, c
+// likewise) writes its outgoing columns to slot s mod 4, any other
+// position writes 0.  Reads come from the three other slots, so a launch
+// never reads what it writes.
+//
+// Ownership: an offset on a face between octants is computed in each of
+// them (its columns feed that octant's later planes; the corner weights
+// toward the other side are exactly 0, so the values agree) but belongs
+// to one: positive octants own the zero faces, negative octants reach
+// -(R-1).  Only the owner evaluates the band rates, writes them straight
+// into the per-source slab in absolute coordinates, and counts the
+// photon loss (live & on_bound & owned, octant_sweep.py:260-265); the
+// source cell is deposited once, by its own kernel.  No LLS loss:
+// lls_loss is 0 even with a homogeneous LLS column, as in JAX (:328).
+// Photon losses reduce per block into partials, summed in fixed order by
+// the caller: no float atomics, the sweep is deterministic.
+//
+// Bound: the K-node exponentials of every live band, owned cell and
+// source (the unique cells; face cells of other octants skip their
+// rates), as in csrc/pyramid_sweep.cu.  Every launch covers all (R+1)^2
+// positions of a plane, though at most ~3/4 of them are valid.
+
+#include "short_char.cuh"
+
+namespace c2ray {
+namespace {
+
+constexpr int kBlock = 256;
+
+template <typename T>
+struct Params {
+  const T* fields;    // (M^3, 5): ndens, h_av0, h_av1, he_av0, he_av1
+  const int* srcpos;  // (S, 3)
+  const T* nflux;     // (S, 3)
+  const T* bands;     // (nbt, stride) live bands of every source type
+  T* ring;            // (S, 8, 4, R+1, R+1, 3) plane ring, zeroed
+  T* slab;            // (S, M^3, 4) per-source rates, zeroed
+  T* partials;        // (S, nslots) photon loss per block
+  int M, S, R, nslots, nbt;
+  StepConsts<T> k;
+};
+
+// octant o = 4 ix + 2 iy + iz, sign -1 where the bit is set
+// (octant_sweep.py:_octant_signs order)
+__device__ __forceinline__ int octant_sign(int o, int axis) {
+  return (o >> (2 - axis)) & 1 ? -1 : 1;
+}
+
+// The source cell of each source: seeds plane 0 of its 8 rings, writes
+// its rates.
+template <typename T, bool kHeat>
+__global__ void source_cell_kernel(Params<T> p) {
+  extern __shared__ unsigned char smem[];
+  T* tab = reinterpret_cast<T*>(smem);
+  load_band_rows<T, kHeat>(p.bands, p.nbt, p.k.bt.K, tab);
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= p.S) return;
+  StepConsts<T> k = p.k;
+  k.tab = tab;
+  const int M = p.M, R1 = p.R + 1;
+  const size_t n = size_t(M) * M * M;
+  const int* sp = p.srcpos + 3 * s;
+  const size_t flat =
+      (size_t(wrap(sp[0], M)) * M + wrap(sp[1], M)) * M + wrap(sp[2], M);
+  T cc0[3], r[4];
+  source_cell<T, kHeat>(k, p.nflux + 3 * s, p.fields + flat * 5, cc0, r);
+  for (int o = 0; o < 8; ++o) {
+    T* dst = p.ring + ((size_t)s * 8 + o) * 4 * R1 * R1 * 3;   // slot 0
+    for (int q = 0; q < 3; ++q) dst[q] = cc0[q];
+  }
+  T* out = p.slab + ((size_t)s * n + flat) * 4;
+  for (int q = 0; q < 4; ++q) out[q] = r[q];
+}
+
+// Plane s of every (source, octant): blockIdx.z = source, blockIdx.y =
+// octant, threads over (b, c).  The arithmetic is plane_step
+// (octant_sweep.py:157-267).
+template <typename T, bool kHeat>
+__global__ void __launch_bounds__(kBlock)
+plane_kernel(Params<T> p, int s) {
+  extern __shared__ unsigned char smem[];
+  T* tab = reinterpret_cast<T*>(smem);
+  T* red = tab + p.nbt * row_stride<kHeat>(p.k.bt.K);   // kBlock
+  load_band_rows<T, kHeat>(p.bands, p.nbt, p.k.bt.K, tab);
+
+  const int src = blockIdx.z, o = blockIdx.y;
+  const int M = p.M, R = p.R, R1 = R + 1;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  T ploss = T(0);
+  if (idx < R1 * R1) {
+    const int b = idx / R1, c = idx - b * R1, a = s - b - c;
+    const int sx = octant_sign(o, 0), sy = octant_sign(o, 1),
+              sz = octant_sign(o, 2);
+    const int vx = sx > 0 ? R : R - 1, vy = sy > 0 ? R : R - 1,
+              vz = sz > 0 ? R : R - 1;
+    T* ring = p.ring + ((size_t)src * 8 + o) * 4 * R1 * R1 * 3;
+    T* dst = ring + ((size_t)(s & 3) * R1 * R1 + idx) * 3;
+    if (!(a >= 0 && a <= vx && b <= vy && c <= vz)) {
+      for (int q = 0; q < 3; ++q) dst[q] = T(0);
+    } else {
+      const int dom = dominant_axis(a, b, c);
+      const int abc[3] = {a, b, c};
+      const int du_i = abc[dom == 0 ? 1 : 0], dv_i = abc[dom == 2 ? 1 : 2];
+      const T d_dom = T(abc[dom]), d_u = T(du_i), d_v = T(dv_i);
+      T sw[4];
+      corner_weights(d_dom, d_u, d_v, sw);
+      // corner (a-da, b-db, c-dc) -> plane s-da-db-dc at [b-db, c-dc];
+      // null off the plane's edge
+      auto at = [&](int back, int bb, int cc) -> const T* {
+        if (bb < 0 || cc < 0) return nullptr;
+        return ring + ((size_t)((s - back) & 3) * R1 * R1 + bb * R1 + cc) * 3;
+      };
+      // (u_m, v_m), (u, v_m), (u_m, v), (u, v) for the dominant axis
+      // (octant_sweep.py:192-205)
+      const T* c1 = at(3, b - 1, c - 1);
+      const T *c2, *c3, *c4;
+      if (dom == 2) {
+        c2 = at(2, b - 1, c - 1); c3 = at(2, b, c - 1); c4 = at(1, b, c - 1);
+      } else if (dom == 1) {
+        c2 = at(2, b - 1, c - 1); c3 = at(2, b - 1, c); c4 = at(1, b - 1, c);
+      } else {
+        c2 = at(2, b, c - 1); c3 = at(2, b - 1, c); c4 = at(1, b, c);
+      }
+      const T* const cs[4] = {c1, c2, c3, c4};
+      T cin[3];
+      interp_columns(cs, sw, diag_boost<T>(abc[dom], du_i, dv_i), cin);
+      const T pu = path_units(d_dom, d_u, d_v);
+      const T af = T(a), bf = T(b), cf = T(c);
+      const T dist2 = af * af + bf * bf + cf * cf;
+
+      const int* sp = p.srcpos + 3 * src;
+      const size_t flat = (size_t(wrap(sp[0] + sx * a, M)) * M +
+                           wrap(sp[1] + sy * b, M)) * M +
+                          wrap(sp[2] + sz * c, M);
+      const bool owned = (a > 0 || sx > 0) && (b > 0 || sy > 0) &&
+                         (c > 0 || sz > 0);
+      const bool on_bound = a == vx || b == vy || c == vz;
+      StepConsts<T> k = p.k;
+      k.tab = tab;
+      T cd_out[3], r[4], lloss = T(0);
+      cell_step<T, kHeat>(k, p.nflux + 3 * src, p.fields + flat * 5, cin, pu,
+                          dist2, on_bound, owned, cd_out, r, ploss, lloss);
+      for (int q = 0; q < 3; ++q) dst[q] = cd_out[q];
+      if (owned) {
+        T* out = p.slab + ((size_t)src * M * M * M + flat) * 4;
+        for (int q = 0; q < 4; ++q) out[q] = r[q];
+      }
+    }
+  }
+  const T pl = block_sum<T, kBlock>(red, ploss);
+  if (threadIdx.x == 0) {
+    const int nblk = gridDim.x;
+    p.partials[(size_t)src * p.nslots + (o * 3 * R + (s - 1)) * nblk +
+               blockIdx.x] = pl;
+  }
+}
+
+inline int plane_blocks(int R) {
+  return ((R + 1) * (R + 1) + kBlock - 1) / kBlock;
+}
+
+template <typename T, bool kHeat>
+int run_sweep(const T* fields, const int* srcpos, const T* nflux,
+              const T* bands, T* ring, T* slab, T* partials, int M, int S,
+              int K, int ntypes, const int cols[3], const int nbs[3],
+              const int los[3], double dr, double vol_over_scale,
+              double coldensh_lls, double max_coldensh, cudaStream_t stream) {
+  Params<T> p;
+  p.fields = fields; p.srcpos = srcpos; p.nflux = nflux; p.bands = bands;
+  p.ring = ring; p.slab = slab; p.partials = partials;
+  p.M = M; p.S = S; p.R = M / 2;
+  p.k.bt.K = K; p.k.bt.ntypes = ntypes;
+  p.nbt = 0;
+  for (int t = 0; t < 3; ++t) {
+    p.k.bt.type_col[t] = t < ntypes ? cols[t] : 0;
+    p.k.bt.type_nb[t] = t < ntypes ? nbs[t] : 0;
+    p.k.bt.type_lo[t] = t < ntypes ? los[t] : 0;
+    p.nbt += p.k.bt.type_nb[t];
+  }
+  const int nblk = plane_blocks(p.R);
+  p.nslots = 8 * 3 * p.R * nblk;
+  p.k.tab = nullptr;
+  p.k.dr = T(dr); p.k.vol_over_scale = T(vol_over_scale);
+  p.k.coldensh_lls = T(coldensh_lls); p.k.max_coldensh = T(max_coldensh);
+
+  const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
+  const size_t smem = tab_bytes + kBlock * sizeof(T);
+  cudaError_t err = allow_smem(source_cell_kernel<T, kHeat>, tab_bytes);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(plane_kernel<T, kHeat>, smem);
+  if (err != cudaSuccess) return err;
+  source_cell_kernel<T, kHeat><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  for (int s = 1; s <= 3 * p.R; ++s) {
+    plane_kernel<T, kHeat><<<dim3(nblk, 8, S), kBlock, smem, stream>>>(p, s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+}  // namespace c2ray
+
+extern "C" {
+
+// number of per-block photon-loss slots per source at mesh M
+int octant_sweep_slots(int M) {
+  return 8 * 3 * (M / 2) * c2ray::plane_blocks(M / 2);
+}
+
+// Returns the cudaError_t of the launches (0 on success).
+#define C2RAY_OCTANT_ENTRY(NAME, T, HEAT)                                    \
+  int NAME(const T* fields, const int* srcpos, const T* nflux,              \
+           const T* bands, T* ring, T* slab, T* partials, int M, int S,     \
+           int K, int ntypes, int col0, int nb0, int lo0, int col1,         \
+           int nb1, int lo1, int col2, int nb2, int lo2, double dr,         \
+           double vol_over_scale, double coldensh_lls, double max_coldensh, \
+           void* stream) {                                                  \
+    const int cols[3] = {col0, col1, col2};                                 \
+    const int nbs[3] = {nb0, nb1, nb2};                                     \
+    const int los[3] = {lo0, lo1, lo2};                                     \
+    return c2ray::run_sweep<T, HEAT>(                                       \
+        fields, srcpos, nflux, bands, ring, slab, partials, M, S, K,        \
+        ntypes, cols, nbs, los, dr, vol_over_scale, coldensh_lls,           \
+        max_coldensh, static_cast<cudaStream_t>(stream));                   \
+  }
+
+C2RAY_OCTANT_ENTRY(octant_sweep_f32, float, false)
+C2RAY_OCTANT_ENTRY(octant_sweep_f64, double, false)
+C2RAY_OCTANT_ENTRY(octant_sweep_heat_f32, float, true)
+C2RAY_OCTANT_ENTRY(octant_sweep_heat_f64, double, true)
+
+}  // extern "C"

@@ -34,7 +34,7 @@ from .radiation.sed import SEDConfig
 from .rates import rate_coefficients
 from .sources import SourceList
 from .state import GridState, initial_grid_state
-from .sweep import Evolve3DConfig, SweepConfig, evolve3d
+from .sweep import Evolve3DConfig, SweepConfig, build_shell_table, evolve3d
 from .sweep.global_pass import ChemistryConfig
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -70,8 +70,8 @@ class Run3DConfig:
     # torch.float64 / torch.float32 (or their names); the card runs
     # float32, the tests float64
     dtype: object = torch.float64
-    # trace extent cap (c2ray_parameters.f90:52-56): below M/2 - 1 it
-    # needs the L1-shell engine, which is not ported (ROADMAP Queue 2 #8)
+    # trace extent cap (c2ray_parameters.f90:52-56): below M/2 - 1, and
+    # at an odd mesh, the timestep runs the L1-shell engine
     max_subbox: Optional[int] = None
     # iteration-dump cadence in wall-clock seconds (evolve.F90:205-208)
     dump_interval_s: float = 15 * 60.0
@@ -136,10 +136,6 @@ class Run3D:
             raise NotImplementedError(
                 f"parallel={c.parallel!r}: multi-GPU execution is the "
                 f"multi-GPU slice of the port (ROADMAP Queue 2 #6)")
-        if c.max_subbox is not None and c.max_subbox < c.mesh // 2 - 1:
-            raise NotImplementedError(
-                "max_subbox below mesh/2 - 1 needs the L1-shell engine, "
-                "which is not ported (ROADMAP Queue 2 #8)")
         config.dtype = _DTYPES.get(c.dtype, c.dtype)
         self.device = _device_of(c.device)
         self.config = config
@@ -194,7 +190,11 @@ class Run3D:
         chem_cfg = ChemistryConfig(
             cooling=cooling, isothermal=c.isothermal,
             isothermal_temperature=c.initial_temperature)
-        self.evolve_cfg = Evolve3DConfig(sweep=sweep_cfg, chem=chem_cfg)
+        # the shell engine's extents; the full periodic ones (even mesh,
+        # no cap below M/2 - 1) keep the pyramid engine
+        shells = build_shell_table(c.mesh, c.max_subbox)
+        self.evolve_cfg = Evolve3DConfig(sweep=sweep_cfg, chem=chem_cfg,
+                                         shells=shells)
 
         # kept for the JAX driver's call of evolve3d, which ignores it:
         # nothing is compiled per subbox radius

@@ -2,24 +2,28 @@
 until the grid converges.
 
 Port of ``c2ray_tpu/sweep/evolve3d.py`` (``evolve3D``,
-evolve.F90:78-229) for the pyramid engine.  The convergence loop runs
-in Python: its trip count is physical, data dependent and small.  The
-subbox radius is a runtime integer of the sweep, so nothing is built
-per radius (JAX's `iteration_cache` of compiled programs has no
-counterpart: `evolve3d` accepts it and ignores it).
+evolve.F90:78-229) with its three sweep engines: pyramid (the default),
+skewed octant and L1 shells.  The convergence loop runs in Python: its
+trip count is physical, data dependent and small.  The subbox radius is
+a runtime integer of the sweep, so nothing is built per radius (JAX's
+`iteration_cache` of compiled programs has no counterpart: `evolve3d`
+accepts it and ignores it).
 """
 
 import time as _time
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..state import GridState, begin_timestep, finish_timestep
+from .geometry import ShellTable, build_shell_table
 from .global_pass import ChemistryConfig, global_chemistry_pass
+from .octant_sweep import sweep_octant_source_batch
 from .photon_losses import distribute_photon_losses
 from .pyramid_sweep import sweep_pyramid_source_batch
-from .source_sweep import RateGrids, SourceFields, SweepConfig
+from .source_sweep import (RateGrids, SourceFields, SweepConfig,
+                           sweep_sources_accumulate)
 
 # c2ray_parameters.f90:26 and evolve.F90:147,177
 CONVERGENCE_FRACTION = 2.5e-4
@@ -34,11 +38,22 @@ MIN_FRACTION_OF_PHOTONS = 1.0e-10
 class Evolve3DConfig:
     sweep: SweepConfig
     chem: ChemistryConfig
+    # trace extents of the shell engine (sweep/geometry.py); None = the
+    # full periodic table, build_shell_table(mesh)
+    shells: Optional[ShellTable] = None
     convergence_fraction: float = CONVERGENCE_FRACTION
     max_iterations: int = MAX_GLOBAL_ITER
-    # expanding-subbox trace (evolve_source.F90:114-144): start at
-    # subbox_start cells, double while the escaping photon fraction
-    # exceeds min_fraction_of_photons, capped at M/2
+    # "pyramid": dominant-axis pyramid engine (each cell evaluated
+    # once; even mesh); "octant": dense skewed-octant engine (plane
+    # ring, no column cube; even mesh); "shells": sparse L1-shell
+    # engine (general extents).  Extents other than the full periodic
+    # ones (+M/2 / -(M/2-1): an odd mesh, a max_subbox table) always
+    # take the shell engine.
+    engine: str = "pyramid"
+    # expanding-subbox trace (evolve_source.F90:114-144; pyramid engine
+    # at full extents only): start at subbox_start cells, double while
+    # the escaping photon fraction exceeds min_fraction_of_photons,
+    # capped at M/2
     use_subbox: bool = True
     subbox_start: int = 8
     min_fraction_of_photons: float = MIN_FRACTION_OF_PHOTONS
@@ -81,6 +96,27 @@ def _subbox_radii(cfg: Evolve3DConfig):
     return radii
 
 
+_ENGINES = ("pyramid", "octant", "shells")
+
+
+def _full_extent(cfg: Evolve3DConfig) -> bool:
+    """Whether the trace extents are the full periodic ones, +M/2 /
+    -(M/2-1) (JAX evolve3d.py:121: the test is the lower extent)."""
+    M = cfg.sweep.mesh
+    lo = (cfg.shells.lo[0] if cfg.shells is not None
+          else -(M // 2 - 1 + M % 2))
+    return lo == -(M // 2 - 1)
+
+
+def sweep_engine(cfg: Evolve3DConfig) -> str:
+    """The engine an iteration runs: cfg.engine at full extents, else
+    the shell engine (JAX evolve3d.py:119-122)."""
+    if cfg.engine not in _ENGINES:
+        raise ValueError(f"unknown sweep engine {cfg.engine!r}; one of "
+                         f"{_ENGINES}")
+    return cfg.engine if _full_extent(cfg) else "shells"
+
+
 def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None,
                             return_rates=False):
     """One {sweep + global chemistry pass} iteration; `radius` bounds
@@ -93,11 +129,32 @@ def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None,
     host-computed dr^3/flux_scale override the sweep's cell size;
     `cosmo_cool_factor` overrides the chemistry config's
     (JAX evolve3d.py:182-184); `lls_grid` (mesh^3,) gives each cell's
-    LLS column."""
-    if cfg.add_photon_losses and not cfg.sweep.track_band_loss:
+    LLS column.
+
+    The engine is `sweep_engine(cfg)`.  As in JAX, `radius`, `dr`,
+    `vol_over_scale` and `lls_grid` reach the pyramid engine only: the
+    octant and shell engines trace the configuration's cell size and
+    homogeneous LLS column (ROADMAP Queue 3)."""
+    engine = sweep_engine(cfg)
+    if cfg.add_photon_losses and not (engine == "pyramid"
+                                      and cfg.sweep.track_band_loss):
         raise ValueError(
             "add_photon_losses needs the pyramid engine with "
             "SweepConfig(track_band_loss=True)")
+    shells = cfg.shells
+    if engine == "shells" and shells is None:
+        shells = build_shell_table(cfg.sweep.mesh)
+
+    def sweep(fields, srcpos, nflux, dr, vol_over_scale, lls_grid):
+        if engine == "octant":
+            return sweep_octant_source_batch(cfg.sweep, fields, srcpos, nflux)
+        if engine == "shells":
+            return sweep_sources_accumulate(cfg.sweep, shells, fields, srcpos,
+                                            nflux)
+        return sweep_pyramid_source_batch(cfg.sweep, fields, srcpos, nflux,
+                                          radius=radius, dr=dr,
+                                          vol_over_scale=vol_over_scale,
+                                          lls_grid=lls_grid)
 
     def iteration(state: GridState, srcpos, nflux, dt, dr=None,
                   vol_over_scale=None, cosmo_cool_factor=None,
@@ -105,10 +162,7 @@ def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None,
         fields = SourceFields(ndens=state.ndens, h_av0=state.h_av0,
                               h_av1=state.h_av1, he_av0=state.he_av0,
                               he_av1=state.he_av1)
-        rates = sweep_pyramid_source_batch(cfg.sweep, fields, srcpos, nflux,
-                                           radius=radius, dr=dr,
-                                           vol_over_scale=vol_over_scale,
-                                           lls_grid=lls_grid)
+        rates = sweep(fields, srcpos, nflux, dr, vol_over_scale, lls_grid)
         if cfg.add_photon_losses:
             vos = (vol_over_scale if vol_over_scale is not None
                    else cfg.sweep.vol / cfg.sweep.flux_scale)
@@ -129,7 +183,8 @@ def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt,
     """Full evolve3D (evolve.F90:78-229).
 
     srcpos: (S, 3) int; nflux: (S, 3).  Returns (new state,
-    Evolve3DStats).  With `cfg.use_subbox` each iteration's sweep runs
+    Evolve3DStats).  With `cfg.use_subbox` (the pyramid engine at full
+    extents; otherwise subbox_radius is 0) each iteration's sweep runs
     on an adaptive subbox radius: while the photon fraction escaping the
     current radius exceeds `min_fraction_of_photons`, the radius doubles
     and the sweep is redone (evolve_source.F90:114-144); the radius
@@ -161,7 +216,8 @@ def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt,
             "dump_dir requires the internally-built iteration "
             "(return_rates=True); pass dump_dir OR iteration_fn, not "
             "both")
-    adaptive = iteration_fn is None and cfg.use_subbox
+    adaptive = (iteration_fn is None and cfg.use_subbox
+                and cfg.engine == "pyramid" and _full_extent(cfg))
     want_rates = dump_dir is not None
     radii = _subbox_radii(cfg) if adaptive else [cfg.sweep.mesh // 2]
     if iteration_fn is None:

@@ -21,7 +21,8 @@ sources in fixed order.
 Memory: cd is S x M^3 x 3 and the slab S x M^3 x 4 values: 470 MB at
 128^3 x 8 sources in float32, 3.8 GB at 256^3.  A batch is swept in
 groups of sources (JAX's `_source_chunk`) so that a group's cd and slab
-stay under `_GROUP_BYTES`; the groups' sums are added in order.
+stay under `source_sweep._GROUP_BYTES`; the groups' sums are added in
+order.
 """
 
 import ctypes
@@ -30,12 +31,13 @@ import torch
 
 from .. import constants as const
 from .. import cuda_build
-from ..radiation.quadrature import packed_band_rows, rates_heat
 from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
-from .source_sweep import RateGrids, SourceFields, SweepConfig, _cell_rates
-
-# abundance weights per species column, order (HI, HeI, HeII)
-_ABU = (1.0 - const.abu_he, const.abu_he, const.abu_he)
+# stack_sweep_fields, _kernel_tables, _source_group and sweep_heats are
+# also this module's names for its callers (the tests, chip_smoke.py)
+from .source_sweep import (_ABU, RateGrids, SourceFields, SweepConfig,
+                           _cell_rates, _kernel_tables, _same_device,
+                           _scalars, _source_group, stack_sweep_fields,
+                           sweep_heats)
 
 # sweeps run through the CUDA kernel, one count per trace_cuda call
 # (which launches the 3 * Rf stage kernels of one sweep) in the counter
@@ -46,23 +48,6 @@ launches_heat = 0
 launches_lls = 0
 launches_track = 0
 
-# auto source group: a group's cd and slab (7 values per cell and
-# source) stay under this many bytes
-_GROUP_BYTES = 4 * 2**30
-
-
-def stack_sweep_fields(cfg: SweepConfig, fields: SourceFields):
-    """(M, M, M, 5) stacked field cube with the reference's epsilon
-    clamps (evolve_point.F90:120-132)."""
-    M = cfg.mesh
-    eps = cfg.epsilon
-    chans = [fields.ndens, torch.clamp(fields.h_av0, min=eps),
-             torch.clamp(fields.h_av1, min=eps),
-             torch.clamp(fields.he_av0, min=eps),
-             torch.clamp(fields.he_av1, min=eps)]
-    return torch.stack(chans, dim=-1).reshape(M, M, M, 5)
-
-
 def trace_extents(M: int, radius=None):
     """Forward / backward trace extents (Rf, Rb): +M/2 / -(M/2-1) by
     default (evolve_source.F90:103-109), cut to +-radius."""
@@ -70,22 +55,6 @@ def trace_extents(M: int, radius=None):
     if radius is None:
         return R, R - 1
     return min(radius, R), min(radius, R - 1)
-
-
-def _same_device(fstack, srcpos, nflux, cfg):
-    for t in (srcpos, nflux, cfg.tables.sigma_HI):
-        if t.device != fstack.device:
-            raise ValueError(f"sources and tables must be on the fields' "
-                             f"device {fstack.device}, not {t.device}")
-
-
-def _scalars(cfg, dtype, device, dr, vol_over_scale):
-    """dr and dr^3/flux_scale as tensors; the volume is computed on the
-    host in float64 (the raw cube of a cm-scale dr overflows float32)."""
-    if dr is None:
-        dr, vol_over_scale = cfg.dr, cfg.vol / cfg.flux_scale
-    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
-    return as_t(dr), as_t(vol_over_scale)
 
 
 def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
@@ -250,32 +219,6 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     return slab, ploss, lloss, plb
 
 
-def sweep_heats(cfg: SweepConfig) -> bool:
-    """Whether the sweep evaluates heating (quadrature.rates_heat)."""
-    return rates_heat(cfg.tables, cfg.isothermal, cfg.has_bb, cfg.has_pl,
-                      cfg.has_qso)
-
-
-_BLOCK = 256   # kBlock of csrc/pyramid_sweep.cu
-
-
-def _kernel_tables(cfg: SweepConfig, dtype, track: bool = False):
-    """(packed, types, K, heat) for the sweep kernel; raises, with the
-    byte count, when the band tables, the loss-reduction buffer and
-    (with `track`) the per-band staging buffer exceed a block's shared
-    memory."""
-    heat = sweep_heats(cfg)
-    packed, types, K = packed_band_rows(cfg.tables, dtype, heat, cfg.has_bb,
-                                        cfg.has_pl, cfg.has_qso)
-    nstage = cfg.tables.sigma_HI.shape[0] * _BLOCK if track else 0
-    smem = (packed.numel() + 2 * _BLOCK + nstage) * packed.element_size()
-    if smem > cuda_build.SHARED_MEM_LIMIT:
-        raise ValueError(f"band tables need {smem} B of shared memory, over "
-                         f"the {cuda_build.SHARED_MEM_LIMIT} B a block can "
-                         "have")
-    return packed, types, K, heat
-
-
 def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
                dr=None, vol_over_scale=None, lls=None, track=False):
     """The sweep kernel (``csrc/pyramid_sweep.cu``); same contract as
@@ -356,15 +299,6 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     losses = partials.sum(dim=1)
     plb = band_partials.sum(dim=1) if track else None
     return slab, losses[:, 0], losses[:, 1], plb
-
-
-def _source_group(cfg: SweepConfig, S: int, M: int, itemsize: int) -> int:
-    """Sources swept together (JAX's `_source_chunk`): cfg.source_chunk,
-    or 0 for as many as keep a group's cd and slab (S x M^3 x 7 values)
-    under _GROUP_BYTES."""
-    if cfg.source_chunk:
-        return max(1, min(int(cfg.source_chunk), S))
-    return max(1, min(S, _GROUP_BYTES // (M**3 * 7 * itemsize)))
 
 
 def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,

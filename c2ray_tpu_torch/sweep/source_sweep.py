@@ -1,20 +1,51 @@
-"""Sweep configuration, field and rate records, and the per-cell rates.
+"""Sweep configuration, field and rate records, what every sweep engine
+shares, and the L1-shell engine.
 
-Port of the parts of ``c2ray_tpu/sweep/source_sweep.py`` that the
-pyramid sweep uses (``do_source`` / ``evolve0D``,
-evolve_source.F90:66-238, evolve_point.F90:79-319).  The L1-shell
-engine is not ported yet.
+Port of ``c2ray_tpu/sweep/source_sweep.py`` (``do_source`` /
+``evolve0D``, evolve_source.F90:66-238, evolve_point.F90:79-319).  The
+L1-shell engine traces the general extents (odd meshes, a max_subbox
+below M/2 - 1): shells |di|+|dj|+|dk| = 1..n in order, each one batch
+(sweep/geometry.py).  `shell_sweep_plain` is JAX's
+`_sweep_one_source_stacked` under the source vmap, in PyTorch;
+`shell_sweep_cuda` launches the hand-written kernel
+``csrc/shell_sweep.cu``, one launch per shell over (source, cell of the
+shell).  Both keep a per-source outgoing-column cube in absolute
+coordinates and return per-source rate slabs and losses, which
+`sweep_sources_accumulate` sums over sources in fixed order.
+
+Like JAX's, the shell engine takes the cell size and the LLS column from
+the configuration only (ROADMAP Queue 3): `evolve3d`'s `dr`,
+`vol_over_scale` and `lls_grid` reach the pyramid engine alone.
 """
 
+import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..radiation.quadrature import QuadTables, photoion_rates_quad
+from .. import constants as const
+from .. import cuda_build
+from ..radiation.quadrature import (QuadTables, packed_band_rows,
+                                    photoion_rates_quad, rates_heat)
+from .cinterp import cinterp_shell
+from .geometry import ShellTable
 
 # evolve_point.F90:91 -- stop rate computation in fully shielded cells
 MAX_COLDENSH = 2.0e29
+
+# abundance weights per species column, order (HI, HeI, HeII)
+_ABU = (1.0 - const.abu_he, const.abu_he, const.abu_he)
+
+# sweeps run through the shell kernel, one count per shell_sweep_cuda
+# call (which launches one kernel per shell), isothermal or heating
+launches = 0
+launches_heat = 0
+
+# auto source group: a group's column cube and slab (7 values per cell
+# and source) stay under this many bytes
+_GROUP_BYTES = 4 * 2**30
 
 
 @dataclass(frozen=True)
@@ -37,11 +68,16 @@ class SweepConfig:
     has_bb: bool = True
     has_pl: bool = False
     has_qso: bool = False
+    # shell engine: sources swept together per group (JAX's vmap width,
+    # sweep_sources_accumulate's default batch_size); 0 = as the pyramid
+    # and octant engines group them (`_source_group`)
+    source_batch: int = 0
     # sources swept together per group (0 = auto: the group's column
     # cube and rate slab, S x M^3 x 7 values, under a fixed byte budget)
     source_chunk: int = 0
     # track the escaping-photon rate over the full band axis: the input
-    # of the photon-loss redistribution (sweep/photon_losses.py)
+    # of the photon-loss redistribution (sweep/photon_losses.py;
+    # pyramid engine only)
     track_band_loss: bool = False
 
     @property
@@ -96,3 +132,335 @@ def _cell_rates(cfg: SweepConfig, cd_in, cd_out, vol_ph, nflux, i_state,
         do_heating=not cfg.isothermal,
         track_bands=track_bands,
     )
+
+
+# ---- what the engines share
+
+def stack_sweep_fields(cfg: SweepConfig, fields: SourceFields):
+    """(M, M, M, 5) stacked field cube with the reference's epsilon
+    clamps (evolve_point.F90:120-132)."""
+    M = cfg.mesh
+    eps = cfg.epsilon
+    chans = [fields.ndens, torch.clamp(fields.h_av0, min=eps),
+             torch.clamp(fields.h_av1, min=eps),
+             torch.clamp(fields.he_av0, min=eps),
+             torch.clamp(fields.he_av1, min=eps)]
+    return torch.stack(chans, dim=-1).reshape(M, M, M, 5)
+
+
+def _same_device(fstack, srcpos, nflux, cfg):
+    for t in (srcpos, nflux, cfg.tables.sigma_HI):
+        if t.device != fstack.device:
+            raise ValueError(f"sources and tables must be on the fields' "
+                             f"device {fstack.device}, not {t.device}")
+
+
+def _scalars(cfg, dtype, device, dr, vol_over_scale):
+    """dr and dr^3/flux_scale as tensors; the volume is computed on the
+    host in float64 (the raw cube of a cm-scale dr overflows float32)."""
+    if dr is None:
+        dr, vol_over_scale = cfg.dr, cfg.vol / cfg.flux_scale
+    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    return as_t(dr), as_t(vol_over_scale)
+
+
+def _base_cols(fc, abu):
+    """Neutral columns per unit length of stacked fields (..., 5):
+    stack([h_av0, he_av0, he_av1]) * ndens * abu."""
+    return (torch.stack([fc[..., 1], fc[..., 3], fc[..., 4]], dim=-1)
+            * fc[..., 0:1] * abu)
+
+
+def sweep_heats(cfg: SweepConfig) -> bool:
+    """Whether the sweep evaluates heating (quadrature.rates_heat)."""
+    return rates_heat(cfg.tables, cfg.isothermal, cfg.has_bb, cfg.has_pl,
+                      cfg.has_qso)
+
+
+_BLOCK = 256   # kBlock of the sweep kernels
+
+
+def _kernel_tables(cfg: SweepConfig, dtype, track: bool = False):
+    """(packed, types, K, heat) for a sweep kernel; raises, with the
+    byte count, when the band tables, the loss-reduction buffer and
+    (with `track`) the per-band staging buffer exceed a block's shared
+    memory."""
+    heat = sweep_heats(cfg)
+    packed, types, K = packed_band_rows(cfg.tables, dtype, heat, cfg.has_bb,
+                                        cfg.has_pl, cfg.has_qso)
+    nstage = cfg.tables.sigma_HI.shape[0] * _BLOCK if track else 0
+    smem = (packed.numel() + 2 * _BLOCK + nstage) * packed.element_size()
+    if smem > cuda_build.SHARED_MEM_LIMIT:
+        raise ValueError(f"band tables need {smem} B of shared memory, over "
+                         f"the {cuda_build.SHARED_MEM_LIMIT} B a block can "
+                         "have")
+    return packed, types, K, heat
+
+
+def _type_args(types):
+    """The kernels' (column, band count, first band) ints of 3 types."""
+    return [a for t in types for a in t] + [0, 0, 0] * (3 - len(types))
+
+
+def _check_kernel_inputs(fstack, srcpos, nflux, cfg):
+    """What every sweep kernel requires of its inputs."""
+    if not fstack.is_cuda:
+        raise ValueError("the sweep kernel takes CUDA tensors")
+    _same_device(fstack, srcpos, nflux, cfg)
+    M, S = fstack.shape[0], srcpos.shape[0]
+    if not 0 < S <= 65535:
+        raise ValueError(f"the sweep kernel takes 1..65535 sources, not {S}")
+    if fstack.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"sweep kernel takes float32/float64, not "
+                        f"{fstack.dtype}")
+    if fstack.shape != (M, M, M, 5):
+        raise ValueError(f"fields must be (M, M, M, 5), got "
+                         f"{tuple(fstack.shape)}")
+
+
+def _source_group(cfg: SweepConfig, S: int, M: int, itemsize: int) -> int:
+    """Sources swept together (JAX's `_source_chunk`): cfg.source_chunk,
+    or 0 for as many as keep a group's cd and slab (S x M^3 x 7 values)
+    under _GROUP_BYTES."""
+    if cfg.source_chunk:
+        return max(1, min(int(cfg.source_chunk), S))
+    return max(1, min(S, _GROUP_BYTES // (M**3 * 7 * itemsize)))
+
+
+# ---- the L1-shell engine
+
+def _check_extents(shells: ShellTable, M: int):
+    if any(h - l + 1 > M for l, h in zip(shells.lo, shells.hi)):
+        raise ValueError(f"a shell table of extents {shells.lo}..{shells.hi} "
+                         f"does not fit a {M}^3 mesh")
+
+
+def shell_sweep_plain(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
+                       nflux):
+    """Plain PyTorch version of the shell kernel.
+
+    fstack: (M, M, M, 5) stacked fields; srcpos: (S, 3) int; nflux:
+    (S, 3).  Returns (slab (S, M^3, 4) per-source rates in absolute
+    coordinates, photon_loss (S,), lls_loss (S,)): JAX's
+    `_sweep_one_source_stacked` (source_sweep.py:138-248) for each
+    source."""
+    _same_device(fstack, srcpos, nflux, cfg)
+    M = fstack.shape[0]
+    _check_extents(shells, M)
+    n = M**3
+    S = srcpos.shape[0]
+    dtype, device = fstack.dtype, fstack.device
+    dr, vos = _scalars(cfg, dtype, device, None, None)
+    abu = torch.tensor(_ABU, dtype=dtype, device=device)
+    f = fstack.reshape(n, 5)
+    sp = srcpos.to(dtype=torch.long)
+    nfl = nflux.to(dtype=dtype)
+    s_idx = torch.arange(S, device=device)
+
+    cd = torch.zeros((S, n, 3), dtype=dtype, device=device)
+    slab = torch.zeros((S, n, 4), dtype=dtype, device=device)
+    ploss = torch.zeros(S, dtype=dtype, device=device)
+    lloss = torch.zeros(S, dtype=dtype, device=device)
+
+    def flat_of(pos):
+        return (pos[..., 0] * M + pos[..., 1]) * M + pos[..., 2]
+
+    # source cell (evolve_point.F90:140-151): vol_ph = cell volume
+    flat0 = flat_of(torch.remainder(sp, M))
+    f0 = f[flat0]
+    bc0 = _base_cols(f0, abu)
+    cc0 = bc0 * (0.5 * dr)
+    cd[s_idx, flat0] = cc0
+    phi0 = _cell_rates(cfg, torch.zeros_like(cc0), cc0, vos, nfl, f0[:, 2])
+    slab[s_idx, flat0] = torch.stack(
+        [phi0.photo_cell_HI / bc0[:, 0], phi0.photo_cell_HeI / bc0[:, 1],
+         phi0.photo_cell_HeII / bc0[:, 2], phi0.heat], dim=-1)
+
+    cells = torch.as_tensor(shells.cells, device=device).to(torch.long)
+    bound = torch.as_tensor(shells.cell_boundary, device=device)
+    starts = shells.starts
+    nfl_cells = nfl[:, None, :]
+    for k in range(shells.n_shells):
+        offs = cells[starts[k]:starts[k + 1]]                 # (W, 3)
+        on_bound = bound[starts[k]:starts[k + 1]]
+        cd_in, path_units = cinterp_shell(offs, sp, M, cd)    # (S, W, 3)
+        path = path_units * dr
+        flat = flat_of(torch.remainder(sp[:, None, :] + offs, M))  # (S, W)
+        o = offs.to(dtype)
+        dist2 = o[:, 0] ** 2 + o[:, 1] ** 2 + o[:, 2] ** 2
+        vol_ratio = 4.0 * const.pi * dist2 * path_units
+
+        # LLS fog adds to the incoming HI column
+        # (evolve_point.F90:177-180)
+        lls_add = None
+        if cfg.coldensh_LLS > 0.0:
+            lls_add = cfg.coldensh_LLS * path_units
+            cd_in[..., 0] += lls_add
+
+        fc = f[flat]                                          # (S, W, 5)
+        bcols = _base_cols(fc, abu)
+        # outgoing columns = in + time-averaged cell column
+        # (evolve_point.F90:237-244)
+        cd_out = cd_in + bcols * path[:, None]
+        cd[s_idx[:, None], flat] = cd_out
+        phi = _cell_rates(cfg, cd_in, cd_out, vol_ratio * vos, nfl_cells,
+                          fc[..., 2])
+
+        # shielded cells get zero rates (evolve_point.F90:250,279-290)
+        live = cd_in[..., 0] < cfg.max_coldensh
+        fl = live.to(dtype)
+        slab[s_idx[:, None], flat] = torch.stack(
+            [fl * phi.photo_cell_HI / bcols[..., 0],
+             fl * phi.photo_cell_HeI / bcols[..., 1],
+             fl * phi.photo_cell_HeII / bcols[..., 2],
+             fl * phi.heat], dim=-1)
+        # photon loss through the trace boundary
+        # (evolve_point.F90:310-315)
+        ploss = ploss + torch.where(live & on_bound,
+                                    phi.photo_out / vol_ratio, 0.0).sum(-1)
+        if lls_add is not None:
+            # photons absorbed by the LLS fog (total_LLS_loss,
+            # photonstatistics.f90:250-267, evolve_point.F90:277)
+            tau_lls = const.sigma_HI_at_ion_freq * lls_add
+            lloss = lloss + torch.where(
+                live, phi.photo_in / vol_ratio * (-torch.expm1(-tau_lls)),
+                0.0).sum(-1)
+    return slab, ploss, lloss
+
+
+_DEVICE_CELLS = {}
+
+
+def _device_cells(shells: ShellTable, device):
+    """The table's packed cells on `device`, copied once per table."""
+    key = (shells, str(device))
+    if key not in _DEVICE_CELLS:
+        _DEVICE_CELLS[key] = torch.as_tensor(shells.packed, device=device)
+    return _DEVICE_CELLS[key]
+
+
+def shell_sweep_cuda(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
+                      nflux):
+    """The shell kernel (``csrc/shell_sweep.cu``); same contract as
+    `shell_sweep_plain`.
+
+    Replaces source_sweep.py:_sweep_one_source_stacked under the source
+    vmap of sweep_sources_accumulate, with cinterp.py:cinterp_shell
+    inlined, and quadrature.py:_one_source_quad through the shared cell
+    step (csrc/short_char.cuh): its isothermal branch, or with heating
+    its heating branch too.  Bound on the card by the K-node
+    exponentials, as the pyramid kernel; each cell gathers its corners
+    from the source's column cube, and the kernel walks the compact
+    table (no thread on padding).
+    """
+    global launches, launches_heat
+    _check_kernel_inputs(fstack, srcpos, nflux, cfg)
+    M, S = fstack.shape[0], srcpos.shape[0]
+    _check_extents(shells, M)
+    dtype, device = fstack.dtype, fstack.device
+    packed, types, K, heat = _kernel_tables(cfg, dtype)
+    cells = _device_cells(shells, device)
+    starts = np.ascontiguousarray(shells.starts, dtype=np.int64)
+    fields = fstack.contiguous()
+    sp = srcpos.to(dtype=torch.int32).contiguous()
+    nfl = nflux.to(dtype=dtype).contiguous()
+
+    lib = cuda_build.load("shell_sweep")
+    lib.shell_sweep_slots.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.shell_sweep_slots.restype = ctypes.c_int
+    starts_p = starts.ctypes.data_as(ctypes.c_void_p)
+    nslots = max(lib.shell_sweep_slots(starts_p, shells.n_shells), 1)
+    cd = torch.zeros((S, M**3, 3), dtype=dtype, device=device)
+    slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
+    partials = torch.zeros((S, nslots, 2), dtype=dtype, device=device)
+    name = ("shell_sweep_" + ("heat_" if heat else "")
+            + ("f32" if dtype == torch.float32 else "f64"))
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
+                   + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    P = cuda_build.ptr
+    err = fn(P(fields), P(sp), P(nfl), P(packed), P(cells), starts_p, P(cd),
+             P(slab), P(partials), M, S, shells.n_shells, K, len(types),
+             *_type_args(types), float(cfg.dr),
+             float(cfg.vol / cfg.flux_scale), float(cfg.coldensh_LLS),
+             float(cfg.max_coldensh),
+             cuda_build.stream_of(fields))
+    cuda_build.check(err, name)
+    if heat:
+        launches_heat += 1
+    else:
+        launches += 1
+    losses = partials.sum(dim=1)
+    return slab, losses[:, 0], losses[:, 1]
+
+
+def _stack_fields(cfg: SweepConfig, fields: SourceFields):
+    """(n, 5) field stack with the reference's epsilon clamps on the
+    fractions (evolve_point.F90:120-132)."""
+    return stack_sweep_fields(cfg, fields).reshape(-1, 5)
+
+
+def _shell_trace(fstack):
+    if fstack.is_cuda:
+        return shell_sweep_cuda
+    if fstack.device.type == "cpu":
+        return shell_sweep_plain
+    raise ValueError(f"no sweep for device {fstack.device}")
+
+
+def sweep_one_source(cfg: SweepConfig, shells: ShellTable,
+                     fields: SourceFields, srcpos, nflux,
+                     rates_in: RateGrids) -> RateGrids:
+    """Trace one source and add its rates into ``rates_in``.
+
+    srcpos: (3,) int (0-based); nflux: (3,) normalised fluxes
+    (BB, PL, QSO) of this source (NormFlux*, sourceprops_test.F90:38-48).
+    """
+    fstack = stack_sweep_fields(cfg, fields)
+    slab, ploss, lloss = _shell_trace(fstack)(
+        cfg, shells, fstack, srcpos.reshape(1, 3), nflux.reshape(1, 3))
+    return RateGrids(
+        phih=rates_in.phih + slab[0, :, 0],
+        phihe0=rates_in.phihe0 + slab[0, :, 1],
+        phihe1=rates_in.phihe1 + slab[0, :, 2],
+        phiheat=rates_in.phiheat + slab[0, :, 3],
+        photon_loss=rates_in.photon_loss + ploss[0],
+        lls_loss=rates_in.lls_loss + lloss[0])
+
+
+def sweep_sources_accumulate(cfg: SweepConfig, shells: ShellTable,
+                             fields: SourceFields,
+                             srcpos_batch, nflux_batch,
+                             batch_size: Optional[int] = None) -> RateGrids:
+    """Trace a batch of sources through the shell engine, accumulating
+    rates.
+
+    srcpos_batch: (S, 3) int; nflux_batch: (S, 3).  Sources with all
+    fluxes zero contribute nothing, and a batch of no sources gives zero
+    rates without launching anything.  CUDA tensors go through the
+    kernel, CPU tensors through the plain version.  Sources are swept
+    `batch_size` at a time (default cfg.source_batch, or with 0 the
+    pyramid engine's `_source_group`); each group's sum over its sources
+    is added to the total in group order.
+    """
+    M = cfg.mesh
+    fstack = stack_sweep_fields(cfg, fields)
+    dtype, device = fstack.dtype, fstack.device
+    trace = _shell_trace(fstack)
+    rg = torch.zeros((M**3, 4), dtype=dtype, device=device)
+    pl = torch.zeros((), dtype=dtype, device=device)
+    ll = torch.zeros((), dtype=dtype, device=device)
+    S = srcpos_batch.shape[0]
+    group = (batch_size or cfg.source_batch
+             or _source_group(cfg, S, M, fstack.element_size()))
+    for g0 in range(0, S, max(1, group)):
+        sp = srcpos_batch[g0:g0 + group]
+        nf = nflux_batch[g0:g0 + group]
+        slab, ploss, lloss = trace(cfg, shells, fstack, sp, nf)
+        live = torch.any(nf > 0.0, dim=1)
+        rg = rg + torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
+        pl = pl + torch.where(live, ploss, 0.0).sum()
+        ll = ll + torch.where(live, lloss, 0.0).sum()
+    return RateGrids(phih=rg[:, 0], phihe0=rg[:, 1], phihe1=rg[:, 2],
+                     phiheat=rg[:, 3], photon_loss=pl, lls_loss=ll)

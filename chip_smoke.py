@@ -76,6 +76,28 @@ The 1D slice adds, before phase 9's wait for its CPU reference:
 
 Then the 1D kernels' times at mesh 10000 after the others'.
 
+The shell and octant slice adds, after phase 8:
+
+15. shell and octant kernels vs plain: the shell kernel at 32^3 (full
+   extents), 33^3 (odd) and 32^3 under build_shell_table(32, 8), the
+   octant kernel at 32^3, 3 sources (one at a grid edge), float64 and
+   float32, isothermal and heating, without and with a homogeneous LLS
+   column; then the shell, octant and pyramid kernels against each
+   other at 32^3 in float64 (rtol 1e-10);
+16. the bench configuration of phase 4 (128^3 x 8, float32) on
+   engine="shells" and engine="octant", isothermal and heating, timed
+   as in 4 and 5, each new kernel variant launched;
+17. after phase 9, the Run3D physics check of phase 9 at mesh 33 (odd:
+   the shell engine) in float32 on the card against the port's plain
+   float64 on the CPU (run after phase 9's in the same child process);
+   after phase 10, `Run3D.run()` at 203^3 (the radiative-transfer grid
+   of Iliev et al. 2006, MNRAS 369, 1625), heating, float32, on phase
+   10's synthetic tree with 64 halos, 1 slice x 2 steps, on the shell
+   engine (which, as in the JAX package, takes no LLS grid: its LLS
+   loss is 0).
+
+Then the shell and octant kernels' times at 128^3 x 8, last.
+
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
 operations over their peak rate (`bound`; for the 1D kernels the
@@ -165,9 +187,9 @@ def sweep_bound(sweep_cfg, S, Rf, Rb, lls=False, track=False):
     photo sums (25 with the heating sums) on the float32 pipes; an
     expm1 per cell with LLS, an add per band and cell with tracking."""
     from c2ray_tpu_torch.radiation.quadrature import packed_band_rows
-    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+    from c2ray_tpu_torch.sweep.source_sweep import sweep_heats
 
-    heat = ps.sweep_heats(sweep_cfg)
+    heat = sweep_heats(sweep_cfg)
     packed, _, K = packed_band_rows(sweep_cfg.tables, torch.float32, heat,
                                     sweep_cfg.has_bb, sweep_cfg.has_pl,
                                     sweep_cfg.has_qso)
@@ -531,7 +553,9 @@ def phase_compare_slice(dev, M=32, heating=False):
 
 def launch_counts():
     from c2ray_tpu_torch.onedim import evolve as ev1
-    from c2ray_tpu_torch.sweep import global_pass, photon_losses, pyramid_sweep
+    from c2ray_tpu_torch.sweep import (global_pass, octant_sweep,
+                                       photon_losses, pyramid_sweep,
+                                       source_sweep)
 
     return {"pyramid_sweep": pyramid_sweep.launches,
             "pyramid_sweep_heat": pyramid_sweep.launches_heat,
@@ -543,12 +567,18 @@ def launch_counts():
             "evolve1d": ev1.launches,
             "evolve1d_heat": ev1.launches_heat,
             "evolve1d_table": ev1.launches_table,
-            "evolve1d_table_heat": ev1.launches_table_heat}
+            "evolve1d_table_heat": ev1.launches_table_heat,
+            "shell_sweep": source_sweep.launches,
+            "shell_sweep_heat": source_sweep.launches_heat,
+            "octant_sweep": octant_sweep.launches,
+            "octant_sweep_heat": octant_sweep.launches_heat}
 
 
 def reset_launch_counts():
     from c2ray_tpu_torch.onedim import evolve as ev1
-    from c2ray_tpu_torch.sweep import global_pass, photon_losses, pyramid_sweep
+    from c2ray_tpu_torch.sweep import (global_pass, octant_sweep,
+                                       photon_losses, pyramid_sweep,
+                                       source_sweep)
 
     pyramid_sweep.launches = pyramid_sweep.launches_heat = 0
     pyramid_sweep.launches_lls = pyramid_sweep.launches_track = 0
@@ -556,6 +586,8 @@ def reset_launch_counts():
     photon_losses.launches = 0
     ev1.launches = ev1.launches_heat = 0
     ev1.launches_table = ev1.launches_table_heat = 0
+    source_sweep.launches = source_sweep.launches_heat = 0
+    octant_sweep.launches = octant_sweep.launches_heat = 0
 
 
 def check_launches(name, counts, mine):
@@ -566,22 +598,46 @@ def check_launches(name, counts, mine):
             raise AssertionError(f"{name} launched {k} {c} times")
 
 
+def engine_sweep(engine):
+    """The sweep of a source batch that `engine` runs: (sweep config,
+    fields, srcpos, nflux) -> RateGrids."""
+    from c2ray_tpu_torch.sweep import (build_shell_table,
+                                       sweep_octant_source_batch,
+                                       sweep_pyramid_source_batch,
+                                       sweep_sources_accumulate)
+
+    if engine == "shells":
+        return lambda c, *a: sweep_sources_accumulate(
+            c, build_shell_table(c.mesh), *a)
+    return {"pyramid": sweep_pyramid_source_batch,
+            "octant": sweep_octant_source_batch}[engine]
+
+
+ENGINE_KERNEL = {"shells": "shell_sweep", "octant": "octant_sweep"}
+
+
 def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
-               photon_losses=False):
-    """Phases 4, 5 and 8: the bench configuration in float32 through the
-    public entry points, isothermal or with heating, or (phase 8) with
-    band tracking and the photon-loss redistribution; returns what the
-    kernel timings need and the launch counts of this run."""
+               photon_losses=False, engine="pyramid"):
+    """Phases 4, 5, 8 and 16: the bench configuration in float32 through
+    the public entry points, isothermal or with heating, or (phase 8)
+    with band tracking and the photon-loss redistribution, on the
+    pyramid engine or (phase 16) the shell or octant engine; returns
+    what the kernel timings need and the launch counts of this run (the
+    engine's sweep kernel only, for phase 16)."""
     from c2ray_tpu_torch import photonstats
     from c2ray_tpu_torch.rates import rate_coefficients
     from c2ray_tpu_torch.state import initial_grid_state
     from c2ray_tpu_torch.sweep import (evolve3d, global_pass,
                                        make_evolve3d_iteration,
-                                       photon_losses as pls, pyramid_sweep)
+                                       photon_losses as pls)
 
     name = ("photon-loss main path" if photon_losses else
             "heating main path" if heating else "main path")
+    if engine != "pyramid":
+        name = f"{engine} engine {name}"
     cfg, sed = setup(mesh, *BENCH_SOURCE, torch.float32, dev, heating)
+    cfg = dataclasses.replace(cfg, engine=engine)
+    sweep = engine_sweep(engine)
     if photon_losses:
         cfg = dataclasses.replace(
             cfg, add_photon_losses=True,
@@ -613,8 +669,7 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
     sweep_w, chem_w, chem_it, chem_sub, pl_w = [], [], [], [], []
     st = s
     for _ in range(n_iter):
-        rates, w = synced(pyramid_sweep.sweep_pyramid_source_batch,
-                          cfg.sweep, fields_of(st), srcpos, nflux)
+        rates, w = synced(sweep, cfg.sweep, fields_of(st), srcpos, nflux)
         sweep_w.append(w)
         if photon_losses:
             rates, w = synced(pls.distribute_photon_losses, cfg.sweep.tables,
@@ -664,8 +719,9 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
         mine = ("pyramid_sweep_track", "photon_losses",
                 "chemistry_heat" if heating else "chemistry")
     else:
-        mine = (("pyramid_sweep_heat", "chemistry_heat") if heating
-                else ("pyramid_sweep", "chemistry"))
+        sfx = "_heat" if heating else ""
+        mine = (ENGINE_KERNEL.get(engine, "pyramid_sweep") + sfx,
+                "chemistry" + sfx)
     check_launches(name, counts, mine)
     for t in (*s, *s_evo):
         if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
@@ -675,6 +731,8 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
         raise AssertionError(f"{name} produced non-finite diagnostics")
     if s.h1.shape != (mesh**3,) or s_evo.h1.shape != (mesh**3,):
         raise AssertionError(f"{name} state has the wrong shape")
+    if engine != "pyramid":
+        return cfg, s, srcpos, nflux, dt, {mine[0]: counts[mine[0]]}
     # the photon-loss path's chemistry launches are not the isothermal
     # path's: keep them apart
     return cfg, s, srcpos, nflux, dt, {
@@ -1016,51 +1074,70 @@ def driver_physics(dtype, device, workdir, mesh=32):
             "outputs": sorted(os.listdir(results))}
 
 
-def cpu_reference(out_path):
-    """The float64 plain run of phase 9 on the CPU, in a process of its
-    own; writes its diagnostics as JSON to `out_path`."""
+# the meshes of the driver physics check: phase 9 (pyramid engine) and
+# phase 17 (odd: the shell engine)
+DRIVER_PHYSICS_MESHES = (32, 33)
+
+
+def cpu_reference(jobs):
+    """The float64 plain runs of phases 9 and 17 on the CPU, one after
+    the other in a process of their own: `jobs` is [out_path, mesh, ...];
+    each writes its diagnostics as JSON to its out_path."""
     torch.set_num_threads(4)
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(out_path)) as tmp:
-        res = driver_physics(torch.float64, "cpu", tmp)
-    with open(out_path + ".tmp", "w") as f:
-        json.dump(res, f)
-    os.replace(out_path + ".tmp", out_path)
+    for out_path, mesh in zip(jobs[::2], jobs[1::2]):
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(out_path)) as tmp:
+            res = driver_physics(torch.float64, "cpu", tmp, mesh=int(mesh))
+        with open(out_path + ".tmp", "w") as f:
+            json.dump(res, f)
+        os.replace(out_path + ".tmp", out_path)
 
 
 def start_cpu_reference(workdir):
-    """Start phase 9's CPU reference in a child process that sees no GPU;
-    returns (process, result path, log path)."""
-    out = os.path.join(workdir, "driver_physics_f64.json")
+    """Start the CPU references of phases 9 and 17 in a child process
+    that sees no GPU; returns (process, {mesh: result path}, log path)."""
+    outs = {m: os.path.join(workdir, f"driver_physics_{m}_f64.json")
+            for m in DRIVER_PHYSICS_MESHES}
     logp = os.path.join(workdir, "driver_physics_f64.log")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    jobs = [a for m, out in outs.items() for a in (out, str(m))]
     with open(logp, "w") as lf:
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                 "--cpu-reference", out], env=env,
+                                 "--cpu-reference", *jobs], env=env,
                                 stdout=lf, stderr=subprocess.STDOUT)
-    return proc, out, logp
+    return proc, outs, logp
 
 
-def phase_driver_physics(dev, workdir, ref):
-    """Phase 9: the Run3D physics check in float32 on the card against
-    the port's plain float64 on the CPU (the reference process started
-    with the script): ionized volume fraction 0.15-0.35 and within 0.02
-    of float64, centre x_HII > 0.8 and T 5e3-6e4 K, corner x_HII < 0.1
-    and T < 1e3 K, the output files written (the criteria of
-    tools/tpu_run3d_check.py, calibrated there on a CPU float64 run:
-    ionized fraction 0.241)."""
+def phase_driver_physics(dev, workdir, ref, mesh=32):
+    """Phases 9 and 17: the Run3D physics check in float32 on the card
+    against the port's plain float64 on the CPU (the reference process
+    started with the script): ionized volume fraction 0.15-0.35 and
+    within 0.02 of float64, centre x_HII > 0.8 and T 5e3-6e4 K, corner
+    x_HII < 0.1 and T < 1e3 K, the output files written (the criteria
+    of tools/tpu_run3d_check.py, calibrated there on a CPU float64 run:
+    ionized fraction 0.241; at 33^3, on the shell engine, the plain
+    float64 run gives 0.244456).  Returns the launch counts of the card
+    run."""
+    reset_launch_counts()
     got = driver_physics(torch.float32, dev,
-                         os.path.join(workdir, "driver_physics_f32"))
-    proc, out, logp = ref
+                         os.path.join(workdir, f"driver_physics_{mesh}_f32"),
+                         mesh=mesh)
+    counts = launch_counts()
+    proc, outs, logp = ref
+    out = outs[mesh]
     t0 = time.perf_counter()
-    rc = proc.wait(timeout=1000)
+    while not os.path.exists(out) and proc.poll() is None:
+        if time.perf_counter() - t0 > 1000:
+            raise AssertionError("the CPU float64 reference timed out")
+        time.sleep(0.5)
     waited = time.perf_counter() - t0
-    if rc != 0 or not os.path.exists(out):
+    if not os.path.exists(out):
         with open(logp) as f:
             log(f.read())
-        raise AssertionError(f"the CPU float64 reference failed (exit {rc})")
+        raise AssertionError(f"the CPU float64 reference failed (exit "
+                             f"{proc.poll()})")
     with open(out) as f:
         want = json.load(f)
-    log(f"driver physics 32^3: card f32 {got['wall_s']:.1f} s, CPU f64 "
+    log(f"driver physics {mesh}^3: card f32 {got['wall_s']:.1f} s, CPU f64 "
         f"plain {want['wall_s']:.1f} s (waited {waited:.1f} s for it)")
     for k in ("ion_frac", "xh1_centre", "xh1_corner", "T_centre",
               "T_corner"):
@@ -1075,6 +1152,10 @@ def phase_driver_physics(dev, workdir, ref):
           and len(got["outputs"]) >= 2)
     if not ok:
         raise AssertionError("driver physics check failed")
+    if mesh % 2:
+        check_launches(f"driver physics {mesh}^3", counts,
+                       ("shell_sweep_heat", "chemistry_heat"))
+    return counts
 
 
 def synth_cubep3m_tree(base, mesh, zreds, n_halos=64, seed=12):
@@ -1126,20 +1207,24 @@ def synth_cubep3m_tree(base, mesh, zreds, n_halos=64, seed=12):
     return zfile, base + os.sep
 
 
-def phase_driver_full(dev, workdir, mesh=128):
-    """Phase 10: Run3D.run() at full width, heating, float32, on a
-    synthetic CubeP3M tree, through the config loader a run file would
-    use.  Cuts from a production run: 128^3 instead of 250^3 and more,
-    64 halos instead of a full catalog (the script's time limit); the
-    seeded tree stands in for N-body outputs the repository does not
-    hold.  The per-cell LLS sweep and the heating chemistry must have
-    been launched."""
+def phase_driver_full(dev, workdir, mesh=128, zreds=(9.0, 8.95, 8.9),
+                      mine=("pyramid_sweep_lls", "chemistry_heat")):
+    """Phases 10 and 17: Run3D.run() at full width, heating, float32, on
+    a synthetic CubeP3M tree, through the config loader a run file would
+    use: 2 slices at 128^3 (the pyramid engine with the per-cell LLS
+    sweep), 1 slice at 203^3 (the RT grid of Iliev et al. 2006, odd: the
+    shell engine, which takes no LLS grid).  Cuts from a production run:
+    64 halos instead of a full catalog, 1-2 slices (the script's time
+    limit); the seeded tree stands in for N-body outputs the repository
+    does not hold.  The kernels in `mine` must have been launched, no
+    other."""
     from c2ray_tpu_torch import driver as drv
     from c2ray_tpu_torch.config import run3d_config_from_dict
+    from c2ray_tpu_torch.sweep.evolve3d import sweep_engine
 
-    zfile, base = synth_cubep3m_tree(os.path.join(workdir, "nbody"), mesh,
-                                     [9.0, 8.95, 8.9])
-    results = os.path.join(workdir, "run3d_results")
+    zfile, base = synth_cubep3m_tree(os.path.join(workdir, f"nbody{mesh}"),
+                                     mesh, list(zreds))
+    results = os.path.join(workdir, f"run3d_results{mesh}")
     cfg = run3d_config_from_dict({
         "mesh": mesh, "cosmology": "WMAP3plus",
         "nbody": {"type": "cubep3m", "redshift_file": zfile,
@@ -1190,21 +1275,24 @@ def phase_driver_full(dev, workdir, mesh=128):
         drv.evolve3d = evolve
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    log(f"Run3D.run() {mesh}^3 heating float32: {len(all_stats)} slices x "
+    log(f"Run3D.run() {mesh}^3 heating float32, {sweep_engine(r.evolve_cfg)} "
+        f"engine: {len(all_stats)} slices x "
         f"{cfg.steps_per_slice} steps in {wall:.3f} s")
     for i, (w, st) in enumerate(steps):
         log(f"  step {i}: {w:.3f} s, {st}")
     outputs = sorted(os.listdir(results))
     log(f"  outputs ({len(outputs)}): {outputs}")
-    check_launches("driver", counts, ("pyramid_sweep_lls", "chemistry_heat"))
+    check_launches(f"driver {mesh}^3", counts, mine)
     for t in r.state:
         if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
             raise AssertionError("the driver produced non-finite state")
-    if not (len(all_stats) == 2 and len(steps) == 4 and len(outputs) >= 10
+    n_slices = len(zreds) - 1
+    if not (len(all_stats) == n_slices and len(steps) == 2 * n_slices
+            and len(outputs) >= 5 * n_slices
             and all(math.isfinite(float(v)) for v in r.last_budget)
             and r.last_suppression.n_total == 64):
         raise AssertionError("the driver run is incomplete")
-    return r, used[-1], {"pyramid_sweep_lls": counts["pyramid_sweep_lls"]}
+    return r, used[-1], {mine[0]: counts[mine[0]]}
 
 
 def phase_lls_times(r, sources):
@@ -1228,6 +1316,151 @@ def phase_lls_times(r, sources):
         f"ms, bound {b[0]:.3f} ms ({b[1]}), max |kernel - plain| "
         f"{t[2]:.3e} (f32 rates)")
     return t, b
+
+
+# ---- the shell and octant engines (phases 15-17)
+
+def engine_trace_fns(engine, table=None):
+    """(kernel, plain version) of the shell (over `table`) or octant
+    engine, each mapping (sweep config, fstack, srcpos, nflux) to
+    (slab, photon loss, LLS loss)."""
+    from c2ray_tpu_torch.sweep import octant_sweep as oc
+    from c2ray_tpu_torch.sweep import source_sweep as ss
+
+    if engine == "shells":
+        return tuple(lambda c, *a, fn=fn: fn(c, table, *a)
+                     for fn in (ss.shell_sweep_cuda, ss.shell_sweep_plain))
+
+    def with_lls(fn):
+        def run(*a):
+            slab, ploss = fn(*a)
+            return slab, ploss, torch.zeros_like(ploss)
+        return run
+    return with_lls(oc.octant_sweep_cuda), with_lls(oc.octant_sweep_plain)
+
+
+def compare_engine(cfg64, cfg32, M, dev, engine, table, lls):
+    """One case of phase 15: the engine's kernel vs its plain version on
+    3 random sources (one at a grid edge), float64 within rtol 1e-10 and
+    float32 within twice the plain float32 error against float64 plus
+    1e-5, each part (rates, heat, photon and LLS loss) on its own scale.
+    Returns the worst float32 relative error of the kernel."""
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    kern, plain = engine_trace_fns(engine, table)
+    out = {}
+    for name, cfg, dtype in (("f64", cfg64, torch.float64),
+                             ("f32", cfg32, torch.float32)):
+        sweep = dataclasses.replace(cfg.sweep, coldensh_LLS=lls)
+        state, srcpos, nflux = random_case(M, 3, dtype, dev, seed=5)
+        fstack = ps.stack_sweep_fields(sweep, fields_of(state))
+        unit = sweep.flux_scale / cfg64.sweep.flux_scale
+        out[name] = tuple(_sweep_parts(fn(sweep, fstack, srcpos, nflux), unit)
+                          for fn in (kern, plain))
+    (k64, p64), (k32, p32) = out["f64"], out["f32"]
+    extents = ("full" if table is None
+               else f"{table.lo[0]}..{table.hi[0]}")
+    label = f"{engine} {M}^3 extents {extents} lls={lls:g}"
+    for a, b, w in zip(k64, p64, SWEEP_PARTS):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10 * scale,
+                                   msg=f"f64 {label} {w}")
+    worst = 0.0
+    for a64, a, b, ref, w in zip(k64, k32, p32, p64, SWEEP_PARTS):
+        ek = rel_err(a.double(), ref)
+        ep = rel_err(b.double(), ref)
+        log(f"  {label} {w}: f64 kernel-plain {rel_err(a64, ref):.3e}; vs "
+            f"f64 plain: f32 kernel {ek:.3e}, f32 plain {ep:.3e}")
+        if not ek <= 2.0 * ep + 1e-5:
+            raise AssertionError(f"f32 {label} {w}: kernel error {ek:.3e} "
+                                 f"vs plain {ep:.3e}")
+        worst = max(worst, ek)
+    return worst
+
+
+def phase_compare_engines(dev):
+    """Phase 15: the shell kernel vs its plain version at 32^3 (full
+    extents), 33^3 (odd) and 32^3 under build_shell_table(32, 8), the
+    octant kernel at 32^3, each float64 and float32, isothermal and
+    heating, without and with a homogeneous LLS column; then the shell,
+    octant and pyramid kernels against each other at 32^3 in float64
+    (rates, heat and photon loss within rtol 1e-10: the JAX package's
+    own pyramid-vs-octant tolerance).  Returns the worst float32 error
+    of each kernel variant."""
+    from c2ray_tpu_torch.sweep import build_shell_table
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    worst = {}
+    for heating in (False, True):
+        sfx = "_heat" if heating else ""
+        cfgs = {M: tuple(setup(M, 1e48, 5e4, 10.0, dt, dev, heating)[0]
+                         for dt in (torch.float64, torch.float32))
+                for M in (32, 33)}
+        cases = [("shells", 32, build_shell_table(32)),
+                 ("shells", 33, build_shell_table(33)),
+                 ("shells", 32, build_shell_table(32, 8)),
+                 ("octant", 32, None)]
+        for engine, M, table in cases:
+            for lls in (0.0, 1.0e15):
+                e = compare_engine(*cfgs[M], M, dev, engine, table, lls)
+                key = ENGINE_KERNEL[engine] + sfx
+                worst[key] = max(worst.get(key, 0.0), e)
+        sweep = cfgs[32][0].sweep
+        state, srcpos, nflux = random_case(32, 3, torch.float64, dev, seed=5)
+        fstack = ps.stack_sweep_fields(sweep, fields_of(state))
+        Rf, Rb = ps.trace_extents(32)
+        pyr = ps.trace_cuda(sweep, fstack, srcpos, nflux, Rf, Rb)
+        for engine, table in (("shells", build_shell_table(32)),
+                              ("octant", None)):
+            other = engine_trace_fns(engine, table)[0](sweep, fstack, srcpos,
+                                                       nflux)
+            errs = []
+            for a, b, w in ((other[0][..., :3], pyr[0][..., :3], "rates"),
+                            (other[0][..., 3], pyr[0][..., 3], "heat"),
+                            (other[1], pyr[1], "photon_loss")):
+                torch.testing.assert_close(
+                    a, b, rtol=1e-10, atol=1e-10 * float(b.abs().max()),
+                    msg=f"{engine} vs pyramid kernels, {w}")
+                errs.append(rel_err(a, b))
+            log(f"  {engine} vs pyramid kernels at 32^3 f64"
+                f"{' heating' if heating else ''}: rates {errs[0]:.3e}, "
+                f"heat {errs[1]:.3e}, photon loss {errs[2]:.3e}")
+    log("shell and octant kernels vs plain, and vs the pyramid kernel: ok")
+    return worst
+
+
+def phase_engine_times(cfg, s, srcpos, nflux, engine):
+    """The shell or octant kernel's time (CUDA events, mean of 3 after a
+    warm-up) and its plain version's (one pass) at the main path's
+    shapes (phase 16's state), and their largest differences, within
+    the float32 tolerance of the pyramid kernel's main-path check (1e-4
+    with 1e-4 of each part's largest value as the floor).  Returns (ms,
+    plain_ms, max |kernel - plain| of the rates (1/s), the heat's
+    largest difference relative to its largest value)."""
+    from c2ray_tpu_torch.sweep import build_shell_table
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    mesh = cfg.sweep.mesh
+    kern, plain = engine_trace_fns(engine, build_shell_table(mesh))
+    args = (cfg.sweep, ps.stack_sweep_fields(cfg.sweep, fields_of(s)),
+            srcpos, nflux)
+    ms = event_ms(lambda: kern(*args), 3)
+    k = kern(*args)
+    p, wall = synced(plain, *args)
+    for a, b, w in zip(_sweep_parts(k, 1.0), _sweep_parts(p, 1.0),
+                       SWEEP_PARTS):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()),
+                                   msg=f"{engine} sweep {w} at {mesh}^3")
+    abs_err = float((k[0][..., :3] - p[0][..., :3]).abs().max())
+    heat_rel = rel_err(k[0][..., 3], p[0][..., 3])
+    b = sweep_bound(cfg.sweep, srcpos.shape[0], mesh // 2, mesh // 2 - 1)
+    v = "heating " if not cfg.sweep.isothermal else ""
+    log(f"{v}{engine} sweep at {mesh}^3 x {srcpos.shape[0]}: kernel {ms:.3f} "
+        f"ms, plain {1e3 * wall:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), max "
+        f"|kernel - plain| {abs_err:.3e} (f32 rates, 1/s), heat {heat_rel:.3e}"
+        f" of its largest value")
+    return ms, 1e3 * wall, abs_err, heat_rel, b
 
 
 # ---- the 1D program (phases 11-13)
@@ -1849,7 +2082,8 @@ def build_kernels():
     from c2ray_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
-    names = ("pyramid_sweep", "chemistry", "photon_losses", "evolve1d")
+    names = ("pyramid_sweep", "chemistry", "photon_losses", "evolve1d",
+             "shell_sweep", "octant_sweep")
     with ThreadPoolExecutor(len(names)) as pool:
         for f in [pool.submit(cuda_build.load, n) for n in names]:
             f.result()
@@ -1857,9 +2091,11 @@ def build_kernels():
     for name in names:
         kernel = ""
         for line in cuda_build.build_log(name).splitlines():
-            m = re.search(r"Compiling entry .*?(stage_kernel|source_cell_kernel"
-                          r"|chemistry_kernel|photon_losses_kernel"
-                          r"|evolve1d_kernel)I([fd])(?:Lb([01])E)?"
+            m = re.search(r"Compiling entry .*?(stage_kernel"
+                          r"|source_cell_kernel|chemistry_kernel"
+                          r"|photon_losses_kernel|evolve1d_kernel"
+                          r"|shell_kernel|plane_kernel)"
+                          r"I([fd])(?:Lb([01])E)?"
                           r"(?:Lb([01])E)?", line)
             if m:
                 dtype = "float" if m.group(2) == "f" else "double"
@@ -1875,8 +2111,8 @@ def build_kernels():
 
 def main():
     if sys.argv[1:2] == ["--cpu-reference"]:
-        # phase 9's float64 reference, started by the script itself
-        cpu_reference(sys.argv[2])
+        # phases 9 and 17's float64 references, started by the script
+        cpu_reference(sys.argv[2:])
         return
     if sys.argv[1:2] == ["--oned-reference"]:
         # phase 14's float64 plain runs, started by the script itself
@@ -1913,9 +2149,10 @@ def main():
 
 
 def run_phases(dev, workdir, ref, oned_refs):
-    """Phases 2-14; returns the entries of the `kernels` line.  Phase
-    14's CPU runs start, into `oned_refs`, once the 3D main paths have
-    been timed, so that they do not share the host with those timings."""
+    """Phases 2-17; returns the entries of the `kernels` line.  Phase
+    14's CPU runs start, into `oned_refs`, once the 3D main paths
+    (phases 4, 5, 8 and 16) have been timed, so that they do not share
+    the host with those timings."""
     def phase(label, fn, *args, **kw):
         t0 = time.perf_counter()
         out = fn(*args, **kw)
@@ -1939,14 +2176,25 @@ def run_phases(dev, workdir, ref, oned_refs):
     lls_err, track_err, pl_err = (max(e) for e in zip(*errs))
     pcfg, ps_, psrc, pnfl, _, pcounts = phase(                      # 8.
         "photon-loss main path", phase_main, dev, photon_losses=True)
+    eng_err = phase("compare shell and octant engines",              # 15.
+                    phase_compare_engines, dev)
+    eng = {(engine, heating): phase(                                # 16.
+        f"{engine} engine{' heating' if heating else ''} main path",
+        phase_main, dev, heating=heating, engine=engine)
+        for engine in ("shells", "octant") for heating in (False, True)}
     oned_refs.update(start_oned_references(workdir))                # 14.
     # the 1D program while phase 9's CPU reference runs
     compare_1d = phase("1D compare", phase_compare_1d, dev)          # 11.
     main_1d = phase("1D main path", phase_main_1d, dev)              # 12.
     phase("1D physics", phase_physics_1d, dev, main_1d)              # 13.
     phase("driver physics", phase_driver_physics, dev, workdir, ref)  # 9.
+    ocounts = phase("driver physics 33^3", phase_driver_physics,    # 17.
+                    dev, workdir, ref, mesh=33)
     r, last_sources, dcounts = phase("driver", phase_driver_full,  # 10.
                                      dev, workdir)
+    _, _, counts203 = phase("driver 203^3", phase_driver_full,      # 17.
+                            dev, workdir, mesh=203, zreds=(9.0, 8.95),
+                            mine=("shell_sweep_heat", "chemistry_heat"))
     full_1d = phase("1D compare at full width", phase_compare_1d_full,
                     dev, oned_refs)                                 # 14.
     # the kernel times last, when phase 9's CPU reference process no
@@ -1959,6 +2207,9 @@ def run_phases(dev, workdir, ref, oned_refs):
                           pcfg, ps_, psrc, pnfl)
     lls_t = phase("LLS kernel times", phase_lls_times, r, last_sources)
     oned_t = phase("1D kernel times", phase_oned_times, main_1d, compare_1d)
+    eng_t = {key: phase(f"{key[0]} engine{' heating' if key[1] else ''} "
+                        "kernel times", phase_engine_times, *out[:4], key[0])
+             for key, out in eng.items()}
 
     # each kernel's launches on its own path: phases 4, 5, 8 and 10
     counts = {**counts, **hcounts, **pcounts, **dcounts}
@@ -2013,6 +2264,24 @@ def run_phases(dev, workdir, ref, oned_refs):
          "max_err_f32_32cube": pl_err, "ms": pms, "plain_ms": pplain,
          "bound_ms": pb[0], "bound_by": pb[1], "library_ms": plib},
     ]
+    # the shell and octant kernels: launches on phases 16 and 17, time,
+    # plain time and bound at 128^3 x 8 (the bound over the unique cells:
+    # the table's, or the octants' without their shared faces)
+    for (engine, heating), out in eng.items():
+        name = ENGINE_KERNEL[engine] + ("_heat" if heating else "")
+        ms, plain_ms, abs_err, heat_rel, b = eng_t[engine, heating]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": f"c2ray_tpu_torch/csrc/{ENGINE_KERNEL[engine]}.cu",
+             "replaces": ("c2ray_tpu/sweep/source_sweep.py:138"
+                          if engine == "shells"
+                          else "c2ray_tpu/sweep/octant_sweep.py:113"),
+             "launches": (out[5][name] + ocounts.get(name, 0)
+                          + counts203.get(name, 0)),
+             "max_abs_err": abs_err, "max_rel_err_heat": heat_rel,
+             "max_err_f32_32cube": eng_err[name],
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": None})
     # the 1D kernels: launches on phase 12's runs, time and bound at mesh
     # 10000; the error against the plain version at mesh 10000 in float64
     # (phase 14), and at mesh 128 in float32 beside the plain version's

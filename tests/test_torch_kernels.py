@@ -33,8 +33,9 @@ from c2ray_tpu_torch.radiation.quadrature import (build_quadrature_tables,
                                                   packed_band_rows)
 from c2ray_tpu_torch.state import initial_grid_state
 from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
-                                   SourceFields, SweepConfig, evolve3d,
-                                   global_pass, pyramid_sweep)
+                                   SourceFields, SweepConfig,
+                                   build_shell_table, evolve3d, global_pass,
+                                   octant_sweep, pyramid_sweep, source_sweep)
 
 # one intra-op thread: the suite runs in parallel workers, and at
 # these small shapes torch's per-op thread pool only oversubscribes
@@ -580,3 +581,125 @@ def test_evolve1d_kernel_matches_plain(cuda_device, variant, dtype):
             frac_p, temp_p = _oned_errors(plain.state, ref.state)
             assert frac_k <= 2.0 * frac_p + 1e-5, (frac_k, frac_p)
             assert temp_k <= 2.0 * temp_p + 1e-5, (temp_k, temp_p)
+
+
+# ---- the L1-shell and skewed-octant sweep kernels
+
+_SHELL_CASES = {"even": (16, None), "odd": (17, None), "subbox": (16, 5)}
+
+
+def _engine_counts():
+    return (source_sweep.launches, source_sweep.launches_heat,
+            octant_sweep.launches, octant_sweep.launches_heat)
+
+
+def test_shell_and_octant_plain_paths_launch_no_kernel():
+    """CPU tensors take the plain versions; the kernel wrappers refuse
+    them."""
+    before = _engine_counts()
+    for engine, M in (("shells", 9), ("octant", 8)):
+        cfg = dataclasses.replace(_config(M, torch.float64, "cpu"),
+                                  engine=engine, max_iterations=2)
+        srcpos, nflux = _sources(M, 2, torch.float64, "cpu")
+        state = initial_grid_state(np.full((M,) * 3, 1e-4), 0.0, 0.0, 0.0,
+                                   1e4)
+        new, stats = evolve3d(cfg, state, srcpos, nflux, 1.0e14)
+        assert stats.n_iterations >= 2 and stats.subbox_radius == 0
+        assert bool(torch.isfinite(new.h1).all())
+    assert _engine_counts() == before
+    M = 8
+    cfg = _config(M, torch.float64, "cpu")
+    state = _random_state(M, torch.float64, "cpu")
+    fstack = pyramid_sweep.stack_sweep_fields(cfg.sweep, SourceFields(
+        state.ndens, state.h_av0, state.h_av1, state.he_av0, state.he_av1))
+    srcpos, nflux = _sources(M, 1, torch.float64, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        source_sweep.shell_sweep_cuda(cfg.sweep, build_shell_table(M),
+                                       fstack, srcpos, nflux)
+    with pytest.raises(ValueError, match="CUDA"):
+        octant_sweep.octant_sweep_cuda(cfg.sweep, fstack, srcpos, nflux)
+    assert _engine_counts() == before
+
+
+def _engine_traces(engine, cfg, table, state, srcpos, nflux):
+    """(kernel, plain) traces of the shell or octant engine as
+    (slab, photon loss, LLS loss)."""
+    fstack = pyramid_sweep.stack_sweep_fields(cfg, SourceFields(
+        state.ndens, state.h_av0, state.h_av1, state.he_av0, state.he_av1))
+    if engine == "shells":
+        return tuple(fn(cfg, table, fstack, srcpos, nflux)
+                     for fn in (source_sweep.shell_sweep_cuda,
+                                source_sweep.shell_sweep_plain))
+    out = []
+    for fn in (octant_sweep.octant_sweep_cuda,
+               octant_sweep.octant_sweep_plain):
+        slab, ploss = fn(cfg, fstack, srcpos, nflux)
+        out.append((slab, ploss, torch.zeros_like(ploss)))
+    return tuple(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lls", [0.0, 1.0e15])
+@pytest.mark.parametrize("case", ["even", "odd", "subbox", "octant"])
+@pytest.mark.parametrize("heating", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_shell_and_octant_kernels_match_plain(cuda_device, dtype, heating,
+                                              case, lls):
+    """The shell kernel at 16^3 (full extents), 17^3 (odd) and 16^3
+    under a radius-5 table, and the octant kernel at 16^3, against their
+    plain versions on the same inputs: float64 within rtol 1e-10 of
+    each part's largest value; float32 within twice the plain float32
+    version's error against the float64 plain result, plus 1e-5."""
+    engine = "octant" if case == "octant" else "shells"
+    M, radius = _SHELL_CASES.get(case, (16, None))
+    table = build_shell_table(M, radius)
+    parts = {}
+    for dt in (torch.float64, dtype):
+        cfg = dataclasses.replace(
+            _config(M, dt, cuda_device, S_star=1e48, heating=heating).sweep,
+            coldensh_LLS=lls)
+        state = _random_state(M, dt, cuda_device)
+        srcpos, nflux = _sources(M, 3, dt, cuda_device)
+        before = _engine_counts()
+        k, p = _engine_traces(engine, cfg, table, state, srcpos, nflux)
+        i = (0 if engine == "shells" else 2) + heating
+        assert _engine_counts()[i] == before[i] + 1
+        assert sum(_engine_counts()) == sum(before) + 1
+        parts[dt] = (_parts(k + (None,)), _parts(p + (None,)))
+    (k64, p64), (k, p) = parts[torch.float64], parts[dtype]
+    if heating:
+        assert float(p64[1].abs().max()) > 0.0
+    assert (float(p64[3].abs().max()) > 0.0) == (lls > 0.0
+                                                 and engine == "shells")
+    for a, b, ref in zip(k, p, p64):
+        if dtype == torch.float64:
+            torch.testing.assert_close(a, b, rtol=1e-10,
+                                       atol=1e-10 * float(b.abs().max()))
+        else:
+            ek, ep = _rel_err(a.double(), ref), _rel_err(b.double(), ref)
+            assert ek <= 2.0 * ep + 1e-5, (ek, ep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heating", [False, True])
+def test_three_engine_kernels_agree(cuda_device, heating):
+    """At full extents the shell, octant and pyramid kernels compute one
+    function: float64 rates, heat and photon loss within rtol 1e-10
+    (the JAX package's own pyramid-vs-octant tolerance)."""
+    M = 16
+    cfg = _config(M, torch.float64, cuda_device, S_star=1e48,
+                  heating=heating).sweep
+    state = _random_state(M, torch.float64, cuda_device)
+    fstack = pyramid_sweep.stack_sweep_fields(cfg, SourceFields(
+        state.ndens, state.h_av0, state.h_av1, state.he_av0, state.he_av1))
+    srcpos, nflux = _sources(M, 3, torch.float64, cuda_device)
+    Rf, Rb = pyramid_sweep.trace_extents(M)
+    pyr = pyramid_sweep.trace_cuda(cfg, fstack, srcpos, nflux, Rf, Rb)
+    shell = source_sweep.shell_sweep_cuda(cfg, build_shell_table(M), fstack,
+                                           srcpos, nflux)
+    octant = octant_sweep.octant_sweep_cuda(cfg, fstack, srcpos, nflux)
+    for other in (shell, octant):
+        for a, b in ((other[0][..., :3], pyr[0][..., :3]),
+                     (other[0][..., 3], pyr[0][..., 3]), (other[1], pyr[1])):
+            torch.testing.assert_close(a, b, rtol=1e-10,
+                                       atol=1e-10 * float(b.abs().max()))

@@ -1,15 +1,16 @@
 """Profile the port's 3D iteration on one GPU: device time by kernel.
 
     python3 tools/profile_torch_iteration.py [--heating] [--lls]
-        [--photon-losses] [--iters N]
+        [--photon-losses] [--engine pyramid|octant|shells] [--iters N]
 
 Runs the bench configuration of ``chip_smoke.py`` (128^3 x 8 sources,
 float32, isothermal or with heating) through `make_evolve3d_iteration`;
 `--lls` gives the sweep a per-cell LLS grid (seeded, 1e14-1e17 cm^-2
 per cell: the LLS variant of the sweep kernel), `--photon-losses` turns
-on band tracking and the photon-loss redistribution:
-one warm-up iteration, then N iterations timed without the profiler
-and the same N iterations again under ``torch.profiler``.  Prints the
+on band tracking and the photon-loss redistribution, `--engine` picks
+the sweep engine (`Evolve3DConfig.engine`): one warm-up iteration,
+then N iterations timed without the profiler and the same N
+iterations again under ``torch.profiler``.  Prints the
 device time per iteration of each kernel, the wall per iteration
 (unprofiled and profiled), and the device's idle share (1 - device
 time / unprofiled wall, so the profiler's own overhead is not counted
@@ -33,6 +34,8 @@ def main():
     ap.add_argument("--heating", action="store_true")
     ap.add_argument("--lls", action="store_true")
     ap.add_argument("--photon-losses", action="store_true")
+    ap.add_argument("--engine", default="pyramid",
+                    choices=("pyramid", "octant", "shells"))
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--mesh", type=int, default=128)
     ap.add_argument("--sources", type=int, default=8)
@@ -51,6 +54,7 @@ def main():
     dev = torch.device("cuda", 0)
     M, S = args.mesh, args.sources
     cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev, args.heating)
+    cfg = dataclasses.replace(cfg, engine=args.engine)
     if args.photon_losses:
         cfg = dataclasses.replace(
             cfg, add_photon_losses=True,
@@ -94,7 +98,8 @@ def main():
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
-    variant = ("heating" if args.heating else "isothermal") + (
+    variant = f"{args.engine} engine, " + (
+        "heating" if args.heating else "isothermal") + (
         " + LLS grid" if args.lls else "") + (
         " + photon losses" if args.photon_losses else "")
     print(f"{cs.smi_line()}; {variant} {M}^3 x {S} float32, {args.iters} "

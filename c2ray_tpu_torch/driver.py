@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .cooling import setup_cooling_tables
 from .cosmology import CosmoClock
@@ -99,9 +100,13 @@ class Run3DConfig:
     # randomize source order per slice (ctrper, sourceprops_test.F90:
     # 205-210) -- order only matters for float reduction noise here
     randomize_sources: bool = False
-    # --- multi-GPU execution: None only; the "source" and "domain"
-    # modes of the JAX package wait for the multi-GPU slice (ROADMAP
-    # Queue 2 #6, NCCL)
+    # --- multi-GPU execution (parallel/): None, one device; "source":
+    # source-parallel over a replicated grid (the reference's MPI
+    # model); "domain": the grid cut into x-slabs over the ranks.  Both
+    # run SPMD, one process per device, in an initialised default
+    # process group (torchrun, or parallel.launch) of n_devices ranks
+    # (None: any size); `balance_halo` E > 0 spreads the domain mode's
+    # sources over the ranks with E extra halo planes
     parallel: Optional[str] = None
     n_devices: Optional[int] = None
     balance_halo: int = 0
@@ -118,13 +123,49 @@ class PhotonConservationError(RuntimeError):
 def _device_of(name) -> torch.device:
     """The configured device (Run3DConfig.device, OneDRun.setup's
     device); a CUDA device when CUDA is absent raises (the run never
-    drops to the CPU on its own)."""
+    drops to the CPU on its own).  Under an initialised process group,
+    "cuda" is the rank's own card, cuda:<local rank>."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={name!r} but CUDA is not available; pass "
             f"device='cpu' to run the plain versions on the CPU")
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        local = os.environ.get("LOCAL_RANK")
+        dev = torch.device("cuda", int(local) if local is not None else
+                           dist.get_rank() % torch.cuda.device_count())
     return dev
+
+
+def shared_seed(device) -> int:
+    """A random seed drawn on rank 0 and broadcast to every rank of the
+    default process group."""
+    seed = torch.tensor([np.random.SeedSequence().entropy % 2**62],
+                        dtype=torch.int64, device=device)
+    dist.broadcast(seed, src=0)
+    return int(seed)
+
+
+def _parallel_config(c, evolve_cfg, device):
+    """The ParallelConfig of the default process group for
+    Run3DConfig.parallel; raises without a group of the configured
+    size, and when the group's backend does not take `device`."""
+    from .parallel import ParallelConfig, comm
+
+    if c.parallel not in ("source", "domain"):
+        raise ValueError(f"parallel={c.parallel!r}: one of None, 'source', "
+                         f"'domain'")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"parallel={c.parallel!r} runs one process per device in an "
+            f"initialised torch.distributed process group (torchrun, or "
+            f"c2ray_tpu_torch.parallel.launch); none is initialised")
+    world = dist.get_world_size()
+    if c.n_devices is not None and c.n_devices != world:
+        raise ValueError(f"n_devices={c.n_devices} but the process group "
+                         f"has {world} ranks")
+    comm.check_device(torch.empty(0, device=device))
+    return ParallelConfig(cfg=evolve_cfg)
 
 
 class Run3D:
@@ -132,10 +173,6 @@ class Run3D:
 
     def __init__(self, config: Run3DConfig):
         c = config
-        if c.parallel is not None:
-            raise NotImplementedError(
-                f"parallel={c.parallel!r}: multi-GPU execution is the "
-                f"multi-GPU slice of the port (ROADMAP Queue 2 #6)")
         config.dtype = _DTYPES.get(c.dtype, c.dtype)
         self.device = _device_of(c.device)
         self.config = config
@@ -195,6 +232,12 @@ class Run3D:
         shells = build_shell_table(c.mesh, c.max_subbox)
         self.evolve_cfg = Evolve3DConfig(sweep=sweep_cfg, chem=chem_cfg,
                                          shells=shells)
+        # multi-device execution: every rank holds the whole state
+        # between steps (the domain mode cuts it into slabs for the
+        # timestep); only rank 0 writes files
+        self.pconfig = (None if c.parallel is None else
+                        _parallel_config(c, self.evolve_cfg, self.device))
+        self.is_writer = self.pconfig is None or dist.get_rank() == 0
 
         # kept for the JAX driver's call of evolve3d, which ignores it:
         # nothing is compiled per subbox radius
@@ -336,16 +379,31 @@ class Run3D:
             before = species_inventory(self.state, vol_now)
             ccf = (self.clock.cosmo_cool_factor()
                    if (c.cosmological and not c.isothermal) else None)
-            self.state, stats = evolve3d(
-                self.evolve_cfg, self.state, srcpos, nflux, dt,
+            common = dict(
                 dr=float(self.dr_proper), cosmo_cool_factor=ccf,
                 iteration_cache=self._iteration_cache,
                 initial_radius=self._subbox_radius,
                 lls_grid=self._current_lls_grid(),
                 # mid-iteration checkpoints on the reference's 15-min
-                # wall clock (evolve.F90:199-212)
+                # wall clock (evolve.F90:199-212), in every mode
                 dump_dir=c.dump_dir, dump_interval_s=c.dump_interval_s,
                 start_from_dump=start_from_dump and step == 0)
+            if c.parallel == "domain":
+                from .parallel import (domain_evolve3d, gather_state_slabs,
+                                       shard_state_slabs)
+
+                slab, stats = domain_evolve3d(
+                    self.pconfig, shard_state_slabs(self.state), srcpos,
+                    nflux, dt, balance_halo=c.balance_halo, **common)
+                self.state = gather_state_slabs(slab)
+            elif c.parallel == "source":
+                from .parallel import parallel_evolve3d
+
+                self.state, stats = parallel_evolve3d(
+                    self.pconfig, self.state, srcpos, nflux, dt, **common)
+            else:
+                self.state, stats = evolve3d(
+                    self.evolve_cfg, self.state, srcpos, nflux, dt, **common)
             if stats.subbox_radius:
                 self._subbox_radius = stats.subbox_radius
             self.time = t1 + (step + 1) * dt
@@ -365,7 +423,8 @@ class Run3D:
                 photon_loss=stats.photon_loss * fs,
                 lls_loss=stats.lls_loss * fs)
             self.last_budget = budget
-            self.writer.write_photon_counts(budget)
+            if self.is_writer:
+                self.writer.write_photon_counts(budget)
 
             # photcons_flag + stop_on_photon_violation
             # (C2Ray.F90:351-372, output.F90:522-533)
@@ -379,7 +438,7 @@ class Run3D:
                     f"loss fraction="
                     f"{(budget.total_photon_loss + budget.total_lls_loss) / max(budget.total_src, 1e-300):.4f}")
 
-        if write_output:
+        if write_output and self.is_writer:
             self.write_output(z2, sources)
         return stats_list
 
@@ -413,7 +472,10 @@ class Run3D:
                 "source_input='static' runs need sources passed to "
                 "run()/run_slice() directly")
         if c.randomize_sources:
-            sources = randomize_source_order(sources)
+            # every rank must trace from the same list: rank 0's seed
+            sources = randomize_source_order(
+                sources, rng=None if self.pconfig is None
+                else shared_seed(self.device))
         return sources
 
     def prepare_slice(self, nz: int):

@@ -98,6 +98,31 @@ The shell and octant slice adds, after phase 8:
 
 Then the shell and octant kernels' times at 128^3 x 8, last.
 
+The multi-GPU slice adds, after phase 16 (the card has one H100, so
+the parallel paths run at world size 1; their exchange between ranks
+is held against the JAX package by the CPU tests in gloo processes):
+
+18. the three halo kernels (``csrc/domain_halo.cu``: halo_pack,
+   window_accumulate, fold_halo) against their plain versions on the
+   card, float64 and float32, with 5 and 6 channels, at the slab shapes
+   of 8 ranks at 32^3 radius 5 (S = 4, H = 6) and of one rank at 128^3,
+   full radius (S = 128, H = 64): equal to the bit;
+19. NCCL at world size 1 (a process group met through a FileStore under
+   build/chip_smoke/): the collectives, a CPU tensor refused, and the
+   time of an all-reduce of the four rate grids and of an all-gather
+   of the 12 chemistry fields at 128^3;
+20. the bench configuration of phases 4 and 5 through
+   make_domain_iteration (full radius) and make_parallel_iteration
+   beside make_evolve3d_iteration, timed in turns, their first
+   iterations held to the single-device one (rates rtol 1e-4 with a
+   1e-4-of-max floor, state 2e-2), then one timestep of each of
+   evolve3d, domain_evolve3d and parallel_evolve3d;
+21. after phase 10, `Run3D(parallel="domain", n_devices=1).run()` on
+   phase 10's configuration: its mean ionized fraction within 1% of
+   phase 10's, the same output files.
+
+Then the halo kernels' times at 128^3, world size 1, full radius.
+
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
 operations over their peak rate (`bound`; for the 1D kernels the
@@ -553,6 +578,7 @@ def phase_compare_slice(dev, M=32, heating=False):
 
 def launch_counts():
     from c2ray_tpu_torch.onedim import evolve as ev1
+    from c2ray_tpu_torch.parallel import halo
     from c2ray_tpu_torch.sweep import (global_pass, octant_sweep,
                                        photon_losses, pyramid_sweep,
                                        source_sweep)
@@ -571,11 +597,15 @@ def launch_counts():
             "shell_sweep": source_sweep.launches,
             "shell_sweep_heat": source_sweep.launches_heat,
             "octant_sweep": octant_sweep.launches,
-            "octant_sweep_heat": octant_sweep.launches_heat}
+            "octant_sweep_heat": octant_sweep.launches_heat,
+            "halo_pack": halo.launches_pack,
+            "window_accumulate": halo.launches_accumulate,
+            "fold_halo": halo.launches_fold}
 
 
 def reset_launch_counts():
     from c2ray_tpu_torch.onedim import evolve as ev1
+    from c2ray_tpu_torch.parallel import halo
     from c2ray_tpu_torch.sweep import (global_pass, octant_sweep,
                                        photon_losses, pyramid_sweep,
                                        source_sweep)
@@ -588,6 +618,7 @@ def reset_launch_counts():
     ev1.launches_table = ev1.launches_table_heat = 0
     source_sweep.launches = source_sweep.launches_heat = 0
     octant_sweep.launches = octant_sweep.launches_heat = 0
+    halo.launches_pack = halo.launches_accumulate = halo.launches_fold = 0
 
 
 def check_launches(name, counts, mine):
@@ -1207,25 +1238,18 @@ def synth_cubep3m_tree(base, mesh, zreds, n_halos=64, seed=12):
     return zfile, base + os.sep
 
 
-def phase_driver_full(dev, workdir, mesh=128, zreds=(9.0, 8.95, 8.9),
-                      mine=("pyramid_sweep_lls", "chemistry_heat")):
-    """Phases 10 and 17: Run3D.run() at full width, heating, float32, on
-    a synthetic CubeP3M tree, through the config loader a run file would
-    use: 2 slices at 128^3 (the pyramid engine with the per-cell LLS
-    sweep), 1 slice at 203^3 (the RT grid of Iliev et al. 2006, odd: the
-    shell engine, which takes no LLS grid).  Cuts from a production run:
-    64 halos instead of a full catalog, 1-2 slices (the script's time
-    limit); the seeded tree stands in for N-body outputs the repository
-    does not hold.  The kernels in `mine` must have been launched, no
-    other."""
-    from c2ray_tpu_torch import driver as drv
+def driver_config(dev, workdir, mesh, zreds, results, **extra):
+    """Phase 10's Run3D configuration, through the config loader a run
+    file would use, on the synthetic tree under `workdir` (made by the
+    first call), writing to `results`; `extra`: more Run3DConfig keys."""
     from c2ray_tpu_torch.config import run3d_config_from_dict
-    from c2ray_tpu_torch.sweep.evolve3d import sweep_engine
 
-    zfile, base = synth_cubep3m_tree(os.path.join(workdir, f"nbody{mesh}"),
-                                     mesh, list(zreds))
-    results = os.path.join(workdir, f"run3d_results{mesh}")
-    cfg = run3d_config_from_dict({
+    tree = os.path.join(workdir, f"nbody{mesh}")
+    if os.path.isdir(tree):
+        zfile, base = os.path.join(tree, "redshifts.txt"), tree + os.sep
+    else:
+        zfile, base = synth_cubep3m_tree(tree, mesh, list(zreds))
+    return run3d_config_from_dict({
         "mesh": mesh, "cosmology": "WMAP3plus",
         "nbody": {"type": "cubep3m", "redshift_file": zfile,
                   "boxsize": 10.0, "n_box": mesh, "base_dir": base,
@@ -1241,7 +1265,25 @@ def phase_driver_full(dev, workdir, mesh=128, zreds=(9.0, 8.95, 8.9),
                     "temper_rate_cubes": True, "midplane_cuts": True,
                     "density_cuts": True},
         "results_dir": results, "dump_dir": workdir,
-        "dtype": "float32", "device": str(dev)})
+        "dtype": "float32", "device": str(dev), **extra})
+
+
+def phase_driver_full(dev, workdir, mesh=128, zreds=(9.0, 8.95, 8.9),
+                      mine=("pyramid_sweep_lls", "chemistry_heat")):
+    """Phases 10 and 17: Run3D.run() at full width, heating, float32, on
+    a synthetic CubeP3M tree, through the config loader a run file would
+    use: 2 slices at 128^3 (the pyramid engine with the per-cell LLS
+    sweep), 1 slice at 203^3 (the RT grid of Iliev et al. 2006, odd: the
+    shell engine, which takes no LLS grid).  Cuts from a production run:
+    64 halos instead of a full catalog, 1-2 slices (the script's time
+    limit); the seeded tree stands in for N-body outputs the repository
+    does not hold.  The kernels in `mine` must have been launched, no
+    other."""
+    from c2ray_tpu_torch import driver as drv
+    from c2ray_tpu_torch.sweep.evolve3d import sweep_engine
+
+    results = os.path.join(workdir, f"run3d_results{mesh}")
+    cfg = driver_config(dev, workdir, mesh, zreds, results)
     r = drv.Run3D(cfg)
 
     # per-step walls and each slice's sources, read around the calls
@@ -1461,6 +1503,337 @@ def phase_engine_times(cfg, s, srcpos, nflux, engine):
         f"|kernel - plain| {abs_err:.3e} (f32 rates, 1/s), heat {heat_rel:.3e}"
         f" of its largest value")
     return ms, 1e3 * wall, abs_err, heat_rel, b
+
+
+# ---- the multi-GPU slice (phases 18-21)
+
+# the slab shapes of the halo kernels' comparisons, (mesh, ranks,
+# radius): D = 8 at 32^3 and radius 5 (S = 4, H = 6: several hops), and
+# the main path's at world size 1: D = 1 at 128^3, full radius (S = 128,
+# H = 64)
+HALO_SHAPES = ((32, 8, 5), (128, 1, 64))
+
+
+def halo_case(M, D, radius, dtype, dev, C=5, seed=4):
+    """A rank's inputs of the three halo kernels at a slab shape: its
+    field slabs (a fifth of the fractions 0, below epsilon), the received
+    halos, a rate slab, three windows and their cubes, and the received
+    fold chunks with their table."""
+    from c2ray_tpu_torch.parallel import domain
+
+    S = M // D
+    Mw, _, H = domain._window_geometry(M, radius)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g, dtype=dtype,
+                                  device=dev)
+    n = S * M * M
+    fields = [1e-4 + 1e-2 * u(n)]
+    fields += [torch.where(u(n) < 0.2, 0.0, u(n)) for _ in range(4)]
+    fields += [1e18 * u(n) for _ in range(C - 5)]
+    left, right = u(H, M, M, C), u(H, M, M, C)
+    rc = u(S + 2 * H, M + 2 * H, M + 2 * H, 4)
+    rng = np.random.RandomState(seed)
+    starts = [tuple(int(rng.randint(0, e - Mw + 1)) for e in rc.shape[:3])
+              for _ in range(3)]
+    cubes = [u(Mw, Mw, Mw, 4) for _ in starts]
+    chunks, b0 = [], 0
+    for _, lo, hi, at in domain._fold_messages(S, H):
+        chunks.append((b0, at, hi - lo))
+        b0 += hi - lo
+    return dict(S=S, H=H, Mw=Mw, fields=fields, left=left, right=right,
+                rc=rc, starts=starts, cubes=cubes, recv=u(b0, M, M, 4),
+                chunks=chunks)
+
+
+def halo_pairs(c, M):
+    """(name, kernel result, plain result) of every halo kernel use on
+    the case `c`: the pack and the planes sent, three window adds in
+    order, the fold and the halo planes sent."""
+    from c2ray_tpu_torch.parallel import halo
+
+    S, H = c["S"], c["H"]
+    pack = (c["fields"], M, 1e-20, c["left"], c["right"], H)
+    sends = (c["fields"], M, 1e-20, None, None, 0, (max(0, S - H), S))
+    rk, rp = c["rc"].clone(), c["rc"].clone()
+    for st, cube in zip(c["starts"], c["cubes"]):
+        halo.window_accumulate_cuda(rk, cube, st)
+        halo.window_accumulate_plain(rp, cube, st)
+    fold = (c["rc"], M, (H, H + S), c["recv"], c["chunks"])
+    fold_sends = (c["rc"], M, (0, H), None, (), False)
+    return [("halo_pack", halo.halo_pack_cuda(*pack),
+             halo.halo_pack_plain(*pack)),
+            ("halo_pack sends", halo.halo_pack_cuda(*sends),
+             halo.halo_pack_plain(*sends)),
+            ("window_accumulate", rk, rp),
+            ("fold_halo", halo.fold_halo_cuda(*fold),
+             halo.fold_halo_plain(*fold)),
+            ("fold_halo sends", halo.fold_halo_cuda(*fold_sends),
+             halo.fold_halo_plain(*fold_sends))]
+
+
+def phase_compare_halo(dev):
+    """Phase 18: the three halo kernels against their plain versions on
+    the card, float64 and float32, at HALO_SHAPES, with and without the
+    LLS channel: equal to the bit (they copy, take a max and add in the
+    plain versions' order)."""
+    for M, D, radius in HALO_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            for C in (5, 6):
+                c = halo_case(M, D, radius, dtype, dev, C=C)
+                for name, k, p in halo_pairs(c, M):
+                    if k.shape != p.shape or not torch.equal(k, p):
+                        raise AssertionError(
+                            f"{name} at {M}^3 D={D} radius {radius} {dtype}"
+                            f" C={C}: kernel differs from plain by "
+                            f"{float((k - p).abs().max()):.3e}")
+                del c
+        log(f"halo kernels at {M}^3, D = {D}, radius {radius}: kernel == "
+            f"plain to the bit, f64 and f32, 5 and 6 channels")
+
+
+def init_nccl(dev, workdir):
+    """The NCCL process group of one rank on `dev`, met through a
+    FileStore under the script's build directory."""
+    import torch.distributed as dist
+
+    store = dist.FileStore(os.path.join(workdir, "nccl_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=dev)
+
+
+def phase_nccl(dev, workdir, mesh=128):
+    """Phase 19: NCCL at world size 1: the collectives of the parallel
+    iterations on the card (the ppermute to the rank itself a local
+    copy), a CPU tensor refused, and the time of one all-reduce of the
+    four rate grids and one all-gather of the chemistry's 12 fields."""
+    import torch.distributed as dist
+
+    from c2ray_tpu_torch.parallel import comm
+
+    init_nccl(dev, workdir)
+    x = torch.arange(12.0, device=dev).view(4, 3)
+    if not (torch.equal(comm.psum(x), x)
+            and torch.equal(comm.all_gather(x), x)
+            and torch.equal(comm.ppermute(x, 1), x)
+            and comm.axis_size() == 1 and comm.rank() == 0):
+        raise AssertionError("NCCL collectives at world size 1 differ")
+    try:
+        comm.psum(torch.zeros(2))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a CPU tensor on an NCCL group was accepted")
+    buf = torch.rand(4 * mesh**3, device=dev)
+    ar_ms = event_ms(lambda: dist.all_reduce(buf), 10)
+    blk = torch.rand(1, 12, mesh**3, device=dev)
+    ag_ms = event_ms(lambda: comm.all_gather(blk), 10)
+    log(f"NCCL world size 1 ({dist.get_backend()}): all_reduce of "
+        f"{buf.numel() * 4 / 1e6:.1f} MB {ar_ms:.4f} ms; all_gather of "
+        f"{blk.numel() * 4 / 1e6:.1f} MB {ag_ms:.4f} ms")
+    return {"all_reduce_ms": ar_ms, "all_reduce_MB": buf.numel() * 4 / 1e6,
+            "all_gather_ms": ag_ms, "all_gather_MB": blk.numel() * 4 / 1e6}
+
+
+def _rate_parts(out):
+    r = out[4]
+    return torch.stack([r.phih, r.phihe0, r.phihe1]), r.phiheat
+
+
+def phase_parallel_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
+    """Phase 20: the bench configuration of phase 4 (5) in float32
+    through the parallel entry points at world size 1: make_domain_
+    iteration at the full radius and make_parallel_iteration beside the
+    single-device make_evolve3d_iteration, timed in turns (single,
+    domain, source, source, domain, single; a warm-up and n_iter
+    iterations each), then one timestep each of evolve3d, domain_
+    evolve3d and parallel_evolve3d.  The first iteration of each from
+    the same state is held to the single-device one: the rate grids and
+    the photon loss to phase 4's sweep tolerance (rtol 1e-4, 1e-4 of
+    the largest value as the floor, each part on its own scale), the
+    state to the chemistry's (2e-2: a cell whose 1% test flips stops one
+    iteration apart); the timesteps' mean ionized fractions within 1%.
+    Returns the halo kernels' launches and the rates."""
+    from c2ray_tpu_torch.parallel import (ParallelConfig, domain_evolve3d,
+                                          group_sources_by_slab,
+                                          make_domain_iteration,
+                                          make_parallel_iteration,
+                                          parallel_evolve3d,
+                                          shard_state_slabs)
+    from c2ray_tpu_torch.state import initial_grid_state
+    from c2ray_tpu_torch.sweep import evolve3d, make_evolve3d_iteration
+
+    v = "heating " if heating else ""
+    cfg, _ = setup(mesh, *BENCH_SOURCE, torch.float32, dev, heating)
+    rng = np.random.RandomState(7)
+    sp_np = rng.randint(0, mesh, size=(n_src, 3))
+    nf_np = np.concatenate([rng.uniform(0.5, 2.0, (n_src, 1)),
+                            np.zeros((n_src, 2))], axis=1)
+    srcpos = torch.as_tensor(sp_np, device=dev)
+    nflux = torch.as_tensor(nf_np, dtype=torch.float32, device=dev)
+    state0 = initial_grid_state(np.full((mesh,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
+                                1.0e4, dtype=torch.float32, device=dev)
+    dt = 1.0e14
+    pcfg = ParallelConfig(cfg)
+    gsp, gnf = group_sources_by_slab(sp_np, nf_np, mesh, 1)
+    gnf = torch.as_tensor(gnf, dtype=torch.float32, device=dev)
+    modes = {
+        "single": (make_evolve3d_iteration(cfg, return_rates=True), state0,
+                   srcpos, nflux),
+        "domain": (make_domain_iteration(pcfg, mesh // 2, return_rates=True),
+                   shard_state_slabs(state0), gsp, gnf),
+        "source": (make_parallel_iteration(pcfg, return_rates=True), state0,
+                   srcpos, nflux)}
+    sfx = "_heat" if heating else ""
+    mine = {"single": ("pyramid_sweep" + sfx, "chemistry" + sfx),
+            "source": ("pyramid_sweep" + sfx, "chemistry" + sfx),
+            "domain": ("pyramid_sweep" + sfx, "chemistry" + sfx, "halo_pack",
+                       "window_accumulate", "fold_halo")}
+    first, spi, halo_counts = {}, {k: [] for k in modes}, {}
+    for mode in ("single", "domain", "source", "source", "domain", "single"):
+        it, s, sp, nf = modes[mode]
+        reset_launch_counts()
+        out, warm = synced(it, s, sp, nf, dt)
+        first.setdefault(mode, out)
+        s = out[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            s = it(s, sp, nf, dt)[0]
+        torch.cuda.synchronize()
+        spi[mode].append((time.perf_counter() - t0) / n_iter)
+        counts = launch_counts()
+        check_launches(f"{v}{mode} iteration", counts, mine[mode])
+        if mode == "domain":
+            for k in mine[mode][2:]:
+                halo_counts[k] = halo_counts.get(k, 0) + counts[k]
+        log(f"  {v}{mode}: warm-up {warm:.3f} s")
+    for mode, w in spi.items():
+        log(f"{v}{mode} iteration {mesh}^3 x {n_src} float32, world size 1: "
+            f"{mesh**3 * n_src / np.mean(w):.6e} cell-source-updates/s, "
+            f"{', '.join(f'{x:.6f}' for x in w)} s/iteration")
+    ref = first["single"]
+    for mode in ("domain", "source"):
+        out = first[mode]
+        for a, b, what in zip(_rate_parts(out) + (out[2],),
+                              _rate_parts(ref) + (ref[2],),
+                              ("rates", "heat", "photon_loss")):
+            err = rel_err(a.double(), b.double())
+            log(f"  {v}{mode} vs single {what}: {err:.3e} of the largest")
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()),
+                                       msg=f"{v}{mode} {what}")
+        for a, b, nm in zip(out[0], ref[0], ref[0]._fields):
+            if nm == "clumping":
+                continue
+            torch.testing.assert_close(
+                a, b, rtol=2e-2, atol=0.0 if nm.startswith("t_") else 2e-2,
+                msg=f"{v}{mode} state {nm}")
+        log(f"  {v}{mode} vs single: conv_flag {int(out[1])} / "
+            f"{int(ref[1])}, largest |h_av1| difference "
+            f"{float((out[0].h_av1 - ref[0].h_av1).abs().max()):.3e}")
+    # one timestep of each (the adaptive subbox ladder from radius 8)
+    steps = {}
+    (s1, st1), w1 = synced(evolve3d, cfg, state0, srcpos, nflux, dt)
+    steps["single"] = (w1, st1, s1.h1)
+    reset_launch_counts()
+    (sd, std), wd = synced(domain_evolve3d, pcfg, shard_state_slabs(state0),
+                           sp_np, nf_np, dt)
+    counts = launch_counts()
+    for k in mine["domain"][2:]:
+        halo_counts[k] += counts[k]
+    steps["domain"] = (wd, std, sd.h1)
+    (sp_, stp), wp = synced(parallel_evolve3d, pcfg, state0, sp_np, nf_np,
+                            dt)
+    steps["source"] = (wp, stp, sp_.h1)
+    x_ref = float(s1.h1.double().mean())
+    for mode, (w, st, h1) in steps.items():
+        x = float(h1.double().mean())
+        log(f"  {v}{mode} timestep: {w:.3f} s, "
+            f"{mesh**3 * n_src * st.n_iterations / w:.6e} cell-source-"
+            f"updates/s over its iterations, {st}, mean ionized fraction "
+            f"{x:.6e}")
+        if not (bool(torch.isfinite(h1).all()) and h1.shape == (mesh**3,)
+                and abs(x - x_ref) <= 1e-2 * x_ref):
+            raise AssertionError(f"{v}{mode} timestep differs from the "
+                                 f"single-device one")
+    return halo_counts
+
+
+def phase_driver_domain(dev, workdir, r10, mesh=128, zreds=(9.0, 8.95, 8.9)):
+    """Phase 21: Run3D(parallel="domain", n_devices=1) on phase 10's
+    configuration and synthetic tree (128^3, heating, float32, 2 slices
+    x 2 steps): the domain iteration at world size 1 under the driver,
+    its ladder of windows from radius 8.  Its mean ionized fraction
+    within 1% of phase 10's (each cell's fixed point converges to 1%),
+    the same output files (rank 0 writes)."""
+    from c2ray_tpu_torch import driver as drv
+
+    results = os.path.join(workdir, f"run3d_domain_results{mesh}")
+    cfg = driver_config(dev, workdir, mesh, zreds, results,
+                        parallel="domain", n_devices=1)
+    r = drv.Run3D(cfg)
+    reset_launch_counts()
+    (all_stats, wall) = synced(r.run)
+    counts = launch_counts()
+    mine = ("pyramid_sweep_lls", "chemistry_heat", "halo_pack",
+            "window_accumulate", "fold_halo")
+    check_launches("driver domain", counts, mine)
+    x, x10 = (float(t.h1.double().mean()) for t in (r.state, r10.state))
+    outputs = sorted(os.listdir(results))
+    want = sorted(os.listdir(r10.config.results_dir))
+    log(f"Run3D.run() parallel='domain' {mesh}^3 heating float32 at world "
+        f"size 1: {wall:.3f} s; mean ionized fraction {x:.6e} (phase 10: "
+        f"{x10:.6e}, {abs(x - x10) / x10:.3e} relative); "
+        f"{[[s.n_iterations for s in sl] for sl in all_stats]} iterations")
+    if not (abs(x - x10) <= 1e-2 * x10 and outputs == want
+            and all(bool(torch.isfinite(t).all()) for t in r.state
+                    if t.dtype.is_floating_point)):
+        raise AssertionError("the domain-mode driver run differs from "
+                             "phase 10's")
+    return {k: counts[k] for k in mine[2:]}
+
+
+def phase_halo_times(dev, M=128, radius=64):
+    """The halo kernels' device times beside their plain versions' and,
+    for the window add, the strided PyTorch add, at the main path's
+    shapes (world size 1, 128^3, full radius, float32, 5 channels);
+    each one's bound: the bytes it must move (inputs read once, outputs
+    written once) at 3.35 TB/s, its adds at the float32 rate."""
+    from c2ray_tpu_torch.parallel import halo
+
+    c = halo_case(M, 1, radius, torch.float32, dev)
+    S, H, Mw, C = c["S"], c["H"], c["Mw"], 5
+    pack = (c["fields"], M, 1e-20, c["left"], c["right"], H)
+    rc, cube, st = c["rc"], c["cubes"][0], c["starts"][0]
+    w = tuple(slice(s, s + Mw) for s in st)
+    fold = (rc, M, (H, H + S), c["recv"], c["chunks"])
+    Y, nrecv = M + 2 * H, c["recv"].shape[0]
+    errs = {n: float((k - p).abs().max()) for n, k, p in halo_pairs(c, M)}
+    out = {}
+    for name, kern, plain, lib, nbytes, adds in (
+            ("halo_pack", lambda: halo.halo_pack_cuda(*pack),
+             lambda: halo.halo_pack_plain(*pack), None,
+             4 * C * (S * M * M + 2 * H * M * M + (S + 2 * H) * Y * Y), 0),
+            ("window_accumulate",
+             lambda: halo.window_accumulate_cuda(rc, cube, st),
+             lambda: halo.window_accumulate_plain(rc, cube, st),
+             lambda: rc[w].add_(cube), 4 * 3 * Mw**3 * 4, Mw**3 * 4),
+            ("fold_halo", lambda: halo.fold_halo_cuda(*fold),
+             lambda: halo.fold_halo_plain(*fold), None,
+             4 * 4 * (S * Y * Y + nrecv * M * M + S * M * M),
+             4 * S * M * M * 3)):
+        ms = event_ms(kern, 10)
+        plain_ms = event_ms(plain, 3)
+        lib_ms = None if lib is None else event_ms(lib, 10)
+        err = errs[name]
+        b = bound(nbytes, adds, 0)
+        out[name] = (ms, plain_ms, err, b, lib_ms)
+        log(f"{name} at {M}^3, world size 1, radius {radius} float32: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + ("" if lib_ms is None else f", rc[window].add_ {lib_ms:.4f} ms")
+            + f", bound {b[0]:.4f} ms ({b[1]}, {nbytes / 1e6:.1f} MB), "
+            f"max |kernel - plain| {err:.3e}")
+    return out
 
 
 # ---- the 1D program (phases 11-13)
@@ -2083,7 +2456,7 @@ def build_kernels():
 
     t0 = time.perf_counter()
     names = ("pyramid_sweep", "chemistry", "photon_losses", "evolve1d",
-             "shell_sweep", "octant_sweep")
+             "shell_sweep", "octant_sweep", "domain_halo")
     with ThreadPoolExecutor(len(names)) as pool:
         for f in [pool.submit(cuda_build.load, n) for n in names]:
             f.result()
@@ -2094,7 +2467,8 @@ def build_kernels():
             m = re.search(r"Compiling entry .*?(stage_kernel"
                           r"|source_cell_kernel|chemistry_kernel"
                           r"|photon_losses_kernel|evolve1d_kernel"
-                          r"|shell_kernel|plane_kernel)"
+                          r"|shell_kernel|plane_kernel|halo_pack_kernel"
+                          r"|window_accumulate_kernel|fold_halo_kernel)"
                           r"I([fd])(?:Lb([01])E)?"
                           r"(?:Lb([01])E)?", line)
             if m:
@@ -2140,6 +2514,10 @@ def main():
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -2182,6 +2560,11 @@ def run_phases(dev, workdir, ref, oned_refs):
         f"{engine} engine{' heating' if heating else ''} main path",
         phase_main, dev, heating=heating, engine=engine)
         for engine in ("shells", "octant") for heating in (False, True)}
+    phase("compare halo kernels", phase_compare_halo, dev)            # 18.
+    nccl = phase("NCCL", phase_nccl, dev, workdir)                   # 19.
+    par_counts = [phase(f"parallel{' heating' if heating else ''} main "
+                        "path", phase_parallel_main, dev, heating=heating)
+                  for heating in (False, True)]                     # 20.
     oned_refs.update(start_oned_references(workdir))                # 14.
     # the 1D program while phase 9's CPU reference runs
     compare_1d = phase("1D compare", phase_compare_1d, dev)          # 11.
@@ -2195,6 +2578,8 @@ def run_phases(dev, workdir, ref, oned_refs):
     _, _, counts203 = phase("driver 203^3", phase_driver_full,      # 17.
                             dev, workdir, mesh=203, zreds=(9.0, 8.95),
                             mine=("shell_sweep_heat", "chemistry_heat"))
+    par_counts.append(phase("driver domain", phase_driver_domain, dev,
+                            workdir, r))                            # 21.
     full_1d = phase("1D compare at full width", phase_compare_1d_full,
                     dev, oned_refs)                                 # 14.
     # the kernel times last, when phase 9's CPU reference process no
@@ -2210,6 +2595,7 @@ def run_phases(dev, workdir, ref, oned_refs):
     eng_t = {key: phase(f"{key[0]} engine{' heating' if key[1] else ''} "
                         "kernel times", phase_engine_times, *out[:4], key[0])
              for key, out in eng.items()}
+    halo_t = phase("halo kernel times", phase_halo_times, dev)
 
     # each kernel's launches on its own path: phases 4, 5, 8 and 10
     counts = {**counts, **hcounts, **pcounts, **dcounts}
@@ -2310,6 +2696,27 @@ def run_phases(dev, workdir, ref, oned_refs):
              "bound_ms": b[0], "bound_by": b[1],
              "bound_detail": b[2], "counters": counters,
              "library_ms": None})
+    # the halo kernels: launches on the domain paths of phases 20 and 21,
+    # time, plain time and bound at world size 1, 128^3, full radius
+    for name, replaces in (
+            ("halo_pack", "c2ray_tpu/parallel/domain.py:81"),
+            ("window_accumulate", "c2ray_tpu/parallel/domain.py:393"),
+            ("fold_halo", "c2ray_tpu/parallel/domain.py:100")):
+        ms, plain_ms, err, b, lib_ms = halo_t[name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "c2ray_tpu_torch/csrc/domain_halo.cu",
+             "replaces": replaces,
+             "launches": sum(c[name] for c in par_counts),
+             "max_abs_err": err,
+             "max_abs_err_of": "float32 at 128^3, world size 1, full "
+                               "radius; 0 in f64 and f32 at 32^3 D = 8 "
+                               "too (phase 18)",
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": lib_ms,
+             "library_call": ("rc[window].add_(cube)"
+                              if lib_ms is not None else None)})
+    log(f"NCCL at world size 1: {nccl}")
     return kernels
 
 

@@ -231,5 +231,6 @@ def test_run3d_default_device_needs_cuda(tmp_path):
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.Run3D(cfg)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # a parallel mode runs in a process group and never alone
+    with pytest.raises(RuntimeError, match="process group"):
         driver.Run3D(replace(cfg, device="cpu", parallel="domain"))

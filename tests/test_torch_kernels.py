@@ -703,3 +703,88 @@ def test_three_engine_kernels_agree(cuda_device, heating):
                      (other[0][..., 3], pyr[0][..., 3]), (other[1], pyr[1])):
             torch.testing.assert_close(a, b, rtol=1e-10,
                                        atol=1e-10 * float(b.abs().max()))
+
+
+# ---- the domain decomposition's halo kernels (csrc/domain_halo.cu)
+
+def _halo_case(M, D, radius, dtype, device, C, seed=4):
+    """A rank's inputs at a slab shape: its field slabs (a fifth of the
+    fractions 0, below epsilon), received halos, a rate slab, three
+    windows and cubes, and the received fold chunks."""
+    from c2ray_tpu_torch.parallel import domain
+
+    S = M // D
+    Mw, _, H = domain._window_geometry(M, radius)
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    u = lambda *shape: t(rng.uniform(size=shape))
+    n = S * M * M
+    fields = [t(rng.uniform(1e-4, 1e-2, n))]
+    fields += [t(np.where(rng.uniform(size=n) < 0.2, 0.0,
+                          rng.uniform(size=n))) for _ in range(4)]
+    fields += [t(rng.uniform(0.0, 1e18, n)) for _ in range(C - 5)]
+    rc = u(S + 2 * H, M + 2 * H, M + 2 * H, 4)
+    starts = [tuple(int(rng.randint(0, e - Mw + 1)) for e in rc.shape[:3])
+              for _ in range(3)]
+    chunks, b0 = [], 0
+    for _, lo, hi, at in domain._fold_messages(S, H):
+        chunks.append((b0, at, hi - lo))
+        b0 += hi - lo
+    return dict(S=S, H=H, fields=fields, left=u(H, M, M, C),
+                right=u(H, M, M, C), rc=rc, starts=starts,
+                cubes=[u(Mw, Mw, Mw, 4) for _ in starts], recv=u(b0, M, M, 4),
+                chunks=chunks)
+
+
+def test_halo_plain_paths_launch_no_kernel():
+    from c2ray_tpu_torch.parallel import halo
+
+    c = _halo_case(8, 2, 2, torch.float64, "cpu", 5)
+    S, H = c["S"], c["H"]
+    before = (halo.launches_pack, halo.launches_accumulate,
+              halo.launches_fold)
+    pf = halo.halo_pack(c["fields"], 8, 1e-20, c["left"], c["right"], H)
+    halo.window_accumulate(c["rc"], c["cubes"][0], c["starts"][0])
+    r4 = halo.fold_halo(c["rc"], 8, (H, H + S), c["recv"], c["chunks"])
+    assert pf.shape == (S + 2 * H, 8 + 2 * H, 8 + 2 * H, 5)
+    assert r4.shape == (4, S * 64)
+    assert (halo.launches_pack, halo.launches_accumulate,
+            halo.launches_fold) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [5, 6])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(32, 8, 5), (128, 1, 64)])
+def test_halo_kernels_match_plain(cuda_device, shape, dtype, C):
+    """Each halo kernel equals its plain version to the bit (copies, a
+    max and adds in the plain version's order), at the slab shapes of 8
+    ranks at 32^3 radius 5 (S = 4, H = 6) and of one rank at 128^3, full
+    radius (S = 128, H = 64)."""
+    from c2ray_tpu_torch.parallel import halo
+
+    M, D, radius = shape
+    c = _halo_case(M, D, radius, dtype, cuda_device, C)
+    S, H = c["S"], c["H"]
+    before = (halo.launches_pack, halo.launches_accumulate,
+              halo.launches_fold)
+    for planes in (None, (max(0, S - H), S), (0, min(H, S))):
+        args = (c["fields"], M, 1e-20) + ((c["left"], c["right"], H)
+                                          if planes is None else
+                                          (None, None, 0, planes))
+        assert torch.equal(halo.halo_pack_cuda(*args),
+                           halo.halo_pack_plain(*args))
+    rk, rp = c["rc"].clone(), c["rc"].clone()
+    for st, cube in zip(c["starts"], c["cubes"]):
+        halo.window_accumulate_cuda(rk, cube, st)
+        halo.window_accumulate_plain(rp, cube, st)
+    assert torch.equal(rk, rp)
+    fold = (c["rc"], M, (H, H + S), c["recv"], c["chunks"])
+    assert torch.equal(halo.fold_halo_cuda(*fold), halo.fold_halo_plain(*fold))
+    for planes in ((0, H), (S + H, S + 2 * H)):
+        sent = (c["rc"], M, planes, None, (), False)
+        assert torch.equal(halo.fold_halo_cuda(*sent),
+                           halo.fold_halo_plain(*sent))
+    torch.cuda.synchronize()
+    assert (halo.launches_pack - before[0], halo.launches_accumulate
+            - before[1], halo.launches_fold - before[2]) == (3, 3, 3)

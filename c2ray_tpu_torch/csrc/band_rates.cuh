@@ -1,5 +1,6 @@
 // The quadrature band rates of one cell as a device function, shared by
-// the pyramid sweep (csrc/pyramid_sweep.cu) and the 1D radial march
+// the pyramid sweep (csrc/pyramid_sweep.cu), the shell and octant sweeps
+// (through csrc/short_char.cuh) and the 1D radial march
 // (csrc/evolve1d.cu).
 //
 // Replaces c2ray_tpu/radiation/quadrature.py: _attenuation (:324) and
@@ -8,7 +9,57 @@
 // heating branch (:401-449: per-species thick/thin heating, the Ricotti
 // y1R/y2R secondary ionization and heating), with kTrack its
 // track_bands output (:388-394).
+//
+// Bound: the 2K node exponentials of every live band (396 per cell and
+// source at the bench's 33 blackbody bands and K = 6) on the special-
+// function units (SFU), 16 results per SM and clock; around them ~10
+// float32 operations per node (25 with heating) that issue beside.
+// What held the function back was the instruction count of its band
+// loop (float32 SASS of csrc/pyramid_sweep.cu's stage_kernel, K = 6,
+// counted by chip_smoke.py's `sass_band_mix`): ~280 instructions per
+// band isothermal, ~480 with heating, around 12 MUFU.EX2:
+//   - the node loop ran over a runtime K: sighat and A loaded from
+//     shared memory at runtime addresses, unrolled by the compiler only
+//     partly, with a remainder;
+//   - three IEEE divisions by the cell volume per band (six more with
+//     heating), each ~10 instructions and a slow-path branch;
+//   - both the thick and the thin node sums for every band;
+//   - expf: a range reduction of float32-pipe instructions around each
+//     MUFU.EX2 (two FFMA.SAT/RM and ~5 more per exponential).
+// The design:
+//   1. K is a template parameter: the caller dispatches on the table's
+//      K (with_nodes: 6, the bench's and the default, and 8; any other
+//      K runs the runtime-K instantiation), and the unrolled node loop
+//      keeps one band's sighat, A (and A_heat) in registers.
+//   2. 1/vol once per cell, a multiplication inside the band loop (the
+//      tau-share reciprocal stays per band, with its FLT_MIN floor).
+//   3. A band evaluates only the node sums its regime reads (node_sums):
+//      a thick band (|dtau| above TAU_PHOTO_LIMIT) skips the sighat
+//      sums, a thin one e_out as well; the heat likewise at
+//      TAU_HEAT_LIMIT.  The selected sum is the plain version's, op for
+//      op.
+//   4. A caller may split the bands of a cell over a group of lanes
+//      (lane, nlanes): each lane sums the bands b = lane, lane + nlanes,
+//      ... of every type, and the caller adds the lanes' partials with
+//      group_sum, a fixed xor butterfly that leaves the same bits on
+//      every lane.  The 3D sweeps give a cell kCellLanes lanes; the 1D
+//      march gives a shell the 32 lanes of its warp.
+//   The exponential stays expf.  2^(-tau sighat log2 e) by one
+//   MUFU.EX2, log2 e folded into the band rows, ran the float32 stage
+//   kernel ~15% faster, but it rounds the exponent differently from the
+//   plain version, and a thick band's e_in - e_out cancels when the
+//   cell's dtau is small: next to a source, in the 128^3 x 8 main path's
+//   state, rates moved by up to 0.7% from the plain version's, far past
+//   the float32 gate (1e-4 relative above 1e-4 of the largest rate).
+//   The cancellation is the reference's thick-branch formula, which the
+//   plain version keeps too.
+// Measured mix per band, K = 6, float32, on a thick band's path: 199
+// instructions isothermal (12 MUFU.EX2, 141 float32-pipe of them 24
+// expf FFMA.SAT/RM, one MUFU.RCP), 292 with heating; the shell kernel
+// 197 and 289 (chip_smoke.py phase 22 on an H100 80GB HBM3).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -19,6 +70,10 @@ constexpr double kTauHeatLimit = 1.0e-4;   // photo.py:TAU_HEAT_LIMIT
 // ion_freq * hplanck of HI and HeI (c2ray_tpu/constants.py)
 constexpr double kIonEnergyHI = 0.241838e15 * 13.598 * 6.6260755e-27;
 constexpr double kIonEnergyHeI = 0.241838e15 * 24.587 * 6.6260755e-27;
+
+// Lanes per cell in the pyramid and shell sweeps: a power of two that
+// divides 32, chosen by measurement (csrc/pyramid_sweep.cu's note).
+constexpr int kCellLanes = 2;
 
 // The packed band rows' layout: per source type in use, its nflux
 // column, its live band count and its first band in the full band axis;
@@ -35,6 +90,67 @@ struct BandTables {
 template <bool kHeat>
 __host__ __device__ __forceinline__ int row_stride(int K) {
   return kHeat ? 17 + 5 * K : 5 + 2 * K;
+}
+
+// Copy the packed band rows into shared memory (every thread of the
+// block calls it).
+template <typename T, bool kHeat>
+__device__ __forceinline__ void load_band_rows(const T* bands, int nbt, int K,
+                                               T* tab) {
+  const int n = nbt * row_stride<kHeat>(K);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tab[i] = bands[i];
+  __syncthreads();
+}
+
+// The sum of v over a group of kLanes consecutive lanes of a warp
+// (kLanes a power of two dividing 32) by a fixed xor butterfly: every
+// lane of the group ends with the same bits (IEEE addition commutes).
+template <int kLanes, typename T>
+__device__ __forceinline__ T group_sum(T v) {
+  if constexpr (kLanes > 1) {
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned mask =
+        kLanes == 32 ? 0xffffffffu
+                     : ((1u << (kLanes % 32)) - 1u) << (lane & ~(kLanes - 1u));
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(mask, v, off, kLanes);
+    }
+  }
+  return v;
+}
+
+// The block's sum of v in a fixed order (deterministic; no float
+// atomics), valid in thread 0: a butterfly in each warp, then one over
+// the warps' sums in warp 0.  Every thread of the block calls it; `red`
+// holds kBlock / 32 values of shared memory.
+template <typename T, int kBlock>
+__device__ __forceinline__ T block_sum(T* red, T v) {
+  v = group_sum<32>(v);
+  if ((threadIdx.x & 31u) == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  T total = T(0);
+  if (threadIdx.x < 32) {
+    total = group_sum<32>(threadIdx.x < kBlock / 32 ? red[threadIdx.x]
+                                                    : T(0));
+  }
+  __syncthreads();
+  return total;
+}
+
+// Host side: f(std::integral_constant<int, kK>) with kK = K for the K the
+// kernels unroll (6, the bench's and the default, and 8), else kK = 0,
+// the runtime-K instantiation.
+template <typename F>
+inline auto with_nodes(int K, F&& f) {
+  switch (K) {
+    case 6:
+      return f(std::integral_constant<int, 6>{});
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    default:
+      return f(std::integral_constant<int, 0>{});
+  }
 }
 
 // Ricotti et al. 2002 secondary-ionization fits of one cell
@@ -72,27 +188,71 @@ __device__ __forceinline__ void kahan_add(T& s, T& c, T x) {
   s = t;
 }
 
+// The K-node sums of one band row `rb` in one regime: g_in = sum A e_in;
+// g_x = sum A (e_in - e_out) (kThick) or sum A sighat e_in (thin); with
+// kHeat, h_x[sp] = sum A_heat (e_in - e_out) (kHThick) or sum A_heat
+// sighat e_in.  e_out is evaluated only where a thick sum needs it.
+// e^(-tau sighat) is the plain version's exp(-min(tau sighat, 80)) op for
+// op: a thick band's e_in - e_out cancels, and in float32 any other
+// rounding of it would move a rate near a source by up to ~1% from the
+// plain version's (see csrc/pyramid_sweep.cu's note).
+template <typename T, bool kHeat, bool kThick, bool kHThick, int kK>
+__device__ __forceinline__ void node_sums(const T* rb, int K, T tau_in,
+                                          T tau_out, T& g_in, T& g_x,
+                                          T h_x[3]) {
+  const T* sh = rb + 5;
+  const T* A = rb + 5 + K;
+  constexpr bool kOut = kThick || (kHeat && kHThick);
+#pragma unroll
+  for (int k = 0; k < (kK > 0 ? kK : K); ++k) {
+    const T e_in = xexp(-minp(tau_in * sh[k], T(80)));
+    T e_d = T(0);
+    if constexpr (kOut) e_d = e_in - xexp(-minp(tau_out * sh[k], T(80)));
+    g_in += A[k] * e_in;
+    if constexpr (kThick) {
+      g_x += A[k] * e_d;
+    } else {
+      g_x += A[k] * sh[k] * e_in;
+    }
+    if constexpr (kHeat) {
+      for (int sp = 0; sp < 3; ++sp) {
+        const T Ah = rb[5 + (2 + sp) * K + k];
+        if constexpr (kHThick) {
+          h_x[sp] += Ah * e_d;
+        } else {
+          h_x[sp] += Ah * sh[k] * e_in;
+        }
+      }
+    }
+  }
+}
+
 // _one_source_quad summed over the source types (photoion_rates_quad):
 // out = photo_cell_{HI,HeI,HeII}, photo_in, photo_out and, with kHeat,
-// heat; `y` holds the cell's ricotti() values (heating only).  A caller
-// that splits the bands over lanes passes its lane and the lane count:
-// each lane then sums the bands b = lane, lane + nlanes, ... of every
-// type, and the caller adds the lanes' partial sums.  With kTrack and a
-// non-null bstage each band's photo_out is added to
+// heat; `y` holds the cell's ricotti() values (heating only); `tab` the
+// band rows as load_band_rows leaves them.  kK is the table's K, or 0
+// for a K known at run time only (d.K).  A caller that splits the bands
+// over lanes passes its lane and the lane count: each lane then sums the
+// bands b = lane, lane + nlanes, ... of every type, and the caller adds
+// the lanes' partial sums (group_sum).  With kTrack and a non-null
+// bstage each of this lane's bands adds its photo_out to
 // bstage[band * kStageStride], band in the full band axis.
-template <typename T, bool kHeat, bool kTrack, int kStageStride = 1>
-__device__ void cell_rates(const T* tab, const BandTables& d, const T* nfl3,
-                           const T* cin, const T* cout, T vol, const T* y,
-                           T out[kHeat ? 6 : 5], T* bstage, int lane = 0,
-                           int nlanes = 1) {
+template <typename T, bool kHeat, bool kTrack, int kK, int kStageStride = 1>
+__device__ __forceinline__ void cell_rates(const T* tab, const BandTables& d,
+                                           const T* nfl3, const T* cin,
+                                           const T* cout, T vol, const T* y,
+                                           T out[kHeat ? 6 : 5], T* bstage,
+                                           int lane = 0, int nlanes = 1) {
   constexpr int kOut = kHeat ? 6 : 5;
-  const int K = d.K;
+  const int K = kK > 0 ? kK : d.K;
   const int stride = row_stride<kHeat>(K);
   const T tiny = Limits<T>::tiny();
+  const T inv_vol = T(1) / vol;
   for (int q = 0; q < kOut; ++q) out[q] = T(0);
   int b0 = 0;
   for (int t = 0; t < d.ntypes; ++t) {
     const T nfl = nfl3[d.type_col[t]];
+    const T nv = nfl * inv_vol;
     T acc[5] = {T(0), T(0), T(0), T(0), T(0)};
     // heat (compensated), f_ion_HI, f_ion_HeI (quadrature.py:437-439)
     T hacc[3] = {T(0), T(0), T(0)}, hcomp = T(0);
@@ -108,30 +268,29 @@ __device__ void cell_rates(const T* tab, const BandTables& d, const T* nfl3,
       const T tcHeI = sHeI * (cout[1] - cin[1]);
       const T tcHeII = sHeII * (cout[2] - cin[2]);
       const T inv = T(1) / maxp(tcHI + tcHeI + tcHeII, tiny);
-      T g_in = T(0), g_thick = T(0), g_thin = T(0);
-      // per species: sum A_heat (e_in - e_out), sum A_heat sighat e_in
-      T h_thick[3] = {T(0), T(0), T(0)}, h_thin[3] = {T(0), T(0), T(0)};
-      for (int k = 0; k < K; ++k) {
-        const T e_in = xexp(-minp(tau_in * sh[k], T(80)));
-        const T e_out = xexp(-minp(tau_out * sh[k], T(80)));
-        g_in += A[k] * e_in;
-        g_thick += A[k] * (e_in - e_out);
-        g_thin += A[k] * sh[k] * e_in;
-        if constexpr (kHeat) {
-          for (int sp = 0; sp < 3; ++sp) {
-            const T Ah = rb[5 + (2 + sp) * K + k];
-            h_thick[sp] += Ah * (e_in - e_out);
-            h_thin[sp] += Ah * sh[k] * e_in;
-          }
-        }
-      }
+      // the node sums this band's regime reads: the photo rates thick
+      // (e_in - e_out) or thin (sighat e_in) at kTauPhotoLimit, the heat
+      // at kTauHeatLimit (thick heat implies thick photo rates)
       const T dtau = tau_out - tau_in;
+      const bool thick = xabs(dtau) > T(kTauPhotoLimit);
+      const bool hthick = kHeat && xabs(dtau) > T(kTauHeatLimit);
+      T g_in = T(0), g_x = T(0), h_x[3] = {T(0), T(0), T(0)};
+      if (!thick) {
+        node_sums<T, kHeat, false, false, kK>(rb, K, tau_in, tau_out, g_in,
+                                              g_x, h_x);
+      } else if (!kHeat || hthick) {
+        node_sums<T, kHeat, true, true, kK>(rb, K, tau_in, tau_out, g_in,
+                                            g_x, h_x);
+      } else {
+        node_sums<T, kHeat, true, false, kK>(rb, K, tau_in, tau_out, g_in,
+                                             g_x, h_x);
+      }
       const T phi_in = nfl * g_in;
-      const T phi_all = xabs(dtau) > T(kTauPhotoLimit) ? nfl * g_thick
-                                                         : nfl * dtau * g_thin;
-      acc[0] += tcHI * inv * phi_all / vol;
-      acc[1] += mHeI * (tcHeI * inv) * phi_all / vol;
-      acc[2] += mHeII * (tcHeII * inv) * phi_all / vol;
+      const T phi_all = thick ? nfl * g_x : nfl * dtau * g_x;
+      const T pv = phi_all * inv_vol;
+      acc[0] += tcHI * inv * pv;
+      acc[1] += mHeI * (tcHeI * inv) * pv;
+      acc[2] += mHeII * (tcHeII * inv) * pv;
       acc[3] += phi_in;
       acc[4] += phi_in - phi_all;
       if constexpr (kTrack) {
@@ -142,14 +301,12 @@ __device__ void cell_rates(const T* tab, const BandTables& d, const T* nfl3,
       if constexpr (kHeat) {
         // species_heat (quadrature.py:404-415): thick/thin at the heat
         // limit, masked like the photo rates
-        const bool hthick = xabs(dtau) > T(kTauHeatLimit);
         const T tc[3] = {tcHI, tcHeI, tcHeII};
         const T mk[3] = {T(1), mHeI, mHeII};
         T ph[3];
         for (int sp = 0; sp < 3; ++sp) {
-          const T thick = tc[sp] * inv * nfl * h_thick[sp] / vol;
-          const T thin = nfl * tc[sp] * h_thin[sp] / vol;
-          ph[sp] = mk[sp] * (hthick ? thick : thin);
+          ph[sp] = mk[sp] * (hthick ? tc[sp] * inv * h_x[sp] * nv
+                                    : tc[sp] * h_x[sp] * nv);
         }
         const T* f = rb + 5 + 5 * K;
         const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];

@@ -43,6 +43,10 @@
 // ~20 divisions in sequence) and, with heating, the sub-cycle's
 // sub-steps, each a log10, two table reads and a division in sequence.
 // Latency, not throughput, bounds it; nothing here tries to hide it yet.
+// The quadrature route takes band_rates.cuh's band loop (K unrolled by
+// with_nodes, 1/vol once per shell, only the sums a band's regime
+// reads), which shortens the rate part of the chain; the march itself is
+// not redesigned.
 
 #include "band_rates.cuh"
 #include "chemistry.cuh"
@@ -206,25 +210,15 @@ __device__ void table_rates(const Args1D<T>& a, const T* cin,
   }
 }
 
-// the sum over the warp's lanes in a fixed butterfly: every lane ends
-// with the same bits
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = kLanes / 2; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-template <typename T, bool kHeat, bool kTable>
+// kK: the quadrature table's K (0: a.bt.K at run time; 0 on the table
+// route)
+template <typename T, bool kHeat, bool kTable, int kK>
 __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
   const int lane = threadIdx.x;
   if constexpr (!kTable) {
-    const int n = a.nbt * row_stride<kHeat>(a.bt.K);
-    for (int i = lane; i < n; i += kLanes) tab[i] = a.bands[i];
-    __syncwarp();
+    load_band_rows<T, kHeat>(a.bands, a.nbt, a.bt.K, tab);
   }
   const T ones[3] = {T(1), T(1), T(1)};   // every source type's flux
   T cd[3] = {a.bnd[0], a.bnd[1], a.bnd[2]};
@@ -253,15 +247,17 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
         table_rates<T, kHeat>(a, cd, cout, vol, y, r, lane);
       } else {
         T o[kHeat ? 6 : 5];
-        cell_rates<T, kHeat, false>(tab, a.bt, ones, cd, cout, vol, y, o,
-                                    nullptr, lane, kLanes);
+        cell_rates<T, kHeat, false, kK>(tab, a.bt, ones, cd, cout, vol, y, o,
+                                        nullptr, lane, kLanes);
         r[0] = o[0];
         r[1] = o[1];
         r[2] = o[2];
         r[3] = T(0);
         if constexpr (kHeat) r[3] = o[5];
       }
-      for (int q = 0; q < (kHeat ? 4 : 3); ++q) r[q] = warp_sum(r[q]);
+      for (int q = 0; q < (kHeat ? 4 : 3); ++q) {
+        r[q] = group_sum<kLanes>(r[q]);
+      }
       const T pHI = r[0] / (ion.avg.h0 * nd * T(1.0 - kAbuHe)) + a.g[0];
       const T pHeI = r[1] / (ion.avg.he0 * nd * T(kAbuHe)) + a.g[1];
       const T pHeII = r[2] / (ion.avg.he1 * nd * T(kAbuHe)) + a.g[2];
@@ -318,15 +314,12 @@ template <typename T, bool kHeat, bool kTable>
 int run_evolve1d(const Args1D<T>& a, cudaStream_t stream) {
   const size_t smem =
       kTable ? 0 : size_t(a.nbt) * row_stride<kHeat>(a.bt.K) * sizeof(T);
-  if (smem > 48 * 1024) {
-    // above the default: opt in to the card's larger dynamic shared
-    // memory (the wrapper keeps smem within the opt-in limit)
-    const cudaError_t err = cudaFuncSetAttribute(
-        evolve1d_kernel<T, kHeat, kTable>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-  }
-  evolve1d_kernel<T, kHeat, kTable><<<1, kLanes, smem, stream>>>(a);
+  auto kernel = with_nodes(kTable ? 0 : a.bt.K, [](auto kk) {
+    return evolve1d_kernel<T, kHeat, kTable, kTable ? 0 : decltype(kk)::value>;
+  });
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kLanes, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -37,7 +37,11 @@
 // Bound: the K-node exponentials of every live band, owned cell and
 // source (the unique cells; face cells of other octants skip their
 // rates), as in csrc/pyramid_sweep.cu.  Every launch covers all (R+1)^2
-// positions of a plane, though at most ~3/4 of them are valid.
+// positions of a plane, though at most ~3/4 of them are valid.  One
+// thread per position, not redesigned with the pyramid and shell
+// kernels; it takes their band loop through the shared headers (K
+// unrolled by with_nodes, 1/vol once per cell, only the sums a band's
+// regime reads; band_rates.cuh).
 
 #include "short_char.cuh"
 
@@ -92,9 +96,9 @@ __global__ void source_cell_kernel(Params<T> p) {
 }
 
 // Plane s of every (source, octant): blockIdx.z = source, blockIdx.y =
-// octant, threads over (b, c).  The arithmetic is plane_step
-// (octant_sweep.py:157-267).
-template <typename T, bool kHeat>
+// octant, threads over (b, c); the table has kK nodes (0: p.k.bt.K at
+// run time).  The arithmetic is plane_step (octant_sweep.py:157-267).
+template <typename T, bool kHeat, int kK>
 __global__ void __launch_bounds__(kBlock)
 plane_kernel(Params<T> p, int s) {
   extern __shared__ unsigned char smem[];
@@ -157,8 +161,9 @@ plane_kernel(Params<T> p, int s) {
       StepConsts<T> k = p.k;
       k.tab = tab;
       T cd_out[3], r[4], lloss = T(0);
-      cell_step<T, kHeat>(k, p.nflux + 3 * src, p.fields + flat * 5, cin, pu,
-                          dist2, on_bound, owned, cd_out, r, ploss, lloss);
+      cell_step<T, kHeat, kK>(k, p.nflux + 3 * src, p.fields + flat * 5, cin,
+                              pu, dist2, on_bound, owned, cd_out, r, ploss,
+                              lloss);
       for (int q = 0; q < 3; ++q) dst[q] = cd_out[q];
       if (owned) {
         T* out = p.slab + ((size_t)src * M * M * M + flat) * 4;
@@ -204,15 +209,18 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
 
   const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
   const size_t smem = tab_bytes + kBlock * sizeof(T);
+  auto plane = with_nodes(K, [](auto kk) {
+    return plane_kernel<T, kHeat, decltype(kk)::value>;
+  });
   cudaError_t err = allow_smem(source_cell_kernel<T, kHeat>, tab_bytes);
   if (err != cudaSuccess) return err;
-  err = allow_smem(plane_kernel<T, kHeat>, smem);
+  err = allow_smem(plane, smem);
   if (err != cudaSuccess) return err;
   source_cell_kernel<T, kHeat><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   for (int s = 1; s <= 3 * p.R; ++s) {
-    plane_kernel<T, kHeat><<<dim3(nblk, 8, S), kBlock, smem, stream>>>(p, s);
+    plane<<<dim3(nblk, 8, S), kBlock, smem, stream>>>(p, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

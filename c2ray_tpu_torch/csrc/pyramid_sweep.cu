@@ -28,21 +28,49 @@
 // into a partials buffer, summed in fixed order by the caller: no
 // float atomics, so the sweep is deterministic.
 //
-// Bound: the K-node exponentials (2 * K * nlive per cell and source:
-// 396 for a 5e4 K blackbody at K = 6), i.e. the SFU / FP pipes, not
-// memory (each cell reads 4 corner 3-vectors and 5 fields).  The band
-// tables sit in shared memory and are read as broadcasts.
-//
-// Heating variant: the heating sums reuse the same K-node e_in and
-// e_out, so it adds no exponentials -- 6 more FMA chains per node, the
-// per-band species split and f-factor sums, and 6 powers per cell for
-// y1R/y2R (once per cell, not per band).  What bounds it on the card is
-// the same FP / SFU work plus ~20 more live accumulators per thread
-// (register pressure; ptxas' count is printed by chip_smoke.py).  Its
-// table row grows from 5 + 2K to 17 + 5K values (47 at K = 6): 6 KB for
-// the bench's 33 blackbody bands in f32, up to 53 KB for 141 bands in
-// f64, above the default 48 KB of dynamic shared memory, so the
-// kernels opt in to the card's 227 KB with cudaFuncSetAttribute.
+// Bound: the SFU's exponentials, 2K per live band, cell and source (396
+// at the bench's 33 blackbody bands and K = 6: 1.589 ms at 128^3 x 8),
+// not memory (each cell reads 4 corner 3-vectors and 5 fields); the
+// band tables sit in shared memory.  What held the earlier design (one
+// thread per cell, a runtime-K node loop) at 7x that bound (12x with
+// heating) was instruction issue: its band loop (`sass_band_mix` of
+// chip_smoke.py on the float32 SASS, K = 6) took ~280 instructions per
+// band isothermal and ~480 with heating around 12 MUFU.EX2, with 4
+// (heating 7 and more) IEEE divisions per band; and one thread walked
+// all 33 bands of a cell.  The design:
+//   - band_rates.cuh's band loop: K a template parameter (with_nodes: 6
+//     and 8 unrolled, any other K at run time), 1/vol once per cell, only
+//     the node sums a band's regime reads.  Now 199 instructions per
+//     band isothermal, 292 with heating: 12 MUFU.EX2, one MUFU.RCP (the
+//     tau share).  The exponential stays the plain version's expf (why:
+//     band_rates.cuh).
+//   - kCellLanes = 2 lanes per cell, by measurement
+//     (tools/profile_torch_iteration.py --lanes 1,2,4,8, in turns; H100
+//     80GB HBM3, 700 W, 128^3 x 8 f32, stage kernel ms for G = 1, 2, 4,
+//     8: isothermal 7.85, 7.80, 9.25, 12.87; heating 10.63, 10.77, 12.94,
+//     18.16; the shell kernel's in shell_sweep.cu).  Each lane of a group
+//     repeats the cell's corner reads, interpolation, columns, Ricotti
+//     terms and index arithmetic (the same bits in every lane), which
+//     costs more than the band split gains beyond two lanes (one lane
+//     is 1% faster here with heating, 5% slower in the shell kernel, so
+//     both kernels take two).  Each lane
+//     sums the bands b = lane, lane + G, ... of every type; the partial
+//     sums meet in group_sum's fixed butterfly; lane 0 writes cd, the
+//     slab and the losses; with kTrack each lane stages its own bands.
+//     The stage grid is G threads per cell.
+//   - the losses reduce per block by warp butterflies (block_sum), not a
+//     shared-memory tree with a barrier per level.
+//   - each kernel opts in to the shared memory it needs only above the
+//     default 48 KB (allow_smem): an opt-in at the exact size of a
+//     smaller table left a later, larger one unable to launch.
+// Measured (chip_smoke.py, same card, the main path's states): stage
+// kernel 7.61 ms isothermal (before: 10.99), 11.20 ms heating (before:
+// 18.77); of the sweep's CUDA-event time the 192 launches' device time
+// leaves 0.42 and 0.36 ms (5.5%, 3.2%) to launch gaps and the sweep's
+// other work (phase 22); layers 1-16 take 0.60 and 0.93 ms of it.  The
+// heating table row holds 17 + 5K values (47 at K = 6): up to 53 KB for
+// 141 bands in f64, above the default 48 KB, so the kernels may opt in
+// to the card's 227 KB.
 //
 // Per-cell LLS: the cell being entered adds lls[cell] * path_units to
 // its incoming HI column and loses phi_in (1 - e^-tau_LLS) to the fog,
@@ -87,14 +115,10 @@ struct Params {
   T dr, vol_over_scale, coldensh_lls, max_coldensh;
 };
 
-template <typename T, bool kHeat>
-__device__ __forceinline__ void load_tables(const Params<T>& p, T* tab) {
-  const int n = p.nbt * row_stride<kHeat>(p.bt.K);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) tab[i] = p.bands[i];
-  __syncthreads();
-}
-
 __device__ __forceinline__ int wrap(int x, int M) {
+  if (x >= 0 && x < M) return x;
+  if (x < 0 && x >= -M) return x + M;   // within a period: no division
+  if (x >= M && x < 2 * M) return x - M;
   const int r = x % M;
   return r < 0 ? r + M : r;
 }
@@ -115,7 +139,7 @@ template <typename T, bool kHeat>
 __global__ void source_cell_kernel(Params<T> p) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  load_tables<T, kHeat>(p, tab);
+  load_band_rows<T, kHeat>(p.bands, p.nbt, p.bt.K, tab);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= p.S) return;
   const int M = p.M, ctr = M / 2 - 1;
@@ -133,8 +157,8 @@ __global__ void source_cell_kernel(Params<T> p) {
   T y[6];
   if constexpr (kHeat) ricotti(f[2], y);
   T r[kHeat ? 6 : 5];
-  cell_rates<T, kHeat, false>(tab, p.bt, p.nflux + 3 * s, zero3, cc0,
-                              p.vol_over_scale, y, r, nullptr);
+  cell_rates<T, kHeat, false, 0>(tab, p.bt, p.nflux + 3 * s, zero3, cc0,
+                                 p.vol_over_scale, y, r, nullptr);
   T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
   out[0] = r[0] / bc[0];
   out[1] = r[1] / bc[1];
@@ -146,10 +170,11 @@ __global__ void source_cell_kernel(Params<T> p) {
   }
 }
 
-// One (layer l, stage m) step: threads over (sign, u, v) of the plane
-// pair |offset_m| = l, blockIdx.y = source.  The arithmetic is
-// compute_stage (pyramid_sweep.py:205-310).
-template <typename T, bool kHeat, bool kTrack>
+// One (layer l, stage m) step: a group of kCellLanes lanes per (sign,
+// u, v) of the plane pair |offset_m| = l, blockIdx.y = source; the table
+// has kK nodes (0: p.bt.K at run time).  The arithmetic is compute_stage
+// (pyramid_sweep.py:205-310).
+template <typename T, bool kHeat, bool kTrack, int kK>
 __global__ void __launch_bounds__(kBlock)
 stage_kernel(Params<T> p, int l, int m, int slot0) {
   extern __shared__ unsigned char smem[];
@@ -157,12 +182,14 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
   T* red = tab + p.nbt * row_stride<kHeat>(p.bt.K);   // 2 * kBlock
   T* bst = red + 2 * kBlock;                       // nb_all * kBlock (kTrack)
   T* mine = bst + threadIdx.x;                     // this thread's column
-  load_tables<T, kHeat>(p, tab);
+  load_band_rows<T, kHeat>(p.bands, p.nbt, p.bt.K, tab);
 
   const int s = blockIdx.y;
   const int M = p.M, ctr = M / 2 - 1;
   const int W = 2 * l + 1;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  // the cell of this lane's group (uniform over the group) and the lane
+  const int idx = (blockIdx.x * blockDim.x + threadIdx.x) / kCellLanes;
+  const int lane = threadIdx.x % kCellLanes;
   T ploss = T(0), lloss = T(0);
   bool contrib = false;   // a live boundary cell: its escape counts
 
@@ -250,52 +277,50 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
       }
       T y[6];
       if constexpr (kHeat) ricotti(f[2], y);
-      T r[kHeat ? 6 : 5];
-      cell_rates<T, kHeat, kTrack, kBlock>(tab, p.bt, p.nflux + 3 * s, cin,
-                                           cout, vol_ratio * p.vol_over_scale,
-                                           y, r, contrib ? mine : nullptr);
-
-      const T fl = live ? T(1) : T(0);
-      T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
-      out[0] = fl * r[0] / bc[0];
-      out[1] = fl * r[1] / bc[1];
-      out[2] = fl * r[2] / bc[2];
-      if constexpr (kHeat) {
-        out[3] = fl * r[5];
-      } else {
-        out[3] = T(0);
-      }
-
-      if (contrib) ploss = r[4] / vol_ratio;
+      // this lane's bands, then the group's sum: the same bits on every
+      // lane of the group
+      constexpr int kOut = kHeat ? 6 : 5;
+      T r[kOut];
+      cell_rates<T, kHeat, kTrack, kK, kBlock>(
+          tab, p.bt, p.nflux + 3 * s, cin, cout,
+          vol_ratio * p.vol_over_scale, y, r, contrib ? mine : nullptr, lane,
+          kCellLanes);
+      for (int q = 0; q < kOut; ++q) r[q] = group_sum<kCellLanes>(r[q]);
       if constexpr (kTrack) {
         if (contrib) {
           for (int b = 0; b < p.nb_all; ++b) mine[b * kBlock] /= vol_ratio;
         }
       }
-      if (live && has_lls) {
-        const T tau_lls = T(kSigmaHI) * lls_add;
-        lloss = r[3] / vol_ratio * (-xexpm1(-tau_lls));
+
+      if (lane == 0) {
+        const T fl = live ? T(1) : T(0);
+        T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
+        out[0] = fl * r[0] / bc[0];
+        out[1] = fl * r[1] / bc[1];
+        out[2] = fl * r[2] / bc[2];
+        if constexpr (kHeat) {
+          out[3] = fl * r[5];
+        } else {
+          out[3] = T(0);
+        }
+        if (contrib) ploss = r[4] / vol_ratio;
+        if (live && has_lls) {
+          const T tau_lls = T(kSigmaHI) * lls_add;
+          lloss = r[3] / vol_ratio * (-xexpm1(-tau_lls));
+        }
+        T* dst = cd_at(sg * l, u, v);
+        for (int c = 0; c < 3; ++c) dst[c] = cout[c];
       }
-      T* dst = cd_at(sg * l, u, v);
-      for (int c = 0; c < 3; ++c) dst[c] = cout[c];
     }
   }
 
   // deterministic block reduction of the two losses
-  red[threadIdx.x] = ploss;
-  red[kBlock + threadIdx.x] = lloss;
-  __syncthreads();
-  for (int w = kBlock / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) {
-      red[threadIdx.x] += red[threadIdx.x + w];
-      red[kBlock + threadIdx.x] += red[kBlock + threadIdx.x + w];
-    }
-    __syncthreads();
-  }
+  const T pl = block_sum<T, kBlock>(red, ploss);
+  const T ll = block_sum<T, kBlock>(red, lloss);
   if (threadIdx.x == 0) {
     T* dst = p.partials + ((size_t)s * p.nslots + slot0 + blockIdx.x) * 2;
-    dst[0] = red[0];
-    dst[1] = red[kBlock];
+    dst[0] = pl;
+    dst[1] = ll;
   }
   if constexpr (kTrack) {
     // only a block with a live boundary cell has band escape; the
@@ -325,7 +350,7 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
 
 inline int stage_blocks(int l) {
   const int W = 2 * l + 1;
-  return (2 * W * W + kBlock - 1) / kBlock;
+  return (2 * W * W * kCellLanes + kBlock - 1) / kBlock;
 }
 
 template <typename T, bool kHeat, bool kTrack>
@@ -356,19 +381,14 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
   const size_t smem = tab_bytes + 2 * kBlock * sizeof(T) +
                       (kTrack ? size_t(nb_all) * kBlock * sizeof(T) : 0);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    // above the default: opt in to the card's larger dynamic shared
-    // memory (the wrapper keeps smem within the opt-in limit)
-    err = cudaFuncSetAttribute(source_cell_kernel<T, kHeat>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(tab_bytes));
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(stage_kernel<T, kHeat, kTrack>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem));
-    if (err != cudaSuccess) return err;
-  }
+  auto stage = with_nodes(K, [](auto kk) {
+    return stage_kernel<T, kHeat, kTrack, decltype(kk)::value>;
+  });
+  // each kernel opted in to the shared memory it takes above the default
+  cudaError_t err = allow_smem(source_cell_kernel<T, kHeat>, tab_bytes);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(stage, smem);
+  if (err != cudaSuccess) return err;
   source_cell_kernel<T, kHeat><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -376,8 +396,7 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   for (int l = 1; l <= Rf; ++l) {
     const int nblk = stage_blocks(l);
     for (int m = 0; m < 3; ++m) {
-      stage_kernel<T, kHeat, kTrack><<<dim3(nblk, S), kBlock, smem, stream>>>(
-          p, l, m, slot);
+      stage<<<dim3(nblk, S), kBlock, smem, stream>>>(p, l, m, slot);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
       slot += nblk;

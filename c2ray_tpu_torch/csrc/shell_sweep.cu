@@ -12,22 +12,41 @@
 // shell_sweep_plain): every source owns an outgoing-column cube cd[s]
 // (M^3 x 3, absolute coordinates, zeroed per sweep).  The source cell
 // seeds it; then shells s = |di|+|dj|+|dk| = 1..n_shells run in order,
-// one launch each, one thread per (source, cell of the shell) over the
-// compact table (cells sorted by shell, packed offsets and boundary
-// flags: the padded table is 55% padding at 128^3, and no thread runs
-// on padding).  A cell reads its four cinterp corners through the
-// periodic wrap; they lie in earlier shells (c2ray_tpu/sweep/geometry.py:
-// 5-10), except corners of weight 0, which are not read, so a shell's
-// writes to cd never race its reads.  Rates go to a per-source slab in
-// absolute coordinates (each trace offset is one cell: the extents span
-// at most M), summed over sources by the caller in fixed order; photon
-// and LLS losses reduce per block into partials, summed in fixed order
-// by the caller: no float atomics, the sweep is deterministic.
+// one launch each, a group of lanes per (source, cell of the shell)
+// over the compact table (cells sorted by shell, packed offsets and
+// boundary flags: the padded table is 55% padding at 128^3, and no
+// thread runs on padding).  A cell reads its four cinterp corners
+// through the periodic wrap; they lie in earlier shells
+// (c2ray_tpu/sweep/geometry.py: 5-10), except corners of weight 0,
+// which are not read, so a shell's writes to cd never race its reads.
+// Rates go to a per-source slab in absolute coordinates (each trace
+// offset is one cell: the extents span at most M), summed over sources
+// by the caller in fixed order; photon and LLS losses reduce per block
+// into partials, summed in fixed order by the caller: no float atomics,
+// the sweep is deterministic.
 //
-// Bound: the K-node exponentials of every live band, cell and source,
-// as in csrc/pyramid_sweep.cu; here each cell also gathers its four
-// corners (12 values) from anywhere in the source's cube, and the
-// shells near the source and the trace corners are narrow launches.
+// Bound: the K-node exponentials of every live band, cell and source on
+// the SFU, as in csrc/pyramid_sweep.cu (1.589 ms at 128^3 x 8); here
+// each cell also gathers its four corners (12 values) from anywhere in
+// the source's cube, and the shells near the source and the trace
+// corners are narrow launches.  What held the earlier design (one
+// thread per cell, a runtime-K node loop) at 7.9x that bound (12.5x
+// with heating) was instruction issue in the band loop, as in the
+// pyramid kernel.  The design is the pyramid kernel's: the band loop of
+// band_rates.cuh (K unrolled, 1/vol once per cell, only the sums a
+// band's regime reads: 197 instructions per band isothermal, 289 with
+// heating, 12 MUFU.EX2 and one MUFU.RCP on a thick band's path, float32
+// SASS at K = 6, chip_smoke.py `sass_band_mix`), and kCellLanes = 2
+// lanes per cell (tools/profile_torch_iteration.py --lanes 1,2,4,8 on an
+// H100 80GB HBM3 at 700 W, 128^3 x 8 f32, shell kernel ms for G = 1, 2,
+// 4, 8: isothermal 9.82, 8.40, 8.88, 11.51; heating 11.51, 10.90, 12.67,
+// 17.42) through cell_step (short_char.cuh), whose lanes share the
+// cell's bands and end with the same rates; lane 0 writes cd, the slab
+// and the losses; wrap() takes no division for an offset within one
+// period.  Measured (chip_smoke.py, the main path's states): 8.28 ms
+// isothermal (before: 12.50), 11.22 ms heating (before: 19.85); launch
+// gaps and the sweep's other work 0.44 and 0.45 ms of the sweep's
+// CUDA-event time (phase 22).
 
 #include "short_char.cuh"
 
@@ -77,10 +96,11 @@ __global__ void source_cell_kernel(Params<T> p) {
   for (int q = 0; q < 4; ++q) out[q] = r[q];
 }
 
-// One shell: cells start..start+count-1 of the compact table, blockIdx.y
-// = source.  The arithmetic is cinterp_shell + shell_step
+// One shell: a group of kCellLanes lanes per cell start..start+count-1
+// of the compact table, blockIdx.y = source; the table has kK nodes (0:
+// p.k.bt.K at run time).  The arithmetic is cinterp_shell + shell_step
 // (c2ray_tpu/sweep/cinterp.py:38-128, source_sweep.py:186-244).
-template <typename T, bool kHeat>
+template <typename T, bool kHeat, int kK>
 __global__ void __launch_bounds__(kBlock)
 shell_kernel(Params<T> p, long long start, int count, int slot0) {
   extern __shared__ unsigned char smem[];
@@ -91,7 +111,9 @@ shell_kernel(Params<T> p, long long start, int count, int slot0) {
   const int s = blockIdx.y;
   const int M = p.M;
   const size_t n = size_t(M) * M * M;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // the cell of this lane's group (uniform over the group) and the lane
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / kCellLanes;
+  const int lane = threadIdx.x % kCellLanes;
   T ploss = T(0), lloss = T(0);
   if (i < count) {
     const int packed = p.cells[start + i];
@@ -132,13 +154,19 @@ shell_kernel(Params<T> p, long long start, int count, int slot0) {
     StepConsts<T> k = p.k;
     k.tab = tab;
     const size_t flat = (size_t(pos[0]) * M + pos[1]) * M + pos[2];
-    T cd_out[3], r[4];
-    cell_step<T, kHeat>(k, p.nflux + 3 * s, p.fields + flat * 5, cin, pu,
-                        dist2, on_bound, true, cd_out, r, ploss, lloss);
-    T* dst = p.cd + ((size_t)s * n + flat) * 3;
-    for (int q = 0; q < 3; ++q) dst[q] = cd_out[q];
-    T* out = p.slab + ((size_t)s * n + flat) * 4;
-    for (int q = 0; q < 4; ++q) out[q] = r[q];
+    T cd_out[3], r[4], pl = T(0), ll = T(0);
+    cell_step<T, kHeat, kK, kCellLanes>(k, p.nflux + 3 * s,
+                                        p.fields + flat * 5, cin, pu, dist2,
+                                        on_bound, true, cd_out, r, pl, ll,
+                                        lane);
+    if (lane == 0) {
+      ploss = pl;
+      lloss = ll;
+      T* dst = p.cd + ((size_t)s * n + flat) * 3;
+      for (int q = 0; q < 3; ++q) dst[q] = cd_out[q];
+      T* out = p.slab + ((size_t)s * n + flat) * 4;
+      for (int q = 0; q < 4; ++q) out[q] = r[q];
+    }
   }
   const T pl = block_sum<T, kBlock>(red, ploss);
   const T ll = block_sum<T, kBlock>(red, lloss);
@@ -150,7 +178,7 @@ shell_kernel(Params<T> p, long long start, int count, int slot0) {
 }
 
 inline int shell_blocks(long long count) {
-  return int((count + kBlock - 1) / kBlock);
+  return int((count * kCellLanes + kBlock - 1) / kBlock);
 }
 
 template <typename T, bool kHeat>
@@ -182,9 +210,12 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
 
   const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
   const size_t smem = tab_bytes + kBlock * sizeof(T);
+  auto shell = with_nodes(K, [](auto kk) {
+    return shell_kernel<T, kHeat, decltype(kk)::value>;
+  });
   cudaError_t err = allow_smem(source_cell_kernel<T, kHeat>, tab_bytes);
   if (err != cudaSuccess) return err;
-  err = allow_smem(shell_kernel<T, kHeat>, smem);
+  err = allow_smem(shell, smem);
   if (err != cudaSuccess) return err;
   source_cell_kernel<T, kHeat><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
   err = cudaGetLastError();
@@ -193,8 +224,8 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   for (int k = 0; k < n_shells; ++k) {
     const long long count = starts[k + 1] - starts[k];
     const int nblk = shell_blocks(count);
-    shell_kernel<T, kHeat><<<dim3(nblk, S), kBlock, smem, stream>>>(
-        p, starts[k], int(count), slot);
+    shell<<<dim3(nblk, S), kBlock, smem, stream>>>(p, starts[k], int(count),
+                                                   slot);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     slot += nblk;

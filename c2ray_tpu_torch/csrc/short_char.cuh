@@ -20,6 +20,9 @@ constexpr double kSqrt3 = 1.7320508075688772;
 constexpr double kMinWeightDenom = 0.6;   // weightf's clamp
 
 __device__ __forceinline__ int wrap(int x, int M) {
+  if (x >= 0 && x < M) return x;
+  if (x < 0 && x >= -M) return x + M;   // within a period: no division
+  if (x >= M && x < 2 * M) return x - M;
   const int r = x % M;
   return r < 0 ? r + M : r;
 }
@@ -111,14 +114,17 @@ struct StepConsts {
 // (zero where shielded: cin_HI >= max_coldensh; the heat in rates[3], 0
 // when isothermal), its escape into `ploss` when it lies on the trace
 // boundary, and its LLS absorption into `lloss`; without, the band
-// rates are not evaluated at all (a cell another octant owns).
-template <typename T, bool kHeat>
+// rates are not evaluated at all (a cell another octant owns).  kK is
+// the table's K (0: k.bt.K at run time).  A group of kLanes lanes may
+// share the cell (`lane` its lane): each sums its share of the bands
+// (cell_rates) and every lane ends with the same outputs.
+template <typename T, bool kHeat, int kK = 0, int kLanes = 1>
 __device__ __forceinline__ void cell_step(const StepConsts<T>& k,
                                           const T* nfl3, const T* f,
                                           T cin[3], T pu, T dist2,
                                           bool on_bound, bool deposit,
                                           T cd_out[3], T rates[4],
-                                          T& ploss, T& lloss) {
+                                          T& ploss, T& lloss, int lane = 0) {
   const T path = pu * k.dr;
   const bool has_lls = k.coldensh_lls > T(0);
   const T lls_add = k.coldensh_lls * pu;
@@ -131,9 +137,12 @@ __device__ __forceinline__ void cell_step(const StepConsts<T>& k,
   const bool live = cin[0] < k.max_coldensh;
   T y[6];
   if constexpr (kHeat) ricotti(f[2], y);
-  T r[kHeat ? 6 : 5];
-  cell_rates<T, kHeat, false>(k.tab, k.bt, nfl3, cin, cd_out,
-                              vol_ratio * k.vol_over_scale, y, r, nullptr);
+  constexpr int kOut = kHeat ? 6 : 5;
+  T r[kOut];
+  cell_rates<T, kHeat, false, kK>(k.tab, k.bt, nfl3, cin, cd_out,
+                                  vol_ratio * k.vol_over_scale, y, r, nullptr,
+                                  lane, kLanes);
+  for (int q = 0; q < kOut; ++q) r[q] = group_sum<kLanes>(r[q]);
   const T fl = live ? T(1) : T(0);
   rates[0] = fl * r[0] / bc[0];
   rates[1] = fl * r[1] / bc[1];
@@ -163,8 +172,8 @@ __device__ __forceinline__ void source_cell(const StepConsts<T>& k,
   T y[6];
   if constexpr (kHeat) ricotti(f[2], y);
   T r[kHeat ? 6 : 5];
-  cell_rates<T, kHeat, false>(k.tab, k.bt, nfl3, zero3, cc0,
-                              k.vol_over_scale, y, r, nullptr);
+  cell_rates<T, kHeat, false, 0>(k.tab, k.bt, nfl3, zero3, cc0,
+                                 k.vol_over_scale, y, r, nullptr);
   rates[0] = r[0] / bc[0];
   rates[1] = r[1] / bc[1];
   rates[2] = r[2] / bc[2];
@@ -173,40 +182,6 @@ __device__ __forceinline__ void source_cell(const StepConsts<T>& k,
   } else {
     rates[3] = T(0);
   }
-}
-
-// Copy the packed band rows into shared memory (all threads call it).
-template <typename T, bool kHeat>
-__device__ __forceinline__ void load_band_rows(const T* bands, int nbt, int K,
-                                               T* tab) {
-  const int n = nbt * row_stride<kHeat>(K);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) tab[i] = bands[i];
-  __syncthreads();
-}
-
-// The block's sum of v by a fixed tree (deterministic; no float atomics),
-// valid in thread 0; `red` holds kBlock values of shared memory.
-template <typename T, int kBlock>
-__device__ __forceinline__ T block_sum(T* red, T v) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = kBlock / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  const T total = red[0];
-  __syncthreads();
-  return total;
-}
-
-// Host side: opt a kernel in to dynamic shared memory above the default
-// 48 KB (the wrappers keep `bytes` within the card's opt-in limit).
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(bytes));
 }
 
 }  // namespace c2ray

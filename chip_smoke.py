@@ -123,6 +123,18 @@ is held against the JAX package by the CPU tests in gloo processes):
 
 Then the halo kernels' times at 128^3, world size 1, full radius.
 
+The sweep redesign (lanes per cell, the node loop unrolled, one
+division per band) adds, last:
+
+22. for the pyramid stage kernel and the shell kernel at 128^3 x 8,
+   float32, isothermal and heating (phases 4 and 5's states): the band
+   loop's instruction mix from `cuobjdump -sass` (`sass_band_mix`:
+   MUFU.EX2, float32-pipe and all instructions per band; one MUFU.EX2
+   per exponential and one MUFU.RCP), the
+   launches' device times from torch.profiler grouped by layer (shell)
+   against the sweep's CUDA-event time (the rest: launch gaps and the
+   sweep's other work), and two calls equal to the bit.
+
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
 operations over their peak rate (`bound`; for the 1D kernels the
@@ -1505,6 +1517,118 @@ def phase_engine_times(cfg, s, srcpos, nflux, engine):
     return ms, 1e3 * wall, abs_err, heat_rel, b
 
 
+# ---- the redesigned sweep kernels' evidence (phase 22)
+
+# the launches' layers (pyramid) or shells (shell kernel), grouped
+LAYER_GROUPS = ((1, 16), (17, 40), (41, 64), (65, 10**9))
+
+
+def launch_profile(fn, kernel, n):
+    """(device ms of each of the n launches of a kernel whose name holds
+    `kernel` in one fn(), in launch order; ms from the first one's start
+    to the last one's end) under torch.profiler.  fn runs twice in the
+    profiled window and the first call's launches count: the tracer may
+    drop the records of a window's last launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if e.device_type == DeviceType.CUDA and kernel in e.name)
+    if len(ev) < n:
+        raise AssertionError(f"torch.profiler saw {len(ev)} launches of "
+                             f"{kernel}, fewer than one call's {n}")
+    ev = ev[:n]
+    return [(b - a) / 1e3 for a, b in ev], (ev[-1][1] - ev[0][0]) / 1e3
+
+
+def phase_sweep_redesign(cfg, s, srcpos, nflux):
+    """Phase 22: the redesigned pyramid stage kernel and shell kernel at
+    the main path's shapes (phase 4's or 5's state, float32): their band
+    loop's SASS mix (`sass_band_mix` of the instantiation this table's K
+    runs) with one MUFU.EX2 per exponential (2K per band) and one
+    MUFU.RCP (the tau share's reciprocal: no division by the cell
+    volume); each kernel's launches' device times from
+    torch.profiler, grouped by layer or shell (LAYER_GROUPS), against
+    the sweep's CUDA-event time, the rest being launch gaps and the
+    sweep's other work (zeroing, the source cells, the partial sums);
+    two calls equal to the bit.  Returns {kernels-line name: extra
+    keys}."""
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.radiation.quadrature import packed_band_rows
+    from c2ray_tpu_torch.sweep import build_shell_table
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+    from c2ray_tpu_torch.sweep.source_sweep import sweep_heats
+
+    sw = cfg.sweep
+    heat = sweep_heats(sw)
+    K = packed_band_rows(sw.tables, torch.float32, heat, sw.has_bb,
+                         sw.has_pl, sw.has_qso)[2]
+    kk, flag = unrolled_k(K), int(heat)
+    fstack = ps.stack_sweep_fields(sw, fields_of(s))
+    Rf, Rb = ps.trace_extents(sw.mesh)
+    table = build_shell_table(sw.mesh)
+    shell = engine_trace_fns("shells", table)[0]
+    sfx = "_heat" if heat else ""
+    cases = (
+        ("pyramid_sweep" + sfx, "pyramid_sweep", "stage_kernel",
+         rf"stage_kernelIfLb{flag}ELb0ELi{kk}E", 3 * Rf,
+         lambda: ps.trace_cuda(sw, fstack, srcpos, nflux, Rf, Rb)),
+        ("shell_sweep" + sfx, "shell_sweep", "shell_kernel",
+         rf"shell_kernelIfLb{flag}ELi{kk}E", table.n_shells,
+         lambda: shell(sw, fstack, srcpos, nflux)))
+    out = {}
+    for name, lib, kernel, mangled, n_launch, fn in cases:
+        sass = kernel_sass(cuda_build.library_path(lib))
+        fns = [v for k, v in sass.items() if re.search(mangled, k)]
+        if len(fns) != 1:
+            raise AssertionError(f"{lib}: {len(fns)} functions match "
+                                 f"{mangled}")
+        mix = sass_band_mix(fns[0], 2 * K)
+        a, b = fn(), fn()
+        same = all(x is None and y is None or torch.equal(x, y)
+                   for x, y in zip(a, b))
+        ms = event_ms(fn, 3)
+        durs, span = launch_profile(fn, kernel, n_launch)
+        per = 3 if lib == "pyramid_sweep" else 1   # launches per layer
+        groups = {}
+        for lo, hi in LAYER_GROUPS:
+            d = durs[per * (lo - 1):per * hi]
+            if d:
+                groups[f"{lo}-{min(hi, len(durs) // per)}"] = (len(d),
+                                                               sum(d))
+        busy = sum(durs)
+        log(f"{name} at {sw.mesh}^3 x {srcpos.shape[0]}, K = {K}: band loop "
+            f"per band {mix['ex2']:g} MUFU.EX2, {mix['fp32']:g} float32-pipe, "
+            f"{mix['rcp']:g} MUFU.RCP, {mix['expf_reduction']:g} expf "
+            f"range-reduction, {mix['total']:g} instructions in all")
+        log(f"  {len(durs)} launches of {kernel}: "
+            + ", ".join(f"{'layers' if lib == 'pyramid_sweep' else 'shells'}"
+                        f" {k} {n} launches {t:.3f} ms"
+                        for k, (n, t) in groups.items())
+            + f"; device {busy:.3f} ms, first start to last end {span:.3f} "
+            f"ms (profiled); sweep {ms:.3f} ms (CUDA events): launch gaps "
+            f"and other work {ms - busy:.3f} ms ({(ms - busy) / ms:.1%}); "
+            f"two calls equal to the bit: {same}")
+        if not same:
+            raise AssertionError(f"{name}: two calls differ")
+        if not (mix["ex2"] == 2 * K and mix["rcp"] == 1):
+            raise AssertionError(f"{name}: band loop mix {mix}")
+        out[name] = {"sass_band_mix_K": K, "sass_band_mix": mix,
+                     "device_ms_by_layer": {k: t for k, (_, t)
+                                            in groups.items()},
+                     "device_ms": busy, "event_ms": ms,
+                     "gaps_and_other_ms": ms - busy}
+    return out
+
+
 # ---- the multi-GPU slice (phases 18-21)
 
 # the slab shapes of the halo kernels' comparisons, (mesh, ranks,
@@ -2235,29 +2359,48 @@ def phase_compare_1d_full(dev, refs):
 # root 5, expm1 and log10 12 each, pow 25; a shuffle, a select, a
 # conversion and a load 1.  Independent work counts once: a lane's K
 # nodes, the three species' divisions, doric's three exp and three
-# expm1, its X/Y/Z divisions.  Isothermal, quadrature (from the start of
-# an iteration): the rates of a lane's two bands 34 (columns 4, tau 3,
-# min and exp 8, the node sum 7, the thick/thin select 2, / vol and the
-# sums 10); the warp sums 10 (5 shuffles and adds); the per-atom rates 7;
-# the first doric pass 52 (the ionization sums 4, the helium sector's
-# divisions 6, the matrix terms 6, the square root 6, the root identity
-# 10, r2 and X2's divisions 18, the solution and the clamps 10 -- its
-# doric factors come from the previous iteration); the second 55 (its
-# electron density and the same chain); the average, the 1% test and
-# the loop branch 13: 171.  The table route's positions (log10 and a
-# division) and reads take 47 for a lane's bands in place of 34: 184.
-# Heating adds 38 (the Ricotti powers, two pows in sequence, gate the
-# heating sums; the thermal call's set-up and end; the temperature test)
-# and 52 per thermal sub-step (coolin's log10, division, read and
-# 5-term sum, the step size's division, the update and pressr2temper's
-# division).  Each instruction waits at least 4 cycles, the dependent-
-# issue latency of the float32 pipe; MUFU, shuffles and loads wait
-# longer, so this stays a lower bound.  At the card's largest clock.
-ONED_CHAIN = {(False, False): 171, (False, True): 184,
-              (True, False): 209, (True, True): 209}
+# expm1, its X/Y/Z divisions, the shell's 1/vol.  Isothermal, quadrature
+# (from the start of an iteration): the rates of a lane's two bands 29
+# (columns 4, tau 3, min and exp 8, the node sum 7, the thick/thin
+# branch 2, x 1/vol and the sums 5); the warp sums 10 (5 shuffles and
+# adds); the per-atom rates 7; the first doric pass 52 (the ionization
+# sums 4, the helium sector's divisions 6, the matrix terms 6, the
+# square root 6, the root identity 10, r2 and X2's divisions 18, the
+# solution and the clamps 10 -- its doric factors come from the
+# previous iteration); the second 55 (its electron density and the same
+# chain); the average, the 1% test and the loop branch 13: 166.  On the
+# table route the rates of a lane's bands, positions (log10 and a
+# division) and reads, take 47: 184.  Heating adds 38 (the Ricotti
+# powers, two pows in sequence, gate the heating sums; the thermal
+# call's set-up and end; the temperature test) and 52 per thermal
+# sub-step (coolin's log10, division, read and 5-term sum, the step
+# size's division, the update and pressr2temper's division).  Each
+# instruction waits at least 4 cycles, the dependent-issue latency of
+# the float32 pipe; MUFU, shuffles and loads wait longer, so this stays
+# a lower bound.  At the card's largest clock.
+ONED_CHAIN = {(False, False): 166, (False, True): 184,
+              (True, False): 204, (True, True): 209}
 ONED_CHAIN_SUBSTEP = 52
 CYCLES_PER_DEPENDENT_OP = 4
 SM_CLOCK_HZ = 1.98e9
+
+
+_SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)([^;]*);")
+
+
+def _sass_ins(listing):
+    """The instructions of one function of a `cuobjdump -sass` listing:
+    (address, predicated, opcode, branch target or None, mnemonic with
+    its modifiers, e.g. MUFU.EX2)."""
+    ins = []
+    for m in _SASS_INS.finditer(listing):
+        op = m.group(3)
+        t = re.search(r"0x([0-9a-f]+)", m.group(5)) if op == "BRA" else None
+        ins.append((int(m.group(1), 16), m.group(2) is not None, op,
+                    int(t.group(1), 16) if t else None,
+                    op + m.group(4)))
+    return ins
 
 
 def _sass_blocks(listing):
@@ -2265,16 +2408,10 @@ def _sass_blocks(listing):
     one function of a `cuobjdump -sass` listing.  Calls (the slow paths
     of division and the like) fall through: their callees are reached
     only through them and so count for nothing."""
-    ins = []
-    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_]*)([^;]*);", listing):
-        op = m.group(3)
-        t = re.search(r"0x([0-9a-f]+)", m.group(4)) if op == "BRA" else None
-        ins.append((int(m.group(1), 16), m.group(2) is not None, op,
-                    int(t.group(1), 16) if t else None))
-    at = {a: i for i, (a, _, _, _) in enumerate(ins)}
+    ins = _sass_ins(listing)
+    at = {a: i for i, (a, _, _, _, _) in enumerate(ins)}
     lead = {0}
-    for i, (_, _, op, t) in enumerate(ins):
+    for i, (_, _, op, t, _) in enumerate(ins):
         if op in ("BRA", "EXIT", "RET"):
             lead.add(i + 1)
             if op == "BRA":
@@ -2284,7 +2421,7 @@ def _sass_blocks(listing):
     block_of = {s: k for k, s in enumerate(lead)}
     succ = []
     for s, e in zip(lead, ends):
-        _, pred, op, t = ins[e - 1]
+        _, pred, op, t, _ = ins[e - 1]
         nxt = [block_of[e]] if e < len(ins) else []
         if op == "BRA":
             succ.append([block_of[at[t]]] + (nxt if pred else []))
@@ -2293,16 +2430,11 @@ def _sass_blocks(listing):
     return list(zip(lead, ends)), succ
 
 
-def sass_issue_floor(listing):
-    """One warp's issue floor of one fixed-point iteration: the fewest
-    instructions on a path through the fixed-point loop's body, from its
-    header to a branch back to it, in the SASS `listing` of one
-    evolve1d_kernel.  The loop is the largest natural loop inside the
-    march over the shells (the largest loop); inner loops count once,
-    rarely taken branches not at all.  A warp issues at most one
-    instruction per cycle, so an iteration takes at least this many."""
-    blocks, succ = _sass_blocks(listing)
-    n = len(blocks)
+def _sass_loops(succ):
+    """The natural loops of a control-flow graph given by its successor
+    lists (block 0 the entry): ({header: set of body blocks}, back edges
+    as (source, header))."""
+    n = len(succ)
     preds = [[] for _ in range(n)]
     for k in range(n):
         for j in succ[k]:
@@ -2348,6 +2480,84 @@ def sass_issue_floor(listing):
             if v not in body:
                 body.add(v)
                 todo.extend(preds[v])
+    return loops, back
+
+
+# float32-pipe opcodes (adds, multiplies, FMAs, min/max, compares,
+# selects, the division's range check)
+FP32_OPS = frozenset(("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL",
+                      "FSET", "FCHK", "FRND", "FADD32I", "FMUL32I",
+                      "FFMA32I", "FSWZADD"))
+
+
+def sass_band_mix(listing, n_ex2):
+    """The instruction mix of one pass through the band loop of a sweep
+    kernel's SASS `listing`: {"ex2": MUFU.EX2, "fp32": float32-pipe
+    instructions (FP32_OPS), "rcp": MUFU.RCP (one per IEEE division or
+    reciprocal), "expf_reduction": FFMA.SAT and FFMA.RM (expf's range
+    reduction), "total": all instructions} on the path from the loop's
+    header back to it with the most MUFU.EX2 and, among those, the fewest
+    calls (a division's slow path, rarely taken) and instructions: with
+    the node loop unrolled, the path of a thick band (2K MUFU.EX2; a thin
+    band skips e_out).  The loop is the innermost one whose blocks hold at
+    least n_ex2 MUFU.EX2 (2K for a K-node band); a loop inside it counts
+    once.  For a build whose node loop ran over a runtime K, n_ex2 = 2
+    finds the node loop's pass instead."""
+    ins = _sass_ins(listing)
+    blocks, succ = _sass_blocks(listing)
+    loops, back = _sass_loops(succ)
+    keys = ("ex2", "fp32", "rcp", "expf_reduction", "total")
+
+    def mix(v):
+        out = dict.fromkeys(keys + ("calls",), 0)
+        for _, _, op, _, mn in ins[blocks[v][0]:blocks[v][1]]:
+            out["calls"] += op == "CALL"
+            out["total"] += 1
+            out["fp32"] += op in FP32_OPS
+            out["ex2"] += mn.startswith("MUFU.EX2")
+            out["rcp"] += mn.startswith("MUFU.RCP")
+            out["expf_reduction"] += mn.startswith(("FFMA.SAT", "FFMA.RM"))
+        return out
+
+    m = {v: mix(v) for v in range(len(blocks))}
+    held = [h for h in loops if sum(m[v]["ex2"] for v in loops[h]) >= n_ex2]
+    if not held:
+        raise ValueError(f"no loop holds {n_ex2} MUFU.EX2")
+    h = min(held, key=lambda g: len(loops[g]))
+    body = loops[h]
+    nxt = {v: [w for w in succ[v] if w in body and (v, w) not in back]
+           for v in body}
+    order, seen = [], set()
+
+    def visit(v):        # postorder of the body without its back edges
+        seen.add(v)
+        for w in nxt[v]:
+            if w not in seen:
+                visit(w)
+        order.append(v)
+
+    visit(h)
+    rank = lambda x: (x["ex2"], -x["calls"], -x["total"])
+    best = {h: m[h]}
+    for v in reversed(order):
+        for w in nxt[v]:
+            cand = {k: best[v][k] + m[w][k] for k in m[w]}
+            if w not in best or rank(cand) > rank(best[w]):
+                best[w] = cand
+    out = max((best[s] for s, g in back if g == h and s in best), key=rank)
+    return {k: out[k] for k in keys}
+
+
+def sass_issue_floor(listing):
+    """One warp's issue floor of one fixed-point iteration: the fewest
+    instructions on a path through the fixed-point loop's body, from its
+    header to a branch back to it, in the SASS `listing` of one
+    evolve1d_kernel.  The loop is the largest natural loop inside the
+    march over the shells (the largest loop); inner loops count once,
+    rarely taken branches not at all.  A warp issues at most one
+    instruction per cycle, so an iteration takes at least this many."""
+    blocks, succ = _sass_blocks(listing)
+    loops, back = _sass_loops(succ)
     size = lambda v: blocks[v][1] - blocks[v][0]
     (march, outer), *inner = sorted(
         loops.items(), key=lambda kv: -sum(size(v) for v in kv[1]))
@@ -2365,22 +2575,37 @@ def sass_issue_floor(listing):
     return min(dist[s] for s, hh in back if hh == h and s in dist)
 
 
-def oned_issue_floors():
-    """sass_issue_floor of each float32 evolve1d_kernel instantiation of
-    this run's build: {(heat, table): instructions}."""
+def kernel_sass(path):
+    """{mangled function name: its SASS listing} of a kernel library
+    (`cuobjdump -sass`)."""
     from c2ray_tpu_torch import cuda_build
 
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass",
-                           str(cuda_build.library_path("evolve1d"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {fn.split(None, 1)[0]: fn
+            for fn in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def unrolled_k(K):
+    """The node count of the kernel instantiation that a K-node table
+    runs: K where the kernels unroll it (band_rates.cuh: with_nodes),
+    else 0 (the runtime-K loop)."""
+    return K if K in (6, 8) else 0
+
+
+def oned_issue_floors():
+    """sass_issue_floor of each float32 evolve1d_kernel instantiation of
+    this run's build: {(heat, table, kK): instructions}, kK the unrolled
+    node count (0: at run time)."""
+    from c2ray_tpu_torch import cuda_build
+
     floors = {}
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.match(r"\S*evolve1d_kernelIfLb([01])ELb([01])E", fn)
+    for name, fn in kernel_sass(cuda_build.library_path("evolve1d")).items():
+        m = re.match(r"\S*evolve1d_kernelIfLb([01])ELb([01])ELi(\d+)E", name)
         if m:
-            floors[m.group(1) == "1", m.group(2) == "1"] = \
-                sass_issue_floor(fn)
+            floors[m.group(1) == "1", m.group(2) == "1",
+                   int(m.group(3))] = sass_issue_floor(fn)
     return floors
 
 
@@ -2401,11 +2626,13 @@ def oned_bound(ctx, counters, heat, table, floors):
     if table:
         nb = ctx.tables.sigma_HI.shape[0]
         sfu_it, flops_it = 2 * nb, nb * (60 if heat else 20)
+        kk = 0
     else:
         packed, _, K = packed_band_rows(ctx.tables, torch.float32, heat,
                                         ctx.has_bb, ctx.has_pl, ctx.has_qso)
         nodes = packed.shape[0] * K
         sfu_it, flops_it = 2 * nodes, nodes * (25 if heat else 10)
+        kk = unrolled_k(K)
     nbytes = 4 * mesh * (7 + 6) + 4 * mesh
     work = bound(nbytes, its * (flops_it + CHEM_FLOPS_PER_ITERATION)
                  + subs * 20,
@@ -2413,7 +2640,7 @@ def oned_bound(ctx, counters, heat, table, floors):
     cycles = CYCLES_PER_DEPENDENT_OP * (its * ONED_CHAIN[heat, table]
                                         + subs * ONED_CHAIN_SUBSTEP)
     lat_ms = 1e3 * cycles / SM_CLOCK_HZ
-    issue_ms = 1e3 * its * floors[heat, table] / SM_CLOCK_HZ
+    issue_ms = 1e3 * its * floors[heat, table, kk] / SM_CLOCK_HZ
     return max((work[0], work[1], "throughput"),
                (lat_ms, "operations", "latency of the dependent chain"),
                (issue_ms, "operations", "one warp's instruction issue"))
@@ -2470,14 +2697,17 @@ def build_kernels():
                           r"|shell_kernel|plane_kernel|halo_pack_kernel"
                           r"|window_accumulate_kernel|fold_halo_kernel)"
                           r"I([fd])(?:Lb([01])E)?"
-                          r"(?:Lb([01])E)?", line)
+                          r"(?:Lb([01])E)?(?:Li(\d+)E)?", line)
             if m:
                 dtype = "float" if m.group(2) == "f" else "double"
                 heat = ", heat" if m.group(3) == "1" else ""
                 flag = ("table" if m.group(1).startswith("evolve1d")
                         else "track")
                 second = f", {flag}" if m.group(4) == "1" else ""
-                kernel = f"{m.group(1)}<{dtype}{heat}{second}>"
+                nodes = ("" if m.group(5) is None else
+                         f", K = {m.group(5)}" if m.group(5) != "0"
+                         else ", K at run time")
+                kernel = f"{m.group(1)}<{dtype}{heat}{second}{nodes}>"
             elif kernel and ("registers" in line or "spill" in line):
                 log(f"  {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -2596,6 +2826,10 @@ def run_phases(dev, workdir, ref, oned_refs):
                         "kernel times", phase_engine_times, *out[:4], key[0])
              for key, out in eng.items()}
     halo_t = phase("halo kernel times", phase_halo_times, dev)
+    redesign = {**phase("sweep redesign", phase_sweep_redesign, cfg, s,
+                        srcpos, nflux),                             # 22.
+                **phase("heating sweep redesign", phase_sweep_redesign,
+                        hcfg, hs, hsrc, hnfl)}
 
     # each kernel's launches on its own path: phases 4, 5, 8 and 10
     counts = {**counts, **hcounts, **pcounts, **dcounts}
@@ -2716,6 +2950,8 @@ def run_phases(dev, workdir, ref, oned_refs):
              "bound_by": b[1], "library_ms": lib_ms,
              "library_call": ("rc[window].add_(cube)"
                               if lib_ms is not None else None)})
+    for entry in kernels:
+        entry.update(redesign.get(entry["name"], {}))
     log(f"NCCL at world size 1: {nccl}")
     return kernels
 

@@ -207,7 +207,7 @@ def test_packed_tables_layout(heat):
     assert row == packed.shape[0]
 
 
-def _three_type_config(M, dtype, device, n_nodes=6):
+def _three_type_config(M, dtype, device, n_nodes=6, heating=True):
     """Blackbody, power-law and QSO sources with heating tables (the
     power laws over all 47 bands, from the HI threshold up): in f64 at
     K = 6 the 127 band rows exceed the default 48 KB of shared memory."""
@@ -216,10 +216,26 @@ def _three_type_config(M, dtype, device, n_nodes=6):
         SEDConfig(bb=BlackBodySED(T_eff=5e4, S_star=1e48),
                   pl=PowerLawSED(index=2.5, S_star=1e47, min_freq=lo),
                   qso=PowerLawSED(index=1.8, S_star=1e47, min_freq=lo)),
-        isothermal=False, dtype=dtype, device=device, n_nodes=n_nodes)
+        isothermal=not heating, dtype=dtype, device=device, n_nodes=n_nodes)
     return SweepConfig(tables=tables, mesh=M, dr=50.0 * const.kpc / M,
-                       isothermal=False, flux_scale=bands.flux_scale,
+                       isothermal=not heating, flux_scale=bands.flux_scale,
                        has_pl=True, has_qso=True)
+
+
+def _few_bands_config(M, dtype, device, n_nodes, heating):
+    """A blackbody over 33 bands (no multiple of a cell's lane group) and
+    a power law over 1 (fewer than the lanes of a cell)."""
+    tables, _, bands = build_quadrature_tables(
+        SEDConfig(bb=BlackBodySED(T_eff=5e4, S_star=1e48),
+                  pl=PowerLawSED(index=2.5, S_star=1e47,
+                                 min_freq=60.0 * const.ion_freq_HeII,
+                                 max_freq=65.0 * const.ion_freq_HeII)),
+        isothermal=not heating, dtype=dtype, device=device, n_nodes=n_nodes)
+    assert tables.bb.band_hi - tables.bb.band_lo + 1 == 33
+    assert tables.pl.band_hi - tables.pl.band_lo + 1 == 1
+    return SweepConfig(tables=tables, mesh=M, dr=50.0 * const.kpc / M,
+                       isothermal=not heating, flux_scale=bands.flux_scale,
+                       has_pl=True)
 
 
 def test_sweep_shared_memory_limit():
@@ -259,6 +275,74 @@ def test_chip_smoke_refuses_without_a_gpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+# Two band loops as `cuobjdump -sass` prints them (the encodings cut).
+# Unrolled, K = 2: a type loop around a band loop with 2K = 4 MUFU.EX2,
+# and the unreachable branch-to-self after EXIT.  Branching, K = 1: a
+# thick path (2 MUFU.EX2, one FFMA.SAT) and a thin one (1), and a
+# division's slow path through a call.
+_SASS_UNROLLED = """
+        Function : _Z4bandPf
+        /*0000*/                   S2R R0, SR_TID.X ;  /* 0x0000000000007919 */
+        /*0010*/                   MOV R1, RZ ;
+        /*0020*/                   FMUL R2, R1, R1 ;
+        /*0030*/                   MUFU.EX2 R3, R2 ;
+        /*0040*/                   MUFU.EX2 R4, R2 ;
+        /*0050*/                   FFMA R5, R3, R4, R5 ;
+        /*0060*/                   MUFU.RCP R6, R5 ;
+        /*0070*/                   MUFU.EX2 R7, R2 ;
+        /*0080*/                   MUFU.EX2 R8, R2 ;
+        /*0090*/                   ISETP.GE.AND P0, PT, R1, 0x4, PT ;
+        /*00a0*/              @!P0 BRA 0x20 ;
+        /*00b0*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*00c0*/                   ISETP.GE.AND P1, PT, R1, 0x3, PT ;
+        /*00d0*/              @!P1 BRA 0x10 ;
+        /*00e0*/                   EXIT ;
+        /*00f0*/                   BRA 0xf0;
+"""
+_SASS_BRANCHING = """
+        Function : _Z6branchPf
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   FMUL R2, R1, R1 ;
+        /*0020*/                   MUFU.RCP R6, R5 ;
+        /*0030*/                   FCHK P2, R5, R6 ;
+        /*0040*/               @P2 BRA 0x100 ;
+        /*0050*/                   FSETP.GT.AND P0, PT, R2, 1, PT ;
+        /*0060*/              @!P0 BRA 0xc0 ;
+        /*0070*/                   MUFU.EX2 R3, R2 ;
+        /*0080*/                   MUFU.EX2 R4, R2 ;
+        /*0090*/                   FFMA.SAT R7, R3, R4, R5 ;
+        /*00a0*/                   FFMA R5, R7, R8, R5 ;
+        /*00b0*/                   BRA 0xd0 ;
+        /*00c0*/                   MUFU.EX2 R3, R2 ;
+        /*00d0*/                   ISETP.GE.AND P1, PT, R1, 0x4, PT ;
+        /*00e0*/              @!P1 BRA 0x10 ;
+        /*00f0*/                   EXIT ;
+        /*0100*/                   MOV R9, R5 ;
+        /*0110*/                   CALL.REL.NOINC 0x130 ;
+        /*0120*/                   BRA 0x50 ;
+        /*0130*/                   FADD R5, R5, 1 ;
+        /*0140*/                   RET.REL.NODEC R20 0x0 ;
+"""
+
+
+@pytest.mark.parametrize("listing, n_ex2, mix", [
+    (_SASS_UNROLLED, 4, dict(ex2=4, fp32=2, rcp=1, expf_reduction=0,
+                             total=9)),
+    # header 4 + the test 2 + the thick path 5 + the loop test 2
+    (_SASS_BRANCHING, 2, dict(ex2=2, fp32=2 + 1 + 2, rcp=1,
+                              expf_reduction=1, total=4 + 2 + 5 + 2)),
+])
+def test_sass_band_mix_counts_one_band(listing, n_ex2, mix):
+    """chip_smoke.py's counter of the sweep kernels' band loop: one pass
+    through the innermost loop holding n_ex2 MUFU.EX2, on the path with
+    the most of them and the fewest instructions (the thick band, the
+    division's fast path)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    assert chip_smoke.sass_band_mix(listing, n_ex2) == mix
 
 
 @pytest.fixture
@@ -703,6 +787,106 @@ def test_three_engine_kernels_agree(cuda_device, heating):
                      (other[0][..., 3], pyr[0][..., 3]), (other[1], pyr[1])):
             torch.testing.assert_close(a, b, rtol=1e-10,
                                        atol=1e-10 * float(b.abs().max()))
+
+
+# the redesigned sweep kernels' cases: (tables, K, heating, dtype); K = 6
+# and 8 run unrolled instantiations, 48 the runtime-K one (its heating
+# rows in float64 exceed a block's shared memory)
+_REDESIGN_CASES = (
+    [("few bands", K, heating, dtype) for K in (6, 8)
+     for heating in (False, True)
+     for dtype in (torch.float64, torch.float32)]
+    + [("three types", 48, False, torch.float64),
+       ("three types", 48, False, torch.float32),
+       ("three types", 48, True, torch.float32)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _REDESIGN_CASES,
+                         ids=lambda c: f"{c[0]}-K{c[1]}-"
+                         f"{'heat' if c[2] else 'iso'}-{str(c[3])[6:]}")
+@pytest.mark.parametrize("engine", ["pyramid", "shells"])
+def test_redesigned_sweep_kernels_match_plain(cuda_device, engine, case):
+    """The pyramid stage kernel and the shell kernel (a lane group per
+    cell, the node loop unrolled for K = 6 and 8) against their plain
+    versions: float64 within rtol 1e-10 of each
+    part's largest value; float32 within 1e-4 with 1e-4 of each part's
+    largest value as the floor, and its heat's error against the float64
+    plain result at most twice the plain float32 version's plus 1e-7;
+    two calls equal to the bit."""
+    tables, K, heating, dtype = case
+    M = 16
+    table = build_shell_table(M)
+    Rf, Rb = pyramid_sweep.trace_extents(M)
+
+    def inputs(dt):
+        cfg = (_few_bands_config(M, dt, cuda_device, K, heating)
+               if tables == "few bands"
+               else _three_type_config(M, dt, cuda_device, K, heating))
+        state = _random_state(M, dt, cuda_device)
+        fstack = pyramid_sweep.stack_sweep_fields(cfg, SourceFields(
+            state.ndens, state.h_av0, state.h_av1, state.he_av0,
+            state.he_av1))
+        srcpos, _ = _sources(M, 3, dt, cuda_device)
+        nflux = torch.tensor([[1.0, 0.5, 0.2], [0.7, 0.0, 0.4],
+                              [0.0, 1.3, 0.0]], dtype=dt, device=cuda_device)
+        return cfg, fstack, srcpos, nflux
+
+    def traces(fn, cfg, fstack, srcpos, nflux):
+        if engine == "pyramid":
+            out = fn(cfg, fstack, srcpos, nflux, Rf, Rb)
+        else:
+            out = fn(cfg, table, fstack, srcpos, nflux)
+        return out[:3]
+
+    kern, plain = ((pyramid_sweep.trace_cuda, pyramid_sweep.trace_plain)
+                   if engine == "pyramid" else
+                   (source_sweep.shell_sweep_cuda,
+                    source_sweep.shell_sweep_plain))
+    args = inputs(dtype)
+    k, again = traces(kern, *args), traces(kern, *args)
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    k, p = _parts(k + (None,)), _parts(traces(plain, *args) + (None,))
+    # the plain version in float64 (the 48-node heating rows in float64
+    # exceed a block's shared memory, so no float64 kernel there)
+    p64 = _parts(traces(plain, *inputs(torch.float64)) + (None,))
+    assert float(p64[0].abs().max()) > 0.0
+    if heating:
+        assert float(p64[1].abs().max()) > 0.0
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=tol,
+                                   atol=tol * float(b.abs().max()))
+    if heating and dtype == torch.float32:
+        ek = _rel_err(k[1].double(), p64[1])
+        ep = _rel_err(p[1].double(), p64[1])
+        assert ek <= 2.0 * ep + 1e-7, (ek, ep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sweep_kernel_after_a_larger_opt_in(cuda_device, dtype):
+    """A tracked sweep opts each kernel in to the shared memory it takes
+    only above the default 48 KB, never below it: a later sweep whose band
+    rows outgrow the tracked sweep's tables (within 48 KB) still
+    launches."""
+    M = 8
+    Rf, Rb = pyramid_sweep.trace_extents(M)
+    state = _random_state(M, dtype, cuda_device)
+    fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
+                          state.he_av0, state.he_av1)
+    srcpos, _ = _sources(M, 2, dtype, cuda_device)
+    nflux = torch.tensor([[1.0, 0.5, 0.0], [0.7, 0.2, 0.0]], dtype=dtype,
+                         device=cuda_device)
+    small = _config(M, dtype, cuda_device, S_star=1e48).sweep
+    pyramid_sweep.trace_cuda(small,
+                             pyramid_sweep.stack_sweep_fields(small, fields),
+                             srcpos, nflux, Rf, Rb, track=True)
+    big = _few_bands_config(M, dtype, cuda_device, 6, False)
+    fstack = pyramid_sweep.stack_sweep_fields(big, fields)
+    k = pyramid_sweep.trace_cuda(big, fstack, srcpos, nflux, Rf, Rb)
+    p = pyramid_sweep.trace_plain(big, fstack, srcpos, nflux, Rf, Rb)
+    _assert_traces_close(k, p, 1e-10 if dtype == torch.float64 else 1e-4)
 
 
 # ---- the domain decomposition's halo kernels (csrc/domain_halo.cu)

@@ -154,26 +154,50 @@ inline auto with_nodes(int K, F&& f) {
 }
 
 // Ricotti et al. 2002 secondary-ionization fits of one cell
-// (quadrature.py:421-426): y[i] = y1R(i), y[3 + i] = y2R(i)
-template <typename T>
-__device__ __forceinline__ T y1R(T x, T c, T b, T d) {
-  return c * xpow(T(1) - xpow(x, b), d);
+// (quadrature.py:421-426), described here once: ricotti evaluates them
+// in place, the 1D march spreads their powers over a warp's lanes
+// (csrc/evolve1d.cu: spread_fits).  y[i] = y1R(x) = c (1 - x^b)^d of
+// FitY1<i>, y[3 + i] = y2R(x) = c x^a (1 - x^b)^2 of FitY2<i>.
+template <int i> struct FitY1;
+template <> struct FitY1<0> {
+  static constexpr double c = 0.3908, b = 0.4092, d = 1.7592;
+};
+template <> struct FitY1<1> {
+  static constexpr double c = 0.0554, b = 0.4614, d = 1.6660;
+};
+template <> struct FitY1<2> {
+  static constexpr double c = 1.0, b = 0.2663, d = 1.3163;
+};
+template <int i> struct FitY2;
+template <> struct FitY2<0> {
+  static constexpr double c = 0.6941, a = 0.2, b = 0.38;
+};
+template <> struct FitY2<1> {
+  static constexpr double c = 0.0984, a = 0.2, b = 0.38;
+};
+template <> struct FitY2<2> {
+  static constexpr double c = 3.9811, a = 0.4, b = 0.34;
+};
+
+template <typename F, typename T>
+__device__ __forceinline__ T y1R(T x) {
+  return T(F::c) * xpow(T(1) - xpow(x, T(F::b)), T(F::d));
 }
 
-template <typename T>
-__device__ __forceinline__ T y2R(T x, T c, T a, T b) {
-  const T xeb = T(1) - xpow(x, b);
-  return c * xpow(x, a) * xeb * xeb;
+template <typename F, typename T>
+__device__ __forceinline__ T y2R(T x) {
+  const T xeb = T(1) - xpow(x, T(F::b));
+  return T(F::c) * xpow(x, T(F::a)) * xeb * xeb;
 }
 
 template <typename T>
 __device__ __forceinline__ void ricotti(T x, T y[6]) {
-  y[0] = y1R(x, T(0.3908), T(0.4092), T(1.7592));
-  y[1] = y1R(x, T(0.0554), T(0.4614), T(1.6660));
-  y[2] = y1R(x, T(1.0), T(0.2663), T(1.3163));
-  y[3] = y2R(x, T(0.6941), T(0.2), T(0.38));
-  y[4] = y2R(x, T(0.0984), T(0.2), T(0.38));
-  y[5] = y2R(x, T(3.9811), T(0.4), T(0.34));
+  y[0] = y1R<FitY1<0>>(x);
+  y[1] = y1R<FitY1<1>>(x);
+  y[2] = y1R<FitY1<2>>(x);
+  y[3] = y2R<FitY2<0>>(x);
+  y[4] = y2R<FitY2<1>>(x);
+  y[5] = y2R<FitY2<2>>(x);
 }
 
 // s += x with the rounding carried in c (Kahan).  The heat adds one term
@@ -326,6 +350,156 @@ __device__ __forceinline__ void cell_rates(const T* tab, const BandTables& d,
       out[5] += hacc[0];
     } else {
       for (int q = 0; q < 5; ++q) out[q] += acc[q];
+    }
+    b0 += d.type_nb[t];
+  }
+}
+
+// ---- The split form of cell_rates for the 1D march (csrc/evolve1d.cu)
+//
+// The 1D march evaluates one shell's rates up to max_iter times against
+// the same incoming columns.  What depends on them alone -- a band's
+// tau_in, its K node exponentials e_in, the thin node sum and with
+// heating the three thin heat sums -- is the shell's incoming side:
+// band_in computes it once per shell into shared memory.  band_out then
+// does per iteration what depends on the outgoing columns: tau_out, the
+// tau shares, the regime tests (which may flip between iterations) and
+// a thick band's e_out.  Every sum, regime test and expression is
+// node_sums' and cell_rates', op for op, with every flux 1 (the 1D
+// kernel's) and each division div_flat's (common.cuh: the same bits
+// without a branch); only photo_cell_{HI,HeI,HeII} and the heat are
+// formed, the values the march reads.  The 3D kernels keep cell_rates.
+
+// Values per band of the incoming side, each an array over the nbt
+// packed bands (band-fastest, so consecutive lanes read consecutive
+// words): tau_in, the thin photo sum, with heating the three thin heat
+// sums, then e_in(K).
+template <bool kHeat>
+__host__ __device__ __forceinline__ int in_values(int K) {
+  return (kHeat ? 5 : 2) + K;
+}
+
+template <typename T, bool kHeat, int kK>
+__device__ __forceinline__ void band_in(const T* tab, const BandTables& d,
+                                        const T* cin, T* in, int lane,
+                                        int nlanes) {
+  const int K = kK > 0 ? kK : d.K;
+  const int stride = row_stride<kHeat>(K);
+  const int nbt = d.type_nb[0] + d.type_nb[1] + d.type_nb[2];
+  const int e0 = kHeat ? 5 : 2;
+  int b0 = 0;
+  for (int t = 0; t < d.ntypes; ++t) {
+    for (int b = b0 + lane; b < b0 + d.type_nb[t]; b += nlanes) {
+      const T* rb = tab + b * stride;
+      const T* sh = rb + 5;
+      const T* A = rb + 5 + K;
+      const T tau_in = cin[0] * rb[0] + cin[1] * rb[1] + cin[2] * rb[2];
+      T g_x = T(0), h_x[3] = {T(0), T(0), T(0)};
+#pragma unroll
+      for (int k = 0; k < (kK > 0 ? kK : K); ++k) {
+        const T e_in = xexp(-minp(tau_in * sh[k], T(80)));
+        in[(e0 + k) * nbt + b] = e_in;
+        g_x += A[k] * sh[k] * e_in;
+        if constexpr (kHeat) {
+          for (int sp = 0; sp < 3; ++sp) {
+            h_x[sp] += rb[5 + (2 + sp) * K + k] * sh[k] * e_in;
+          }
+        }
+      }
+      in[b] = tau_in;
+      in[nbt + b] = g_x;
+      if constexpr (kHeat) {
+        for (int sp = 0; sp < 3; ++sp) in[(2 + sp) * nbt + b] = h_x[sp];
+      }
+    }
+    b0 += d.type_nb[t];
+  }
+}
+
+// out = photo_cell_{HI,HeI,HeII} and the heat of this lane's bands from
+// the incoming side `in` (band_in's, for the same cin) and the outgoing
+// columns; y holds ricotti()'s values (heating only).
+template <typename T, bool kHeat, int kK>
+__device__ __forceinline__ void band_out(const T* tab, const BandTables& d,
+                                         const T* cin, const T* cout,
+                                         T inv_vol, const T* y, const T* in,
+                                         T out[4], int lane, int nlanes) {
+  const int K = kK > 0 ? kK : d.K;
+  const int stride = row_stride<kHeat>(K);
+  const int nbt = d.type_nb[0] + d.type_nb[1] + d.type_nb[2];
+  const int e0 = kHeat ? 5 : 2;
+  const T tiny = Limits<T>::tiny();
+  for (int q = 0; q < 4; ++q) out[q] = T(0);
+  int b0 = 0;
+  for (int t = 0; t < d.ntypes; ++t) {
+    T acc[3] = {T(0), T(0), T(0)};
+    // heat (compensated), f_ion_HI, f_ion_HeI (quadrature.py:437-439)
+    T hacc[3] = {T(0), T(0), T(0)}, hcomp = T(0);
+    for (int b = b0 + lane; b < b0 + d.type_nb[t]; b += nlanes) {
+      const T* rb = tab + b * stride;
+      const T sHI = rb[0], sHeI = rb[1], sHeII = rb[2];
+      const T mHeI = rb[3], mHeII = rb[4];
+      const T* sh = rb + 5;
+      const T* A = rb + 5 + K;
+      const T tau_in = in[b];
+      const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
+      const T tcHI = sHI * (cout[0] - cin[0]);
+      const T tcHeI = sHeI * (cout[1] - cin[1]);
+      const T tcHeII = sHeII * (cout[2] - cin[2]);
+      const T inv = div_flat(T(1), maxp(tcHI + tcHeI + tcHeII, tiny));
+      const T dtau = tau_out - tau_in;
+      const bool thick = xabs(dtau) > T(kTauPhotoLimit);
+      const bool hthick = kHeat && xabs(dtau) > T(kTauHeatLimit);
+      // a thin band reads the shell's thin sums; a thick one sums
+      // A (e_in - e_out), and with heating A_heat (e_in - e_out) (read
+      // only if the heat is thick too)
+      T g_x = in[nbt + b], h_x[3] = {T(0), T(0), T(0)};
+      if (thick) {
+        g_x = T(0);
+#pragma unroll
+        for (int k = 0; k < (kK > 0 ? kK : K); ++k) {
+          const T e_d = in[(e0 + k) * nbt + b] -
+                        xexp(-minp(tau_out * sh[k], T(80)));
+          g_x += A[k] * e_d;
+          if constexpr (kHeat) {
+            for (int sp = 0; sp < 3; ++sp) {
+              h_x[sp] += rb[5 + (2 + sp) * K + k] * e_d;
+            }
+          }
+        }
+      }
+      const T phi_all = thick ? g_x : dtau * g_x;
+      const T pv = phi_all * inv_vol;
+      acc[0] += tcHI * inv * pv;
+      acc[1] += mHeI * (tcHeI * inv) * pv;
+      acc[2] += mHeII * (tcHeII * inv) * pv;
+      if constexpr (kHeat) {
+        const T tc[3] = {tcHI, tcHeI, tcHeII};
+        const T mk[3] = {T(1), mHeI, mHeII};
+        T ph[3];
+        for (int sp = 0; sp < 3; ++sp) {
+          ph[sp] = mk[sp] * (hthick ? tc[sp] * inv * h_x[sp] * inv_vol
+                                    : tc[sp] * in[(2 + sp) * nbt + b] *
+                                          inv_vol);
+        }
+        const T* f = rb + 5 + 5 * K;
+        const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];
+        const T fra2 = f[3] * ph[0] + f[4] * ph[1] + f[5] * ph[2];
+        const T fra3 = f[6] * ph[0] + f[7] * ph[1] + f[8] * ph[2];
+        const T fra4 = f[9] * ph[0] + f[10] * ph[1] + f[11] * ph[2];
+        kahan_add(hacc[0], hcomp,
+                  ph[0] + ph[1] + ph[2] - y[2] * fra3 + y[5] * fra4);
+        hacc[1] += y[0] * fra1 - y[3] * fra2;
+        hacc[2] += y[1] * fra1 - y[4] * fra2;
+      }
+    }
+    if constexpr (kHeat) {
+      out[0] += acc[0] + div_flat(hacc[1], T(kIonEnergyHI));
+      out[1] += acc[1] + div_flat(hacc[2], T(kIonEnergyHeI));
+      out[2] += acc[2];
+      out[3] += hacc[0];
+    } else {
+      for (int q = 0; q < 3; ++q) out[q] += acc[q];
     }
     b0 += d.type_nb[t];
   }

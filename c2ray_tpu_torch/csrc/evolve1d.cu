@@ -9,8 +9,9 @@
 // _cell_photorates (:79) and _cell_columns (:95); on the table route
 // c2ray_tpu/radiation/photo.py: _table_positions (:65), _read (:78),
 // _photo_lookup (:90), _heat_lookup (:123) and photoion_rates (:185);
-// on the quadrature route cell_rates (csrc/band_rates.cuh); the
-// chemistry device functions of csrc/chemistry.cuh.
+// on the quadrature route band_in / band_out (csrc/band_rates.cuh,
+// cell_rates' split form); the chemistry device functions of
+// csrc/chemistry.cuh.
 //
 // Algorithm (the same as evolve1d_plain in onedim/evolve.py): the
 // incoming column triplet starts at the boundary columns; shell i runs
@@ -22,31 +23,55 @@
 // still runs and its iteration count is still reported); the outgoing
 // columns add the columns of the final averaged fractions.
 //
-// Lanes: each of the 32 lanes takes the bands b = lane, lane + 32, ...
-// of every source type (quadrature: the K exponentials of each, with
-// the packed band rows in shared memory; tables: two interpolated reads
-// of each table, through __ldg from global memory or L2 -- the
-// (2001 x nb) tables per source type are ~0.75 MB in float32, too big
-// for shared memory).  The lane partial sums (the heat a Kahan sum per
-// lane) are added by a shuffle butterfly: a fixed order whose result is
-// bit-identical on every lane, so every lane then runs the two doric
-// passes, the thermal sub-cycle and the convergence test on the same
-// values, with no broadcast and no divergence, and a result repeats to
-// the last digit between calls.
+// Launch shape: one block of one warp per timestep.  The march is one
+// serial chain (shell i needs shell i-1's converged column), as the JAX
+// scan is, so one SM of the card's 132 runs it and latency, not
+// throughput, bounds it: one warp's dependent instructions, each waiting
+// for the one before.  Each lane takes the bands b = lane, lane + 32,
+// ... of every source type; a shuffle butterfly adds the lanes' partial
+// rates (the heat a Kahan sum per lane) in a fixed order that leaves the
+// same bits on every lane, so every lane then runs the chemistry on the
+// same values, with no broadcast and no divergence, and a result
+// repeats to the last digit between calls.  A second warp (a lane per
+// band at test 1's 36-47 bands) would add a barrier and a shared-memory
+// sum to every iteration to save part of the rate side, which is not
+// where the time goes (below).
 //
-// Bound: the 1D problem is one serial chain (shell i needs shell i-1's
-// converged column), as the JAX scan is; one launch uses one SM of the
-// card's 132.  Per fixed-point iteration the chain is the rate
-// evaluation of a lane's bands (quadrature: 2K exponentials per band;
-// tables: two log10 and dependent global reads per band), 5 shuffle
-// levels, then two doric solves (each a square root, 3 exp, 3 expm1 and
-// ~20 divisions in sequence) and, with heating, the sub-cycle's
-// sub-steps, each a log10, two table reads and a division in sequence.
-// Latency, not throughput, bounds it; nothing here tries to hide it yet.
-// The quadrature route takes band_rates.cuh's band loop (K unrolled by
-// with_nodes, 1/vol once per shell, only the sums a band's regime
-// reads), which shortens the rate part of the chain; the march itself is
-// not redesigned.
+// Design, from the cycles each part of an iteration took on the
+// chip (clock64 stamps in a copy of this file that
+// tools/profile_torch_iteration.py --oned builds; test 1 at 10000
+// shells, float32, isothermal / heating / tau tables; PERF.md section
+// 6):
+//   1. The incoming side is hoisted out of the fixed-point loop: per
+//      shell, once, band_in (band_rates.cuh) or table_in keeps a band's
+//      tau_in, its K exponentials e_in and thin sums (tables: the reads
+//      at tau_in's position) in shared memory; per iteration band_out /
+//      table_out do the outgoing side only: tau_out, the tau shares, the
+//      regime tests (which may flip between iterations), a thick band's
+//      e_out or its reads at tau_out.  1343 / 1370 / 1357 cycles an
+//      iteration before.
+//   2. The rate fits (rate_coefficients and the Ricotti fits: 29 pows,
+//      5 exps), 6960 of 17586 cycles with heating, run one pow and one
+//      exp per lane in two rounds (spread_fits), gathered by shuffles;
+//      doric's three exp and three expm1 likewise (chemistry.cuh,
+//      PerWarp).  The same functions of the same operands: the same
+//      bits.
+//   3. The (801, 5) cooling table lies in shared memory beside the band
+//      rows, and the table route's band rows too.
+//   4. Every float division of the march is div_flat (common.cuh): the
+//      compiler's division wraps its slow-path branch in a convergence
+//      barrier, so a lone warp ran the ~50 divisions of an iteration one
+//      after the other (doric's two passes, ~4400 of ~6000 cycles).
+//      div_flat gives the same bits without a branch, so independent
+//      divisions overlap.  float64 keeps `/`.
+//   The lane reduction (173 cycles, 2-3%) is left as it was.
+// Measured per float32 iteration over 12 steps, the previous kernel
+// (commit a26c0a1) -> this one (NVIDIA H100 80GB HBM3, 700 W, the two
+// builds in turns): 3.915 -> 2.232 us isothermal, 8.571 -> 4.335 us
+// heating, 4.528 -> 3.316 us on the tau tables; doric's two passes
+// still take ~3200-3800 of ~4900-8500 cycles, a dependent chain now.
+// The quadrature route takes band_rates.cuh's unrolled node loop (K a
+// template parameter).
 
 #include "band_rates.cuh"
 #include "chemistry.cuh"
@@ -101,8 +126,156 @@ __device__ __forceinline__ void cell_columns(T dr, const Ion<T>& x, T nd,
 // onedim/evolve.py's convergence test (|new - old| / new)
 template <typename T>
 __device__ __forceinline__ bool conv1d(T nw, T old) {
-  return xabs(nw - old) / nw < T(kMinFractionalChange) ||
+  return div_flat(xabs(nw - old), nw) < T(kMinFractionalChange) ||
          nw < T(kMinFractionOfAtoms);
+}
+
+// ---- The rate fits, spread over the warp's lanes
+//
+// rates.py:rate_coefficients(t) (chemistry.cuh) and the Ricotti fits
+// ricotti(x) (band_rates.cuh) take 17 + 12 pows, 5 exps and a square
+// root in sequence on every lane.  Here each lane evaluates one pow of
+// the first round (the inner powers), one exp, then one pow of the
+// second round (the outer (1 + ...)^e and (1 - ...)^d, of a first-round
+// value shuffled in), on per-lane operands: the same instructions on
+// every lane, no branch on the lane index.  __shfl_sync gathers the
+// values.  The operands and coefficients are the fits' own (FitArecH0
+// ... in chemistry.cuh, FitY1 / FitY2 in band_rates.cuh); each value is
+// the same function of the same operands as in rate_coefficients and
+// ricotti, so it keeps its bits, and the values are combined in those
+// functions' expression order.
+
+// The first round, one slot per lane: pow(mul * (n / d) / div, e) with
+// (n, d, mul) = (t_ion, t, 2) (a fit's lam = 2 T_ion / t), (t, 1e4, 1),
+// (t, 1, 1) or (x, 1, 1) by `kind` (a division by 1 and a product with 1
+// are exact).  Slots are named by the value they give.
+enum FitKind { kFitLambda, kFitT4, kFitT, kFitX };
+enum Pow1Slot {
+  kArecH0Lam, kArecH0In, kBrecH0Lam, kBrecH0In, kDielT, kAHotLam, kBHotLam,
+  kBrecHe1Lam, kBrecHe1In, kArecHe1Lam, kArecHe1In, kTreche1T4, kVT4,
+  kY1In0, kY1In1, kY1In2, kY2A0, kY2B0, kY2A1, kY2B1, kY2A2, kY2B2,
+  kPow1Slots
+};
+struct Pow1Op {
+  int kind;
+  double num, div, e;
+};
+__constant__ Pow1Op kPow1Ops[] = {
+    {kFitLambda, FitArecH0::t_ion, 1.0, FitArecH0::a},
+    {kFitLambda, FitArecH0::t_ion, FitArecH0::d, FitArecH0::b},
+    {kFitLambda, FitBrecH0::t_ion, 1.0, FitBrecH0::a},
+    {kFitLambda, FitBrecH0::t_ion, FitBrecH0::d, FitBrecH0::b},
+    {kFitT, 0.0, 1.0, FitDielectronic::a},
+    {kFitLambda, FitAHotHe0::t_ion, 1.0, FitAHotHe0::a},
+    {kFitLambda, FitBHotHe0::t_ion, 1.0, FitBHotHe0::a},
+    {kFitLambda, FitBrecHe1::t_ion, 1.0, FitBrecHe1::a},
+    {kFitLambda, FitBrecHe1::t_ion, FitBrecHe1::d, FitBrecHe1::b},
+    {kFitLambda, FitArecHe1::t_ion, 1.0, FitArecHe1::a},
+    {kFitLambda, FitArecHe1::t_ion, FitArecHe1::d, FitArecHe1::b},
+    {kFitT4, 0.0, 1.0, FitTreche1::a},
+    {kFitT4, 0.0, 1.0, FitV::a},
+    {kFitX, 0.0, 1.0, FitY1<0>::b},
+    {kFitX, 0.0, 1.0, FitY1<1>::b},
+    {kFitX, 0.0, 1.0, FitY1<2>::b},
+    {kFitX, 0.0, 1.0, FitY2<0>::a},
+    {kFitX, 0.0, 1.0, FitY2<0>::b},
+    {kFitX, 0.0, 1.0, FitY2<1>::a},
+    {kFitX, 0.0, 1.0, FitY2<1>::b},
+    {kFitX, 0.0, 1.0, FitY2<2>::a},
+    {kFitX, 0.0, 1.0, FitY2<2>::b},
+};
+// The second round: pow(1 + sgn * (first-round slot src), e)
+enum Pow2Slot {
+  kArecH0Out, kBrecH0Out, kBrecHe1Out, kArecHe1Out, kY1Out0, kY1Out1,
+  kY1Out2, kPow2Slots
+};
+struct Pow2Op {
+  int src;
+  double sgn, e;
+};
+__constant__ Pow2Op kPow2Ops[] = {
+    {kArecH0In, 1.0, FitArecH0::e},     {kBrecH0In, 1.0, FitBrecH0::e},
+    {kBrecHe1In, 1.0, FitBrecHe1::e},   {kArecHe1In, 1.0, FitArecHe1::e},
+    {kY1In0, -1.0, FitY1<0>::d},        {kY1In1, -1.0, FitY1<1>::d},
+    {kY1In2, -1.0, FitY1<2>::d},
+};
+// The exps: exp(arg / t)
+enum ExpSlot { kDielE1, kDielE2, kColliHI, kColliHeI, kColliHeII, kExpSlots };
+__constant__ double kExpArgs[] = {FitDielectronic::e1, FitDielectronic::e2,
+                                  -kTempH0, -kTempHe0, -kTempHe1};
+static_assert(sizeof(kPow1Ops) / sizeof(Pow1Op) == kPow1Slots &&
+                  sizeof(kPow2Ops) / sizeof(Pow2Op) == kPow2Slots &&
+                  sizeof(kExpArgs) / sizeof(double) == kExpSlots &&
+                  kPow1Slots <= kLanes,
+              "one slot of each round per lane");
+
+// This lane's operands in the working type, loaded once per launch;
+// lanes past a round's slots repeat its last one.
+template <typename T>
+struct FitOps {
+  bool lambda, by_t4, of_x;
+  int src;
+  T num, div, e1, sgn, e2, arg;
+};
+
+template <typename T>
+__device__ __forceinline__ FitOps<T> fit_ops(int lane) {
+  const Pow1Op& p = kPow1Ops[min(lane, kPow1Slots - 1)];
+  const Pow2Op& q = kPow2Ops[min(lane, kPow2Slots - 1)];
+  return FitOps<T>{p.kind == kFitLambda, p.kind == kFitT4, p.kind == kFitX,
+                   q.src, T(p.num), T(p.div), T(p.e), T(q.sgn), T(q.e),
+                   T(kExpArgs[min(lane, kExpSlots - 1)])};
+}
+
+// rate_coefficients(t) into `r` and, with kRicotti, ricotti(x) into y.
+template <typename T, bool kRicotti>
+__device__ __forceinline__ void spread_fits(const FitOps<T>& o, T t, T x,
+                                            Rates<T>& r, T y[6]) {
+  constexpr unsigned kAll = 0xffffffffu;
+  using D = FitDielectronic;
+  const T n = o.lambda ? o.num : (o.of_x ? x : t);
+  const T d = o.lambda ? t : (o.by_t4 ? T(1.0e4) : T(1));
+  const T q = (o.lambda ? T(2) : T(1)) * div_flat(n, d);
+  const T p1 = xpow(div_flat(q, o.div), o.e1);
+  const T ex = xexp(div_flat(o.arg, t));
+  const T p2 = xpow(T(1) + o.sgn * __shfl_sync(kAll, p1, o.src), o.e2);
+  T P1[kPow1Slots], P2[kPow2Slots], E[kExpSlots];
+#pragma unroll
+  for (int j = 0; j < kPow1Slots; ++j) P1[j] = __shfl_sync(kAll, p1, j);
+#pragma unroll
+  for (int j = 0; j < kPow2Slots; ++j) P2[j] = __shfl_sync(kAll, p2, j);
+#pragma unroll
+  for (int j = 0; j < kExpSlots; ++j) E[j] = __shfl_sync(kAll, ex, j);
+  // rate_coefficients' expressions (recomb_fit: c lam^a / outer)
+  r.arech0 = div_flat(T(FitArecH0::c) * P1[kArecH0Lam], P2[kArecH0Out]);
+  r.brech0 = div_flat(T(FitBrecH0::c) * P1[kBrecH0Lam], P2[kBrecH0Out]);
+  const T dielectronic = T(D::c) * P1[kDielT] * E[kDielE1] *
+                         (T(1) + T(D::f) * E[kDielE2]);
+  const T areche0_hot = T(FitAHotHe0::c) * P1[kAHotLam] + dielectronic;
+  const T breche0_hot = T(FitBHotHe0::c) * P1[kBHotLam] + dielectronic;
+  const bool cold = t < T(kFitColdT);
+  r.areche0 = cold ? r.arech0 : areche0_hot;
+  r.breche0 = cold ? r.brech0 : breche0_hot;
+  r.oreche0 = r.areche0 - r.breche0;
+  r.breche1 = div_flat(T(FitBrecHe1::c) * P1[kBrecHe1Lam], P2[kBrecHe1Out]);
+  r.areche1 = div_flat(T(FitArecHe1::c) * P1[kArecHe1Lam], P2[kArecHe1Out]);
+  r.treche1 = T(FitTreche1::c) * P1[kTreche1T4];
+  r.v = T(FitV::c) * P1[kVT4];
+  const T sqrtT = xsqrt(t);
+  r.colli_HI = T(kColH0) * sqrtT * E[kColliHI];
+  r.colli_HeI = T(kColHe0) * sqrtT * E[kColliHeI];
+  r.colli_HeII = T(kColHe1) * sqrtT * E[kColliHeII];
+  if constexpr (kRicotti) {
+    // y1R: c (outer power); y2R: c x^a xeb xeb
+    y[0] = T(FitY1<0>::c) * P2[kY1Out0];
+    y[1] = T(FitY1<1>::c) * P2[kY1Out1];
+    y[2] = T(FitY1<2>::c) * P2[kY1Out2];
+    const T xeb0 = T(1) - P1[kY2B0], xeb1 = T(1) - P1[kY2B1],
+            xeb2 = T(1) - P1[kY2B2];
+    y[3] = T(FitY2<0>::c) * P1[kY2A0] * xeb0 * xeb0;
+    y[4] = T(FitY2<1>::c) * P1[kY2A1] * xeb1 * xeb1;
+    y[5] = T(FitY2<2>::c) * P1[kY2A2] * xeb2 * xeb2;
+  }
 }
 
 template <typename T>
@@ -116,7 +289,7 @@ struct Pos {
 template <typename T>
 __device__ __forceinline__ Pos<T> table_position(T tau) {
   const T logtau = xlog10(maxp(tau, T(1.0e-20)));
-  const T od = minp(maxp(T(1) + (logtau - T(kMinLogTau)) / T(kDLogTau),
+  const T od = minp(maxp(T(1) + div_flat(logtau - T(kMinLogTau), T(kDLogTau)),
                          T(0)), T(kNumTau));
   Pos<T> p;
   p.i = int(od);
@@ -134,59 +307,98 @@ __device__ __forceinline__ T table_read(const T* tab, int ncols, int col,
   return lo + (hi - lo) * p.r;
 }
 
-// photo.py:photoion_rates with every flux 1, this lane's bands:
-// r = photo_cell_{HI,HeI,HeII} and the heat
+// The table route's incoming side (see band_in in band_rates.cuh): per
+// band, arrays over the nb bands, tau_in and per source type the reads
+// at its table position -- the thick and thin photo reads and with
+// heating the thick and thin heat reads of the three species.
+template <bool kHeat>
+__host__ __device__ __forceinline__ int table_in_values(int ntypes) {
+  return 1 + ntypes * (kHeat ? 8 : 2);
+}
+
 template <typename T, bool kHeat>
-__device__ void table_rates(const Args1D<T>& a, const T* cin,
-                            const T* cout, T vol, const T* y, T r[4],
-                            int lane) {
+__device__ void table_in(const Args1D<T>& a, const T* rows, const T* cin,
+                         T* in, int lane) {
+  const size_t ptab = size_t(kNumTau + 1) * a.nb;
+  const size_t htab = size_t(kNumTau + 1) * a.nheat;
+  const int nb = a.nb;
+  for (int b = lane; b < nb; b += kLanes) {
+    const T* rb = rows + b * kTableRow;
+    const T tau_in = cin[0] * rb[0] + cin[1] * rb[1] + cin[2] * rb[2];
+    const Pos<T> pin = table_position(tau_in);
+    in[b] = tau_in;
+    T* v = in + nb;
+    for (int t = 0; t < a.bt.ntypes; ++t) {
+      const T* tk = a.photo_tab + 2 * t * ptab;
+      v[0 * nb + b] = table_read(tk, nb, b, pin);
+      v[1 * nb + b] = table_read(tk + ptab, nb, b, pin);
+      if constexpr (kHeat) {
+        const T* hk = a.heat_tab + 2 * t * htab;
+        for (int sp = 0; sp < 3; ++sp) {
+          const int col = a.hbin[3 * b + sp];
+          v[(2 + sp) * nb + b] = table_read(hk, a.nheat, col, pin);
+          v[(5 + sp) * nb + b] = table_read(hk + htab, a.nheat, col, pin);
+        }
+      }
+      v += (kHeat ? 8 : 2) * nb;
+    }
+  }
+}
+
+// photo.py:photoion_rates with every flux 1, this lane's bands (their
+// rows `rows`), from the incoming side `in` (table_in's, for the same
+// cin): r =
+// photo_cell_{HI,HeI,HeII} and the heat.  A thin band reads no table: its
+// rates are dtau times the shell's thin reads; a thick band reads its
+// table at tau_out (the heat tables only where the heat is thick too).
+template <typename T, bool kHeat>
+__device__ void table_out(const Args1D<T>& a, const T* rows, const T* cin,
+                          const T* cout, T vol, const T* y, const T* in,
+                          T r[4], int lane) {
   const T tiny = Limits<T>::tiny();
   const size_t ptab = size_t(kNumTau + 1) * a.nb;
   const size_t htab = size_t(kNumTau + 1) * a.nheat;
+  const int nb = a.nb;
   T p[3] = {T(0), T(0), T(0)};
   // heat (compensated), f_ion_HI, f_ion_HeI (photo.py:_heat_lookup)
   T heat = T(0), hcomp = T(0), fion[2] = {T(0), T(0)};
-  for (int b = lane; b < a.nb; b += kLanes) {
-    const T* rb = a.bands + b * kTableRow;
+  for (int b = lane; b < nb; b += kLanes) {
+    const T* rb = rows + b * kTableRow;
     const T sHI = rb[0], sHeI = rb[1], sHeII = rb[2];
     const T mHeI = rb[3], mHeII = rb[4];
-    const T tau_in = cin[0] * sHI + cin[1] * sHeI + cin[2] * sHeII;
+    const T tau_in = in[b];
     const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
-    const Pos<T> pin = table_position(tau_in);
-    const Pos<T> pout = table_position(tau_out);
     // the tau-weighted species split (scale_int2/3)
     const T tc[3] = {sHI * (cout[0] - cin[0]), sHeI * (cout[1] - cin[1]),
                      sHeII * (cout[2] - cin[2])};
-    const T inv = T(1) / maxp(tc[0] + tc[1] + tc[2], tiny);
+    const T inv = div_flat(T(1), maxp(tc[0] + tc[1] + tc[2], tiny));
     const T sc[3] = {tc[0] * inv, tc[1] * inv, tc[2] * inv};
     const T dtau = tau_out - tau_in;
     const bool thick = xabs(dtau) > T(kTauPhotoLimit);
+    const bool hthick = kHeat && xabs(dtau) > T(kTauHeatLimit);
+    Pos<T> pout{0, 0, T(0)};
+    if (thick) pout = table_position(tau_out);
+    const T* v = in + nb;
     for (int t = 0; t < a.bt.ntypes; ++t) {
       const T* tk = a.photo_tab + 2 * t * ptab;
-      const T* tn = tk + ptab;
-      const T phi_in = table_read(tk, a.nb, b, pin);
-      const T phi_all = thick ? phi_in - table_read(tk, a.nb, b, pout)
-                              : dtau * table_read(tn, a.nb, b, pin);
-      p[0] += sc[0] * phi_all / vol;
-      p[1] += mHeI * sc[1] * phi_all / vol;
-      p[2] += mHeII * sc[2] * phi_all / vol;
-    }
-    if constexpr (kHeat) {
-      const bool hthick = xabs(dtau) > T(kTauHeatLimit);
-      const T mk[3] = {T(1), mHeI, mHeII};
-      const int* hb = a.hbin + 3 * b;
-      const T* f = rb + 5;
-      for (int t = 0; t < a.bt.ntypes; ++t) {
+      const T phi_all = thick ? v[b] - table_read(tk, nb, b, pout)
+                              : dtau * v[nb + b];
+      p[0] += div_flat(sc[0] * phi_all, vol);
+      p[1] += div_flat(mHeI * sc[1] * phi_all, vol);
+      p[2] += div_flat(mHeII * sc[2] * phi_all, vol);
+      if constexpr (kHeat) {
+        const T mk[3] = {T(1), mHeI, mHeII};
         const T* hk = a.heat_tab + 2 * t * htab;
-        const T* hn = hk + htab;
+        const T* f = rb + 5;
         T ph[3];
         for (int sp = 0; sp < 3; ++sp) {
-          const int col = hb[sp];
-          const T hin = table_read(hk, a.nheat, col, pin);
-          const T hout = table_read(hk, a.nheat, col, pout);
-          const T thk = sc[sp] * (hin - hout) / vol;
-          const T thn = tc[sp] * table_read(hn, a.nheat, col, pin) / vol;
-          ph[sp] = mk[sp] * (hthick ? thk : thn);
+          const T hin = v[(2 + sp) * nb + b];
+          ph[sp] = mk[sp] *
+                   (hthick ? div_flat(sc[sp] * (hin - table_read(
+                                                     hk, a.nheat,
+                                                     a.hbin[3 * b + sp], pout)),
+                                      vol)
+                           : div_flat(tc[sp] * v[(5 + sp) * nb + b], vol));
         }
         const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];
         const T fra2 = f[3] * ph[0] + f[4] * ph[1] + f[5] * ph[2];
@@ -197,6 +409,7 @@ __device__ void table_rates(const Args1D<T>& a, const T* cin,
         fion[0] += y[0] * fra1 - y[3] * fra2;
         fion[1] += y[1] * fra1 - y[4] * fra2;
       }
+      v += (kHeat ? 8 : 2) * nb;
     }
   }
   r[0] = p[0];
@@ -204,8 +417,8 @@ __device__ void table_rates(const Args1D<T>& a, const T* cin,
   r[2] = p[2];
   r[3] = T(0);
   if constexpr (kHeat) {
-    r[0] += fion[0] / T(kIonEnergyHI);
-    r[1] += fion[1] / T(kIonEnergyHeI);
+    r[0] += div_flat(fion[0], T(kIonEnergyHI));
+    r[1] += div_flat(fion[1], T(kIonEnergyHeI));
     r[3] = heat;
   }
 }
@@ -214,60 +427,77 @@ __device__ void table_rates(const Args1D<T>& a, const T* cin,
 // route)
 template <typename T, bool kHeat, bool kTable, int kK>
 __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
-  extern __shared__ unsigned char smem[];
-  T* tab = reinterpret_cast<T*>(smem);
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
-  if constexpr (!kTable) {
-    load_band_rows<T, kHeat>(a.bands, a.nbt, a.bt.K, tab);
+  // shared memory: the band rows, the shell's incoming side, with
+  // heating the cooling table
+  T* tab = reinterpret_cast<T*>(smem);
+  const int nrow = kTable ? a.nb * kTableRow
+                          : a.nbt * row_stride<kHeat>(kK > 0 ? kK : a.bt.K);
+  for (int k = lane; k < nrow; k += kLanes) tab[k] = a.bands[k];
+  T* in = tab + nrow;
+  T* cool = in + (kTable ? a.nb * table_in_values<kHeat>(a.bt.ntypes)
+                         : a.nbt * in_values<kHeat>(a.bt.K));
+  if constexpr (kHeat) {
+    for (int k = lane; k < kTempPoints * 5; k += kLanes) {
+      cool[k] = a.cool_tab[k];
+    }
   }
-  const T ones[3] = {T(1), T(1), T(1)};   // every source type's flux
+  __syncwarp();
+  const FitOps<T> fo = fit_ops<T>(lane);
   T cd[3] = {a.bnd[0], a.bnd[1], a.bnd[2]};
   int it_sum = 0, it_max = 0, sub_max = 0, sub_sum = 0;
   for (int i = 0; i < a.mesh; ++i) {
     const T nd = a.ndens[i], vol = a.vol[i], t0 = a.temper[i];
     const Ion<T> f0{a.xh[2 * i], a.xh[2 * i + 1], a.xhe[3 * i],
                     a.xhe[3 * i + 1], a.xhe[3 * i + 2]};
+    const T inv_vol = div_flat(T(1), vol);
     IonState<T> ion{f0, f0, f0};
     T temper1 = t0, avg_t = t0;
+    Rates<T> rates;
+    T y[6];
     // isothermal: avg_t stays t0, so the fits are the same every round
-    Rates<T> rates = rate_coefficients(t0);
+    if constexpr (!kHeat) spread_fits<T, false>(fo, t0, T(1), rates, y);
+    // the incoming side, fixed while the shell iterates
+    if constexpr (kTable) {
+      table_in<T, kHeat>(a, tab, cd, in, lane);
+    } else {
+      band_in<T, kHeat, kK>(tab, a.bt, cd, in, lane, kLanes);
+    }
     int nit = 0;
     bool done = false;
     while (!done && nit < a.max_iter) {
       const Ion<T> prev = ion.avg;
       const T temper2 = temper1;
+      // the fits at the previous round's average temperature and HII
+      // fraction
+      if constexpr (kHeat) {
+        spread_fits<T, true>(fo, avg_t, ion.avg.h1, rates, y);
+      }
       // photo rates from the incoming columns and the averaged fractions
       T cc[3];
       cell_columns(a.dr, ion.avg, nd, cc);
       const T cout[3] = {cd[0] + cc[0], cd[1] + cc[1], cd[2] + cc[2]};
-      T y[6];
-      if constexpr (kHeat) ricotti(ion.avg.h1, y);
       T r[4];
       if constexpr (kTable) {
-        table_rates<T, kHeat>(a, cd, cout, vol, y, r, lane);
+        table_out<T, kHeat>(a, tab, cd, cout, vol, y, in, r, lane);
       } else {
-        T o[kHeat ? 6 : 5];
-        cell_rates<T, kHeat, false, kK>(tab, a.bt, ones, cd, cout, vol, y, o,
-                                        nullptr, lane, kLanes);
-        r[0] = o[0];
-        r[1] = o[1];
-        r[2] = o[2];
-        r[3] = T(0);
-        if constexpr (kHeat) r[3] = o[5];
+        band_out<T, kHeat, kK>(tab, a.bt, cd, cout, inv_vol, y, in, r, lane,
+                               kLanes);
       }
       for (int q = 0; q < (kHeat ? 4 : 3); ++q) {
         r[q] = group_sum<kLanes>(r[q]);
       }
-      const T pHI = r[0] / (ion.avg.h0 * nd * T(1.0 - kAbuHe)) + a.g[0];
-      const T pHeI = r[1] / (ion.avg.he0 * nd * T(kAbuHe)) + a.g[1];
-      const T pHeII = r[2] / (ion.avg.he1 * nd * T(kAbuHe)) + a.g[2];
-      if constexpr (kHeat) rates = rate_coefficients(avg_t);
-      const IonState<T> nw = doric_half(a.dt, nd, a.clump, pHI, pHeI, pHeII,
-                                        rates, ion, a.eps, a.one_m_eps, a.dr);
+      const T pHI = div_flat(r[0], ion.avg.h0 * nd * T(1.0 - kAbuHe)) + a.g[0];
+      const T pHeI = div_flat(r[1], ion.avg.he0 * nd * T(kAbuHe)) + a.g[1];
+      const T pHeII = div_flat(r[2], ion.avg.he1 * nd * T(kAbuHe)) + a.g[2];
+      const IonState<T> nw =
+          doric_half<T, PerWarp>(a.dt, nd, a.clump, pHI, pHeI, pHeII, rates, ion,
+                              a.eps, a.one_m_eps, a.dr);
       T temper1_new = t0, avg_t_new = avg_t;
       if constexpr (kHeat) {
-        const ThermalOut<T> th = thermal(a.dt, t0, electrondens(nd, nw.avg),
-                                         nd, nw, r[3], a.cool_tab, a.ccf);
+        const ThermalOut<T> th = thermal<T, PerWarp>(
+            a.dt, t0, electrondens(nd, nw.avg), nd, nw, r[3], cool, a.ccf);
         temper1_new = th.end_t;
         avg_t_new = th.avg_t;
         sub_max = max(sub_max, th.nsub);
@@ -275,7 +505,7 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
       }
       done = conv1d(nw.avg.h0, prev.h0) && conv1d(nw.avg.he0, prev.he0) &&
              conv1d(nw.avg.he1, prev.he1) && conv1d(nw.avg.he2, prev.he2) &&
-             xabs(temper1_new - temper2) / temper1_new <
+             div_flat(xabs(temper1_new - temper2), temper1_new) <
                  T(kMinFractionalChange);
       ion = nw;
       temper1 = temper1_new;
@@ -310,10 +540,21 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
   }
 }
 
+// The shared memory of a launch: the quadrature band rows, the shell's incoming side, with heating the
+// cooling table.
+template <typename T, bool kHeat, bool kTable>
+size_t evolve1d_smem(const Args1D<T>& a) {
+  const size_t n =
+      (kTable ? size_t(a.nb) * (kTableRow + table_in_values<kHeat>(a.bt.ntypes))
+              : size_t(a.nbt) * (row_stride<kHeat>(a.bt.K) +
+                                 in_values<kHeat>(a.bt.K))) +
+      (kHeat ? kTempPoints * 5 : 0);
+  return n * sizeof(T);
+}
+
 template <typename T, bool kHeat, bool kTable>
 int run_evolve1d(const Args1D<T>& a, cudaStream_t stream) {
-  const size_t smem =
-      kTable ? 0 : size_t(a.nbt) * row_stride<kHeat>(a.bt.K) * sizeof(T);
+  const size_t smem = evolve1d_smem<T, kHeat, kTable>(a);
   auto kernel = with_nodes(kTable ? 0 : a.bt.K, [](auto kk) {
     return evolve1d_kernel<T, kHeat, kTable, kTable ? 0 : decltype(kk)::value>;
   });
@@ -321,6 +562,16 @@ int run_evolve1d(const Args1D<T>& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   kernel<<<1, kLanes, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// div_flat against `/`, elementwise (the card test of div_flat)
+__global__ void div_check_kernel(const float* a, const float* b,
+                                 float* q_flat, float* q_ieee, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    q_flat[i] = div_flat(a[i], b[i]);
+    q_ieee[i] = a[i] / b[i];
+  }
 }
 
 }  // namespace
@@ -374,5 +625,15 @@ C2RAY_EVOLVE1D_ENTRY(evolve1d_table_iso_f32, float, false, true)
 C2RAY_EVOLVE1D_ENTRY(evolve1d_table_iso_f64, double, false, true)
 C2RAY_EVOLVE1D_ENTRY(evolve1d_table_heat_f32, float, true, true)
 C2RAY_EVOLVE1D_ENTRY(evolve1d_table_heat_f64, double, true, true)
+
+// q_flat = div_flat(a, b) and q_ieee = a / b for n float pairs; returns
+// the cudaError_t of the launch.
+int evolve1d_div_check(const float* a, const float* b, float* q_flat,
+                       float* q_ieee, int n, void* stream) {
+  c2ray::div_check_kernel<<<(n + 255) / 256, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      a, b, q_flat, q_ieee, n);
+  return cudaGetLastError();
+}
 
 }  // extern "C"

@@ -2354,33 +2354,48 @@ def phase_compare_1d_full(dev, refs):
 # The 1D kernel's latency bound: the dependent chain of one fixed-point
 # iteration, counted from csrc/evolve1d.cu, band_rates.cuh and
 # chemistry.cuh in float32 instructions that each wait for the one
-# before.  A division counts 6 (MUFU.RCP and the 5 FFMA of the IEEE
-# refinement: the build has no fast math), an exponential 6, a square
-# root 5, expm1 and log10 12 each, pow 25; a shuffle, a select, a
-# conversion and a load 1.  Independent work counts once: a lane's K
-# nodes, the three species' divisions, doric's three exp and three
-# expm1, its X/Y/Z divisions, the shell's 1/vol.  Isothermal, quadrature
-# (from the start of an iteration): the rates of a lane's two bands 29
-# (columns 4, tau 3, min and exp 8, the node sum 7, the thick/thin
-# branch 2, x 1/vol and the sums 5); the warp sums 10 (5 shuffles and
-# adds); the per-atom rates 7; the first doric pass 52 (the ionization
-# sums 4, the helium sector's divisions 6, the matrix terms 6, the
-# square root 6, the root identity 10, r2 and X2's divisions 18, the
-# solution and the clamps 10 -- its doric factors come from the
-# previous iteration); the second 55 (its electron density and the same
-# chain); the average, the 1% test and the loop branch 13: 166.  On the
-# table route the rates of a lane's bands, positions (log10 and a
-# division) and reads, take 47: 184.  Heating adds 38 (the Ricotti
-# powers, two pows in sequence, gate the heating sums; the thermal
-# call's set-up and end; the temperature test) and 52 per thermal
-# sub-step (coolin's log10, division, read and 5-term sum, the step
-# size's division, the update and pressr2temper's division).  Each
-# instruction waits at least 4 cycles, the dependent-issue latency of
-# the float32 pipe; MUFU, shuffles and loads wait longer, so this stays
-# a lower bound.  At the card's largest clock.
-ONED_CHAIN = {(False, False): 166, (False, True): 184,
-              (True, False): 204, (True, True): 209}
+# before. A division counts 6, the cheaper of the two sequences the
+# kernel's builds have used: the compiler's (MUFU.RCP and the 5 FFMA of
+# the IEEE refinement, behind a branch that serialized every division
+# of a lone warp) and div_flat's (12: the conversion to double,
+# MUFU.RCP64H, eight dependent DFMA/DMUL, the select and the conversion
+# back). An exponential 6, a square root 5, expm1 and log10 12 each,
+# pow 25; a shuffle, a select, a conversion and a load 1. Independent
+# work counts once: a lane's K nodes, the three species' divisions, the
+# X/Y/Z divisions, the shell's 1/vol. The shell's incoming side (once
+# per shell) is not on the chain: its exponentials and table reads can
+# run beside the outgoing ones. Isothermal, quadrature (from the start
+# of an iteration): the outgoing rates of a lane's two bands 29
+# (columns 4, tau_out 3, min and exp 8, e_in - e_out and the node sum 7,
+# the thick/thin branch 2, x 1/vol and the sums 5); the warp sums 10 (5
+# shuffles and adds); the per-atom rates 7; the first doric pass 53
+# (the ionization sums 4, the helium sector's divisions 6, the matrix
+# terms 6, the square root 6, the root identity 10, r2 and X2's
+# divisions 18, the solution and the clamps 10, and the shuffle that
+# gathers the exponentials the lanes spread -- its doric factors come
+# from the previous iteration); the second 56 (its electron density and
+# the same chain); the average, the 1% test and the loop branch 13:
+# 168. On the table route the outgoing rates of a lane's bands, the
+# position (log10 and a division) and the reads, take 47: 186. Heating
+# adds 40 (the spread fits: a division, two pows in sequence with the
+# shuffle between them, the gathering shuffle, gating the heating sums;
+# the thermal call's set-up and end; the temperature test; 27 on the
+# table route, where the fits run beside the position's log10) and 52
+# per thermal sub-step (coolin's log10, division, read and 5-term sum,
+# the step size's division, the update and pressr2temper's division).
+# Each instruction waits at least 4 cycles, the dependent-issue latency
+# of the float32 pipe; MUFU, double, shuffles and loads wait longer, so
+# this stays a lower bound. At the card's largest clock.
+ONED_CHAIN = {(False, False): 168, (False, True): 186,
+              (True, False): 208, (True, True): 213}
 ONED_CHAIN_SUBSTEP = 52
+# The issue floors of the kernel before its redesign (commit a26c0a1):
+# sass_issue_floor per fixed-point iteration, (heat, table, kK) as in
+# oned_issue_floors (tools/profile_torch_iteration.py --oned --parent).
+# oned_bound takes the smaller of these and this build's floor: both
+# builds compute the same function, so the fewer instructions bound it.
+PARENT_ONED_FLOORS = {(False, False, 6): 1111, (True, False, 6): 1861,
+                      (False, True, 0): 1115, (True, True, 0): 1888}
 CYCLES_PER_DEPENDENT_OP = 4
 SM_CLOCK_HZ = 1.98e9
 
@@ -2594,14 +2609,15 @@ def unrolled_k(K):
     return K if K in (6, 8) else 0
 
 
-def oned_issue_floors():
+def oned_issue_floors(path=None):
     """sass_issue_floor of each float32 evolve1d_kernel instantiation of
-    this run's build: {(heat, table, kK): instructions}, kK the unrolled
-    node count (0: at run time)."""
+    the library at `path` (default: this run's build): {(heat, table,
+    kK): instructions}, kK the unrolled node count (0: at run time)."""
     from c2ray_tpu_torch import cuda_build
 
     floors = {}
-    for name, fn in kernel_sass(cuda_build.library_path("evolve1d")).items():
+    for name, fn in kernel_sass(
+            path or cuda_build.library_path("evolve1d")).items():
         m = re.match(r"\S*evolve1d_kernelIfLb([01])ELb([01])ELi(\d+)E", name)
         if m:
             floors[m.group(1) == "1", m.group(2) == "1",
@@ -2617,8 +2633,9 @@ def oned_bound(ctx, counters, heat, table, floors):
     (quadrature) or two logarithms and 4-10 table reads per band (tables)
     and CHEM_SFU_PER_ITERATION, per sub-step a logarithm and 20 flops --,
     (b) the latency of the iterations' dependent chains (ONED_CHAIN) and
-    (c) one warp's issue floor, `floors` instructions per iteration at
-    one a cycle."""
+    (c) one warp's issue floor at one instruction a cycle: per
+    iteration the fewer of `floors` (this build's) and
+    PARENT_ONED_FLOORS (the same function built before the redesign)."""
     from c2ray_tpu_torch.radiation.quadrature import packed_band_rows
 
     its, subs = int(counters[0]), int(counters[3])
@@ -2640,22 +2657,29 @@ def oned_bound(ctx, counters, heat, table, floors):
     cycles = CYCLES_PER_DEPENDENT_OP * (its * ONED_CHAIN[heat, table]
                                         + subs * ONED_CHAIN_SUBSTEP)
     lat_ms = 1e3 * cycles / SM_CLOCK_HZ
-    issue_ms = 1e3 * its * floors[heat, table, kk] / SM_CLOCK_HZ
+    floor = min(floors[heat, table, kk],
+                PARENT_ONED_FLOORS.get((heat, table, kk), math.inf))
+    issue_ms = 1e3 * its * floor / SM_CLOCK_HZ
     return max((work[0], work[1], "throughput"),
                (lat_ms, "operations", "latency of the dependent chain"),
                (issue_ms, "operations", "one warp's instruction issue"))
 
 
-def phase_oned_times(main, compare):
+def phase_oned_times(main, compare, full):
     """The 1D kernels' times at mesh 10000 (CUDA events, a wrapper call
     on phase 12's final state, mean of 3 after a warm-up) beside their
-    bounds; the plain version's step wall from phase 11 (mesh 128, on
+    bounds, per fixed-point iteration and thermal sub-steps per
+    iteration too, and the float64 step wall of phase 14's one step
+    (`full`); the plain version's step wall from phase 11 (mesh 128, on
     the CPU)."""
     from c2ray_tpu_torch.onedim import evolve as ev1
 
     floors = oned_issue_floors()
-    log(f"issue floors, SASS instructions per fixed-point iteration: "
-        f"{floors}")
+    log("issue floors, SASS instructions per fixed-point iteration (this "
+        "build; the parent build's, a26c0a1, in parentheses; the bound "
+        "takes the smaller): " + ", ".join(
+            f"{k}: {v} ({PARENT_ONED_FLOORS.get(k, 'not measured')})"
+            for k, v in sorted(floors.items())))
     rows = {}
     for name, variant, heat, table in (
             ("evolve1d", "quadrature", False, False),
@@ -2666,10 +2690,14 @@ def phase_oned_times(main, compare):
         _, _, counters = ev1.evolve1d_cuda(run.ctx, run.state, dt)
         b = oned_bound(run.ctx, counters.tolist(), heat, table, floors)
         worst, kp_abs, k128, p128 = compare[variant]
+        its, subs = int(counters[0]), int(counters[3])
         log(f"{name} at mesh {run.ctx.vol.shape[0]}: {ms:.3f} ms per step "
-            f"({int(counters[0])} iterations, {int(counters[3])} thermal "
-            f"sub-steps), bound {b[0]:.3f} ms ({b[2]}); at mesh 128 kernel "
-            f"{k128:.3f} ms, plain (CPU) {p128:.1f} ms")
+            f"({its} iterations, {subs} thermal sub-steps): "
+            f"{1e3 * ms / its:.4f} us per iteration, {subs / its:.3f} "
+            f"sub-steps per iteration; bound {b[0]:.3f} ms ({b[2]}); "
+            f"float64 one step from the initial state (phase 14) "
+            f"{full[name][2]:.3f} ms; at mesh 128 kernel {k128:.3f} ms, "
+            f"plain (CPU) {p128:.1f} ms")
         rows[name] = (ms, b, worst, kp_abs, k128, p128, counters.tolist())
     return rows
 
@@ -2821,7 +2849,8 @@ def run_phases(dev, workdir, ref, oned_refs):
     track_t, pl_t = phase("photon-loss kernel times", phase_track_times,
                           pcfg, ps_, psrc, pnfl)
     lls_t = phase("LLS kernel times", phase_lls_times, r, last_sources)
-    oned_t = phase("1D kernel times", phase_oned_times, main_1d, compare_1d)
+    oned_t = phase("1D kernel times", phase_oned_times, main_1d, compare_1d,
+                   full_1d)
     eng_t = {key: phase(f"{key[0]} engine{' heating' if key[1] else ''} "
                         "kernel times", phase_engine_times, *out[:4], key[0])
              for key, out in eng.items()}
@@ -2924,6 +2953,8 @@ def run_phases(dev, workdir, ref, oned_refs):
              "ms": ms, "plain_ms": p128,
              "plain_shape": "mesh 128, one float32 step, on the CPU",
              "ms_mesh128": k128,
+             "us_per_iteration": 1e3 * ms / counters[0],
+             "substeps_per_iteration": counters[3] / counters[0],
              "ms_f64_mesh10000_step0": k_full,
              "plain_ms_f64_mesh10000_step0": p_full,
              "host_share_of_step_wall": main_1d[name]["host_share"],

@@ -9,6 +9,7 @@ without JAX, run the card tests with
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu
 """
 
+import collections
 import dataclasses
 import os
 import subprocess
@@ -536,15 +537,20 @@ def test_chemistry_kernel_matches_plain(cuda_device, dtype, heating):
 
 # the 1D variants of chip_smoke.py's phase 11: (test problem,
 # isothermal, quadrature route, monochromatic tables, dt in Myr), on
-# the problems of tests/test_onedim.py
+# the problems of tests/test_onedim.py; the "cold" heating runs start
+# at _ONED_COLD_T0 instead of 1e4 K, so that shells heat through
+# rate_coefficients' 9000 K switch (test_1d_cold_heating_cases_*)
 _ONED = {
     "quadrature": (1, True, True, False, 10.0),
     "quadrature_heating": (1, False, True, False, 1.0),
+    "quadrature_heating_cold": (1, False, True, False, 1.0),
     "table": (1, True, False, False, 10.0),
     "table_heating": (1, False, False, False, 1.0),
+    "table_heating_cold": (1, False, False, False, 1.0),
     "monochromatic": (1, True, True, True, 10.0),
     "test4": (4, True, True, False, 5.0),
 }
+_ONED_COLD_T0 = 100.0
 
 
 def _oned_run(variant, mesh, dtype, device):
@@ -554,7 +560,8 @@ def _oned_run(variant, mesh, dtype, device):
                               zred00=9.0)
         r_out, S_star = 700.0, 3.0e50
     else:
-        problem = OneDProblem(testnum=1, dens_val=1e-3, temper_val=1e4,
+        t0 = _ONED_COLD_T0 if variant.endswith("_cold") else 1e4
+        problem = OneDProblem(testnum=1, dens_val=1e-3, temper_val=t0,
                               isothermal=iso)
         r_out, S_star = 10.0, 5.0e48
     sed = SEDConfig(bb=BlackBodySED(T_eff=1e5, S_star=S_star))
@@ -619,6 +626,87 @@ def test_1d_kernel_tables_are_packed_once():
     assert kh.cool.shape == (801, 5) and kh.cool.dtype == torch.float32
 
 
+def test_1d_cold_heating_cases_cross_the_switches():
+    """The cold heating cases (T0 = 100 K) reach the branches that the
+    kernel's fixed point reorders: within one shell's iterations the
+    rate fits see temperatures below and above rate_coefficients' 9000 K
+    switch, and bands cross TAU_PHOTO_LIMIT and TAU_HEAT_LIMIT between
+    iterations (the plain version, one step at mesh 64, recorded)."""
+    from c2ray_tpu_torch.radiation.photo import (TAU_HEAT_LIMIT,
+                                                 TAU_PHOTO_LIMIT)
+
+    for variant in ("quadrature_heating_cold", "table_heating_cold"):
+        run, dt = _oned_run(variant, 64, torch.float64, "cpu")
+        tb = run.ctx.tables
+        sig = torch.stack([tb.sigma_HI, tb.sigma_HeI, tb.sigma_HeII], -1)
+        calls, temps = [], collections.defaultdict(list)
+        photorates, fits = (onedim_evolve._cell_photorates,
+                            onedim_evolve.rate_coefficients)
+        last = [None]     # the shell of the iteration under way
+
+        def record_rates(ctx, cd_in, cc, vol, h1):
+            cin = torch.stack(list(cd_in))
+            calls.append((tuple(cin.tolist()),
+                          (cin + torch.stack(list(cc))) @ sig.T
+                          - cin @ sig.T))
+            last[0] = calls[-1][0]
+            return photorates(ctx, cd_in, cc, vol, h1)
+
+        def record_fits(t):
+            # a shell calls the fits once before its loop (at its first
+            # iteration's temperature), then once in each iteration,
+            # after the photo rates: those are recorded under the shell
+            if last[0] is not None:
+                temps[last[0]].append(float(t))
+                last[0] = None
+            return fits(t)
+
+        onedim_evolve._cell_photorates = record_rates
+        onedim_evolve.rate_coefficients = record_fits
+        try:
+            run.step(dt)
+        finally:
+            onedim_evolve._cell_photorates = photorates
+            onedim_evolve.rate_coefficients = fits
+        flips = {TAU_PHOTO_LIMIT: 0, TAU_HEAT_LIMIT: 0}
+        for (cin, dtau), (cin1, dtau1) in zip(calls, calls[1:]):
+            if cin == cin1:       # the same shell's next iteration
+                for lim in flips:
+                    flips[lim] += int(((dtau.abs() > lim)
+                                       != (dtau1.abs() > lim)).sum())
+        assert min(flips.values()) > 0, (variant, flips)
+        # a shell whose iterations straddle 9000 K
+        assert any(min(ts) < 9.0e3 < max(ts) for ts in temps.values()), \
+            variant
+        assert float(run.state.temper.max()) > 9.0e3 > _ONED_COLD_T0
+
+
+def test_oned_split_stamps_fit_the_kernel():
+    """tools/profile_torch_iteration.py --oned times the parts of the 1D
+    march in a copy of csrc/evolve1d.cu with clock64() stamps: each
+    stamp finds its one place in the kernel as it stands, the stamps
+    run in the order of an iteration, and the copy is the kernel plus
+    the stamps; a kernel without a stamp's place raises."""
+    import re
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import profile_torch_iteration as pti
+
+    src = (cuda_build.CSRC / "evolve1d.cu").read_text()
+    out = pti.stamp_evolve1d(src)
+    body = out[out.index("SPLIT_INIT();"):out.index("SPLIT_STORE();")]
+    assert re.findall(r"SPLIT\((\w+)\);", body) == [
+        "kSplitShell", "kSplitIn", "kSplitFits", "kSplitOut",
+        "kSplitReduce", "kSplitDoric", "kSplitThermal", "kSplitConv"]
+    assert out.index("SPLIT_STORE();") < out.index("a.counters[0] = it_sum")
+    bare = re.sub(r"\n *SPLIT(_INIT|_STORE)?\(\w*\);", "",
+                  out.replace(pti._SPLIT_DEFS, "")
+                  .replace(pti._SPLIT_ENTRY, ""))
+    assert bare == src
+    with pytest.raises(RuntimeError, match="places for a stamp"):
+        pti.stamp_evolve1d(src.replace("++nit;", "nit += 1;"))
+
+
 def _oned_errors(state, ref):
     """Largest |difference| of the fractions and relative one of the
     temperatures from the float64 reference state."""
@@ -665,6 +753,45 @@ def test_evolve1d_kernel_matches_plain(cuda_device, variant, dtype):
             frac_p, temp_p = _oned_errors(plain.state, ref.state)
             assert frac_k <= 2.0 * frac_p + 1e-5, (frac_k, frac_p)
             assert temp_k <= 2.0 * temp_p + 1e-5, (temp_k, temp_p)
+
+
+@pytest.mark.gpu
+def test_div_flat_equals_ieee_division(cuda_device):
+    """The 1D kernel's branch-free float division (common.cuh:div_flat)
+    gives the bits of `/` on the card: random bit patterns over every
+    exponent (normal, subnormal), and zeros, infinities, NaNs and the
+    extremes against each other; a NaN only has to be a NaN."""
+    import ctypes
+
+    rng = np.random.default_rng(11)
+    bits = rng.integers(0, 2**32, size=(2, 1 << 21), dtype=np.uint64)
+    ab = bits.astype(np.uint32).view(np.float32)
+    # quotients near the midpoint of two floats: a = fl(m b), m the
+    # midpoint above a random float of [1, 2), b of [1, 2) with few bits
+    m = (1.0 + rng.integers(0, 2**23, 1 << 20) / 2.0**23
+         + 2.0**-24)
+    bm = 1.0 + rng.integers(0, 2**8, 1 << 20) / 2.0**8
+    near = np.stack([(m * bm).astype(np.float32),
+                     bm.astype(np.float32)])
+    ab = np.concatenate([ab, near], axis=1)
+    edge = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0,
+                     np.finfo(np.float32).tiny, np.finfo(np.float32).max,
+                     np.finfo(np.float32).smallest_subnormal, 3.0, 1e-30,
+                     1e30, 7.1e-7], dtype=np.float32)
+    ea, eb = np.meshgrid(edge, np.concatenate([edge, -edge]))
+    a = np.concatenate([ab[0], ea.ravel()])
+    b = np.concatenate([ab[1], eb.ravel()])
+    ta, tb = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
+    qf, qi = torch.empty_like(ta), torch.empty_like(ta)
+    fn = cuda_build.load("evolve1d").evolve1d_div_check
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    cuda_build.check(fn(*(cuda_build.ptr(t) for t in (ta, tb, qf, qi)),
+                        a.size, cuda_build.stream_of(ta)), "div_check")
+    qf, qi = qf.cpu().numpy(), qi.cpu().numpy()
+    nan = np.isnan(qi)
+    assert np.array_equal(np.isnan(qf), nan)
+    assert np.array_equal(qf[~nan].view(np.uint32), qi[~nan].view(np.uint32))
 
 
 # ---- the L1-shell and skewed-octant sweep kernels

@@ -25,12 +25,36 @@ compiles csrc/pyramid_sweep.cu and csrc/shell_sweep.cu from a copy of
 csrc/ under build/lanes<G>/ with band_rates.cuh's kCellLanes = G, and
 the counts run in turns (G1, G2, ..., G2, G1), CUDA events, mean of 5
 calls after a warm-up each.
+
+    python3 tools/profile_torch_iteration.py --oned [--steps N]
+        [--parent DIR]
+
+`--oned` profiles the 1D kernel (csrc/evolve1d.cu) on test 1 at 10000
+shells instead, in the three variants of chip_smoke.py's phase 12
+(quadrature isothermal and heating, tau tables): N float32 10 Myr steps
+(default 12) and one float64 step from the initial state each.  It
+builds a second copy of the kernel, under build/oned_split/, with
+clock64() stamps inserted into the march (stamp_evolve1d), which give
+the cycles of each part (fits, incoming side, outgoing side, lane
+reduction, doric, thermal sub-cycle, convergence, per-shell work), and
+prints them per fixed-point iteration.  With `--parent DIR` (a checkout
+of another commit, e.g. a `git archive` under build/), its
+csrc/evolve1d.cu is built too and the two builds run in turns (parent,
+this, this, parent) on the same inputs: float32 ms per iteration and
+thermal sub-steps per iteration over the N steps, the float64 step
+wall; and each build's issue floor (chip_smoke.sass_issue_floor: SASS
+instructions per iteration).  It also builds the parent's 3D kernel
+sources that share the 1D kernel's headers (chemistry, pyramid, shell
+and octant sweeps) and counts the
+kernel functions whose SASS equals this tree's.
 """
 
 import argparse
 import os
+import re
 import sys
 import time
+from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -49,9 +73,15 @@ def main():
     ap.add_argument("--mesh", type=int, default=128)
     ap.add_argument("--sources", type=int, default=8)
     ap.add_argument("--lanes", default=None)
+    ap.add_argument("--oned", action="store_true")
+    ap.add_argument("--steps", type=int, default=12)
+    ap.add_argument("--parent", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_iteration: needs a CUDA GPU")
+    if args.oned:
+        profile_oned(args.steps, args.parent)
+        return
 
     import dataclasses
 
@@ -183,6 +213,212 @@ def time_lanes(lanes, state, srcpos, nflux, M):
                 cfg, table, fstack, srcpos, nflux), 5)
             print(f"  {'heating' if heating else 'isothermal'} G = {G}: "
                   f"pyramid {pyr:.3f} ms, shell {shell:.3f} ms")
+
+
+SPLIT_PARTS = ("fits", "incoming", "outgoing", "reduction", "doric",
+               "thermal", "convergence", "shell")
+
+# The stamps of stamp_evolve1d: lane 0 adds up the clock64() cycles of
+# each part of the march, from the stamp before it to its own (each
+# after a __syncwarp()), and the launch leaves them in g_split.
+_SPLIT_DEFS = """
+enum SplitPart {
+  kSplitFits, kSplitIn, kSplitOut, kSplitReduce, kSplitDoric,
+  kSplitThermal, kSplitConv, kSplitShell, kSplitParts
+};
+__device__ unsigned long long g_split[kSplitParts];
+#define SPLIT_INIT()                                  \\
+  unsigned long long split_c[kSplitParts] = {};       \\
+  long long split_t = clock64()
+#define SPLIT(part)                                   \\
+  do {                                                \\
+    __syncwarp();                                     \\
+    const long long split_n = clock64();              \\
+    split_c[part] += split_n - split_t;               \\
+    split_t = split_n;                                \\
+  } while (0)
+#define SPLIT_STORE()                                 \\
+  if (lane == 0) {                                    \\
+    for (int q = 0; q < kSplitParts; ++q) g_split[q] = split_c[q]; \\
+  }
+
+"""
+_SPLIT_ENTRY = """
+// The last launch's cycles per part (SplitPart order) into
+// out[kSplitParts]; returns the cudaError_t of the copy.
+extern "C" int evolve1d_split(unsigned long long* out) {
+  return cudaMemcpyFromSymbol(out, c2ray::g_split,
+                              sizeof(unsigned long long) * c2ray::kSplitParts);
+}
+"""
+# (pattern, stamp): each pattern matches once in csrc/evolve1d.cu; its
+# named group "at" (a zero-width position) is where the stamp goes
+_SPLIT_AT = (
+    (r"(?P<at>)// kK: the quadrature table's K", _SPLIT_DEFS),
+    (r"int it_sum = 0, it_max = 0, sub_max = 0, sub_sum = 0;(?P<at>)",
+     "\n  SPLIT_INIT();"),
+    (r"spread_fits<T, false>\(fo, t0, T\(1\), rates, y\);(?P<at>)",
+     "\n    SPLIT(kSplitShell);"),
+    (r"(?P<at>)\n    int nit = 0;", "\n    SPLIT(kSplitIn);"),
+    (r"(?P<at>)\n      // photo rates from the incoming columns",
+     "\n      SPLIT(kSplitFits);"),
+    (r"(?P<at>)\n      for \(int q = 0; q < \(kHeat \? 4 : 3\); \+\+q\)",
+     "\n      SPLIT(kSplitOut);"),
+    (r"(?P<at>)\n      const T pHI = ", "\n      SPLIT(kSplitReduce);"),
+    (r"(?P<at>)\n      T temper1_new = t0, avg_t_new = avg_t;",
+     "\n      SPLIT(kSplitDoric);"),
+    (r"(?P<at>)\n      done = conv1d\(", "\n      SPLIT(kSplitThermal);"),
+    (r"\n      \+\+nit;(?P<at>)", "\n      SPLIT(kSplitConv);"),
+    (r"(?P<at>)\n  if \(lane == 0\) \{\n    a\.counters\[0\]",
+     "\n  SPLIT_STORE();"),
+)
+
+
+def stamp_evolve1d(text):
+    """csrc/evolve1d.cu's `text` with the clock64() stamps of the split
+    per part and the entry evolve1d_split that reads them; raises if the
+    kernel no longer has a place that a stamp goes to."""
+    for pattern, stamp in _SPLIT_AT:
+        hits = list(re.finditer(pattern, text))
+        if len(hits) != 1:
+            raise RuntimeError(f"{len(hits)} places for a stamp in "
+                               f"evolve1d.cu: {pattern!r}")
+        at = hits[0].start("at")
+        text = text[:at] + stamp + text[at:]
+    return text + _SPLIT_ENTRY
+
+
+def build_oned(src, out, source="evolve1d"):
+    """Start nvcc on `source`.cu of the kernel directory `src` into the
+    library `out`; returns the process."""
+    import subprocess
+
+    from c2ray_tpu_torch import cuda_build
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+         str(out), str(src / f"{source}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def oned_runs(steps):
+    """(name, heating, table, dtype, steps) of the profiled 1D runs."""
+    import chip_smoke as cs
+
+    return [(name, not iso, not quad, dtype, n)
+            for name, iso, quad in cs.ONED_MAIN
+            for dtype, n in ((torch.float32, steps), (torch.float64, 1))]
+
+
+def profile_oned(steps, parent):
+    """--oned: the 1D kernel's split per part and, with a parent build,
+    the two builds in turns."""
+    import ctypes
+    import shutil
+
+    import chip_smoke as cs
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.onedim import evolve as ev1
+
+    dev = torch.device("cuda", 0)
+    base = cuda_build.BUILD_DIR.parent
+    stamped = base / "oned_split"
+    shutil.rmtree(stamped, ignore_errors=True)
+    shutil.copytree(cuda_build.CSRC, stamped)
+    (stamped / "evolve1d.cu").write_text(
+        stamp_evolve1d((cuda_build.CSRC / "evolve1d.cu").read_text()))
+    jobs = {"split": build_oned(stamped, stamped / "libevolve1d.so")}
+    shared = ("chemistry", "pyramid_sweep", "shell_sweep", "octant_sweep")
+    if parent:
+        psrc = Path(parent).resolve() / "c2ray_tpu_torch" / "csrc"
+        jobs["parent"] = build_oned(psrc,
+                                    base / "oned_parent" / "libevolve1d.so")
+        sass_jobs = {(key, n): build_oned(
+            src, base / f"oned_{key}" / f"lib{n}.so", source=n)
+            for key, src in (("this", cuda_build.CSRC), ("parent", psrc))
+            for n in shared}
+    libs = {"this": cuda_build.load("evolve1d")}
+    for key, proc in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the {key} build:\n{out}")
+        libs[key] = ctypes.CDLL(str(base / f"oned_{key}" / "libevolve1d.so"))
+    print(f"{cs.smi_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; 1D test 1, mesh {cs.ONED_FULL_MESH}")
+
+    def step_with(lib, run, dt):
+        cuda_build._LIBS["evolve1d"] = lib
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        run.state, nits, run.last_counters = ev1.evolve1d_cuda(
+            run.ctx, run.state, dt)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), run.last_counters.tolist()
+
+    def runs_of(lib, name, heat, table, dtype, n, split=None):
+        """ms, iterations, thermal sub-steps summed over n steps from
+        the initial state; with `split` the cycles per part added in."""
+        run = cs.oned_run(1, cs.ONED_FULL_MESH, dtype, dev, not heat,
+                          not table)
+        # pack the tables before the first timed launch
+        ev1._kernel_tables(run.ctx, dtype, dev)
+        ms = its = subs = 0
+        for _ in range(n):
+            t, c = step_with(lib, run, 10.0 * cs.MYR)
+            ms, its, subs = ms + t, its + c[0], subs + c[3]
+            if split is not None:
+                part = (ctypes.c_ulonglong * len(SPLIT_PARTS))()
+                cuda_build.check(lib.evolve1d_split(part), "evolve1d_split")
+                for q in range(len(SPLIT_PARTS)):
+                    split[q] += part[q]
+        return ms, its, subs
+
+    print("cycles per fixed-point iteration by part (clock64 stamps, "
+          "lane 0; the effective clock is the stamped launches' cycles "
+          "over their CUDA-event time)")
+    for name, heat, table, dtype, n in oned_runs(steps):
+        split = [0] * len(SPLIT_PARTS)
+        ms, its, subs = runs_of(libs["split"], name, heat, table, dtype, n,
+                                split)
+        ghz = sum(split) / (ms * 1e6)
+        parts = ", ".join(f"{p} {c / its:.0f}" for p, c in
+                          zip(SPLIT_PARTS, split))
+        print(f"  {name} {str(dtype)[6:]} x {n}: {its} iterations, "
+              f"{subs / its:.3f} thermal sub-steps per iteration; "
+              f"{sum(split) / its:.0f} cycles ({1e3 * ms / its:.3f} us) per "
+              f"iteration at {ghz:.3f} GHz: {parts}")
+
+    floors = {key: cs.oned_issue_floors(
+        None if key == "this" else base / f"oned_{key}" / "libevolve1d.so")
+        for key in libs if key in ("this", "parent")}
+    print(f"issue floors, SASS instructions per iteration (heat, table, "
+          f"K): {floors}")
+    if parent:
+        for (key, n), proc in sass_jobs.items():
+            out = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for the {key} {n}.cu:\n{out}")
+        # an anonymous namespace's mangled name carries a hash of the
+        # source's path: drop it before comparing
+        anon = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
+        norm = lambda path: {anon.sub("(anon)", k): anon.sub("(anon)", v)
+                             for k, v in cs.kernel_sass(path).items()}
+        for n in shared:
+            mine = norm(base / "oned_this" / f"lib{n}.so")
+            theirs = norm(base / "oned_parent" / f"lib{n}.so")
+            same = sum(mine.get(k) == v for k, v in theirs.items())
+            print(f"{n}.cu: {same} of {len(theirs)} kernel functions' SASS "
+                  f"equal to the parent's ({len(mine)} in this build)")
+    order = ["parent", "this", "this", "parent"] if parent else ["this"]
+    print("builds in turns: " + ", ".join(order))
+    for name, heat, table, dtype, n in oned_runs(steps):
+        for key in order:
+            ms, its, subs = runs_of(libs[key], name, heat, table, dtype, n)
+            print(f"  {name} {str(dtype)[6:]} x {n} {key}: {ms:.3f} ms, "
+                  f"{its} iterations, {1e3 * ms / its:.4f} us per "
+                  f"iteration, {subs / its:.3f} sub-steps per iteration")
 
 
 if __name__ == "__main__":

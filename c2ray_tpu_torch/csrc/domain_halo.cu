@@ -31,8 +31,21 @@
 // output cell; window_accumulate reads the cube and reads and writes the
 // window of rc; fold_halo reads up to 9 rc values per channel of an
 // output cell (where the pads overlap the core) and the received
-// chunks, and writes one.  Neighbouring threads touch neighbouring z
-// (window_accumulate: neighbouring values of a window row).
+// chunks, and writes one.  window_accumulate's and fold_halo's
+// neighbouring threads touch neighbouring values.
+//
+// halo_pack's design: its output is interleaved, C = 5 or 6 values per
+// cell, and a thread per cell storing its C values one by one at a
+// stride of 4C bytes left a warp's store touching 20-24 partial sectors
+// (0.54 ms at the main path's 128^3, 23% of HBM's rate).  Now a block
+// stages whole output rows (x, y) in shared memory, at most kPackZ cells
+// at a time: a core row reads the C planar field rows of length M
+// coalesced, applying the epsilon floor on the way; a halo row reads its
+// (M, C) source row.  Then the block writes the row's values with
+// 16-byte stores, after a scalar head up to the row's first 16-byte
+// boundary (a row of Y x C values need not start on one: 440 bytes at
+// M = 18, P = 2, C = 5) and with a scalar tail.  y and z wrap by
+// comparison.
 
 #include "common.cuh"
 
@@ -41,43 +54,88 @@ namespace {
 
 constexpr int kBlock = 256;
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  const int r = i % n;
-  return r < 0 ? r + n : r;
+// i in [-n, 2n) wrapped into [0, n), without a division
+__device__ __forceinline__ int wrap1(int i, int n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
 }
 
-// Each kernel runs one block row per (plane, row) of its output --
-// blockIdx.z the x plane, blockIdx.y the y row -- and its threads along
-// the row, so no thread divides an index.
+// halo_pack: threads per block, and output cells a block stages at a time
+constexpr int kPackBlock = 128;
+constexpr int kPackZ = 256;
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
+// One output row (x, y) per block: blockIdx.y the x plane, blockIdx.x
+// the y row.
+template <typename T, int C>
+__global__ void __launch_bounds__(kPackBlock)
 halo_pack_kernel(const T* f0, const T* f1, const T* f2, const T* f3,
-                 const T* f4, const T* lls, int C, const T* left,
-                 const T* right, int M, int HL, int c0, int NC, int P,
-                 T eps, T* out) {
+                 const T* f4, const T* lls, const T* left, const T* right,
+                 int M, int HL, int c0, int NC, int P, T eps, T* out) {
+  __shared__ __align__(16) T row[kPackZ * C];
   const int Y = M + 2 * P;
-  const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  if (z >= Y) return;
-  const int x = blockIdx.z, y = blockIdx.y;
-  const long long yz = (long long)wrap(y - P, M) * M + wrap(z - P, M);
-  T* o = out + (((long long)x * Y + y) * Y + z) * C;
+  const int x = blockIdx.y, y = blockIdx.x;
+  const int yy = wrap1(y - P, M);
+  const T* halo = nullptr;   // the (M, C) source row of a halo plane
+  long long cell = 0;        // else the first cell of the core row
   if (x < HL) {
-    const T* s = left + ((long long)x * M * M + yz) * C;
-    for (int c = 0; c < C; ++c) o[c] = s[c];
-  } else if (x < HL + NC) {
-    const long long cell = (long long)(c0 + x - HL) * M * M + yz;
-    o[0] = f0[cell];
-    o[1] = maxp(f1[cell], eps);
-    o[2] = maxp(f2[cell], eps);
-    o[3] = maxp(f3[cell], eps);
-    o[4] = maxp(f4[cell], eps);
-    if (C > 5) o[5] = lls[cell];
+    halo = left + ((long long)x * M + yy) * M * C;
+  } else if (x >= HL + NC) {
+    halo = right + ((long long)(x - HL - NC) * M + yy) * M * C;
   } else {
-    const T* s = right + ((long long)(x - HL - NC) * M * M + yz) * C;
-    for (int c = 0; c < C; ++c) o[c] = s[c];
+    cell = ((long long)(c0 + x - HL) * M + yy) * M;
+  }
+  T* orow = out + ((long long)x * Y + y) * Y * C;
+  constexpr int V = 16 / sizeof(T);
+  using Vec = typename Vec16<T>::type;
+  for (int z0 = 0; z0 < Y; z0 += kPackZ) {
+    const int nz = min(kPackZ, Y - z0);
+    if (halo != nullptr) {
+      for (int j = threadIdx.x; j < nz * C; j += kPackBlock) {
+        const int zz = j / C;
+        row[j] = halo[wrap1(z0 + zz - P, M) * C + (j - zz * C)];
+      }
+    } else {
+      for (int zz = threadIdx.x; zz < nz; zz += kPackBlock) {
+        const long long src = cell + wrap1(z0 + zz - P, M);
+        T* d = row + zz * C;
+        d[0] = f0[src];
+        d[1] = maxp(f1[src], eps);
+        d[2] = maxp(f2[src], eps);
+        d[3] = maxp(f3[src], eps);
+        d[4] = maxp(f4[src], eps);
+        if constexpr (C > 5) d[5] = lls[src];
+      }
+    }
+    __syncthreads();
+    // the values of output cells z0 .. z0 + nz - 1: scalars up to the
+    // first 16-byte boundary, then 16-byte vectors, then scalars
+    T* o = orow + (long long)z0 * C;
+    const int n = nz * C;
+    const int head = min(
+        n, int(((16 - (reinterpret_cast<unsigned long long>(o) & 15)) & 15) /
+               sizeof(T)));
+    const int nvec = (n - head) / V;
+    if (threadIdx.x < head) o[threadIdx.x] = row[threadIdx.x];
+    for (int q = threadIdx.x; q < nvec; q += kPackBlock) {
+      const int j = head + q * V;
+      Vec v;
+      T* vp = reinterpret_cast<T*>(&v);
+      for (int k = 0; k < V; ++k) vp[k] = row[j + k];
+      *reinterpret_cast<Vec*>(o + j) = v;
+    }
+    for (int j = head + nvec * V + threadIdx.x; j < n; j += kPackBlock) {
+      o[j] = row[j];
+    }
+    __syncthreads();
   }
 }
+
+// window_accumulate and fold_halo run one block row per (plane, row) of
+// their output -- blockIdx.z the x plane, blockIdx.y the y row -- and
+// their threads along the row, so no thread divides an index.
 
 // a thread per value of a window row (Mw cells x 4 channels)
 template <typename T>
@@ -141,18 +199,26 @@ dim3 grid_for(int row, int rows, int planes) {
 extern "C" {
 
 // Each entry returns the cudaError_t of its launch (0 on success); the
-// planes and rows of a launch are at most 65535 each.
+// planes of a launch, and the rows of window_accumulate's and
+// fold_halo's, are at most 65535 each.
 #define C2RAY_HALO_ENTRIES(SFX, T)                                            \
   int halo_pack_##SFX(const T* f0, const T* f1, const T* f2, const T* f3,     \
                       const T* f4, const T* lls, int C, const T* left,        \
                       const T* right, int M, int HL, int c0, int NC, int HR,  \
                       int P, double eps, T* out, void* stream) {              \
-    const int Y = M + 2 * P;                                                  \
-    c2ray::halo_pack_kernel<T>                                                \
-        <<<c2ray::grid_for(Y, Y, HL + NC + HR), c2ray::kBlock, 0,             \
-           static_cast<cudaStream_t>(stream)>>>(f0, f1, f2, f3, f4, lls, C,   \
-                                                left, right, M, HL, c0, NC,   \
-                                                P, T(eps), out);              \
+    const dim3 grid(M + 2 * P, HL + NC + HR);                                 \
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);                \
+    if (C == 5) {                                                             \
+      c2ray::halo_pack_kernel<T, 5><<<grid, c2ray::kPackBlock, 0, st>>>(      \
+          f0, f1, f2, f3, f4, lls, left, right, M, HL, c0, NC, P, T(eps),     \
+          out);                                                               \
+    } else if (C == 6) {                                                      \
+      c2ray::halo_pack_kernel<T, 6><<<grid, c2ray::kPackBlock, 0, st>>>(      \
+          f0, f1, f2, f3, f4, lls, left, right, M, HL, c0, NC, P, T(eps),     \
+          out);                                                               \
+    } else {                                                                  \
+      return cudaErrorInvalidValue;                                           \
+    }                                                                         \
     return cudaGetLastError();                                                \
   }                                                                           \
   int window_accumulate_##SFX(T* rc, const T* cube, int X, int Y, int Z,      \

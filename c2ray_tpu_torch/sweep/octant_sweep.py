@@ -20,9 +20,11 @@ absolute coordinates.
 
 `octant_sweep_plain` does that with index tensors over (source, octant,
 b, c) per plane; `octant_sweep_cuda` launches the hand-written kernel
-``csrc/octant_sweep.cu``, one launch per plane.  Both return per-source
-rate slabs and photon losses, which `sweep_octant_source_batch` sums
-over sources in fixed order.  As in JAX, the LLS loss is 0 even with a
+``csrc/octant_sweep.cu``, one launch per plane over the plane's valid
+positions only, at lanes per cell chosen by its width.  Both return
+per-source rate slabs and photon losses, which
+`sweep_octant_source_batch` sums over sources in fixed order.  As in
+JAX, the LLS loss is 0 even with a
 homogeneous LLS column (octant_sweep.py:328, ROADMAP Queue 3), and
 `evolve3d`'s `dr`, `vol_over_scale` and `lls_grid` do not reach this
 engine.
@@ -30,20 +32,25 @@ engine.
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import constants as const
 from .. import cuda_build
 from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
-from .source_sweep import (_ABU, RateGrids, SourceFields, SweepConfig,
-                           _base_cols, _cell_rates, _check_kernel_inputs,
-                           _kernel_tables, _same_device, _scalars,
-                           _source_group, _type_args, stack_sweep_fields)
+from .source_sweep import (_ABU, _BLOCK, RateGrids, SourceFields,
+                           SweepConfig, _base_cols, _cell_rates,
+                           _check_kernel_inputs, _kernel_tables,
+                           _same_device, _scalars, _source_group,
+                           _type_args, stack_sweep_fields)
 
 # sweeps run through the octant kernel, one count per octant_sweep_cuda
 # call (which launches one kernel per plane), isothermal or heating
 launches = 0
 launches_heat = 0
+# plane launches of the octant kernel by lanes per cell
+PLANE_LANES = (1, 2, 4, 8)        # kPlaneLanes of csrc/octant_sweep.cu
+launches_lanes = {G: 0 for G in PLANE_LANES}
 
 
 def _octant_signs():
@@ -56,6 +63,90 @@ def _octant_signs():
 def _check_mesh(M: int):
     if M % 2 or M < 2:
         raise ValueError(f"the octant engine needs an even mesh, not {M}")
+
+
+def plane_rows(M: int):
+    """The valid positions of every causal plane s = 1..3R (R = M/2) of
+    every octant, as rows of consecutive c: for plane s, octant o and b
+    in max(0, s - vx - vz)..min(vy, s), c runs from max(0, s - b - vx)
+    to min(vz, s - b) (v = R toward +, R - 1 toward -), the validity
+    test of `octant_sweep_plain`.  Rows are ordered by (s, o, b).
+
+    Returns numpy int arrays (row0 (3R + 1,): the first row of each
+    plane; rows (n_rows, 4): [octant, b, first c, position of the row's
+    first cell in its plane's compact order]; cells (3R,): valid
+    positions per plane over the 8 octants)."""
+    R = M // 2
+    s = np.arange(1, 3 * R + 1)[:, None, None]
+    o = np.arange(8)[None, :, None]
+    b = np.arange(R + 1)[None, None, :]
+    vmax = np.where(np.array(_octant_signs()) > 0, R, R - 1)      # (8, 3)
+    vx, vy, vz = (vmax[:, k][None, :, None] for k in range(3))
+    c_lo = np.maximum(0, s - b - vx)
+    n = np.minimum(vz, s - b) - c_lo + 1
+    keep = (b <= vy) & (n > 0)                                    # (3R, 8, R+1)
+    shape = keep.shape
+    sel = np.nonzero(keep)
+    n_kept = n[sel]
+    per_plane = np.bincount(sel[0], minlength=3 * R)
+    row0 = np.concatenate([[0], np.cumsum(per_plane)])
+    cells = np.bincount(sel[0], weights=n_kept, minlength=3 * R).astype(
+        np.int64)
+    ends = np.cumsum(n_kept)
+    first = ends - n_kept - np.repeat(np.concatenate([[0], np.cumsum(
+        cells)[:-1]]), per_plane)
+    rows = np.stack([np.broadcast_to(o, shape)[sel],
+                     np.broadcast_to(b, shape)[sel],
+                     c_lo[sel], first], axis=1)
+    return row0, rows, cells
+
+
+# a plane of n cell steps over all its sources runs G lanes per cell, G
+# of the first (bound, G) with n <= bound, else 1: chosen from every
+# plane's device time at each G at the bench's 128^3 x 8 (tools/
+# profile_torch_iteration.py --octant --lanes 1,2,4,8; PERF.md)
+_LANES_BY_WIDTH = ((12288, 8), (24576, 4), (49152, 2))
+
+
+def _plane_lanes(n: int) -> int:
+    """Lanes per cell of a plane launch of n cell steps over all its
+    sources: more lanes where the plane is far below a wave of the card
+    (132 SMs x 2048 threads), where one cell's serial band loop sets the
+    launch's time; one lane from a fifth of a wave up, where the lanes'
+    repeated corner reads, interpolation and row search cost more than
+    the shorter band loop saves."""
+    for bound, G in _LANES_BY_WIDTH:
+        if n <= bound:
+            return G
+    return 1
+
+
+_PLANE_TABLES = {}
+
+
+def _plane_table(M: int, device):
+    """(row0, cells, the rows of plane_rows as an (n_rows, 4) int32 table
+    on `device`), built once per mesh and device."""
+    key = (M, str(device))
+    if key not in _PLANE_TABLES:
+        row0, rows, cells = plane_rows(M)
+        _PLANE_TABLES[key] = (row0, cells, torch.as_tensor(
+            rows, dtype=torch.int32).contiguous().to(device))
+    return _PLANE_TABLES[key]
+
+
+def plane_plan(S: int, row0, cells):
+    """The launches of a sweep of S sources: per plane s = 1..3R a row
+    [first row, rows, cells, lanes per cell, blocks per source, first
+    loss slot] (int32, the kernel's PlanePlan), and the loss slots per
+    source.  The blocks of a plane cover its cells times its lanes in
+    blocks of _BLOCK threads; the planes' slots follow each other."""
+    lanes = np.array([_plane_lanes(S * int(n)) for n in cells])
+    nblk = -(-cells * lanes // _BLOCK)
+    slot0 = np.concatenate([[0], np.cumsum(nblk)[:-1]])
+    plan = np.stack([row0[:-1], np.diff(row0), cells, lanes, nblk, slot0],
+                    axis=1).astype(np.int32)
+    return np.ascontiguousarray(plan), int(nblk.sum())
 
 
 def _shift_bc(p, db: int, dc: int):
@@ -221,7 +312,10 @@ def octant_sweep_cuda(cfg: SweepConfig, fstack, srcpos, nflux):
     quadrature.py:_one_source_quad through the shared cell step
     (csrc/short_char.cuh).  Bound on the card by the K-node
     exponentials of the owned cells; a source's planes take 8 x 4 x
-    (M/2+1)^2 x 3 values, no column cube.
+    (M/2+1)^2 x 3 values, no column cube.  Each plane launches its
+    valid positions only (plane_rows), at the lanes per cell of
+    `_plane_lanes`; the ring starts filled with NaN, so a read of a
+    position the sweep did not write would show in the outputs.
     """
     global launches, launches_heat
     _check_kernel_inputs(fstack, srcpos, nflux, cfg)
@@ -233,31 +327,33 @@ def octant_sweep_cuda(cfg: SweepConfig, fstack, srcpos, nflux):
     fields = fstack.contiguous()
     sp = srcpos.to(dtype=torch.int32).contiguous()
     nfl = nflux.to(dtype=dtype).contiguous()
+    row0, cells, rows = _plane_table(M, device)
+    plan, nslots = plane_plan(S, row0, cells)
 
     lib = cuda_build.load("octant_sweep")
-    lib.octant_sweep_slots.argtypes = [ctypes.c_int]
-    lib.octant_sweep_slots.restype = ctypes.c_int
-    nslots = lib.octant_sweep_slots(M)
-    ring = torch.zeros((S, 8, 4, R + 1, R + 1, 3), dtype=dtype, device=device)
+    ring = torch.full((S, 8, 4, R + 1, R + 1, 3), float("nan"), dtype=dtype,
+                      device=device)
     slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
     partials = torch.zeros((S, nslots), dtype=dtype, device=device)
     name = ("octant_sweep_" + ("heat_" if heat else "")
             + ("f32" if dtype == torch.float32 else "f64"))
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
                    + [ctypes.c_double] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     P = cuda_build.ptr
-    err = fn(P(fields), P(sp), P(nfl), P(packed), P(ring), P(slab),
-             P(partials), M, S, K, len(types), *_type_args(types),
-             float(cfg.dr), float(cfg.vol / cfg.flux_scale),
-             float(cfg.coldensh_LLS), float(cfg.max_coldensh),
-             cuda_build.stream_of(fields))
+    err = fn(P(fields), P(sp), P(nfl), P(packed), P(rows), P(ring), P(slab),
+             P(partials), plan.ctypes.data_as(ctypes.c_void_p), nslots, M, S,
+             K, len(types), *_type_args(types), float(cfg.dr),
+             float(cfg.vol / cfg.flux_scale), float(cfg.coldensh_LLS),
+             float(cfg.max_coldensh), cuda_build.stream_of(fields))
     cuda_build.check(err, name)
     if heat:
         launches_heat += 1
     else:
         launches += 1
+    for G, n in zip(*np.unique(plan[plan[:, 2] > 0, 3], return_counts=True)):
+        launches_lanes[int(G)] += int(n)
     return slab, partials.sum(dim=1)
 
 

@@ -105,8 +105,9 @@ is held against the JAX package by the CPU tests in gloo processes):
 18. the three halo kernels (``csrc/domain_halo.cu``: halo_pack,
    window_accumulate, fold_halo) against their plain versions on the
    card, float64 and float32, with 5 and 6 channels, at the slab shapes
-   of 8 ranks at 32^3 radius 5 (S = 4, H = 6) and of one rank at 128^3,
-   full radius (S = 128, H = 64): equal to the bit;
+   of 8 ranks at 32^3 radius 5 (S = 4, H = 6), of one rank at 128^3,
+   full radius (S = 128, H = 64), and of one rank at 18^3, radius 1
+   (H = 2: float32 pack rows not 16-byte aligned): equal to the bit;
 19. NCCL at world size 1 (a process group met through a FileStore under
    build/chip_smoke/): the collectives, a CPU tensor refused, and the
    time of an all-reduce of the four rate grids and of an all-gather
@@ -121,19 +122,22 @@ is held against the JAX package by the CPU tests in gloo processes):
    phase 10's configuration: its mean ionized fraction within 1% of
    phase 10's, the same output files.
 
-Then the halo kernels' times at 128^3, world size 1, full radius.
+Then the halo kernels' times at 128^3, world size 1, full radius, with
+the rate each achieves and its share of the bound.
 
 The sweep redesign (lanes per cell, the node loop unrolled, one
 division per band) adds, last:
 
-22. for the pyramid stage kernel and the shell kernel at 128^3 x 8,
-   float32, isothermal and heating (phases 4 and 5's states): the band
-   loop's instruction mix from `cuobjdump -sass` (`sass_band_mix`:
-   MUFU.EX2, float32-pipe and all instructions per band; one MUFU.EX2
-   per exponential and one MUFU.RCP), the
-   launches' device times from torch.profiler grouped by layer (shell)
-   against the sweep's CUDA-event time (the rest: launch gaps and the
-   sweep's other work), and two calls equal to the bit.
+22. for the pyramid stage kernel, the shell kernel and the octant plane
+   kernel at 128^3 x 8, float32, isothermal and heating (phases 4 and
+   5's states): the band loop's instruction mix from `cuobjdump -sass`
+   (`sass_band_mix`: MUFU.EX2, float32-pipe and all instructions per
+   band; one MUFU.EX2 per exponential and one MUFU.RCP), the launches'
+   device times from torch.profiler grouped by layer, shell or plane
+   (`octant_plane_groups`) with their cell steps, against the sweep's
+   CUDA-event time (the rest: launch gaps and the sweep's other work),
+   the octant kernel's plane launches by lanes per cell, and two calls
+   equal to the bit.
 
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
@@ -630,6 +634,8 @@ def reset_launch_counts():
     ev1.launches_table = ev1.launches_table_heat = 0
     source_sweep.launches = source_sweep.launches_heat = 0
     octant_sweep.launches = octant_sweep.launches_heat = 0
+    octant_sweep.launches_lanes.update(
+        dict.fromkeys(octant_sweep.launches_lanes, 0))
     halo.launches_pack = halo.launches_accumulate = halo.launches_fold = 0
 
 
@@ -766,6 +772,11 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
         mine = (ENGINE_KERNEL.get(engine, "pyramid_sweep") + sfx,
                 "chemistry" + sfx)
     check_launches(name, counts, mine)
+    if engine == "octant":
+        from c2ray_tpu_torch.sweep import octant_sweep as oc
+
+        log(f"  octant plane launches by lanes per cell: "
+            f"{dict(oc.launches_lanes)}")
     for t in (*s, *s_evo):
         if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name} produced non-finite state")
@@ -1523,6 +1534,49 @@ def phase_engine_times(cfg, s, srcpos, nflux, engine):
 LAYER_GROUPS = ((1, 16), (17, 40), (41, 64), (65, 10**9))
 
 
+def octant_plane_groups(R):
+    """The octant kernel's planes s = 1..3R (R = M/2) in groups: the
+    narrow head (s <= R/4, then <= 5R/8), the middle, and the tail's
+    mirror images (at R = 64: 1-16, 17-40, 41-152, 153-176, 177-192)."""
+    q1, q2, n = R // 4, 5 * R // 8, 3 * R
+    return ((1, q1), (q1 + 1, q2), (q2 + 1, n - q2), (n - q2 + 1, n - q1),
+            (n - q1 + 1, n))
+
+
+def pyramid_layer_cells(M, S):
+    """Cell steps of each layer l = 1..M/2 of the pyramid kernel over S
+    sources: the offsets of the extents -(M/2-1)..M/2 at Chebyshev
+    distance l."""
+    Rf, Rb = M // 2, M // 2 - 1
+    w = lambda l: min(l, Rb) + min(l, Rf) + 1
+    return [S * (w(l)**3 - w(l - 1)**3) for l in range(1, Rf + 1)]
+
+
+def octant_plane_cells(M, S):
+    """Cell steps of each plane s = 1..3R of the octant kernel over S
+    sources: the valid positions of the 8 octants (face cells once per
+    octant that holds them)."""
+    from c2ray_tpu_torch.sweep.octant_sweep import plane_rows
+
+    return [S * int(n) for n in plane_rows(M)[2]]
+
+
+def grouped_launches(durs, groups, cells, per=1):
+    """[(label, launches, device ms, cell steps, ns per cell step)] of a
+    sweep's launches (device ms in launch order, `per` launches to a
+    layer or plane) by groups of layers or planes (1-based, inclusive);
+    `cells` the cell steps of each layer or plane."""
+    out = []
+    for lo, hi in groups:
+        hi = min(hi, len(durs) // per)
+        if lo > hi:
+            continue
+        ms = sum(durs[per * (lo - 1):per * hi])
+        n = int(sum(cells[lo - 1:hi]))
+        out.append((f"{lo}-{hi}", per * (hi - lo + 1), ms, n, 1e6 * ms / n))
+    return out
+
+
 def launch_profile(fn, kernel, n):
     """(device ms of each of the n launches of a kernel whose name holds
     `kernel` in one fn(), in launch order; ms from the first one's start
@@ -1550,42 +1604,54 @@ def launch_profile(fn, kernel, n):
 
 
 def phase_sweep_redesign(cfg, s, srcpos, nflux):
-    """Phase 22: the redesigned pyramid stage kernel and shell kernel at
-    the main path's shapes (phase 4's or 5's state, float32): their band
-    loop's SASS mix (`sass_band_mix` of the instantiation this table's K
-    runs) with one MUFU.EX2 per exponential (2K per band) and one
-    MUFU.RCP (the tau share's reciprocal: no division by the cell
-    volume); each kernel's launches' device times from
-    torch.profiler, grouped by layer or shell (LAYER_GROUPS), against
-    the sweep's CUDA-event time, the rest being launch gaps and the
-    sweep's other work (zeroing, the source cells, the partial sums);
-    two calls equal to the bit.  Returns {kernels-line name: extra
-    keys}."""
+    """Phase 22: the redesigned pyramid stage kernel, shell kernel and
+    octant plane kernel at the main path's shapes (phase 4's or 5's
+    state, float32): their band loop's SASS mix (`sass_band_mix` of the
+    instantiation this table's K runs; the octant kernel's at the lanes
+    per cell of its widest plane) with one MUFU.EX2 per exponential (2K
+    per band) and one MUFU.RCP (the tau share's reciprocal: no division
+    by the cell volume); each kernel's launches' device times from
+    torch.profiler, grouped by layer, shell or plane (LAYER_GROUPS,
+    octant_plane_groups) with their cell steps, against the sweep's
+    CUDA-event time, the rest being launch gaps and the sweep's other
+    work (zeroing, the source cells, the partial sums); two calls equal
+    to the bit.  Returns {kernels-line name: extra keys}."""
     from c2ray_tpu_torch import cuda_build
     from c2ray_tpu_torch.radiation.quadrature import packed_band_rows
     from c2ray_tpu_torch.sweep import build_shell_table
+    from c2ray_tpu_torch.sweep import octant_sweep as oc
     from c2ray_tpu_torch.sweep import pyramid_sweep as ps
     from c2ray_tpu_torch.sweep.source_sweep import sweep_heats
 
     sw = cfg.sweep
+    M, S = sw.mesh, srcpos.shape[0]
     heat = sweep_heats(sw)
     K = packed_band_rows(sw.tables, torch.float32, heat, sw.has_bb,
                          sw.has_pl, sw.has_qso)[2]
     kk, flag = unrolled_k(K), int(heat)
     fstack = ps.stack_sweep_fields(sw, fields_of(s))
-    Rf, Rb = ps.trace_extents(sw.mesh)
-    table = build_shell_table(sw.mesh)
+    Rf, Rb = ps.trace_extents(M)
+    table = build_shell_table(M)
     shell = engine_trace_fns("shells", table)[0]
+    ocells = octant_plane_cells(M, S)
+    wide = oc._plane_lanes(max(ocells))
     sfx = "_heat" if heat else ""
     cases = (
         ("pyramid_sweep" + sfx, "pyramid_sweep", "stage_kernel",
-         rf"stage_kernelIfLb{flag}ELb0ELi{kk}E", 3 * Rf,
+         rf"stage_kernelIfLb{flag}ELb0ELi{kk}E", 3 * Rf, "layers",
+         LAYER_GROUPS, pyramid_layer_cells(M, S), 3,
          lambda: ps.trace_cuda(sw, fstack, srcpos, nflux, Rf, Rb)),
         ("shell_sweep" + sfx, "shell_sweep", "shell_kernel",
-         rf"shell_kernelIfLb{flag}ELi{kk}E", table.n_shells,
-         lambda: shell(sw, fstack, srcpos, nflux)))
+         rf"shell_kernelIfLb{flag}ELi{kk}E", table.n_shells, "shells",
+         LAYER_GROUPS, [S * int(m.sum()) for m in table.mask], 1,
+         lambda: shell(sw, fstack, srcpos, nflux)),
+        ("octant_sweep" + sfx, "octant_sweep", "plane_kernel",
+         rf"plane_kernelIfLb{flag}ELi{kk}ELi{wide}E", 3 * (M // 2),
+         "planes", octant_plane_groups(M // 2), ocells, 1,
+         lambda: oc.octant_sweep_cuda(sw, fstack, srcpos, nflux)))
     out = {}
-    for name, lib, kernel, mangled, n_launch, fn in cases:
+    for (name, lib, kernel, mangled, n_launch, what, groups, cells, per,
+         fn) in cases:
         sass = kernel_sass(cuda_build.library_path(lib))
         fns = [v for k, v in sass.items() if re.search(mangled, k)]
         if len(fns) != 1:
@@ -1597,45 +1663,50 @@ def phase_sweep_redesign(cfg, s, srcpos, nflux):
                    for x, y in zip(a, b))
         ms = event_ms(fn, 3)
         durs, span = launch_profile(fn, kernel, n_launch)
-        per = 3 if lib == "pyramid_sweep" else 1   # launches per layer
-        groups = {}
-        for lo, hi in LAYER_GROUPS:
-            d = durs[per * (lo - 1):per * hi]
-            if d:
-                groups[f"{lo}-{min(hi, len(durs) // per)}"] = (len(d),
-                                                               sum(d))
+        lanes0 = dict(oc.launches_lanes)
+        fn()
+        lanes = {G: n - lanes0[G]
+                 for G, n in oc.launches_lanes.items() if n > lanes0[G]}
+        rows = grouped_launches(durs, groups, cells, per)
         busy = sum(durs)
-        log(f"{name} at {sw.mesh}^3 x {srcpos.shape[0]}, K = {K}: band loop "
+        log(f"{name} at {M}^3 x {S}, K = {K}: band loop "
             f"per band {mix['ex2']:g} MUFU.EX2, {mix['fp32']:g} float32-pipe, "
             f"{mix['rcp']:g} MUFU.RCP, {mix['expf_reduction']:g} expf "
             f"range-reduction, {mix['total']:g} instructions in all")
         log(f"  {len(durs)} launches of {kernel}: "
-            + ", ".join(f"{'layers' if lib == 'pyramid_sweep' else 'shells'}"
-                        f" {k} {n} launches {t:.3f} ms"
-                        for k, (n, t) in groups.items())
+            + ", ".join(f"{what} {k} {n} launches {t:.3f} ms "
+                        f"({c} cell steps, {ns:.3f} ns each)"
+                        for k, n, t, c, ns in rows)
             + f"; device {busy:.3f} ms, first start to last end {span:.3f} "
             f"ms (profiled); sweep {ms:.3f} ms (CUDA events): launch gaps "
             f"and other work {ms - busy:.3f} ms ({(ms - busy) / ms:.1%}); "
-            f"two calls equal to the bit: {same}")
+            f"two calls equal to the bit: {same}"
+            + (f"; plane launches by lanes per cell {lanes}"
+               if lib == "octant_sweep" else ""))
         if not same:
             raise AssertionError(f"{name}: two calls differ")
         if not (mix["ex2"] == 2 * K and mix["rcp"] == 1):
             raise AssertionError(f"{name}: band loop mix {mix}")
         out[name] = {"sass_band_mix_K": K, "sass_band_mix": mix,
-                     "device_ms_by_layer": {k: t for k, (_, t)
-                                            in groups.items()},
+                     f"device_ms_by_{what[:-1]}_group": {
+                         k: t for k, _, t, _, _ in rows},
+                     f"ns_per_cell_step_by_{what[:-1]}_group": {
+                         k: ns for k, _, _, _, ns in rows},
                      "device_ms": busy, "event_ms": ms,
                      "gaps_and_other_ms": ms - busy}
+        if lib == "octant_sweep":
+            out[name]["plane_launches_by_lanes"] = lanes
     return out
 
 
 # ---- the multi-GPU slice (phases 18-21)
 
 # the slab shapes of the halo kernels' comparisons, (mesh, ranks,
-# radius): D = 8 at 32^3 and radius 5 (S = 4, H = 6: several hops), and
-# the main path's at world size 1: D = 1 at 128^3, full radius (S = 128,
-# H = 64)
-HALO_SHAPES = ((32, 8, 5), (128, 1, 64))
+# radius): D = 8 at 32^3 and radius 5 (S = 4, H = 6: several hops), the
+# main path's at world size 1: D = 1 at 128^3, full radius (S = 128,
+# H = 64), and 18^3 radius 1 (H = 2: a float32 pack row of 22 x 5
+# values, 440 bytes, is not 16-byte aligned)
+HALO_SHAPES = ((32, 8, 5), (128, 1, 64), (18, 1, 1))
 
 
 def halo_case(M, D, radius, dtype, dev, C=5, seed=4):
@@ -1951,11 +2022,12 @@ def phase_halo_times(dev, M=128, radius=64):
         lib_ms = None if lib is None else event_ms(lib, 10)
         err = errs[name]
         b = bound(nbytes, adds, 0)
-        out[name] = (ms, plain_ms, err, b, lib_ms)
+        out[name] = (ms, plain_ms, err, b, lib_ms, nbytes / ms / 1e6)
         log(f"{name} at {M}^3, world size 1, radius {radius} float32: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms"
             + ("" if lib_ms is None else f", rc[window].add_ {lib_ms:.4f} ms")
-            + f", bound {b[0]:.4f} ms ({b[1]}, {nbytes / 1e6:.1f} MB), "
+            + f", bound {b[0]:.4f} ms ({b[1]}, {nbytes / 1e6:.1f} MB): "
+            f"{nbytes / ms / 1e6:.1f} GB/s, {b[0] / ms:.1%} of the bound; "
             f"max |kernel - plain| {err:.3e}")
     return out
 
@@ -2725,7 +2797,8 @@ def build_kernels():
                           r"|shell_kernel|plane_kernel|halo_pack_kernel"
                           r"|window_accumulate_kernel|fold_halo_kernel)"
                           r"I([fd])(?:Lb([01])E)?"
-                          r"(?:Lb([01])E)?(?:Li(\d+)E)?", line)
+                          r"(?:Lb([01])E)?(?:Li(\d+)E)?(?:Li(\d+)E)?",
+                          line)
             if m:
                 dtype = "float" if m.group(2) == "f" else "double"
                 heat = ", heat" if m.group(3) == "1" else ""
@@ -2733,9 +2806,14 @@ def build_kernels():
                         else "track")
                 second = f", {flag}" if m.group(4) == "1" else ""
                 nodes = ("" if m.group(5) is None else
+                         f", C = {m.group(5)}"
+                         if m.group(1) == "halo_pack_kernel" else
                          f", K = {m.group(5)}" if m.group(5) != "0"
                          else ", K at run time")
-                kernel = f"{m.group(1)}<{dtype}{heat}{second}{nodes}>"
+                lanes = ("" if m.group(6) is None
+                         else f", {m.group(6)} lanes")
+                kernel = (f"{m.group(1)}<{dtype}{heat}{second}{nodes}"
+                          f"{lanes}>")
             elif kernel and ("registers" in line or "spill" in line):
                 log(f"  {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -2967,7 +3045,7 @@ def run_phases(dev, workdir, ref, oned_refs):
             ("halo_pack", "c2ray_tpu/parallel/domain.py:81"),
             ("window_accumulate", "c2ray_tpu/parallel/domain.py:393"),
             ("fold_halo", "c2ray_tpu/parallel/domain.py:100")):
-        ms, plain_ms, err, b, lib_ms = halo_t[name]
+        ms, plain_ms, err, b, lib_ms, gbs = halo_t[name]
         kernels.append(
             {"name": name, "route": "cuda",
              "source": "c2ray_tpu_torch/csrc/domain_halo.cu",
@@ -2978,7 +3056,8 @@ def run_phases(dev, workdir, ref, oned_refs):
                                "radius; 0 in f64 and f32 at 32^3 D = 8 "
                                "too (phase 18)",
              "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
-             "bound_by": b[1], "library_ms": lib_ms,
+             "bound_by": b[1], "achieved_GB_per_s": gbs,
+             "share_of_bound": b[0] / ms, "library_ms": lib_ms,
              "library_call": ("rc[window].add_(cube)"
                               if lib_ms is not None else None)})
     for entry in kernels:

@@ -916,6 +916,58 @@ def test_three_engine_kernels_agree(cuda_device, heating):
                                        atol=1e-10 * float(b.abs().max()))
 
 
+# the octant kernel's launch cases, (mesh, sources): 16^3 (R = 8) and
+# 18^3 (R = 9, odd) at 3 sources, and 64^3 at 16 sources, whose planes
+# run every lane count of octant_sweep.PLANE_LANES
+_OCTANT_CASES = {"16": (16, 3), "18": (18, 3), "lanes": (64, 16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lls", [0.0, 1.0e15])
+@pytest.mark.parametrize("case", sorted(_OCTANT_CASES))
+@pytest.mark.parametrize("heating", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_octant_kernel_matches_plain_at_every_lane_count(cuda_device, dtype,
+                                                         heating, case, lls):
+    """The octant kernel (valid positions only, lanes per cell chosen per
+    plane, the plane ring filled with NaN) against its plain version:
+    float64 within rtol 1e-10 of each part's largest value; float32
+    within 1e-4 with 1e-4 of each part's largest value as the floor,
+    the rates, the heat and the photon loss each on its own scale; two
+    calls equal to the bit; each plane launched at the lanes of its
+    plan, and at 64^3 x 16 every lane count."""
+    M, S = _OCTANT_CASES[case]
+    cfg = dataclasses.replace(
+        _config(M, dtype, cuda_device, S_star=1e48, heating=heating).sweep,
+        coldensh_LLS=lls)
+    state = _random_state(M, dtype, cuda_device)
+    fstack = pyramid_sweep.stack_sweep_fields(cfg, SourceFields(
+        state.ndens, state.h_av0, state.h_av1, state.he_av0, state.he_av1))
+    srcpos, nflux = _sources(M, S, dtype, cuda_device)
+    before = dict(octant_sweep.launches_lanes)
+    k = octant_sweep.octant_sweep_cuda(cfg, fstack, srcpos, nflux)
+    ran = {G: n - before[G] for G, n in octant_sweep.launches_lanes.items()}
+    again = octant_sweep.octant_sweep_cuda(cfg, fstack, srcpos, nflux)
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    row0, rows, cells = octant_sweep.plane_rows(M)
+    plan, _ = octant_sweep.plane_plan(S, row0, cells)
+    assert ran == {G: int((plan[:, 3] == G).sum())
+                   for G in octant_sweep.PLANE_LANES}
+    if case == "lanes":
+        assert all(n > 0 for n in ran.values()), ran
+    p = octant_sweep.octant_sweep_plain(cfg, fstack, srcpos, nflux)
+    parts = lambda out: (out[0][..., :3], out[0][..., 3], out[1])
+    assert float(p[0][..., :3].abs().max()) > 0.0
+    assert float(p[1].abs().max()) > 0.0
+    if heating:
+        assert float(p[0][..., 3].abs().max()) > 0.0
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for a, b in zip(parts(k), parts(p)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=tol,
+                                   atol=tol * float(b.abs().max()))
+
+
 # the redesigned sweep kernels' cases: (tables, K, heating, dtype); K = 6
 # and 8 run unrolled instantiations, 48 the runtime-K one (its heating
 # rows in float64 exceed a block's shared memory)
@@ -1066,12 +1118,14 @@ def test_halo_plain_paths_launch_no_kernel():
 @pytest.mark.gpu
 @pytest.mark.parametrize("C", [5, 6])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(32, 8, 5), (128, 1, 64)])
+@pytest.mark.parametrize("shape", [(32, 8, 5), (128, 1, 64), (18, 1, 1)])
 def test_halo_kernels_match_plain(cuda_device, shape, dtype, C):
     """Each halo kernel equals its plain version to the bit (copies, a
     max and adds in the plain version's order), at the slab shapes of 8
-    ranks at 32^3 radius 5 (S = 4, H = 6) and of one rank at 128^3, full
-    radius (S = 128, H = 64)."""
+    ranks at 32^3 radius 5 (S = 4, H = 6), of one rank at 128^3, full
+    radius (S = 128, H = 64), and of one rank at 18^3, radius 1 (H = 2:
+    in float32 with 5 channels a pack row holds 22 x 5 values, 440
+    bytes, so every other row starts off a 16-byte boundary)."""
     from c2ray_tpu_torch.parallel import halo
 
     M, D, radius = shape

@@ -18,7 +18,21 @@ time / unprofiled wall, so the profiler's own overhead is not counted
 as idle; the port runs on one stream, so device time does not overlap
 itself).
 
-`--lanes` times the pyramid and shell kernels instead, at the same
+    python3 tools/profile_torch_iteration.py --octant [--lanes G1,...]
+        [--parent DIR] [--json PATH]
+
+`--octant` splits the octant kernel's device time by plane group
+(chip_smoke.octant_plane_groups) at phase 16's state, isothermal and
+heating, with each group's cell steps, beside the pyramid kernel's by
+layer group on the same inputs; with `--lanes` it runs every plane at
+each lane count per cell in turns (the lanes are a choice of the
+wrapper per launch, octant_sweep._plane_lanes, so no rebuild); with
+`--parent DIR` (a `git archive` of another commit under build/) it
+times the parent's octant and halo-pack kernels against this tree's in
+turns and counts the other kernel sources' functions whose SASS equals
+the parent's; `--json` writes each plane's device ms.
+
+`--lanes` alone times the pyramid and shell kernels instead, at the same
 configuration, isothermal and with heating, once built as they are for
 each lane count G per cell (a power of two dividing 32): each build
 compiles csrc/pyramid_sweep.cu and csrc/shell_sweep.cu from a copy of
@@ -76,11 +90,17 @@ def main():
     ap.add_argument("--oned", action="store_true")
     ap.add_argument("--steps", type=int, default=12)
     ap.add_argument("--parent", default=None)
+    ap.add_argument("--octant", action="store_true")
+    ap.add_argument("--json", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_iteration: needs a CUDA GPU")
     if args.oned:
         profile_oned(args.steps, args.parent)
+        return
+    if args.octant:
+        profile_octant(args.mesh, args.sources, args.lanes, args.parent,
+                       args.json)
         return
 
     import dataclasses
@@ -104,11 +124,7 @@ def main():
         kw["lls_grid"] = torch.as_tensor(
             10.0 ** np.random.RandomState(8).uniform(14.0, 17.0, M**3),
             dtype=torch.float32, device=dev)
-    rng = np.random.RandomState(7)
-    srcpos = torch.as_tensor(rng.randint(0, M, size=(S, 3)), device=dev)
-    nflux = torch.as_tensor(np.concatenate(
-        [rng.uniform(0.5, 2.0, (S, 1)), np.zeros((S, 2))], axis=1),
-        dtype=torch.float32, device=dev)
+    srcpos, nflux = bench_sources(M, S, dev)
     state = initial_grid_state(np.full((M,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
                                1.0e4, dtype=torch.float32, device=dev)
     if args.lanes:
@@ -153,6 +169,216 @@ def main():
           f"{1.0 - busy / (wall * 1e3):.4f} of the unprofiled wall")
     for us, count, key in rows[:20]:
         print(f"  {us / 1e3:9.3f} ms  {count:5d} launches  {key[:90]}")
+
+
+def bench_sources(M, S, dev):
+    """The bench's sources (chip_smoke.phase_main's): positions and
+    blackbody fluxes from RandomState(7)."""
+    rng = np.random.RandomState(7)
+    srcpos = torch.as_tensor(rng.randint(0, M, size=(S, 3)), device=dev)
+    nflux = torch.as_tensor(np.concatenate(
+        [rng.uniform(0.5, 2.0, (S, 1)), np.zeros((S, 2))], axis=1),
+        dtype=torch.float32, device=dev)
+    return srcpos, nflux
+
+
+def bench_state(M, S, heating, dev, engine, iters=4):
+    """(config, state, srcpos, nflux) of chip_smoke.py's phase 16 on
+    `engine`: the bench configuration in float32 after a warm-up
+    iteration and `iters` more from the initial state."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from c2ray_tpu_torch.state import initial_grid_state
+    from c2ray_tpu_torch.sweep import make_evolve3d_iteration
+
+    cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev, heating)
+    cfg = dataclasses.replace(cfg, engine=engine)
+    srcpos, nflux = bench_sources(M, S, dev)
+    state = initial_grid_state(np.full((M,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
+                               1.0e4, dtype=torch.float32, device=dev)
+    iteration = make_evolve3d_iteration(cfg)
+    for _ in range(iters + 1):
+        state = iteration(state, srcpos, nflux, 1.0e14)[0]
+    return cfg, state, srcpos, nflux
+
+
+def parent_octant_sweep(lib, cfg, fstack, srcpos, nflux):
+    """One octant sweep through a parent build's library: through this
+    tree's wrapper where the parent has its entry points, else through
+    the earlier entry points of the kernel that launched one thread per
+    position of each plane (with octant_sweep_slots)."""
+    import ctypes
+
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.sweep import octant_sweep as oc
+    from c2ray_tpu_torch.sweep.source_sweep import _kernel_tables, _type_args
+
+    if not hasattr(lib, "octant_sweep_slots"):
+        cuda_build._LIBS["octant_sweep"] = lib
+        try:
+            return oc.octant_sweep_cuda(cfg, fstack, srcpos, nflux)
+        finally:
+            del cuda_build._LIBS["octant_sweep"]
+    M, S = fstack.shape[0], srcpos.shape[0]
+    R = M // 2
+    dtype, device = fstack.dtype, fstack.device
+    packed, types, K, heat = _kernel_tables(cfg, dtype)
+    sp = srcpos.to(dtype=torch.int32).contiguous()
+    nfl = nflux.to(dtype=dtype).contiguous()
+    lib.octant_sweep_slots.argtypes = [ctypes.c_int]
+    lib.octant_sweep_slots.restype = ctypes.c_int
+    ring = torch.zeros((S, 8, 4, R + 1, R + 1, 3), dtype=dtype, device=device)
+    slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
+    partials = torch.zeros((S, lib.octant_sweep_slots(M)), dtype=dtype,
+                           device=device)
+    fn = getattr(lib, "octant_sweep_" + ("heat_" if heat else "")
+                 + ("f32" if dtype == torch.float32 else "f64"))
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+                   + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    P = cuda_build.ptr
+    cuda_build.check(fn(P(fstack.contiguous()), P(sp), P(nfl), P(packed),
+                        P(ring), P(slab), P(partials), M, S, K, len(types),
+                        *_type_args(types), float(cfg.dr),
+                        float(cfg.vol / cfg.flux_scale),
+                        float(cfg.coldensh_LLS), float(cfg.max_coldensh),
+                        cuda_build.stream_of(fstack)), "parent octant sweep")
+    return slab, partials.sum(dim=1)
+
+
+def print_split(label, ms, rows, what):
+    """One sweep's device ms by groups of layers or planes
+    (chip_smoke.grouped_launches rows) against its CUDA-event time."""
+    busy = sum(r[2] for r in rows)
+    cells = sum(r[3] for r in rows)
+    print(f"  {label}: sweep {ms:.3f} ms (CUDA events), device {busy:.3f} "
+          f"ms, launch gaps and other work {ms - busy:.3f} ms; "
+          f"{cells} cell steps, {1e6 * busy / cells:.3f} ns each")
+    for name, n, t, c, ns in rows:
+        print(f"    {what} {name}: {n} launches, {t:.3f} ms, {c} cell steps "
+              f"({c / cells:.1%}), {ns:.3f} ns per cell step")
+
+
+def profile_octant(M, S, lanes, parent, json_path=None):
+    """--octant: the octant kernel at phase 16's state, isothermal and
+    heating: device ms by plane group (chip_smoke.octant_plane_groups)
+    with the cell steps of each group, against the pyramid kernel by
+    layer group on the same inputs; with `lanes` the planes forced to
+    each lane count in turns; with `parent` (a checkout of another
+    commit) its octant and halo-pack kernels against this tree's in
+    turns (parent, this, this, parent), and whether the other kernel
+    sources compile to the parent's SASS.  `json_path`: each plane's
+    device ms and cell steps, per variant and lane count, as JSON."""
+    import json
+
+    import ctypes
+
+    import chip_smoke as cs
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.parallel import halo
+    from c2ray_tpu_torch.sweep import octant_sweep as oc
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    dev = torch.device("cuda", 0)
+    R = M // 2
+    print(f"{cs.smi_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; {M}^3 x {S} float32")
+    base = cuda_build.BUILD_DIR.parent
+    same_sass = ("chemistry", "pyramid_sweep", "shell_sweep", "evolve1d",
+                 "photon_losses")
+    plibs = {}
+    if parent:
+        psrc = Path(parent).resolve() / "c2ray_tpu_torch" / "csrc"
+        jobs = {(key, n): build_oned(src, base / f"octant_{key}" /
+                                     f"lib{n}.so", source=n)
+                for key, src in (("this", cuda_build.CSRC),
+                                 ("parent", psrc))
+                for n in same_sass + ("octant_sweep", "domain_halo")
+                if key == "parent" or n in same_sass}
+        for (key, n), proc in jobs.items():
+            out = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for the {key} {n}.cu:\n{out}")
+        plibs = {n: ctypes.CDLL(str(base / "octant_parent" / f"lib{n}.so"))
+                 for n in ("octant_sweep", "domain_halo")}
+        anon = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
+        norm = lambda path: {anon.sub("(anon)", k): anon.sub("(anon)", v)
+                             for k, v in cs.kernel_sass(path).items()}
+        for n in same_sass:
+            mine = norm(base / "octant_this" / f"lib{n}.so")
+            theirs = norm(base / "octant_parent" / f"lib{n}.so")
+            same = sum(mine.get(k) == v for k, v in theirs.items())
+            print(f"{n}.cu: {same} of {len(theirs)} kernel functions' SASS "
+                  f"equal to the parent's ({len(mine)} in this build)")
+    groups = cs.octant_plane_groups(R)
+    ocells = cs.octant_plane_cells(M, S)
+    pcells = cs.pyramid_layer_cells(M, S)
+    Rf, Rb = ps.trace_extents(M)
+    planes = {"cells": ocells}
+    for heating in (False, True):
+        cfg, state, srcpos, nflux = bench_state(M, S, heating, dev, "octant")
+        sw = cfg.sweep
+        fstack = ps.stack_sweep_fields(sw, cs.fields_of(state))
+        octant = lambda: oc.octant_sweep_cuda(sw, fstack, srcpos, nflux)
+        pyramid = lambda: ps.trace_cuda(sw, fstack, srcpos, nflux, Rf, Rb)
+        v = "heating" if heating else "isothermal"
+        print(f"{v}, phase 16's state:")
+        for label, fn, kernel, n, grp, cells, per, what in (
+                ("octant kernel", octant, "plane_kernel", 3 * R, groups,
+                 ocells, 1, "planes"),
+                ("pyramid kernel", pyramid, "stage_kernel", 3 * Rf,
+                 cs.LAYER_GROUPS, pcells, 3, "layers")):
+            ms = cs.event_ms(fn, 3)
+            durs, _ = cs.launch_profile(fn, kernel, n)
+            print_split(label, ms, cs.grouped_launches(durs, grp, cells, per),
+                        what)
+            planes[f"{v} {label}"] = durs
+        if lanes:
+            choose = oc._plane_lanes
+            order = [int(g) for g in lanes.split(",")]
+            try:
+                for G in order + order[::-1]:
+                    oc._plane_lanes = lambda n, G=G: G
+                    ms = cs.event_ms(octant, 3)
+                    durs, _ = cs.launch_profile(octant, "plane_kernel", 3 * R)
+                    print_split(f"octant kernel, every plane at G = {G}", ms,
+                                cs.grouped_launches(durs, groups, ocells),
+                                "planes")
+                    planes.setdefault(f"{v} G = {G}", []).append(durs)
+            finally:
+                oc._plane_lanes = choose
+        if parent:
+            po = lambda: parent_octant_sweep(plibs["octant_sweep"], sw,
+                                             fstack, srcpos, nflux)
+            a, b = po(), octant()
+            for x, y, w in ((a[0][..., :3], b[0][..., :3], "rates"),
+                            (a[0][..., 3], b[0][..., 3], "heat"),
+                            (a[1], b[1], "photon loss")):
+                torch.testing.assert_close(
+                    x, y, rtol=1e-4, atol=1e-4 * float(y.abs().max()),
+                    msg=f"parent vs this octant kernel, {w}")
+            for key in ("parent", "this", "this", "parent"):
+                ms = cs.event_ms(po if key == "parent" else octant, 3)
+                print(f"  octant sweep {v}, {key}: {ms:.3f} ms")
+    if parent:
+        c = cs.halo_case(M, 1, R, torch.float32, dev)
+        pack = (c["fields"], M, 1e-20, c["left"], c["right"], c["H"])
+        ref = halo.halo_pack_plain(*pack)
+        for key in ("parent", "this", "this", "parent"):
+            if key == "parent":
+                cuda_build._LIBS["domain_halo"] = plibs["domain_halo"]
+            else:
+                cuda_build._LIBS.pop("domain_halo", None)
+            if not torch.equal(halo.halo_pack_cuda(*pack), ref):
+                raise AssertionError(f"{key} halo_pack differs from plain")
+            ms = cs.event_ms(lambda: halo.halo_pack_cuda(*pack), 10)
+            print(f"  halo_pack {M}^3, world size 1, radius {R}, {key}: "
+                  f"{ms:.4f} ms")
+        cuda_build._LIBS.pop("domain_halo", None)
+    if json_path:
+        Path(json_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(json_path).write_text(json.dumps(planes))
 
 
 def build_with_lanes(G):

@@ -9,14 +9,16 @@ passes averaged -> thermal} to its own 1% fixed point (cap `max_iter`),
 with damped Picard from iteration DAMP_AFTER on; an isothermal config
 holds T fixed and runs no thermal sub-cycle.  `chemistry_pass_plain`
 runs the JAX package's in-graph lockstep (all cells step together,
-converged cells frozen); `chemistry_pass_cuda` runs one thread per cell
-that leaves on its own convergence (``csrc/chemistry.cu``).  A frozen
-cell never changes, so the two agree cell for cell.  The TPU's host
-loop with compaction buckets exists only for the TPU and is not ported.
+converged cells frozen); `chemistry_pass_cuda` runs each cell's fixed
+point on a thread until the cell converges, the thread then taking the
+next cell (``csrc/chemistry.cu``).  A frozen cell never changes, so the
+two agree cell for cell.  The TPU's host loop with compaction buckets
+exists only for the TPU and is not ported.
 """
 
 import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -48,6 +50,21 @@ DAMP_FACTOR = 0.5
 # chemistry passes run through the CUDA kernel: isothermal, heating
 launches = 0
 launches_heat = 0
+
+# The chemistry kernel's input rows, in its order (csrc/chemistry.cu:
+# Row): GridState fields, then RateGrids fields; t_final and phiheat are
+# read by the heating variant only, clumping (a scalar or one value per
+# cell) last.
+CHEM_ROWS = ("ndens", "h0", "h1", "he0", "he1", "he2", "h_av0", "h_av1",
+             "he_av0", "he_av1", "he_av2", "h_int0", "h_int1", "he_int0",
+             "he_int1", "he_int2", "t_av", "phih", "phihe0", "phihe1",
+             "t_final", "phiheat", "clumping")
+_RATE_ROWS = frozenset(("phih", "phihe0", "phihe1", "phiheat"))
+
+# the cooling table the heating kernel reads, (801, 5) species last, per
+# cooling tables, dtype and device (the entry holds the tables, so the
+# id stays unique)
+_COOLING = {}
 
 
 @dataclass(frozen=True)
@@ -255,6 +272,30 @@ def chemistry_pass_plain(cfg: ChemistryConfig, state: GridState,
     return new_state, conv_flag, as_t(nit), as_t(n_sub)
 
 
+def kernel_rows(state: GridState, rates: RateGrids):
+    """The chemistry kernel's input rows (CHEM_ROWS order): the state's
+    and the rates' tensors themselves, strided views included."""
+    return [getattr(rates if name in _RATE_ROWS else state, name)
+            for name in CHEM_ROWS]
+
+
+def kernel_cooling_table(cfg: ChemistryConfig, dtype, device):
+    """The heating kernel's (801, 5) cooling table (cooling.stacked) in
+    `dtype` on `device`, built once per cooling tables, dtype and
+    device."""
+    key = (id(cfg.cooling), dtype, torch.device(device))
+    hit = _COOLING.get(key)
+    if hit is None:
+        hit = _COOLING[key] = (cfg.cooling, stacked(cfg.cooling).to(
+            dtype=dtype, device=device).contiguous())
+    return hit[1]
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def chemistry_pass_cuda(cfg: ChemistryConfig, state: GridState,
                         rates: RateGrids, dt, cosmo_cool_factor=None):
     """The chemistry kernel (``csrc/chemistry.cu``); same contract as
@@ -264,9 +305,11 @@ def chemistry_pass_cuda(cfg: ChemistryConfig, state: GridState,
     _chem_iteration plus _finalize_pass, with thermal.py's sub-cycle
     and cooling.py:coolin inside when heating.  Bound on the card by the
     per-cell arithmetic times the cell's own iteration (and, heating,
-    sub-step) count; one thread per cell that exits on its own
-    convergence pays for the convergence tail per warp, where the TPU
-    paid per grid or compacted on the host.
+    sub-step) count: a thread that finishes its cell takes the next one,
+    so a converged cell leaves no lane idle, where the TPU paid for the
+    convergence tail per grid or compacted on the host.  The kernel reads
+    every input row where it lies (`kernel_rows`: a pointer and a stride
+    each); the heating cooling table is built once (`kernel_cooling_table`).
     """
     global launches, launches_heat
     ndens = state.ndens
@@ -279,41 +322,41 @@ def chemistry_pass_cuda(cfg: ChemistryConfig, state: GridState,
     if cosmo_cool_factor is None:
         cosmo_cool_factor = cfg.cosmo_cool_factor
     n = ndens.shape[0]
-    rows = [state.ndens, state.h0, state.h1, state.he0, state.he1, state.he2,
-            state.h_av0, state.h_av1, state.he_av0, state.he_av1,
-            state.he_av2, state.h_int0, state.h_int1, state.he_int0,
-            state.he_int1, state.he_int2, state.t_av,
-            rates.phih, rates.phihe0, rates.phihe1]
-    if heat:
-        rows += [state.t_final, rates.phiheat]
-    for r in rows:
+    rows = kernel_rows(state, rates)
+    if not heat:
+        # the isothermal kernel reads neither t_final nor phiheat
+        rows[20] = rows[21] = ndens
+    clumping = rows[22].to(dtype=dtype).reshape(-1)
+    if clumping.device != device or clumping.numel() not in (1, n):
+        raise ValueError(f"clumping must be a scalar or ({n},) on {device}")
+    rows[22] = clumping
+    for r in rows[:22]:
         if r.shape != (n,) or r.dtype != dtype or r.device != device:
             raise ValueError("state and rates must be (n,) tensors of one "
                              "dtype on one device")
-    inp = torch.stack(rows)
-    clumping = state.clumping.to(dtype=dtype).reshape(-1).contiguous()
-    if clumping.device != device or clumping.numel() not in (1, n):
-        raise ValueError(f"clumping must be a scalar or ({n},) on {device}")
-    cool = (stacked(cfg.cooling).to(dtype=dtype, device=device).contiguous()
-            if heat else inp)
+    strides = [r.stride(0) for r in rows[:22]] + [
+        clumping.stride(0) if clumping.numel() == n else 0]
+    cool = kernel_cooling_table(cfg, dtype, device) if heat else ndens
     out = torch.empty((12, n), dtype=dtype, device=device)
-    counters = torch.zeros(3, dtype=torch.int32, device=device)
+    # [conv_flag, largest iterations, largest sub-steps, -, the next cell
+    # to hand out (64 bits)]
+    counters = torch.zeros(6, dtype=torch.int32, device=device)
 
     lib = cuda_build.load("chemistry")
     name = ("chemistry_heat_" if heat else "chemistry_iso_") + (
         "f32" if dtype == torch.float32 else "f64")
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_double] * 4 + [ctypes.c_int] * 2
                    + [ctypes.c_double, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     P = cuda_build.ptr
-    err = fn(P(inp), P(clumping), int(clumping.numel() == n), P(cool),
-             P(out), P(counters), n, float(dt),
-             float(cfg.isothermal_temperature), float(cosmo_cool_factor),
-             float(cfg.epsilon), int(cfg.max_iter), int(DAMP_AFTER),
-             float(DAMP_FACTOR), cuda_build.stream_of(inp))
+    ptrs = (ctypes.c_void_p * len(rows))(*(r.data_ptr() for r in rows))
+    strd = (ctypes.c_longlong * len(rows))(*strides)
+    err = fn(ptrs, strd, P(cool), P(out), P(counters), n, _sm_count(device),
+             float(dt), float(cfg.isothermal_temperature),
+             float(cosmo_cool_factor), float(cfg.epsilon), int(cfg.max_iter),
+             int(DAMP_AFTER), float(DAMP_FACTOR), cuda_build.stream_of(ndens))
     cuda_build.check(err, name)
     if heat:
         launches_heat += 1

@@ -14,7 +14,8 @@ sum_cells sum_s dphi_s N_s V == sum_b L_b.
 
 `distribute_photon_losses_plain` computes this with torch matmuls;
 `distribute_photon_losses_cuda` launches ``csrc/photon_losses.cu``, one
-thread per cell.  Both add dphi **in place** to the rate grids' phih,
+thread per cell, with the band table (`band_table`) in the kernel's
+constant bank.  Both add dphi **in place** to the rate grids' phih,
 phihe0 and phihe1 and return the rates.
 
 Decided deviation from the JAX function (float32): with the 1e-30
@@ -39,6 +40,19 @@ launches = 0
 # the neutral-density floor of the JAX function (evolve_point.F90:676-681)
 DENSITY_FLOOR = 1.0e-30
 
+# the kernel's band table: the constant bank holds MAX_BANDS rows
+# (radiation/bands.py's 1 + 26 + 20 bands and one more), unrolled in
+# groups of BAND_GROUP (csrc/photon_losses.cu: kMaxBands, kBandGroup);
+# a padding row (1, 1, 1, 0, 0, 0) has a denominator of at least 3
+# floors and weights 0, so it adds +0
+MAX_BANDS = 48
+BAND_GROUP = 8
+
+# the scaled cross sections of each QuadTables in float64, (nb, 3), kept
+# under the tables' identity (the entry holds them, so the id stays
+# unique)
+_SIGMA = {}
+
 
 def neutral_densities(fields: SourceFields, floor=DENSITY_FLOOR):
     """(n, 3) neutral HI, HeI, HeII densities (cm^-3), floored."""
@@ -53,12 +67,60 @@ def scaled_sigma_and_weights(tables, plb, n: int, vol_over_scale, dtype):
     """(sig (3, nb), W (nb, 3)) in `dtype`, built in float64: the
     band-averaged cross sections with the He band gates, divided by
     their largest value, and W[b, s] = L_b sig_s(b) / (n V)."""
+    sig = _sigma64(tables)
+    W = (plb.double()[:, None] * sig.T) / (n * float(vol_over_scale))
+    return sig.to(dtype), W.to(dtype)
+
+
+def _sigma64(tables) -> torch.Tensor:
+    """(3, nb) float64: the band-averaged cross sections with the He band
+    gates, divided by their largest value."""
     sig = torch.stack([tables.sigma_HI,
                        tables.sigma_HeI * tables.mask_HeI,
                        tables.sigma_HeII * tables.mask_HeII]).double()
-    sig = sig / sig.max()
-    W = (plb.double()[:, None] * sig.T) / (n * float(vol_over_scale))
-    return sig.to(dtype), W.to(dtype)
+    return sig / sig.max()
+
+
+def _scaled_sigma(tables) -> torch.Tensor:
+    """scaled_sigma_and_weights' sig in float64, transposed to (rows, 3)
+    with rows the band count rounded up to a multiple of BAND_GROUP, the
+    padding rows (1, 1, 1); built once per tables."""
+    hit = _SIGMA.get(id(tables))
+    if hit is None:
+        sig_t = _sigma64(tables).T
+        nb = sig_t.shape[0]
+        rows = -(-nb // BAND_GROUP) * BAND_GROUP
+        pad = torch.ones((rows, 3), dtype=torch.float64, device=sig_t.device)
+        pad[:nb] = sig_t
+        hit = _SIGMA[id(tables)] = (tables, pad)
+    return hit[1]
+
+
+def band_table(tables, plb, n: int, vol_over_scale, dtype) -> torch.Tensor:
+    """The photon-loss kernel's (rows, 6) band table in `dtype`: row b
+    is [sig_HI, sig_HeI, sig_HeII, W_HI, W_HeI, W_HeII] of band b, the
+    values of scaled_sigma_and_weights (W built in float64 from the
+    band escape `plb`), then padding rows (1, 1, 1, 0, 0, 0) up to a
+    multiple of BAND_GROUP.  The kernel's entry packs the same table on
+    the card (pack_kernel); this is its plain version.  The division by
+    n V is IEEE's on every device: its divisor is a tensor on plb's
+    device (PyTorch's CUDA division by a host scalar multiplies by the
+    reciprocal).  Raises ValueError past MAX_BANDS bands."""
+    nb = _band_count(plb)
+    sig = _scaled_sigma(tables)
+    w = torch.zeros_like(sig)
+    nv = torch.tensor(n * float(vol_over_scale), dtype=torch.float64,
+                      device=sig.device)
+    w[:nb] = (plb.double()[:, None] * sig[:nb]) / nv
+    return torch.cat([sig, w], dim=1).to(dtype)
+
+
+def _band_count(plb) -> int:
+    nb = plb.shape[0]
+    if nb > MAX_BANDS:
+        raise ValueError(f"the photon-loss kernel holds at most {MAX_BANDS} "
+                         f"bands in its constant bank, not {nb}")
+    return nb
 
 
 def _check(rates: RateGrids):
@@ -93,9 +155,19 @@ def distribute_photon_losses_cuda(tables, rates: RateGrids,
     as `distribute_photon_losses_plain`.
 
     Replaces photon_losses.py:distribute_photon_losses.  Memory-bound:
-    one thread per cell reads 4 fields and adds into the 3 rate grids,
-    with the (nb, 6) band table in shared memory, so neither (n, nb)
-    intermediate of the matmul form is ever stored."""
+    one thread per cell reads 4 fields and adds into the 3 rate grids
+    (one 16-byte load and store of the rate row when they are the
+    sweep's (n, 4) rows), the band table (`band_table`, at most
+    MAX_BANDS bands: more raise ValueError) in the constant bank, so
+    neither (n, nb) intermediate of the matmul form is ever stored."""
+    _launch(tables, rates, fields, vol_over_scale, floor)
+    return rates
+
+
+def _launch(tables, rates: RateGrids, fields: SourceFields, vol_over_scale,
+            floor) -> torch.Tensor:
+    """distribute_photon_losses_cuda's launch; returns the band table the
+    entry packed on the card (what `band_table` computes)."""
     global launches
     _check(rates)
     nd = fields.ndens
@@ -106,9 +178,10 @@ def distribute_photon_losses_cuda(tables, rates: RateGrids,
         raise TypeError(f"photon-loss kernel takes float32/float64, not "
                         f"{dtype}")
     n = nd.shape[0]
+    plb = rates.photon_loss_bands
     ins = [nd, fields.h_av0, fields.he_av0, fields.he_av1]
     outs = [rates.phih, rates.phihe0, rates.phihe1]
-    for t in ins + outs + [rates.photon_loss_bands]:
+    for t in ins + outs + [plb]:
         if t.dtype != dtype or t.device != device:
             raise ValueError("fields and rates must share one dtype and "
                              "device")
@@ -118,24 +191,30 @@ def distribute_photon_losses_cuda(tables, rates: RateGrids,
     rstride = outs[0].stride(0)
     if any(t.stride(0) != rstride for t in outs):
         raise ValueError("phih, phihe0 and phihe1 must share one stride")
-    sig, W = scaled_sigma_and_weights(tables, rates.photon_loss_bands, n,
-                                      vol_over_scale, dtype)
-    tab = torch.cat([sig.T, W], dim=1).contiguous()      # (nb, 6)
+    if tables.sigma_HI.device != device:
+        raise ValueError("the band tables must lie on the fields' device")
+    nb = _band_count(plb)
+    sig = _scaled_sigma(tables)
+    tab = torch.empty((sig.shape[0], 6), dtype=dtype, device=device)
 
     lib = cuda_build.load("photon_losses")
     name = "photon_losses_" + ("f32" if dtype == torch.float32 else "f64")
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_double,
+                                            ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_longlong,
                                             ctypes.c_double]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
                                               ctypes.c_void_p])
     fn.restype = ctypes.c_int
     P = cuda_build.ptr
-    err = fn(*(P(t) for t in ins), P(tab), tab.shape[0], n, float(floor),
-             *(P(t) for t in outs), rstride, cuda_build.stream_of(nd))
+    err = fn(*(P(t) for t in ins), P(plb.contiguous()), P(sig), nb,
+             n * float(vol_over_scale), P(tab), tab.shape[0], n,
+             float(floor), *(P(t) for t in outs), rstride,
+             cuda_build.stream_of(nd))
     cuda_build.check(err, name)
     launches += 1
-    return rates
+    return tab
 
 
 def distribute_photon_losses(tables, rates: RateGrids, fields: SourceFields,

@@ -139,20 +139,43 @@ division per band) adds, last:
    the octant kernel's plane launches by lanes per cell, and two calls
    equal to the bit.
 
+The chemistry and photon-loss redesign adds, last:
+
+23. with a parent build unpacked under build/parent/ (a `git archive`
+   of the commit before the redesign, built after phase 2; without one
+   these two parts are not run): the pyramid, shell, octant, 1D and
+   halo sources compile to the parent's SASS, and #3 and #5 are timed
+   in turns against the
+   parent's kernels (wrapper call and kernel device ms), #3's outputs
+   and counters equal to the parent's to the bit; at phases 4 and 5's
+   states, from a stamped copy of the chemistry kernel
+   (tools/kernel_study.py), each cell's iterations and
+   thermal sub-steps: their histograms and sums, the warp efficiency in
+   cell order, the cycles per part, the achieved occupancy; the
+   chemistry bound from the counted work; at phase 8's state the
+   photon-loss band loop's SASS per band (no shared-memory load, no
+   division check, one MUFU.RCP), the whole-row and strided layouts
+   against the plain version; two calls of each equal to the bit.
+
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
 operations over their peak rate (`bound`; for the 1D kernels the
 largest of that, the latency of the iterations' dependent chains and
-one warp's instruction issue, `oned_bound`).
+one warp's instruction issue, `oned_bound`; for the chemistry the
+arithmetic that its counted iterations and sub-steps need, the fewer of
+this build's and the parent's instructions, at the issue, float64 and
+special-function rates, `chemistry_bound`).  The
+chemistry and photon-loss entries count their launches over every
+main-path run (MAIN_PATH_LAUNCHES).
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import dataclasses
-import heapq
 import json
 import math
 import os
+import pathlib
 import re
 import shutil
 import subprocess
@@ -162,6 +185,16 @@ import time
 
 import numpy as np
 import torch
+
+# the SASS readers and the stamped chemistry build, shared with
+# tools/profile_torch_iteration.py
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tools"))
+from kernel_study import (  # noqa: E402
+    achieved_occupancy, build_chem_split, build_oned, chem_pass_with,
+    chem_split_run, chem_split_stats, histogram, kernel_sass,
+    parent_photon_losses, sass_band_mix, sass_issue_floor, sass_loop_mix,
+    sass_per_band)
 
 
 def log(*a):
@@ -242,20 +275,77 @@ def sweep_bound(sweep_cfg, S, Rf, Rb, lls=False, track=False):
     return bound(nbytes, flops, 2 * nodes + (cells if lls else 0))
 
 
-# one fixed-point iteration of one cell (csrc/chemistry.cu, lower
-# estimates): two doric solves, each a square root, 3 exponentials and
-# 3 expm1, and about 200 flops; the bound counts one iteration per
-# cell, the least any cell does
+# one fixed-point iteration of one cell of the 1D march (oned_bound;
+# lower estimates): two doric solves, each a square root, 3
+# exponentials and 3 expm1, and about 200 flops
 CHEM_SFU_PER_ITERATION = 14
 CHEM_FLOPS_PER_ITERATION = 200
 
+# A warp issues one instruction a cycle on each of an SM's 4
+# schedulers: 128 thread-instructions per SM and clock when every lane
+# works; the float64 pipe takes 64 of them, the special-function units 16
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, 9.0).
+ISSUE_PER_SM_CLOCK = 128
+FP64_PER_SM_CLOCK = 64
+SFU_PER_SM_CLOCK = 16
 
-def chemistry_bound(n, heat):
-    """Bound of one float32 chemistry pass over n cells: 20 state and
-    rate rows read (22 with heating), 12 rows written; one iteration
-    per cell."""
-    return bound(4 * n * ((22 if heat else 20) + 12),
-                 n * CHEM_FLOPS_PER_ITERATION, n * CHEM_SFU_PER_ITERATION)
+
+# The chemistry kernel's arithmetic before its redesign (commit 8446144,
+# tools/profile_torch_iteration.py --chem --parent): per variant
+# (heating or not), the float32-pipe instructions, the divisions' range
+# checks among them (FCHK), the float64 and the special-function
+# instructions (kernel_study.MIX_KEYS) of one pass through the
+# fixed-point loop and of one thermal sub-step (None: isothermal).
+# chemistry_bound takes the fewer of these and this build's: both builds
+# compute the same function, so the fewer instructions bound it.
+PARENT_CHEM_MIX = {
+    False: ({"fp32": 889, "fchk": 43, "fp64": 0, "mufu": 63}, None),
+    True: ({"fp32": 1261, "fchk": 61, "fp64": 0, "mufu": 85},
+           {"fp32": 75, "fchk": 3, "fp64": 0, "mufu": 2})}
+
+
+def chem_arithmetic(loop, inner):
+    """The arithmetic of a chemistry kernel's SASS mixes (a pass through
+    the fixed-point loop, a thermal sub-step or None): ({pipe: per
+    iteration, the sub-step taken out}, {pipe: per sub-step}) for the
+    pipes "fp32" (less the divisions' range checks, FCHK: the IEEE
+    division's guard of its slow path), "fp64" and "mufu"."""
+    def arith(m):
+        if m is None:
+            return dict.fromkeys(("fp32", "fp64", "mufu"), 0)
+        return {"fp32": m["fp32"] - m["fchk"], "fp64": m["fp64"],
+                "mufu": m["mufu"]}
+
+    per_sub = arith(inner)
+    return {k: v - per_sub[k] for k, v in arith(loop).items()}, per_sub
+
+
+def chemistry_bound(n, heat, iterations, substeps, mix):
+    """Bound of one float32 chemistry pass over n cells whose fixed
+    points took `iterations` iterations and `substeps` thermal sub-steps
+    in all (summed over the cells): the larger of the bytes (20 state and
+    rate rows read, 22 with heating, 12 written) over the memory rate and
+    the function's arithmetic over the card's rates.  The arithmetic is
+    chem_arithmetic of `mix` (sass_loop_mix of this build's kernel) or of
+    PARENT_CHEM_MIX[heat], the fewer of the two per pipe: per iteration
+    a pass through the fixed-point loop with its thermal sub-cycle taken
+    out, per sub-step a pass through the sub-cycle.  Its instructions
+    issue at ISSUE_PER_SM_CLOCK, the float64 ones at FP64_PER_SM_CLOCK
+    and the special-function ones at SFU_PER_SM_CLOCK, all at once,
+    every lane of every warp at work.  A cell's loads and write-back are
+    left to the bytes; the hand-out of cells, predicates, addresses and
+    the division's checks are not the function's work."""
+    it_mine, sub_mine = chem_arithmetic(mix["loop"], mix["inner"])
+    it_par, sub_par = chem_arithmetic(*PARENT_CHEM_MIX[heat])
+    count = {k: iterations * min(it_mine[k], it_par[k])
+             + substeps * min(sub_mine[k], sub_par[k]) for k in it_mine}
+    per_s = 132 * SM_CLOCK_HZ
+    t_ops = max(sum(count.values()) / (ISSUE_PER_SM_CLOCK * per_s),
+                count["fp64"] / (FP64_PER_SM_CLOCK * per_s),
+                count["mufu"] / (SFU_PER_SM_CLOCK * per_s))
+    t_mem = 4 * n * ((22 if heat else 20) + 12) / HBM_BYTES_PER_S
+    return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops
+                                     else "operations")
 
 
 def photon_losses_bound(n, nb):
@@ -639,9 +729,18 @@ def reset_launch_counts():
     halo.launches_pack = halo.launches_accumulate = halo.launches_fold = 0
 
 
+# each kernel's launches over every main-path run that check_launches
+# saw (the kernels line's "launches" of the chemistry and photon-loss
+# kernels)
+MAIN_PATH_LAUNCHES = {}
+
+
 def check_launches(name, counts, mine):
-    """Every kernel in `mine` launched by the run, no other."""
+    """Every kernel in `mine` launched by the run, no other; the counts
+    go into MAIN_PATH_LAUNCHES."""
     log(f"  launches: {counts}")
+    for k, c in counts.items():
+        MAIN_PATH_LAUNCHES[k] = MAIN_PATH_LAUNCHES.get(k, 0) + c
     for k, c in counts.items():
         if (c <= 0) if k in mine else (c != 0):
             raise AssertionError(f"{name} launched {k} {c} times")
@@ -1577,28 +1676,34 @@ def grouped_launches(durs, groups, cells, per=1):
     return out
 
 
-def launch_profile(fn, kernel, n):
+def launch_profile(fn, kernel, n, windows=3):
     """(device ms of each of the n launches of a kernel whose name holds
     `kernel` in one fn(), in launch order; ms from the first one's start
     to the last one's end) under torch.profiler.  fn runs twice in the
     profiled window and the first call's launches count: the tracer may
-    drop the records of a window's last launches."""
+    drop the records of a window's last launches, and now and then all of
+    them, so a window that saw fewer than n is profiled again, up to
+    `windows` windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        fn()
-        torch.cuda.synchronize()
-    ev = sorted((e.time_range.start, e.time_range.end)
-                for e in prof.events()
-                if e.device_type == DeviceType.CUDA and kernel in e.name)
-    if len(ev) < n:
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and kernel in e.name)
+        if len(ev) >= n:
+            break
+    else:
         raise AssertionError(f"torch.profiler saw {len(ev)} launches of "
-                             f"{kernel}, fewer than one call's {n}")
+                             f"{kernel} in {windows} windows, fewer than "
+                             f"one call's {n}")
     ev = ev[:n]
     return [(b - a) / 1e3 for a, b in ev], (ev[-1][1] - ev[0][0]) / 1e3
 
@@ -1697,6 +1802,250 @@ def phase_sweep_redesign(cfg, s, srcpos, nflux):
         if lib == "octant_sweep":
             out[name]["plane_launches_by_lanes"] = lanes
     return out
+
+
+# ---- the chemistry and photon-loss redesign's evidence (phase 23)
+
+# the parent build that phase 23 times in turns, when it is there: a
+# `git archive` of the commit before the redesign unpacked under build/
+PARENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "parent")
+# the kernel sources whose SASS phase 23 holds to the parent's
+SAME_SASS = ("pyramid_sweep", "shell_sweep", "octant_sweep", "evolve1d",
+             "domain_halo")
+
+
+def parent_libraries():
+    """{source: ctypes library} of the parent build's chemistry and
+    photon-loss sources, and the other sources' SASS compared with this
+    build's ({source: (equal functions, parent's functions)}), or
+    (None, None) when no parent is unpacked under build/parent."""
+    import ctypes
+
+    from c2ray_tpu_torch import cuda_build
+
+    psrc = os.path.join(PARENT_DIR, "c2ray_tpu_torch", "csrc")
+    if not os.path.isdir(psrc):
+        log(f"  no parent build under {PARENT_DIR}: the in-turns timing "
+            f"and the SASS comparison are not run")
+        return None, None
+    base = cuda_build.BUILD_DIR.parent / "parent_libs"
+    names = ("chemistry", "photon_losses") + SAME_SASS
+    procs = {n: build_oned(pathlib.Path(psrc), base / f"lib{n}.so",
+                           source=n) for n in names}
+    for n, proc in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's {n}.cu:\n{out}")
+    # an anonymous namespace's mangled name carries a hash of the
+    # source's path: drop it before comparing
+    anon = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
+    norm = lambda path: {anon.sub("(anon)", k): anon.sub("(anon)", v)
+                         for k, v in kernel_sass(path).items()}
+    same = {}
+    for n in SAME_SASS:
+        cuda_build.load(n)
+        mine = norm(cuda_build.library_path(n))
+        theirs = norm(base / f"lib{n}.so")
+        same[n] = (sum(mine.get(k) == v for k, v in theirs.items()),
+                   len(theirs))
+    log("  SASS equal to the parent's (functions): " + ", ".join(
+        f"{n}.cu {a} of {b}" for n, (a, b) in same.items()))
+    if any(a != b for a, b in same.values()):
+        raise AssertionError(f"a source outside the redesign compiles to "
+                             f"other SASS than the parent's: {same}")
+    return {n: ctypes.CDLL(str(base / f"lib{n}.so"))
+            for n in ("chemistry", "photon_losses")}, same
+
+
+def in_turns(fns, kernel, reps):
+    """{key: [(wrapper call ms (CUDA events, mean of reps), the kernel's
+    device ms (torch.profiler))] in the order parent, this, this,
+    parent} of the callables in `fns`."""
+    out = {}
+    for key in ("parent", "this", "this", "parent"):
+        f = fns[key]
+        out.setdefault(key, []).append(
+            (event_ms(f, reps), launch_profile(f, kernel, 1)[0][0]))
+    return out
+
+
+# the stamped copy of the chemistry kernel, built once
+_STAMPED = {}
+
+
+def stamped_chemistry():
+    """(ctypes library, layout, threads a block) of the stamped copy of
+    csrc/chemistry.cu (tools/kernel_study.py:
+    build_chem_split), built on the first call."""
+    from c2ray_tpu_torch import cuda_build
+
+    if "this" not in _STAMPED:
+        _STAMPED["this"] = build_chem_split("this", cuda_build.CSRC)
+    return _STAMPED["this"]
+
+
+def phase_chem_redesign(cfg, s, srcpos, nflux, dt, parent):
+    """Phase 23, chemistry: at phase 4's (isothermal) or 5's (heating)
+    state, float32, the inputs of phase_kernel_times: a stamped copy of
+    the kernel (tools/kernel_study.py: build_chem_split) gives
+    each cell's iterations and thermal sub-steps (their histograms, the
+    warp efficiency in cell order, their sums for the bound) and the
+    cycles per part; its outputs equal the kernel's; the bound from the
+    counted work (chemistry_bound, sass_loop_mix of this build); two
+    calls equal to the bit; with the parent build, both timed in turns
+    and their outputs and counters equal to the bit.  Returns {kernels
+    line name: extra keys}."""
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.sweep import global_pass as gp
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    heat = not cfg.chem.isothermal
+    name = "chemistry" + ("_heat" if heat else "")
+    n = s.ndens.shape[0]
+    rates = ps.sweep_pyramid_source_batch(cfg.sweep, fields_of(s), srcpos,
+                                          nflux)
+    call = lambda: gp.chemistry_pass_cuda(cfg.chem, s, rates, dt)
+    ref = chem_pass_with(cuda_build.load("chemistry"), "this", cfg.chem,
+                         s, rates, dt)
+    again = chem_pass_with(cuda_build.load("chemistry"), "this", cfg.chem,
+                           s, rates, dt)
+    same = torch.equal(ref[0], again[0]) and torch.equal(ref[1], again[1])
+    lib, layout, block = stamped_chemistry()
+    nit, nsub, cycles, blocks, sout = chem_split_run(
+        lib, layout, cfg.chem, s, rates, dt)
+    stamped_same = (torch.equal(sout[0], ref[0])
+                    and torch.equal(sout[1], ref[1]))
+    stats, lines = chem_split_stats(nit, nsub, cycles, heat)
+    occ = achieved_occupancy(blocks, block)
+    sass = kernel_sass(cuda_build.library_path("chemistry"))
+    fname = next(k for k in sass
+                 if re.search(rf"chemistry_kernelIfLb{int(heat)}E", k))
+    # the thermal sub-step: the innermost loop that reads the cooling
+    # table (through __ldg)
+    mix = sass_loop_mix(sass[fname], "ex2", "ldg" if heat else None)
+    b = chemistry_bound(n, heat, stats["iterations"], stats["substeps"], mix)
+    log(f"{name} at {round(n ** (1 / 3))}^3 (phase {5 if heat else 4}'s "
+        f"state): counters {ref[1].tolist()}; two calls equal to the bit: "
+        f"{same}; the stamped copy's outputs equal: {stamped_same}; "
+        f"achieved occupancy {occ:.3f}")
+    for line in lines:
+        log(f"  {line}")
+    arith = chem_arithmetic(mix["loop"], mix["inner"])
+    log(f"  SASS a pass of the fixed-point loop {mix['loop']}; a thermal "
+        f"sub-step {mix['inner']}; arithmetic per iteration and per "
+        f"sub-step {arith[0]} / {arith[1]} (the parent's "
+        f"{chem_arithmetic(*PARENT_CHEM_MIX[heat])}); bound from the "
+        f"counted work {b[0]:.4f} ms ({b[1]})")
+    if not (same and stamped_same):
+        raise AssertionError(f"{name}: two calls, or the stamped copy, "
+                             f"differ")
+    device_ms = launch_profile(call, "chemistry_kernel", 1)[0][0]
+    log(f"  kernel device ms (torch.profiler) {device_ms:.4f}")
+    extra = {"bound_ms": b[0], "bound_by": b[1], "device_ms": device_ms,
+             "iterations_summed": stats["iterations"],
+             "substeps_summed": stats["substeps"],
+             "iteration_histogram": histogram(nit),
+             "substep_histogram": histogram(nsub) if heat else None,
+             "warp_efficiency_in_cell_order": stats["warp_efficiency"],
+             "cycle_shares": stats["shares"], "achieved_occupancy": occ,
+             "sass_per_iteration": mix["loop"],
+             "sass_per_substep": mix["inner"],
+             "arithmetic_per_iteration_and_substep": arith}
+    if parent is not None:
+        fns = {"this": call, "parent": lambda: chem_pass_with(
+            parent["chemistry"], "8446144", cfg.chem, s, rates, dt)}
+        pout = fns["parent"]()
+        eq = torch.equal(pout[0], ref[0]) and torch.equal(pout[1], ref[1])
+        t = in_turns(fns, "chemistry_kernel", 5)
+        log(f"  in turns with the parent build (wrapper ms, kernel device "
+            f"ms): " + ", ".join(f"{k} {a:.4f} / {d:.4f}" for k, v in
+                                  t.items() for a, d in v)
+            + f"; outputs and counters equal to the parent's: {eq}")
+        if not eq:
+            raise AssertionError(f"{name} differs from the parent's kernel")
+        extra["parent_in_turns_ms"] = t
+    return {name: extra}
+
+
+def phase_ploss_redesign(cfg, s, srcpos, nflux, parent):
+    """Phase 23, photon losses: at phase 8's state, float32, the band
+    loop's SASS per band (sass_per_band of the 48-band instantiation: no
+    shared-memory load, no division check, one MUFU.RCP), the kernel on
+    the whole-row layout (the sweep's (n, 4) rates) and on a strided
+    one against the plain version (rtol 1e-5), phiheat untouched, two
+    calls equal to the bit; with the parent build, both timed in turns.
+    Returns {"photon_losses": extra keys}."""
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.sweep import photon_losses as pls
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    f = fields_of(s)
+    tables = cfg.sweep.tables
+    vos = cfg.sweep.vol / cfg.sweep.flux_scale
+    rates = ps.sweep_pyramid_source_batch(cfg.sweep, f, srcpos, nflux)
+    sass = kernel_sass(cuda_build.library_path("photon_losses"))
+    fns = [v for k, v in sass.items()
+           if re.search(r"photon_losses_kernelIfLi6E", k)]
+    if len(fns) != 1:
+        raise AssertionError(f"{len(fns)} functions match the 48-band "
+                             f"float32 photon-loss kernel")
+    mix, per_pass = sass_per_band(fns[0])
+    log(f"photon losses at phase 8's state: SASS per band (of {per_pass} "
+        f"bands a pass) " + ", ".join(f"{k} {v:.2f}" for k, v in mix.items()
+                                      if v))
+    if not (mix["lds"] == 0 and mix["fchk"] == 0 and mix["rcp"] == 1):
+        raise AssertionError(f"photon-loss band loop mix {mix}")
+    z = lambda t: torch.zeros_like(t)
+    whole = rates._replace(phih=z(rates.phih), phihe0=z(rates.phihe0),
+                           phihe1=z(rates.phihe1))
+    # the sweep's rate grid: one (n, 4) slab, the heat column kept
+    slab = torch.stack([whole.phih, whole.phihe0, whole.phihe1,
+                        rates.phiheat], dim=1)
+    whole = whole._replace(phih=slab[:, 0], phihe0=slab[:, 1],
+                           phihe1=slab[:, 2], phiheat=slab[:, 3])
+    rows3 = torch.zeros((3, slab.shape[0]), dtype=slab.dtype,
+                        device=slab.device)
+    strided = whole._replace(phih=rows3[0], phihe0=rows3[1],
+                             phihe1=rows3[2])
+    p = _added(pls.distribute_photon_losses_plain(
+        tables, _zero_ion_rates(rates), f, vos))
+    heat0 = slab[:, 3].clone()
+    k_whole = _added(pls.distribute_photon_losses_cuda(tables, whole, f, vos))
+    k_strided = _added(pls.distribute_photon_losses_cuda(tables, strided, f,
+                                                         vos))
+    again = _added(pls.distribute_photon_losses_cuda(
+        tables, _zero_ion_rates(rates), f, vos))
+    once = _added(pls.distribute_photon_losses_cuda(
+        tables, _zero_ion_rates(rates), f, vos))
+    for k, what in ((k_whole, "whole rows"), (k_strided, "strided rows")):
+        torch.testing.assert_close(k, p, rtol=1e-5,
+                                   atol=1e-5 * float(p.abs().max()),
+                                   msg=f"photon losses, {what}")
+    ok = (torch.equal(slab[:, 3], heat0) and torch.equal(again, once)
+          and torch.equal(k_whole, k_strided))
+    log(f"  whole-row and strided layouts against the plain version: max "
+        f"|kernel - plain| {float((k_whole - p).abs().max()):.3e} / "
+        f"{float((k_strided - p).abs().max()):.3e}; the two layouts equal, "
+        f"phiheat untouched and two calls equal to the bit: {ok}")
+    if not ok:
+        raise AssertionError("photon losses: layouts, phiheat or two calls "
+                             "differ")
+    device_ms = launch_profile(lambda: pls.distribute_photon_losses_cuda(
+        tables, rates, f, vos), "photon_losses_kernel", 1)[0][0]
+    log(f"  kernel device ms (torch.profiler) {device_ms:.4f}")
+    extra = {"sass_per_band_and_cell": mix, "device_ms": device_ms}
+    if parent is not None:
+        fns = {"this": lambda: pls.distribute_photon_losses_cuda(
+                   tables, rates, f, vos),
+               "parent": lambda: parent_photon_losses(
+                   parent["photon_losses"], tables, rates, f, vos)}
+        t = in_turns(fns, "photon_losses_kernel", 20)
+        log(f"  in turns with the parent build (wrapper ms, kernel device "
+            f"ms): " + ", ".join(f"{k} {a:.4f} / {d:.4f}" for k, v in
+                                  t.items() for a, d in v))
+        extra["parent_in_turns_ms"] = t
+    return {"photon_losses": extra}
 
 
 # ---- the multi-GPU slice (phases 18-21)
@@ -2472,208 +2821,6 @@ CYCLES_PER_DEPENDENT_OP = 4
 SM_CLOCK_HZ = 1.98e9
 
 
-_SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
-                       r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)([^;]*);")
-
-
-def _sass_ins(listing):
-    """The instructions of one function of a `cuobjdump -sass` listing:
-    (address, predicated, opcode, branch target or None, mnemonic with
-    its modifiers, e.g. MUFU.EX2)."""
-    ins = []
-    for m in _SASS_INS.finditer(listing):
-        op = m.group(3)
-        t = re.search(r"0x([0-9a-f]+)", m.group(5)) if op == "BRA" else None
-        ins.append((int(m.group(1), 16), m.group(2) is not None, op,
-                    int(t.group(1), 16) if t else None,
-                    op + m.group(4)))
-    return ins
-
-
-def _sass_blocks(listing):
-    """(basic blocks as (first, end) instruction indices, successors) of
-    one function of a `cuobjdump -sass` listing.  Calls (the slow paths
-    of division and the like) fall through: their callees are reached
-    only through them and so count for nothing."""
-    ins = _sass_ins(listing)
-    at = {a: i for i, (a, _, _, _, _) in enumerate(ins)}
-    lead = {0}
-    for i, (_, _, op, t, _) in enumerate(ins):
-        if op in ("BRA", "EXIT", "RET"):
-            lead.add(i + 1)
-            if op == "BRA":
-                lead.add(at[t])
-    lead = sorted(x for x in lead if x < len(ins))
-    ends = lead[1:] + [len(ins)]
-    block_of = {s: k for k, s in enumerate(lead)}
-    succ = []
-    for s, e in zip(lead, ends):
-        _, pred, op, t, _ = ins[e - 1]
-        nxt = [block_of[e]] if e < len(ins) else []
-        if op == "BRA":
-            succ.append([block_of[at[t]]] + (nxt if pred else []))
-        else:
-            succ.append(nxt if pred or op not in ("EXIT", "RET") else [])
-    return list(zip(lead, ends)), succ
-
-
-def _sass_loops(succ):
-    """The natural loops of a control-flow graph given by its successor
-    lists (block 0 the entry): ({header: set of body blocks}, back edges
-    as (source, header))."""
-    n = len(succ)
-    preds = [[] for _ in range(n)]
-    for k in range(n):
-        for j in succ[k]:
-            preds[j].append(k)
-    # dominators (Cooper, Harvey and Kennedy) over reverse postorder
-    post, seen, stack = [], {0}, [(0, iter(succ[0]))]
-    while stack:
-        v, it = stack[-1]
-        w = next((w for w in it if w not in seen), None)
-        if w is None:
-            post.append(stack.pop()[0])
-        else:
-            seen.add(w)
-            stack.append((w, iter(succ[w])))
-    rank = {v: i for i, v in enumerate(reversed(post))}
-    idom = {0: 0}
-    changed = True
-    while changed:
-        changed = False
-        for v in reversed(post[:-1]):
-            ps = [p for p in preds[v] if p in idom]
-            d = ps[0]
-            for p in ps[1:]:
-                while d != p:
-                    while rank[d] > rank[p]:
-                        d = idom[d]
-                    while rank[p] > rank[d]:
-                        p = idom[p]
-            if idom.get(v) != d:
-                idom[v], changed = d, True
-
-    def dominates(h, v):
-        while v != h and v != 0:
-            v = idom[v]
-        return v == h
-
-    back = {(s, h) for s in seen for h in succ[s] if dominates(h, s)}
-    loops = {}
-    for s, h in back:
-        body, todo = loops.setdefault(h, {h}), [s]
-        while todo:
-            v = todo.pop()
-            if v not in body:
-                body.add(v)
-                todo.extend(preds[v])
-    return loops, back
-
-
-# float32-pipe opcodes (adds, multiplies, FMAs, min/max, compares,
-# selects, the division's range check)
-FP32_OPS = frozenset(("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL",
-                      "FSET", "FCHK", "FRND", "FADD32I", "FMUL32I",
-                      "FFMA32I", "FSWZADD"))
-
-
-def sass_band_mix(listing, n_ex2):
-    """The instruction mix of one pass through the band loop of a sweep
-    kernel's SASS `listing`: {"ex2": MUFU.EX2, "fp32": float32-pipe
-    instructions (FP32_OPS), "rcp": MUFU.RCP (one per IEEE division or
-    reciprocal), "expf_reduction": FFMA.SAT and FFMA.RM (expf's range
-    reduction), "total": all instructions} on the path from the loop's
-    header back to it with the most MUFU.EX2 and, among those, the fewest
-    calls (a division's slow path, rarely taken) and instructions: with
-    the node loop unrolled, the path of a thick band (2K MUFU.EX2; a thin
-    band skips e_out).  The loop is the innermost one whose blocks hold at
-    least n_ex2 MUFU.EX2 (2K for a K-node band); a loop inside it counts
-    once.  For a build whose node loop ran over a runtime K, n_ex2 = 2
-    finds the node loop's pass instead."""
-    ins = _sass_ins(listing)
-    blocks, succ = _sass_blocks(listing)
-    loops, back = _sass_loops(succ)
-    keys = ("ex2", "fp32", "rcp", "expf_reduction", "total")
-
-    def mix(v):
-        out = dict.fromkeys(keys + ("calls",), 0)
-        for _, _, op, _, mn in ins[blocks[v][0]:blocks[v][1]]:
-            out["calls"] += op == "CALL"
-            out["total"] += 1
-            out["fp32"] += op in FP32_OPS
-            out["ex2"] += mn.startswith("MUFU.EX2")
-            out["rcp"] += mn.startswith("MUFU.RCP")
-            out["expf_reduction"] += mn.startswith(("FFMA.SAT", "FFMA.RM"))
-        return out
-
-    m = {v: mix(v) for v in range(len(blocks))}
-    held = [h for h in loops if sum(m[v]["ex2"] for v in loops[h]) >= n_ex2]
-    if not held:
-        raise ValueError(f"no loop holds {n_ex2} MUFU.EX2")
-    h = min(held, key=lambda g: len(loops[g]))
-    body = loops[h]
-    nxt = {v: [w for w in succ[v] if w in body and (v, w) not in back]
-           for v in body}
-    order, seen = [], set()
-
-    def visit(v):        # postorder of the body without its back edges
-        seen.add(v)
-        for w in nxt[v]:
-            if w not in seen:
-                visit(w)
-        order.append(v)
-
-    visit(h)
-    rank = lambda x: (x["ex2"], -x["calls"], -x["total"])
-    best = {h: m[h]}
-    for v in reversed(order):
-        for w in nxt[v]:
-            cand = {k: best[v][k] + m[w][k] for k in m[w]}
-            if w not in best or rank(cand) > rank(best[w]):
-                best[w] = cand
-    out = max((best[s] for s, g in back if g == h and s in best), key=rank)
-    return {k: out[k] for k in keys}
-
-
-def sass_issue_floor(listing):
-    """One warp's issue floor of one fixed-point iteration: the fewest
-    instructions on a path through the fixed-point loop's body, from its
-    header to a branch back to it, in the SASS `listing` of one
-    evolve1d_kernel.  The loop is the largest natural loop inside the
-    march over the shells (the largest loop); inner loops count once,
-    rarely taken branches not at all.  A warp issues at most one
-    instruction per cycle, so an iteration takes at least this many."""
-    blocks, succ = _sass_blocks(listing)
-    loops, back = _sass_loops(succ)
-    size = lambda v: blocks[v][1] - blocks[v][0]
-    (march, outer), *inner = sorted(
-        loops.items(), key=lambda kv: -sum(size(v) for v in kv[1]))
-    h, body = next((h, b) for h, b in inner if h != march and b <= outer)
-    dist, heap = {h: size(h)}, [(size(h), h)]
-    while heap:
-        d, v = heapq.heappop(heap)
-        if d > dist[v]:
-            continue
-        for w in succ[v]:
-            if w in body and (v, w) not in back and d + size(w) < dist.get(
-                    w, math.inf):
-                dist[w] = d + size(w)
-                heapq.heappush(heap, (dist[w], w))
-    return min(dist[s] for s, hh in back if hh == h and s in dist)
-
-
-def kernel_sass(path):
-    """{mangled function name: its SASS listing} of a kernel library
-    (`cuobjdump -sass`)."""
-    from c2ray_tpu_torch import cuda_build
-
-    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    return {fn.split(None, 1)[0]: fn
-            for fn in re.split(r"\n\s*Function : ", sass)[1:]}
-
-
 def unrolled_k(K):
     """The node count of the kernel instantiation that a K-node table
     runs: K where the kernels unroll it (band_rates.cuh: with_nodes),
@@ -2874,6 +3021,11 @@ def run_phases(dev, workdir, ref, oned_refs):
         return out
 
     phase("build", build_kernels)                                   # 2.
+    # phase 23's libraries, loaded before torch.profiler's first window
+    # (phase 22): the profiler showed no launch from a library loaded
+    # after it
+    parent, _ = phase("parent build", parent_libraries)
+    phase("stamped chemistry build", stamped_chemistry)
     sweep_err32, chem_err32 = phase("compare", phase_compare, dev)  # 3.
     hsweep_err32, hchem_err32 = phase("compare heating", phase_compare,
                                       dev, heating=True)
@@ -2937,6 +3089,13 @@ def run_phases(dev, workdir, ref, oned_refs):
                         srcpos, nflux),                             # 22.
                 **phase("heating sweep redesign", phase_sweep_redesign,
                         hcfg, hs, hsrc, hnfl)}
+    redesign.update({                                               # 23.
+        **phase("chemistry redesign", phase_chem_redesign, cfg, s, srcpos,
+                nflux, dt, parent),
+        **phase("heating chemistry redesign", phase_chem_redesign, hcfg, hs,
+                hsrc, hnfl, hdt, parent),
+        **phase("photon-loss redesign", phase_ploss_redesign, pcfg, ps_,
+                psrc, pnfl, parent)})
 
     # each kernel's launches on its own path: phases 4, 5, 8 and 10
     counts = {**counts, **hcounts, **pcounts, **dcounts}
@@ -2947,7 +3106,8 @@ def run_phases(dev, workdir, ref, oned_refs):
             (iso_t, sweep_err32, chem_err32, "", cfg),
             (heat_t, hsweep_err32, hchem_err32, "_heat", hcfg)):
         sb = sweep_bound(c.sweep, srcpos.shape[0], Rf, Rb)
-        cb = chemistry_bound(M**3, bool(sfx))
+        cb = (redesign["chemistry" + sfx].pop("bound_ms"),
+              redesign["chemistry" + sfx].pop("bound_by"))
         kernels += [
             {"name": "pyramid_sweep" + sfx, "route": "cuda",
              "source": "c2ray_tpu_torch/csrc/pyramid_sweep.cu",
@@ -2962,7 +3122,11 @@ def run_phases(dev, workdir, ref, oned_refs):
              "source": "c2ray_tpu_torch/csrc/chemistry.cu",
              "replaces": ("c2ray_tpu/thermal.py:119" if sfx
                           else "c2ray_tpu/sweep/global_pass.py:140"),
-             "launches": counts["chemistry" + sfx], "max_abs_err": ch[2],
+             "launches": MAIN_PATH_LAUNCHES["chemistry" + sfx],
+             "launches_of": "every main-path run that checks its "
+                            "launches (phases 4, 5, 8, 10, 16, 17, 20, "
+                            "21)",
+             "max_abs_err": ch[2],
              "max_rel_err_temperature": ch[3],
              "max_err_f32_32cube": ch_err,
              "ms": ch[0], "plain_ms": ch[1], "bound_ms": cb[0],
@@ -2987,7 +3151,8 @@ def run_phases(dev, workdir, ref, oned_refs):
         {"name": "photon_losses", "route": "cuda",
          "source": "c2ray_tpu_torch/csrc/photon_losses.cu",
          "replaces": "c2ray_tpu/sweep/photon_losses.py:45",
-         "launches": counts["photon_losses"], "max_abs_err": pabs,
+         "launches": MAIN_PATH_LAUNCHES["photon_losses"],
+         "launches_of": "every main-path run", "max_abs_err": pabs,
          "max_err_f32_32cube": pl_err, "ms": pms, "plain_ms": pplain,
          "bound_ms": pb[0], "bound_by": pb[1], "library_ms": plib},
     ]

@@ -535,6 +535,176 @@ def test_chemistry_kernel_matches_plain(cuda_device, dtype, heating):
         torch.testing.assert_close(a, b, rtol=tol, atol=atol, msg=name)
 
 
+def _bands_of(tables, nb):
+    """The photon-loss inputs of the first nb bands of `tables` (all
+    of them at nb = 47)."""
+    import types
+
+    keys = ("sigma_HI", "sigma_HeI", "mask_HeI", "sigma_HeII", "mask_HeII")
+    if nb == tables.sigma_HI.shape[0]:
+        return tables
+    return types.SimpleNamespace(**{k: torch.cat(
+        [getattr(tables, k)] * 2)[:nb] for k in keys})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["whole", "strided"])
+@pytest.mark.parametrize("nb", [47, 5])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_photon_loss_kernel_band_counts_and_row_layouts(cuda_device, dtype,
+                                                        nb, layout):
+    """The redesigned photon-loss kernel (band table in the constant
+    bank, unrolled in groups of 8) at the bench's 47 bands and at 5, on
+    the sweep's (n, 4) rate rows (one 16-byte load and store a cell in
+    float32) and on three separate rows (strided read-modify-writes),
+    against the plain version: float64 within rtol 1e-12, float32 within
+    1e-5 (47 positive terms in another order, a reciprocal within an
+    ulp); the table packed on the card equals band_table's, phiheat
+    keeps its bits, and two calls are equal to the bit."""
+    from c2ray_tpu_torch.sweep import photon_losses
+
+    M = 16
+    cfg = _config(M, dtype, cuda_device, S_star=1e48)
+    sweep = dataclasses.replace(cfg.sweep, track_band_loss=True)
+    state = _random_state(M, dtype, cuda_device)
+    fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
+                          state.he_av0, state.he_av1)
+    srcpos, nflux = _sources(M, 3, dtype, cuda_device)
+    rates = pyramid_sweep.sweep_pyramid_source_batch(sweep, fields, srcpos,
+                                                     nflux, radius=4)
+    tables = _bands_of(sweep.tables, nb)
+    plb = rates.photon_loss_bands[:nb]
+    vos = sweep.vol / sweep.flux_scale
+    n = M**3
+
+    def fresh():
+        if layout == "whole":
+            slab = torch.zeros((n, 4), dtype=dtype, device=cuda_device)
+            slab[:, 3] = rates.phiheat
+            g = [slab[:, k] for k in range(4)]
+        else:
+            rows = torch.zeros((3, n), dtype=dtype, device=cuda_device)
+            g = [rows[0], rows[1], rows[2], rates.phiheat.clone()]
+        return rates._replace(phih=g[0], phihe0=g[1], phihe1=g[2],
+                              phiheat=g[3], photon_loss_bands=plb)
+
+    added = lambda r: torch.stack([r.phih, r.phihe0, r.phihe1])
+    before = photon_losses.launches
+    r1 = photon_losses.distribute_photon_losses_cuda(tables, fresh(), fields,
+                                                     vos)
+    r2 = fresh()
+    tab = photon_losses._launch(tables, r2, fields, vos,
+                                photon_losses.DENSITY_FLOOR)
+    assert photon_losses.launches == before + 2
+    # the table the entry packs on the card is band_table's, to the bit
+    assert torch.equal(tab, photon_losses.band_table(tables, plb, n, vos,
+                                                     dtype))
+    p = added(photon_losses.distribute_photon_losses_plain(
+        tables, fresh(), fields, vos))
+    k = added(r1)
+    assert bool(torch.isfinite(k).all()) and float(p.abs().max()) > 0.0
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(k, p, rtol=tol, atol=tol * float(p.abs().max()))
+    assert torch.equal(k, added(r2))
+    assert torch.equal(r1.phiheat, rates.phiheat)
+
+
+@pytest.mark.gpu
+def test_photon_loss_kernel_refuses_more_bands_than_its_capacity(
+        cuda_device):
+    """49 bands do not fit the kernel's constant bank: ValueError, no
+    launch."""
+    from c2ray_tpu_torch.sweep import photon_losses
+
+    M = 8
+    cfg = _config(M, torch.float32, cuda_device, S_star=1e48)
+    state = _random_state(M, torch.float32, cuda_device)
+    fields = SourceFields(state.ndens, state.h_av0, state.h_av1,
+                          state.he_av0, state.he_av1)
+    nb = photon_losses.MAX_BANDS + 1
+    z = torch.zeros(M**3, dtype=torch.float32, device=cuda_device)
+    rates = source_sweep.RateGrids(
+        z, z.clone(), z.clone(), z.clone(), z.sum(), z.sum(),
+        torch.ones(nb, dtype=torch.float32, device=cuda_device))
+    before = photon_losses.launches
+    with pytest.raises(ValueError, match="at most"):
+        photon_losses.distribute_photon_losses_cuda(
+            _bands_of(cfg.sweep.tables, nb), rates, fields, 1.0)
+    assert photon_losses.launches == before
+
+
+def _front_pass(M, dtype, device, heating, clump, n_cells, seed=11):
+    """(config, state, rates, dt) of a chemistry pass across ionization
+    fronts: a neutral grid (densities 0.5-1.5e-3, T 1e4 K; clumping 1 or
+    1-3 per cell, with clump "strided" a view of every other element of a
+    row twice as long) after one plain pass under three sources, then a
+    sweep of that state; the first n_cells cells only."""
+    cfg = _config(M, dtype, device, S_star=3e50, heating=heating)
+    rng = np.random.RandomState(seed)
+    n = M**3
+    clumping = 1.0 if clump == "uniform" else rng.uniform(1.0, 3.0, n)
+    state = initial_grid_state(1e-3 * rng.uniform(0.5, 1.5, n), 1e-4, 1e-4,
+                               0.0, 1.0e4, clumping=clumping, dtype=dtype,
+                               device=device)
+    srcpos, nflux = _sources(M, 3, dtype, device, seed=seed)
+    dt = 1.0e13 if heating else 1.0e14
+
+    def rates_of(s):
+        return pyramid_sweep.sweep_pyramid_source_batch(
+            cfg.sweep, SourceFields(s.ndens, s.h_av0, s.h_av1, s.he_av0,
+                                    s.he_av1), srcpos, nflux)
+
+    state = global_pass.chemistry_pass_plain(cfg.chem, state,
+                                             rates_of(state), dt)[0]
+    rates = rates_of(state)
+    cut = lambda t: t[:n_cells] if t.ndim and t.shape[0] == n else t
+    state = type(state)(*(cut(t) for t in state))
+    if clump == "strided":
+        wide = torch.zeros((n_cells, 2), dtype=dtype, device=device)
+        wide[:, 0] = state.clumping
+        state = state._replace(clumping=wide[:, 0])
+    return (cfg, state,
+            type(rates)(*(None if t is None else cut(t) for t in rates)), dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ccf", [0.0, 1.0e-16])
+@pytest.mark.parametrize("clump", ["uniform", "cells", "strided"])
+@pytest.mark.parametrize("heating", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_chemistry_kernel_across_ionization_fronts(cuda_device, dtype,
+                                                   heating, clump, ccf):
+    """The redesigned chemistry kernel (a persistent grid whose lanes
+    take the next cell when theirs converges) on a pass across
+    ionization fronts, where cells of one warp take different numbers of
+    iterations and sub-steps, on 4093 cells (no multiple of a block or a
+    warp), the rates strided views of the sweep's slab, a per-cell
+    clumping contiguous or a strided view: float64 within
+    rtol 1e-10 of the plain version with conv_flag, the largest
+    iteration count and the largest sub-step count equal; float32 within
+    2e-2 (a cell whose 1% test flips stops one iteration apart); two
+    calls equal to the bit."""
+    cfg, state, rates, dt = _front_pass(16, dtype, cuda_device, heating,
+                                        clump, 4093)
+    assert rates.phih.stride(0) == 4
+    assert state.clumping.numel() == (1 if clump == "uniform" else 4093)
+    if clump != "uniform":
+        assert state.clumping.stride(0) == (2 if clump == "strided" else 1)
+    k = global_pass.chemistry_pass_cuda(cfg.chem, state, rates, dt, ccf)
+    k2 = global_pass.chemistry_pass_cuda(cfg.chem, state, rates, dt, ccf)
+    p = global_pass.chemistry_pass_plain(cfg.chem, state, rates, dt, ccf)
+    assert [int(x) for x in k[1:]] == [int(x) for x in k2[1:]]
+    for a, b in zip(k[0], k2[0]):
+        assert torch.equal(a, b)
+    assert int(p[2]) >= 2 and (int(p[3]) >= 2) == heating
+    if dtype == torch.float64:
+        assert [int(x) for x in k[1:]] == [int(x) for x in p[1:]]
+    tol = 1e-10 if dtype == torch.float64 else 2e-2
+    for a, b, name in zip(k[0], p[0], state._fields):
+        atol = 0.0 if name.startswith("t_") else tol
+        torch.testing.assert_close(a, b, rtol=tol, atol=atol, msg=name)
+
+
 # the 1D variants of chip_smoke.py's phase 11: (test problem,
 # isothermal, quadrature route, monochromatic tables, dt in Myr), on
 # the problems of tests/test_onedim.py; the "cold" heating runs start

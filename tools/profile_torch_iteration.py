@@ -56,11 +56,42 @@ of another commit, e.g. a `git archive` under build/), its
 csrc/evolve1d.cu is built too and the two builds run in turns (parent,
 this, this, parent) on the same inputs: float32 ms per iteration and
 thermal sub-steps per iteration over the N steps, the float64 step
-wall; and each build's issue floor (chip_smoke.sass_issue_floor: SASS
+wall; and each build's issue floor (kernel_study.sass_issue_floor: SASS
 instructions per iteration).  It also builds the parent's 3D kernel
 sources that share the 1D kernel's headers (chemistry, pyramid, shell
 and octant sweeps) and counts the
 kernel functions whose SASS equals this tree's.
+
+    python3 tools/profile_torch_iteration.py --chem [--parent DIR]
+        [--variants V1,V2,...]
+
+`--chem` profiles the 3D chemistry kernel (csrc/chemistry.cu) on the
+inputs of chip_smoke.py's phase 4 (isothermal) and 5 (heating) main
+paths: each of the 4 timed iterations, the pass after them (phase
+kernel times' inputs) and the first iteration of an evolve3d timestep
+(chem_inputs).  A copy of the kernel built under build/chem_split_<key>/
+with clock64() stamps (kernel_study.stamp_chemistry; it also stamps the one-thread-
+per-cell kernel of commit 8446144) gives each cell's iterations and
+summed thermal sub-steps (histograms, sums, the warp efficiency in cell
+order), cycles per part (loads, fits, doric, blend, thermal, convergence,
+stores) and each block's residency (achieved occupancy); the SASS per
+pass of the fixed-point loop and of the thermal sub-step
+(kernel_study.sass_loop_mix), registers and theoretical occupancy; the
+kernel's device ms (torch.profiler) and the wrapper call's (CUDA
+events).  With `--parent DIR` (a `git archive` of another commit) its
+kernel runs the same split and is timed in turns, and the outputs and
+counters are compared bit for bit.  With `--variants` it instead builds
+each variant of CHEM_VARIANTS ("a+b" applies both: edits of a copy of
+csrc/ under build/chem_<name>/) and times them against this
+build (and the parent's) in turns, with their bits compared.
+
+    python3 tools/profile_torch_iteration.py --ploss [--parent DIR]
+
+`--ploss` profiles the photon-loss kernel (csrc/photon_losses.cu) at
+phase 8's state: the band loop's SASS per band and cell
+(kernel_study.sass_per_band), registers, the kernel's device ms, the
+wrapper call's and the device time of each kernel one call launches;
+with `--parent` the parent's kernel in turns.
 """
 
 import argparse
@@ -74,6 +105,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+# the SASS readers and the stamped chemistry build, shared with
+# chip_smoke.py
+from kernel_study import (  # noqa: E402
+    _CHEM_STAMPS, _stamp, achieved_occupancy, build_chem_split, build_oned,
+    chem_layout, chem_pass_with, chem_split_run, chem_split_stats,
+    kernel_sass, parent_photon_losses, sass_loop_mix, sass_per_band)
 
 
 def main():
@@ -92,9 +130,22 @@ def main():
     ap.add_argument("--parent", default=None)
     ap.add_argument("--octant", action="store_true")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--chem", action="store_true")
+    ap.add_argument("--ploss", action="store_true")
+    ap.add_argument("--variants", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_iteration: needs a CUDA GPU")
+    if args.chem:
+        if args.variants:
+            time_chem_variants(args.variants.split(","), args.mesh,
+                               args.sources, args.parent)
+        else:
+            profile_chem(args.mesh, args.sources, args.parent)
+        return
+    if args.ploss:
+        profile_ploss(args.mesh, args.sources, args.parent)
+        return
     if args.oned:
         profile_oned(args.steps, args.parent)
         return
@@ -304,7 +355,7 @@ def profile_octant(M, S, lanes, parent, json_path=None):
                  for n in ("octant_sweep", "domain_halo")}
         anon = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
         norm = lambda path: {anon.sub("(anon)", k): anon.sub("(anon)", v)
-                             for k, v in cs.kernel_sass(path).items()}
+                             for k, v in kernel_sass(path).items()}
         for n in same_sass:
             mine = norm(base / "octant_this" / f"lib{n}.so")
             theirs = norm(base / "octant_parent" / f"lib{n}.so")
@@ -504,28 +555,489 @@ def stamp_evolve1d(text):
     """csrc/evolve1d.cu's `text` with the clock64() stamps of the split
     per part and the entry evolve1d_split that reads them; raises if the
     kernel no longer has a place that a stamp goes to."""
-    for pattern, stamp in _SPLIT_AT:
-        hits = list(re.finditer(pattern, text))
-        if len(hits) != 1:
-            raise RuntimeError(f"{len(hits)} places for a stamp in "
-                               f"evolve1d.cu: {pattern!r}")
-        at = hits[0].start("at")
-        text = text[:at] + stamp + text[at:]
-    return text + _SPLIT_ENTRY
+    return _stamp(text, _SPLIT_AT, "evolve1d.cu") + _SPLIT_ENTRY
 
 
-def build_oned(src, out, source="evolve1d"):
-    """Start nvcc on `source`.cu of the kernel directory `src` into the
-    library `out`; returns the process."""
-    import subprocess
+def chem_inputs(M, S, heating, dev, iters=4):
+    """The chemistry pass's inputs on chip_smoke.py's phase 4 (heating:
+    5) main path in float32: (chemistry config, dt, [(label, state,
+    rates)]) of each of the `iters` timed iterations after the warm-up,
+    of the pass after them that phase_kernel_times times, and of the
+    first iteration of an evolve3d timestep from the initial state."""
+    import chip_smoke as cs
+    from c2ray_tpu_torch.state import initial_grid_state
+    from c2ray_tpu_torch.sweep import evolve3d, make_evolve3d_iteration
+    from c2ray_tpu_torch.sweep import global_pass as gp
+
+    cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev, heating)
+    srcpos, nflux = bench_sources(M, S, dev)
+    state0 = initial_grid_state(np.full((M,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
+                                1.0e4, dtype=torch.float32, device=dev)
+    dt = 1.0e14
+    iteration = make_evolve3d_iteration(cfg, return_rates=True)
+    s = iteration(state0, srcpos, nflux, dt)[0]
+    out = []
+    for k in range(iters):
+        nxt, _, _, _, rates = iteration(s, srcpos, nflux, dt)
+        out.append((f"timed iteration {k + 1}", s, rates))
+        s = nxt
+    # chip_smoke.phase_kernel_times' inputs: a sweep of the state after
+    # the timed iterations
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    out.append(("after the timed iterations", s,
+                ps.sweep_pyramid_source_batch(cfg.sweep, cs.fields_of(s),
+                                              srcpos, nflux)))
+
+    class Captured(Exception):
+        pass
+
+    first = []
+
+    def capture(chem, state, rates, dt, ccf=None):
+        first.append((state, rates))
+        raise Captured
+
+    real = gp.chemistry_pass_cuda, gp.chemistry_pass_plain
+    gp.chemistry_pass_cuda = gp.chemistry_pass_plain = capture
+    try:
+        evolve3d(cfg, state0, srcpos, nflux, dt)
+    except Captured:
+        pass
+    finally:
+        gp.chemistry_pass_cuda, gp.chemistry_pass_plain = real
+    out.append(("evolve3d's first iteration", *first[0]))
+    return cfg.chem, dt, out
+
+
+def theoretical_occupancy(regs, block_threads, warps_per_sm=64):
+    """Resident warps per SM that `regs` registers a thread allow (64K
+    registers per SM, allocated per warp in units of 256), as a share of
+    64."""
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * (block_threads // 32)),
+                 2048 // block_threads, 32)
+    return blocks * block_threads / 32 / warps_per_sm
+
+
+def ptxas_registers(log, kernel):
+    """{instantiation: registers} of `kernel` from a ptxas -v log."""
+    return {k: v[0] for k, v in ptxas_usage(log, kernel).items()}
+
+
+def ptxas_usage(log, kernel):
+    """{instantiation: (registers, spill store bytes, spill load bytes)}
+    of `kernel` from a ptxas -v log."""
+    use, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S*" + kernel + r"\S*)'",
+                      line)
+        if m:
+            cur, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            use[cur] = (int(m.group(1)), *spill)
+            cur = None
+    return use
+
+
+def sass_between_clocks(listing):
+    """Instructions between consecutive clock reads (S2UR/CS2R of
+    SR_CLOCKLO) of a stamped listing, in address order: [before the
+    first read, after read 1, ..., after the last read]."""
+    lines = [ln for ln in listing.splitlines()
+             if re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", ln)]
+    marks = [i for i, ln in enumerate(lines) if "SR_CLOCKLO" in ln]
+    edges = [0] + [m + 1 for m in marks] + [len(lines)]
+    return [b - a for a, b in zip(edges, edges[1:])]
+
+
+def device_rows(fn):
+    """{kernel name: device ms} of the kernels that one fn() launches
+    (torch.profiler over two calls, halved)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = e.name[:60]
+            rows[k] = rows.get(k, 0.0) + (e.time_range.end
+                                          - e.time_range.start) / 2e3
+    return rows
+
+
+def profile_chem(M, S, parent):
+    """--chem: the chemistry kernel at phase 4's and 5's states; with
+    `parent` (a checkout of another commit) its kernel too, in turns."""
+    import chip_smoke as cs
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.sweep import global_pass as gp
+
+    dev = torch.device("cuda", 0)
+    print(f"{cs.smi_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; chemistry at {M}^3 float32, the states "
+          f"of phase 4 (isothermal) and 5 (heating)")
+    cuda_build.load("chemistry")
+    builds = {"this": cuda_build.CSRC}
+    if parent:
+        builds["parent"] = Path(parent).resolve() / "c2ray_tpu_torch" / "csrc"
+    split = {k: build_chem_split(k, src) for k, src in builds.items()}
+    plain = {"this": cuda_build.load("chemistry")}
+    logs = {"this": cuda_build.build_log("chemistry")}
+    if parent:
+        import ctypes
+
+        d = cuda_build.BUILD_DIR.parent / "chem_parent"
+        proc = build_oned(builds["parent"], d / "libchemistry.so",
+                          source="chemistry")
+        logs["parent"] = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's chemistry.cu:\n"
+                               f"{logs['parent']}")
+        plain["parent"] = ctypes.CDLL(str(d / "libchemistry.so"))
+    for key in builds:
+        block = split[key][2]
+        for name, r in sorted(ptxas_registers(logs[key],
+                                              "chemistry_kernel").items()):
+            print(f"  {key}: {name}: {r} registers, {block} threads a block, "
+                  f"theoretical occupancy "
+                  f"{theoretical_occupancy(r, block):.3f}")
+    for heating in (False, True):
+        v = "heating" if heating else "isothermal"
+        flag = int(heating)
+        for key in builds:
+            layout = split[key][1]
+            path = (cuda_build.library_path("chemistry") if key == "this"
+                    else cuda_build.BUILD_DIR.parent / "chem_parent"
+                    / "libchemistry.so")
+            sass = kernel_sass(path)
+            fname = next(k for k in sass if re.search(
+                rf"chemistry_kernelIfLb{flag}E", k))
+            inner = "ldg" if heating else None
+            mix = sass_loop_mix(sass[fname], "ex2", inner)
+            print(f"{v}, {key} build: SASS per pass of the fixed-point loop "
+                  f"{mix['loop']}; thermal sub-step {mix['inner']}; entry to "
+                  f"exit through the loop once {mix['whole']}")
+            stamped = kernel_sass(cuda_build.BUILD_DIR.parent
+                                     / f"chem_split_{key}" / "libchemistry.so")
+            sfn = next(k for k in stamped if re.search(
+                rf"chemistry_kernelIfLb{flag}E", k))
+            between = sass_between_clocks(stamped[sfn])
+            labels = ("prologue",) + _CHEM_STAMPS[layout, heating] + ("after",)
+            print(f"  {key} stamped build, SASS between the clock reads in "
+                  f"address order: " + (
+                      ", ".join(f"{a} {b}" for a, b in zip(labels, between))
+                      if len(between) == len(labels) else
+                      f"{between} (not attributable to the {len(labels)} "
+                      f"parts)"))
+        chem, dt, cases = chem_inputs(M, S, heating, dev)
+        for label, state, rates in cases:
+            call = lambda: gp.chemistry_pass_cuda(chem, state, rates, dt)
+            ref = chem_pass_with(plain["this"], "this", chem, state, rates, dt)
+            print(f"  {v}, {label}: conv_flag, largest iterations, largest "
+                  f"sub-steps of an iteration {ref[1].tolist()}")
+            for key in builds:
+                lib, layout, block = split[key]
+                nit, nsub, cycles, blocks, sout = chem_split_run(
+                    lib, layout, chem, state, rates, dt)
+                same = (torch.equal(sout[0], ref[0])
+                        and torch.equal(sout[1], ref[1]))
+                _, lines = chem_split_stats(nit, nsub, cycles, heating)
+                print(f"    {key} build, stamped: outputs and counters equal "
+                      f"to this build's: {same}; achieved occupancy "
+                      f"{achieved_occupancy(blocks, block):.3f}")
+                for line in lines:
+                    print(f"      {line}")
+            rows = device_rows(call)
+            print(f"    this build, device ms by kernel of one call: " + ", ".join(
+                f"{k} {t:.4f}" for k, t in sorted(rows.items(),
+                                                  key=lambda kv: -kv[1])))
+            order = ["parent", "this", "this", "parent"] if parent else ["this"]
+            res = []
+            for key in order:
+                f = (call if key == "this" else
+                     lambda: chem_pass_with(plain[key], "8446144" if
+                                            split[key][1] == "8446144" else
+                                            "this", chem, state, rates, dt))
+                res.append((key, cs.event_ms(f, 5),
+                            cs.launch_profile(f, "chemistry_kernel", 1)[0][0]))
+            print(f"    in turns (wrapper call ms, CUDA events; kernel device "
+                  f"ms, torch.profiler): " + ", ".join(
+                      f"{k} {a:.4f} / {b:.4f}" for k, a, b in res))
+            if parent:
+                pout = chem_pass_with(plain["parent"], split["parent"][1],
+                                      chem, state, rates, dt)
+                print(f"    outputs and counters equal to the parent's: "
+                      f"{torch.equal(pout[0], ref[0])} / "
+                      f"{torch.equal(pout[1], ref[1])}")
+
+
+# Variants of the chemistry kernel that --chem --variants times against
+# this build in turns: [(file in csrc/, pattern, replacement), ...], each
+# pattern found once; "a+b" applies both.
+_SMEM_BYTES = "kHeat ? sizeof(T) * kTempPoints * 5 : 0"
+# the kernel's hand-out test, and one with the busy lanes' vote
+_HAND_OUT = (r"const unsigned want = __ballot_sync\(kAll, need\);\n"
+             r"    if \(want\) \{")
+
+
+def _hand_out(cond, tail=None):
+    return ("const unsigned want = __ballot_sync(kAll, need);\n"
+            "    const unsigned busy = __ballot_sync(kAll, !need && i < n);\n"
+            + (f"    const bool tail = __any_sync(kAll, {tail});\n" if tail
+               else "")
+            + f"    if (want && ({cond})) {{")
+
+
+CHEM_VARIANTS = {
+    # div_flat (the bits of IEEE `/`, float64 arithmetic, no branch) for
+    # the divisions of the 3D pass
+    "flat": [("chemistry.cuh",
+              r"(struct PerCell \{[^}]*?)return a / b;",
+              r"\1return div_flat(a, b);")],
+    # the cooling table staged in shared memory by each block instead of
+    # read through __ldg (16 KB in float32, under the 48 KB default)
+    "smem": [("chemistry.cuh",
+              r"(struct PerCell \{\s*static constexpr bool kSpread = false, "
+              r"kSharedTable = )false", r"\1true"),
+             ("chemistry.cu", r"(  __shared__ Rates<T> fixed;\n)",
+              r"\1  extern __shared__ __align__(16) unsigned char smem[];\n"
+              r"  if constexpr (kHeat) {\n"
+              r"    T* cool_s = reinterpret_cast<T*>(smem);\n"
+              r"    for (int k = threadIdx.x; k < kTempPoints * 5; "
+              r"k += blockDim.x)\n"
+              r"      cool_s[k] = cool[k];\n"
+              r"    cool = cool_s;\n"
+              r"  }\n"),
+             ("chemistry.cu", r"kernel, kBlock, 0\)",
+              f"kernel, kBlock, {_SMEM_BYTES})"),
+             ("chemistry.cu", r"kBlock, 0, stream>>>",
+              f"kBlock, {_SMEM_BYTES}, stream>>>")],
+    # kMinBlocks resident blocks of kBlock threads an SM (the register
+    # cap 65536 / (kBlock kMinBlocks))
+    "min2": [("chemistry.cu", r"constexpr int kMinBlocks = \d+;",
+              "constexpr int kMinBlocks = 2;")],
+    "min3": [("chemistry.cu", r"constexpr int kMinBlocks = \d+;",
+              "constexpr int kMinBlocks = 3;")],
+    "min5": [("chemistry.cu", r"constexpr int kMinBlocks = \d+;",
+              "constexpr int kMinBlocks = 5;")],
+    # other hand-outs: a warp takes cells for its free lanes at once only
+    # while one of its cells has run k iterations (a front's tail), else
+    # once all its lanes are free ("tail<k>"); only once all are free, its
+    # 32 neighbours together ("whole"); once 8 (16) lanes are free or all
+    # are ("batch8", "batch16")
+    **{f"tail{k}": [("chemistry.cu", _HAND_OUT, _hand_out(
+        "!busy || tail", f"!need && i < n && c.nit >= {k}"))]
+       for k in (2, 3, 4, 6, 8)},
+    "whole": [("chemistry.cu", _HAND_OUT, _hand_out("!busy"))],
+    **{f"batch{k}": [("chemistry.cu", _HAND_OUT, _hand_out(
+        f"__popc(want) >= {k} || !busy"))] for k in (8, 16)},
+    # a lane runs its cell's iterations to the end before it returns to
+    # the hand-out (the warp waits for its slowest lane there, so this
+    # takes cells only for a whole free warp, as "whole")
+    "inner": [("chemistry.cu",
+               r"(bool finished = c\.nit >= max_iter;\n    )if \(!finished\) \{",
+               r"\1while (!finished) {")],
+    # as many blocks as cells / kBlock (every lane's first cell from the
+    # launch, no block resident for the whole pass), twice the resident
+    # blocks
+    "gridfull": [("chemistry.cu",
+                  r"\(long long\)std::max\(per_sm, 1\) \* sms",
+                  "(n + kBlock - 1) / kBlock")],
+    "grid2x": [("chemistry.cu", r"\(long long\)std::max\(per_sm, 1\) \* sms",
+                "2LL * std::max(per_sm, 1) * sms")],
+    # k resident blocks an SM (of the 4 that fit), 8k warps
+    **{f"grid{k}": [("chemistry.cu",
+                     r"\(long long\)std::max\(per_sm, 1\) \* sms",
+                     f"{k}LL * sms")] for k in (1, 2, 3)},
+    # blocks of 128 threads
+    "block128": [("chemistry.cu", r"constexpr int kBlock = \d+;",
+                  "constexpr int kBlock = 128;")],
+}
+
+
+def apply_chem_variant(name, read, write):
+    """Apply the edits of CHEM_VARIANTS for each part of `name` ("a+b":
+    both) through read(file) -> text and write(file, text); raises if a
+    pattern is not found exactly once."""
+    for part in name.split("+"):
+        for fname, pattern, repl in CHEM_VARIANTS[part]:
+            text, k = re.subn(pattern, repl, read(fname))
+            if k != 1:
+                raise RuntimeError(f"variant {part}: {k} places in {fname}")
+            write(fname, text)
+
+
+def build_chem_variant(name):
+    """csrc/chemistry.cu built from a copy of csrc/ under
+    build/chem_<name>/ with the edits of apply_chem_variant: (nvcc
+    process, directory)."""
+    import shutil
 
     from c2ray_tpu_torch import cuda_build
 
-    out.parent.mkdir(parents=True, exist_ok=True)
-    return subprocess.Popen(
-        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-         str(out), str(src / f"{source}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    d = cuda_build.BUILD_DIR.parent / f"chem_{name.replace('+', '_')}"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(cuda_build.CSRC, d)
+    apply_chem_variant(name, lambda f: (d / f).read_text(),
+                       lambda f, t: (d / f).write_text(t))
+    return build_oned(d, d / "libchemistry.so", source="chemistry"), d
+
+
+def time_chem_variants(names, M, S, parent=None):
+    """The chemistry kernel of each variant (and of the parent build,
+    with `parent`) against this build, in turns (this, v1, ..., vk, vk,
+    ..., v1, this), at phase 4's first timed iteration, the pass after
+    them and evolve3d's first iteration, and at every input of phase 5
+    (chem_inputs): kernel device ms, and whether each one's outputs and
+    counters equal this build's and the parent's."""
+    import ctypes
+
+    import chip_smoke as cs
+    from c2ray_tpu_torch import cuda_build
+
+    dev = torch.device("cuda", 0)
+    print(f"{cs.smi_line()}; chemistry variants at {M}^3 float32")
+    this = cuda_build.load("chemistry")
+    jobs = {n: build_chem_variant(n) for n in names if n != "contig"}
+    libs = {"this": (this, "this")}
+    if parent:
+        psrc = Path(parent).resolve() / "c2ray_tpu_torch" / "csrc"
+        d = cuda_build.BUILD_DIR.parent / "chem_parent"
+        jobs["parent"] = (build_oned(psrc, d / "libchemistry.so",
+                                     source="chemistry"), d)
+    for n, (proc, d) in jobs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {n}:\n{out}")
+        use = ptxas_usage(out, "chemistry_kernel")
+        print(f"  {n}: registers, spill store / load bytes (f32 isothermal, "
+              f"heating) " + ", ".join(
+                  f"{r} ({s} / {l})" for k, (r, s, l) in sorted(use.items())
+                  if "kernelIf" in k))
+        text = (d / "chemistry.cu").read_text() if n != "parent" else (
+            Path(parent).resolve() / "c2ray_tpu_torch" / "csrc"
+            / "chemistry.cu").read_text()
+        libs[n] = (ctypes.CDLL(str(d / "libchemistry.so")), chem_layout(text))
+    # "contig": this build on contiguous copies of the rate rows (the
+    # sweep hands them over as strided views of its (n, 4) slab)
+    rows = {"contig": lambda r: r._replace(**{
+        k: getattr(r, k).contiguous()
+        for k in ("phih", "phihe0", "phihe1", "phiheat")})}
+    if "contig" in names:
+        libs["contig"] = libs["this"]
+    order = ["this"] + list(names) + (["parent"] if parent else [])
+    order = order + order[::-1]
+    for heating in (False, True):
+        chem, dt, cases = chem_inputs(M, S, heating, dev)
+        picks = cases if heating else [cases[0], cases[4], cases[5]]
+        for label, state, rates in picks:
+            given = {k: rows.get(k, lambda r: r)(rates) for k in libs}
+            outs = {k: chem_pass_with(*libs[k], chem, state, given[k], dt)
+                    for k in libs}
+            eq = lambda a, b: (torch.equal(outs[a][0], outs[b][0])
+                               and torch.equal(outs[a][1], outs[b][1]))
+            res = {}
+            for key in order:
+                f = lambda: chem_pass_with(*libs[key], chem, state,
+                                           given[key], dt)
+                res.setdefault(key, []).append(
+                    cs.launch_profile(f, "chemistry_kernel", 1)[0][0])
+            print(f"  {'heating' if heating else 'isothermal'}, {label}: "
+                  f"kernel device ms (torch.profiler, two turns) " + ", ".join(
+                      f"{k} {' / '.join(f'{t:.4f}' for t in v)}"
+                      for k, v in res.items()))
+            print("    outputs and counters equal to this build's: " + ", ".join(
+                f"{k} {eq(k, 'this')}" for k in libs if k != "this")
+                + ("; to the parent's: " + ", ".join(
+                    f"{k} {eq(k, 'parent')}" for k in libs if k != "parent")
+                   if parent else ""))
+
+
+def profile_ploss(M, S, parent):
+    """--ploss: the photon-loss kernel at phase 8's state."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.state import initial_grid_state
+    from c2ray_tpu_torch.sweep import make_evolve3d_iteration
+    from c2ray_tpu_torch.sweep import photon_losses as pls
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    dev = torch.device("cuda", 0)
+    cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev)
+    cfg = dataclasses.replace(
+        cfg, add_photon_losses=True,
+        sweep=dataclasses.replace(cfg.sweep, track_band_loss=True))
+    srcpos, nflux = bench_sources(M, S, dev)
+    s = initial_grid_state(np.full((M,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
+                           1.0e4, dtype=torch.float32, device=dev)
+    iteration = make_evolve3d_iteration(cfg)
+    for _ in range(5):
+        s = iteration(s, srcpos, nflux, 1.0e14)[0]
+    f = cs.fields_of(s)
+    rates = ps.sweep_pyramid_source_batch(cfg.sweep, f, srcpos, nflux)
+    vos = cfg.sweep.vol / cfg.sweep.flux_scale
+    tables = cfg.sweep.tables
+    nb = tables.sigma_HI.shape[0]
+    call = lambda: pls.distribute_photon_losses_cuda(tables, rates, f, vos)
+    print(f"{cs.smi_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; photon losses at {M}^3 x {nb} bands "
+          f"float32, phase 8's state")
+    call()
+    sass = kernel_sass(cuda_build.library_path("photon_losses"))
+    for name, listing in sorted(sass.items()):
+        if "photon_losses_kernelIf" in name:
+            mix, per_pass = sass_per_band(listing)
+            print(f"  {name}: per band (of {per_pass} a pass) " + ", ".join(
+                f"{k} {v:.2f}" for k, v in mix.items() if v))
+    for name, r in sorted(ptxas_registers(
+            cuda_build.build_log("photon_losses"),
+            "photon_losses_kernel").items()):
+        print(f"  {name}: {r} registers")
+    ms = cs.event_ms(call, 20)
+    kms = cs.launch_profile(call, "photon_losses_kernel", 1)[0][0]
+    b = cs.photon_losses_bound(M**3, nb)
+    print(f"  wrapper call {ms:.4f} ms (CUDA events, mean of 20), kernel "
+          f"{kms:.4f} ms device (torch.profiler); bound {b[0]:.4f} ms "
+          f"({b[1]})")
+    print("  device ms by kernel of one call: " + ", ".join(
+        f"{k} {t:.4f}" for k, t in sorted(device_rows(call).items(),
+                                          key=lambda kv: -kv[1])))
+    if parent:
+        import ctypes
+
+        psrc = Path(parent).resolve() / "c2ray_tpu_torch" / "csrc"
+        d = cuda_build.BUILD_DIR.parent / "ploss_parent"
+        proc = build_oned(psrc, d / "libphoton_losses.so",
+                          source="photon_losses")
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's "
+                               f"photon_losses.cu:\n{out}")
+        plib = ctypes.CDLL(str(d / "libphoton_losses.so"))
+        pcall = lambda: parent_photon_losses(plib, tables, rates, f, vos)
+        res = []
+        for key in ("parent", "this", "this", "parent"):
+            fn = pcall if key == "parent" else call
+            res.append((key, cs.event_ms(fn, 20),
+                        cs.launch_profile(fn, "photon_losses_kernel",
+                                          1)[0][0]))
+        print("  in turns (wrapper call ms, kernel device ms): " + ", ".join(
+            f"{k} {a:.4f} / {b:.4f}" for k, a, b in res))
 
 
 def oned_runs(steps):
@@ -630,7 +1142,7 @@ def profile_oned(steps, parent):
         # source's path: drop it before comparing
         anon = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
         norm = lambda path: {anon.sub("(anon)", k): anon.sub("(anon)", v)
-                             for k, v in cs.kernel_sass(path).items()}
+                             for k, v in kernel_sass(path).items()}
         for n in shared:
             mine = norm(base / "oned_this" / f"lib{n}.so")
             theirs = norm(base / "oned_parent" / f"lib{n}.so")

@@ -35,6 +35,13 @@ class IonState(NamedTuple):
     old: IonFractions
 
 
+def ion_fractions(h1, he1, he2) -> IonFractions:
+    """IonFractions from the ionized fractions (tensors or numbers)."""
+    h1, he1, he2 = (torch.as_tensor(x) for x in (h1, he1, he2))
+    return IonFractions(h0=1.0 - h1, h1=h1, he0=1.0 - he1 - he2, he1=he1,
+                        he2=he2)
+
+
 def electrondens(ndens, ions: IonFractions):
     """Electron density (tped.f90:75-84)."""
     return ndens * (
@@ -47,6 +54,19 @@ def electrondens(ndens, ions: IonFractions):
 def coldens(path, neufrac, ndens, abundance):
     """Column density contribution of one cell (doric.f90:358-372)."""
     return neufrac * ndens * path * abundance
+
+
+def coldens_bndry_HI(boundary_tauHI=0.0):
+    """The HI column of a boundary optical depth at the HI threshold."""
+    return boundary_tauHI / const.sigma_HI_at_ion_freq
+
+
+def coldens_bndry_HeI(boundary_tauHeI=0.0):
+    return boundary_tauHeI / const.sigma_HeI_at_ion_freq
+
+
+def coldens_bndry_HeII(boundary_tauHeII=0.0):
+    return boundary_tauHeII / const.sigma_HeII_at_ion_freq
 
 
 class DoricFactors(NamedTuple):

@@ -23,10 +23,13 @@ def _tensor(a, dtype, device):
 
 def quad_tables_from_numpy(qt, dtype=torch.float64, device=None
                            ) -> QuadTables:
-    """The port's QuadTables from ``c2ray_tpu``'s (fixed-node rule)."""
+    """The port's QuadTables from ``c2ray_tpu``'s (a fixed rule, or the
+    "auto" rule's tuples of blocks)."""
     def source(sq):
         if sq is None:
             return None
+        if isinstance(sq, tuple) and not hasattr(sq, "_fields"):
+            return tuple(source(b) for b in sq)
         opt = lambda a: None if a is None else _tensor(a, dtype, device)
         return SourceQuad(
             band_lo=int(sq.band_lo), band_hi=int(sq.band_hi),

@@ -355,6 +355,68 @@ __device__ __forceinline__ void cell_rates(const T* tab, const BandTables& d,
   }
 }
 
+// ---- "auto" tables: bands in blocks of one K each
+//
+// quadrature.py:photoion_rates_quad sums _one_source_quad over the
+// blocks of each source type (n_nodes="auto": 1 band at K = 12, 26 at
+// K = 3 and 6 at K = 6 for the bench's 5e4 K blackbody, 126 exponential
+// terms a cell against 198 of the fixed 6-node rule).  block_rates runs
+// cell_rates once per block, as a table of one type of the block's K:
+// the node loop unrolled for the Ks that occur (3, 6, 8, 12; any other
+// at run time), the block's rows at their offset in the flat rows
+// (packed_band_blocks), the blocks' sums added in the plain version's
+// order.  Every lane of a cell takes the same block at the same time, so
+// the switch on K does not diverge.
+constexpr int kMaxBlocks = 24;
+
+struct BandBlocks {
+  int n;
+  int col[kMaxBlocks], lo[kMaxBlocks], nb[kMaxBlocks], K[kMaxBlocks],
+      row0[kMaxBlocks];
+};
+
+template <typename T, bool kHeat>
+__device__ __forceinline__ void block_rates(const T* tab, const BandBlocks& bl,
+                                            const T* nfl3, const T* cin,
+                                            const T* cout, T vol, const T* y,
+                                            T out[kHeat ? 6 : 5], int lane,
+                                            int nlanes) {
+  constexpr int kOut = kHeat ? 6 : 5;
+  for (int q = 0; q < kOut; ++q) out[q] = T(0);
+  for (int i = 0; i < bl.n; ++i) {
+    BandTables d;
+    d.K = bl.K[i];
+    d.ntypes = 1;
+    d.type_col[0] = bl.col[i];
+    d.type_nb[0] = bl.nb[i];
+    d.type_lo[0] = bl.lo[i];
+    const T* rows = tab + bl.row0[i];
+    T o[kOut];
+    switch (d.K) {
+      case 3:
+        cell_rates<T, kHeat, false, 3>(rows, d, nfl3, cin, cout, vol, y, o,
+                                       nullptr, lane, nlanes);
+        break;
+      case 6:
+        cell_rates<T, kHeat, false, 6>(rows, d, nfl3, cin, cout, vol, y, o,
+                                       nullptr, lane, nlanes);
+        break;
+      case 8:
+        cell_rates<T, kHeat, false, 8>(rows, d, nfl3, cin, cout, vol, y, o,
+                                       nullptr, lane, nlanes);
+        break;
+      case 12:
+        cell_rates<T, kHeat, false, 12>(rows, d, nfl3, cin, cout, vol, y, o,
+                                        nullptr, lane, nlanes);
+        break;
+      default:
+        cell_rates<T, kHeat, false, 0>(rows, d, nfl3, cin, cout, vol, y, o,
+                                       nullptr, lane, nlanes);
+    }
+    for (int q = 0; q < kOut; ++q) out[q] += o[q];
+  }
+}
+
 // ---- The split form of cell_rates for the 1D march (csrc/evolve1d.cu)
 //
 // The 1D march evaluates one shell's rates up to max_iter times against

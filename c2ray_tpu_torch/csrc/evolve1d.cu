@@ -10,7 +10,8 @@
 // c2ray_tpu/radiation/photo.py: _table_positions (:65), _read (:78),
 // _photo_lookup (:90), _heat_lookup (:123) and photoion_rates (:185);
 // on the quadrature route band_in / band_out (csrc/band_rates.cuh,
-// cell_rates' split form); the chemistry device functions of
+// cell_rates' split form), on the table route table_in / table_out
+// (csrc/table_rates.cuh); the chemistry device functions of
 // csrc/chemistry.cuh.
 //
 // Algorithm (the same as evolve1d_plain in onedim/evolve.py): the
@@ -75,20 +76,13 @@
 
 #include "band_rates.cuh"
 #include "chemistry.cuh"
+#include "table_rates.cuh"
 
 namespace c2ray {
 namespace {
 
 constexpr int kLanes = 32;
 constexpr double kMaxColdensh1D = 2.0e26;    // onedim/evolve.py:MAX_COLDENSH_1D
-// radiation/tables.py: tau rows 0..kNumTau at log10 tau = minlogtau +
-// dlogtau * (row - 1)
-constexpr int kNumTau = 2000;
-constexpr double kMinLogTau = -20.0;
-constexpr double kDLogTau = (4.0 - (-20.0)) / 2000;
-// table route band rows: [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII,
-// the 12 f-factors in radiation/bands.py:F_FACTORS order]
-constexpr int kTableRow = 17;
 
 template <typename T>
 struct Args1D {
@@ -278,151 +272,6 @@ __device__ __forceinline__ void spread_fits(const FitOps<T>& o, T t, T x,
   }
 }
 
-template <typename T>
-struct Pos {
-  int i, i1;
-  T r;
-};
-
-// photo.py:_table_positions: the truncated row, the next one capped at
-// kNumTau, and the residual
-template <typename T>
-__device__ __forceinline__ Pos<T> table_position(T tau) {
-  const T logtau = xlog10(maxp(tau, T(1.0e-20)));
-  const T od = minp(maxp(T(1) + div_flat(logtau - T(kMinLogTau), T(kDLogTau)),
-                         T(0)), T(kNumTau));
-  Pos<T> p;
-  p.i = int(od);
-  p.r = od - T(p.i);
-  p.i1 = min(kNumTau, p.i + 1);
-  return p;
-}
-
-// photo.py:_read of one column
-template <typename T>
-__device__ __forceinline__ T table_read(const T* tab, int ncols, int col,
-                                        const Pos<T>& p) {
-  const T lo = __ldg(tab + size_t(p.i) * ncols + col);
-  const T hi = __ldg(tab + size_t(p.i1) * ncols + col);
-  return lo + (hi - lo) * p.r;
-}
-
-// The table route's incoming side (see band_in in band_rates.cuh): per
-// band, arrays over the nb bands, tau_in and per source type the reads
-// at its table position -- the thick and thin photo reads and with
-// heating the thick and thin heat reads of the three species.
-template <bool kHeat>
-__host__ __device__ __forceinline__ int table_in_values(int ntypes) {
-  return 1 + ntypes * (kHeat ? 8 : 2);
-}
-
-template <typename T, bool kHeat>
-__device__ void table_in(const Args1D<T>& a, const T* rows, const T* cin,
-                         T* in, int lane) {
-  const size_t ptab = size_t(kNumTau + 1) * a.nb;
-  const size_t htab = size_t(kNumTau + 1) * a.nheat;
-  const int nb = a.nb;
-  for (int b = lane; b < nb; b += kLanes) {
-    const T* rb = rows + b * kTableRow;
-    const T tau_in = cin[0] * rb[0] + cin[1] * rb[1] + cin[2] * rb[2];
-    const Pos<T> pin = table_position(tau_in);
-    in[b] = tau_in;
-    T* v = in + nb;
-    for (int t = 0; t < a.bt.ntypes; ++t) {
-      const T* tk = a.photo_tab + 2 * t * ptab;
-      v[0 * nb + b] = table_read(tk, nb, b, pin);
-      v[1 * nb + b] = table_read(tk + ptab, nb, b, pin);
-      if constexpr (kHeat) {
-        const T* hk = a.heat_tab + 2 * t * htab;
-        for (int sp = 0; sp < 3; ++sp) {
-          const int col = a.hbin[3 * b + sp];
-          v[(2 + sp) * nb + b] = table_read(hk, a.nheat, col, pin);
-          v[(5 + sp) * nb + b] = table_read(hk + htab, a.nheat, col, pin);
-        }
-      }
-      v += (kHeat ? 8 : 2) * nb;
-    }
-  }
-}
-
-// photo.py:photoion_rates with every flux 1, this lane's bands (their
-// rows `rows`), from the incoming side `in` (table_in's, for the same
-// cin): r =
-// photo_cell_{HI,HeI,HeII} and the heat.  A thin band reads no table: its
-// rates are dtau times the shell's thin reads; a thick band reads its
-// table at tau_out (the heat tables only where the heat is thick too).
-template <typename T, bool kHeat>
-__device__ void table_out(const Args1D<T>& a, const T* rows, const T* cin,
-                          const T* cout, T vol, const T* y, const T* in,
-                          T r[4], int lane) {
-  const T tiny = Limits<T>::tiny();
-  const size_t ptab = size_t(kNumTau + 1) * a.nb;
-  const size_t htab = size_t(kNumTau + 1) * a.nheat;
-  const int nb = a.nb;
-  T p[3] = {T(0), T(0), T(0)};
-  // heat (compensated), f_ion_HI, f_ion_HeI (photo.py:_heat_lookup)
-  T heat = T(0), hcomp = T(0), fion[2] = {T(0), T(0)};
-  for (int b = lane; b < nb; b += kLanes) {
-    const T* rb = rows + b * kTableRow;
-    const T sHI = rb[0], sHeI = rb[1], sHeII = rb[2];
-    const T mHeI = rb[3], mHeII = rb[4];
-    const T tau_in = in[b];
-    const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
-    // the tau-weighted species split (scale_int2/3)
-    const T tc[3] = {sHI * (cout[0] - cin[0]), sHeI * (cout[1] - cin[1]),
-                     sHeII * (cout[2] - cin[2])};
-    const T inv = div_flat(T(1), maxp(tc[0] + tc[1] + tc[2], tiny));
-    const T sc[3] = {tc[0] * inv, tc[1] * inv, tc[2] * inv};
-    const T dtau = tau_out - tau_in;
-    const bool thick = xabs(dtau) > T(kTauPhotoLimit);
-    const bool hthick = kHeat && xabs(dtau) > T(kTauHeatLimit);
-    Pos<T> pout{0, 0, T(0)};
-    if (thick) pout = table_position(tau_out);
-    const T* v = in + nb;
-    for (int t = 0; t < a.bt.ntypes; ++t) {
-      const T* tk = a.photo_tab + 2 * t * ptab;
-      const T phi_all = thick ? v[b] - table_read(tk, nb, b, pout)
-                              : dtau * v[nb + b];
-      p[0] += div_flat(sc[0] * phi_all, vol);
-      p[1] += div_flat(mHeI * sc[1] * phi_all, vol);
-      p[2] += div_flat(mHeII * sc[2] * phi_all, vol);
-      if constexpr (kHeat) {
-        const T mk[3] = {T(1), mHeI, mHeII};
-        const T* hk = a.heat_tab + 2 * t * htab;
-        const T* f = rb + 5;
-        T ph[3];
-        for (int sp = 0; sp < 3; ++sp) {
-          const T hin = v[(2 + sp) * nb + b];
-          ph[sp] = mk[sp] *
-                   (hthick ? div_flat(sc[sp] * (hin - table_read(
-                                                     hk, a.nheat,
-                                                     a.hbin[3 * b + sp], pout)),
-                                      vol)
-                           : div_flat(tc[sp] * v[(5 + sp) * nb + b], vol));
-        }
-        const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];
-        const T fra2 = f[3] * ph[0] + f[4] * ph[1] + f[5] * ph[2];
-        const T fra3 = f[6] * ph[0] + f[7] * ph[1] + f[8] * ph[2];
-        const T fra4 = f[9] * ph[0] + f[10] * ph[1] + f[11] * ph[2];
-        kahan_add(heat, hcomp,
-                  ph[0] + ph[1] + ph[2] - y[2] * fra3 + y[5] * fra4);
-        fion[0] += y[0] * fra1 - y[3] * fra2;
-        fion[1] += y[1] * fra1 - y[4] * fra2;
-      }
-      v += (kHeat ? 8 : 2) * nb;
-    }
-  }
-  r[0] = p[0];
-  r[1] = p[1];
-  r[2] = p[2];
-  r[3] = T(0);
-  if constexpr (kHeat) {
-    r[0] += div_flat(fion[0], T(kIonEnergyHI));
-    r[1] += div_flat(fion[1], T(kIonEnergyHeI));
-    r[3] = heat;
-  }
-}
-
 // kK: the quadrature table's K (0: a.bt.K at run time; 0 on the table
 // route)
 template <typename T, bool kHeat, bool kTable, int kK>
@@ -460,7 +309,7 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
     if constexpr (!kHeat) spread_fits<T, false>(fo, t0, T(1), rates, y);
     // the incoming side, fixed while the shell iterates
     if constexpr (kTable) {
-      table_in<T, kHeat>(a, tab, cd, in, lane);
+      table_in<T, kHeat, kLanes>(a, tab, cd, in, lane);
     } else {
       band_in<T, kHeat, kK>(tab, a.bt, cd, in, lane, kLanes);
     }
@@ -480,7 +329,7 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
       const T cout[3] = {cd[0] + cc[0], cd[1] + cc[1], cd[2] + cc[2]};
       T r[4];
       if constexpr (kTable) {
-        table_out<T, kHeat>(a, tab, cd, cout, vol, y, in, r, lane);
+        table_out<T, kHeat, kLanes>(a, tab, cd, cout, vol, y, in, r, lane);
       } else {
         band_out<T, kHeat, kK>(tab, a.bt, cd, cout, inv_vol, y, in, r, lane,
                                kLanes);

@@ -76,6 +76,11 @@
 //   3. The photon-loss partials: one slot per (source, plane, block),
 //      the planes' slots one after another in the wrapper's plan.
 
+// The rate routes (kK, csrc/table_rates.cuh) through cell_step: the
+// tau tables (kTableRoute, photo.py:photoion_rates) and the "auto"
+// quadrature blocks (kBlockRoute, quadrature.py:486-489), at every lane
+// count, bound as in csrc/pyramid_sweep.cu's note.
+
 #include "short_char.cuh"
 
 namespace c2ray {
@@ -96,6 +101,7 @@ struct Params {
   T* partials;        // (S, nslots) photon loss per block
   int M, S, R, nslots, nbt;
   StepConsts<T> k;
+  RouteTables<T> rt;   // the tau-table or block route's (kK < 0)
 };
 
 // A plane's launch (a row of the wrapper's plan): its rows
@@ -112,12 +118,13 @@ __device__ __forceinline__ int octant_sign(int o, int axis) {
 }
 
 // The source cell of each source: seeds plane 0 of its 8 rings, writes
-// its rates.
-template <typename T, bool kHeat>
+// its rates (kK: the route, table_rates.cuh; 0 the fixed rule).
+template <typename T, bool kHeat, int kK>
 __global__ void source_cell_kernel(Params<T> p) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  load_band_rows<T, kHeat>(p.bands, p.nbt, p.k.bt.K, tab);
+  load_route_rows<T, kHeat, kK>(p.bands, p.nbt, p.k.bt,
+                                route_of<kK>(p.rt), tab);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= p.S) return;
   StepConsts<T> k = p.k;
@@ -128,7 +135,8 @@ __global__ void source_cell_kernel(Params<T> p) {
   const size_t flat =
       (size_t(wrap(sp[0], M)) * M + wrap(sp[1], M)) * M + wrap(sp[2], M);
   T cc0[3], r[4];
-  source_cell<T, kHeat>(k, p.nflux + 3 * s, p.fields + flat * 5, cc0, r);
+  source_cell<T, kHeat, kK>(k, p.nflux + 3 * s, p.fields + flat * 5, cc0, r,
+                            route_of<kK>(p.rt));
   for (int o = 0; o < 8; ++o) {
     T* dst = p.ring + ((size_t)s * 8 + o) * 4 * R1 * R1 * 3;   // slot 0
     for (int q = 0; q < 3; ++q) dst[q] = cc0[q];
@@ -139,15 +147,18 @@ __global__ void source_cell_kernel(Params<T> p) {
 
 // Plane s of every (source, octant): blockIdx.y = source, a group of
 // kLanes lanes per valid position of the plane (compact order: octant,
-// then b, then c); the table has kK nodes (0: p.k.bt.K at run time).
+// then b, then c); the table has kK nodes (0: p.k.bt.K at run time), or
+// kK names the route (table_rates.cuh).
 // The arithmetic is plane_step (octant_sweep.py:157-267).
 template <typename T, bool kHeat, int kK, int kLanes>
 __global__ void __launch_bounds__(kBlock)
 plane_kernel(Params<T> p, int s, PlanePlan q) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  T* red = tab + p.nbt * row_stride<kHeat>(p.k.bt.K);   // kBlock
-  load_band_rows<T, kHeat>(p.bands, p.nbt, p.k.bt.K, tab);
+  T* red = tab + route_tab_len<T, kHeat, kK>(
+                     p.nbt, p.k.bt, route_of<kK>(p.rt));   // kBlock
+  load_route_rows<T, kHeat, kK>(p.bands, p.nbt, p.k.bt,
+                                route_of<kK>(p.rt), tab);
 
   const int src = blockIdx.y;
   const int M = p.M, R = p.R, R1 = R + 1;
@@ -216,7 +227,8 @@ plane_kernel(Params<T> p, int s, PlanePlan q) {
     T cd_out[3], r[4], pl = T(0), lloss = T(0);
     cell_step<T, kHeat, kK, kLanes>(k, p.nflux + 3 * src, p.fields + flat * 5,
                                     cin, pu, dist2, on_bound, owned, cd_out,
-                                    r, pl, lloss, lane);
+                                    r, pl, lloss, lane,
+                                    route_of<kK>(p.rt));
     if (lane == 0) {
       ploss = pl;
       T* dst = ring + ((size_t)(s & 3) * R1 * R1 + b * R1 + c) * 3;
@@ -237,27 +249,27 @@ template <typename T>
 using PlaneFn = void (*)(Params<T>, int, PlanePlan);
 
 template <typename T, bool kHeat, int kLanes>
-PlaneFn<T> plane_with_nodes(int K) {
-  return with_nodes(K, [](auto kk) -> PlaneFn<T> {
+PlaneFn<T> plane_with_nodes(int route, int K) {
+  return with_route(route, K, [](auto kk) -> PlaneFn<T> {
     return plane_kernel<T, kHeat, decltype(kk)::value, kLanes>;
   });
 }
 
-// The plane kernel of K nodes and G lanes per cell (G in kPlaneLanes),
-// else null.
+// The plane kernel of the route (0: the fixed rule of K nodes) and G
+// lanes per cell (G in kPlaneLanes), else null.
 constexpr int kPlaneLanes[4] = {1, 2, 4, 8};
 
 template <typename T, bool kHeat>
-PlaneFn<T> plane_fn(int K, int G) {
+PlaneFn<T> plane_fn(int route, int K, int G) {
   switch (G) {
     case 1:
-      return plane_with_nodes<T, kHeat, 1>(K);
+      return plane_with_nodes<T, kHeat, 1>(route, K);
     case 2:
-      return plane_with_nodes<T, kHeat, 2>(K);
+      return plane_with_nodes<T, kHeat, 2>(route, K);
     case 4:
-      return plane_with_nodes<T, kHeat, 4>(K);
+      return plane_with_nodes<T, kHeat, 4>(route, K);
     case 8:
-      return plane_with_nodes<T, kHeat, 8>(K);
+      return plane_with_nodes<T, kHeat, 8>(route, K);
     default:
       return nullptr;
   }
@@ -269,7 +281,8 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
               const int* plan, int nslots, int M, int S, int K, int ntypes,
               const int cols[3], const int nbs[3], const int los[3],
               double dr, double vol_over_scale, double coldensh_lls,
-              double max_coldensh, cudaStream_t stream) {
+              double max_coldensh, const int* route, const T* photo,
+              const T* heat_tab, const int* hbin, cudaStream_t stream) {
   Params<T> p;
   p.fields = fields; p.srcpos = srcpos; p.nflux = nflux; p.bands = bands;
   p.rows = reinterpret_cast<const int4*>(rows);
@@ -286,23 +299,30 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   p.k.tab = nullptr;
   p.k.dr = T(dr); p.k.vol_over_scale = T(vol_over_scale);
   p.k.coldensh_lls = T(coldensh_lls); p.k.max_coldensh = T(max_coldensh);
+  const int rk = parse_route(route, photo, heat_tab, hbin, p.rt);
 
-  const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
+  const size_t tab_bytes =
+      (rk < 0 ? size_t(p.rt.tab_len)
+              : size_t(p.nbt) * row_stride<kHeat>(K)) * sizeof(T);
   const size_t smem = tab_bytes + kBlock * sizeof(T);
-  cudaError_t err = allow_smem(source_cell_kernel<T, kHeat>, tab_bytes);
+  using SrcFn = void (*)(Params<T>);
+  const SrcFn source = with_source_route(rk, [](auto kk) -> SrcFn {
+    return source_cell_kernel<T, kHeat, decltype(kk)::value>;
+  });
+  cudaError_t err = allow_smem(source, tab_bytes);
   if (err != cudaSuccess) return err;
   for (int G : kPlaneLanes) {
-    err = allow_smem(plane_fn<T, kHeat>(K, G), smem);
+    err = allow_smem(plane_fn<T, kHeat>(rk, K, G), smem);
     if (err != cudaSuccess) return err;
   }
-  source_cell_kernel<T, kHeat><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
+  source<<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   for (int s = 1; s <= 3 * p.R; ++s) {
     const int* r = plan + 6 * (s - 1);
     const PlanePlan q = {r[0], r[1], r[2], r[3], r[4], r[5]};
     if (q.ncells == 0) continue;
-    const PlaneFn<T> plane = plane_fn<T, kHeat>(K, q.lanes);
+    const PlaneFn<T> plane = plane_fn<T, kHeat>(rk, K, q.lanes);
     if (plane == nullptr) return cudaErrorInvalidValue;
     plane<<<dim3(q.nblk, S), kBlock, smem, stream>>>(p, s, q);
     err = cudaGetLastError();
@@ -319,21 +339,26 @@ extern "C" {
 // Returns the cudaError_t of the launches (0 on success).  `rows` is the
 // device table of plane_rows (n_rows x 4 ints); `plan` a host array of
 // 3R rows [row0, nrows, ncells, lanes, nblk, slot0], one per plane s =
-// 1..3R; `partials` holds nslots slots per source.
+// 1..3R; `partials` holds nslots slots per source; `route` the host ints
+// of parse_route (table_rates.cuh), with the tau tables' device tables
+// photo, heat_tab and hbin on that route (else null).
 #define C2RAY_OCTANT_ENTRY(NAME, T, HEAT)                                    \
   int NAME(const T* fields, const int* srcpos, const T* nflux,              \
            const T* bands, const int* rows, T* ring, T* slab, T* partials,  \
            const int* plan, int nslots, int M, int S, int K, int ntypes,    \
            int col0, int nb0, int lo0, int col1, int nb1, int lo1,          \
            int col2, int nb2, int lo2, double dr, double vol_over_scale,    \
-           double coldensh_lls, double max_coldensh, void* stream) {        \
+           double coldensh_lls, double max_coldensh, const int* route,      \
+           const T* photo, const T* heat_tab, const int* hbin,              \
+           void* stream) {                                                  \
     const int cols[3] = {col0, col1, col2};                                 \
     const int nbs[3] = {nb0, nb1, nb2};                                     \
     const int los[3] = {lo0, lo1, lo2};                                     \
     return c2ray::run_sweep<T, HEAT>(                                       \
         fields, srcpos, nflux, bands, rows, ring, slab, partials, plan,     \
         nslots, M, S, K, ntypes, cols, nbs, los, dr, vol_over_scale,        \
-        coldensh_lls, max_coldensh, static_cast<cudaStream_t>(stream));     \
+        coldensh_lls, max_coldensh, route, photo, heat_tab, hbin,           \
+        static_cast<cudaStream_t>(stream));                                 \
   }
 
 C2RAY_OCTANT_ENTRY(octant_sweep_f32, float, false)

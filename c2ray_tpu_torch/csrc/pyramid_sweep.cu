@@ -89,7 +89,16 @@
 // +24% of the isothermal stage kernels at 128^3 x 8).  nb_all * kBlock
 // values of shared memory (96 KB in float64 at 47 bands).
 
-#include "band_rates.cuh"
+// The rate routes (kK, csrc/table_rates.cuh): kTableRoute replaces
+// c2ray_tpu/radiation/photo.py:photoion_rates (:185) in the stage and
+// source-cell kernels -- per cell, band and source type the tau
+// positions and the table reads (table_rates), bound by those
+// operations (the tables sit in L2); kBlockRoute the "auto" quadrature's
+// sum over band blocks (quadrature.py:486-489, block_rates), bound like
+// the fixed rule by the blocks' 2 sum(nb K) exponentials.  Both run with
+// the homogeneous or the per-cell LLS column, not with kTrack.
+
+#include "table_rates.cuh"
 
 namespace c2ray {
 namespace {
@@ -113,6 +122,7 @@ struct Params {
   int M, S, Rf, Rb, nslots, nbt, nb_all;
   BandTables bt;   // the packed band rows' layout
   T dr, vol_over_scale, coldensh_lls, max_coldensh;
+  RouteTables<T> rt;   // the tau-table or block route's (kK < 0)
 };
 
 __device__ __forceinline__ int wrap(int x, int M) {
@@ -134,12 +144,14 @@ __device__ __forceinline__ void base_cols(const T* f, T bc[3]) {
 
 // Source cell (evolve_point.F90:140-151): seeds cd with the half-cell
 // columns and writes the source cell's own rates (its heat unmasked,
-// c2ray_tpu/sweep/pyramid_sweep.py:444).
-template <typename T, bool kHeat>
+// c2ray_tpu/sweep/pyramid_sweep.py:444); kK: the route
+// (table_rates.cuh), 0 the fixed rule.
+template <typename T, bool kHeat, int kK>
 __global__ void source_cell_kernel(Params<T> p) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  load_band_rows<T, kHeat>(p.bands, p.nbt, p.bt.K, tab);
+  load_route_rows<T, kHeat, kK>(p.bands, p.nbt, p.bt, route_of<kK>(p.rt),
+                                tab);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= p.S) return;
   const int M = p.M, ctr = M / 2 - 1;
@@ -157,8 +169,9 @@ __global__ void source_cell_kernel(Params<T> p) {
   T y[6];
   if constexpr (kHeat) ricotti(f[2], y);
   T r[kHeat ? 6 : 5];
-  cell_rates<T, kHeat, false, 0>(tab, p.bt, p.nflux + 3 * s, zero3, cc0,
-                                 p.vol_over_scale, y, r, nullptr);
+  route_rates<T, kHeat, false, kK>(
+      tab, p.bt, route_of<kK>(p.rt), p.nflux + 3 * s, zero3, cc0,
+      p.vol_over_scale, y, r, nullptr);
   T* out = p.slab + ((size_t)s * M * M * M + flat) * 4;
   out[0] = r[0] / bc[0];
   out[1] = r[1] / bc[1];
@@ -172,17 +185,20 @@ __global__ void source_cell_kernel(Params<T> p) {
 
 // One (layer l, stage m) step: a group of kCellLanes lanes per (sign,
 // u, v) of the plane pair |offset_m| = l, blockIdx.y = source; the table
-// has kK nodes (0: p.bt.K at run time).  The arithmetic is compute_stage
-// (pyramid_sweep.py:205-310).
+// has kK nodes (0: p.bt.K at run time), or kK names the route
+// (table_rates.cuh; kTrack on the fixed rule only).  The arithmetic is
+// compute_stage (pyramid_sweep.py:205-310).
 template <typename T, bool kHeat, bool kTrack, int kK>
 __global__ void __launch_bounds__(kBlock)
 stage_kernel(Params<T> p, int l, int m, int slot0) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  T* red = tab + p.nbt * row_stride<kHeat>(p.bt.K);   // 2 * kBlock
+  T* red = tab + route_tab_len<T, kHeat, kK>(
+                     p.nbt, p.bt, route_of<kK>(p.rt));   // 2 * kBlock
   T* bst = red + 2 * kBlock;                       // nb_all * kBlock (kTrack)
   T* mine = bst + threadIdx.x;                     // this thread's column
-  load_band_rows<T, kHeat>(p.bands, p.nbt, p.bt.K, tab);
+  load_route_rows<T, kHeat, kK>(p.bands, p.nbt, p.bt, route_of<kK>(p.rt),
+                                tab);
 
   const int s = blockIdx.y;
   const int M = p.M, ctr = M / 2 - 1;
@@ -281,8 +297,8 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
       // lane of the group
       constexpr int kOut = kHeat ? 6 : 5;
       T r[kOut];
-      cell_rates<T, kHeat, kTrack, kK, kBlock>(
-          tab, p.bt, p.nflux + 3 * s, cin, cout,
+      route_rates<T, kHeat, kTrack, kK, kBlock>(
+          tab, p.bt, route_of<kK>(p.rt), p.nflux + 3 * s, cin, cout,
           vol_ratio * p.vol_over_scale, y, r, contrib ? mine : nullptr, lane,
           kCellLanes);
       for (int q = 0; q < kOut; ++q) r[q] = group_sum<kCellLanes>(r[q]);
@@ -359,7 +375,9 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
               T* band_partials, int M, int S, int Rf, int Rb, int K,
               int ntypes, int nb_all, const int cols[3], const int nbs[3],
               const int los[3], double dr, double vol_over_scale,
-              double coldensh_lls, double max_coldensh, cudaStream_t stream) {
+              double coldensh_lls, double max_coldensh, const int* route,
+              const T* photo, const T* heat_tab, const int* hbin,
+              cudaStream_t stream) {
   Params<T> p;
   p.fields = fields; p.srcpos = srcpos; p.nflux = nflux; p.bands = bands;
   p.lls = lls; p.cd = cd; p.slab = slab; p.partials = partials;
@@ -377,19 +395,35 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   for (int l = 1; l <= Rf; ++l) p.nslots += 3 * stage_blocks(l);
   p.dr = T(dr); p.vol_over_scale = T(vol_over_scale);
   p.coldensh_lls = T(coldensh_lls); p.max_coldensh = T(max_coldensh);
+  const int rk = parse_route(route, photo, heat_tab, hbin, p.rt);
+  if (kTrack && rk < 0) return cudaErrorInvalidValue;
 
-  const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
+  const size_t tab_bytes =
+      (rk < 0 ? size_t(p.rt.tab_len)
+              : size_t(p.nbt) * row_stride<kHeat>(K)) * sizeof(T);
   const size_t smem = tab_bytes + 2 * kBlock * sizeof(T) +
                       (kTrack ? size_t(nb_all) * kBlock * sizeof(T) : 0);
-  auto stage = with_nodes(K, [](auto kk) {
-    return stage_kernel<T, kHeat, kTrack, decltype(kk)::value>;
+  using Fn = void (*)(Params<T>, int, int, int);
+  using SrcFn = void (*)(Params<T>);
+  Fn stage;
+  if constexpr (kTrack) {
+    stage = with_nodes(K, [](auto kk) -> Fn {
+      return stage_kernel<T, kHeat, true, decltype(kk)::value>;
+    });
+  } else {
+    stage = with_route(rk, K, [](auto kk) -> Fn {
+      return stage_kernel<T, kHeat, false, decltype(kk)::value>;
+    });
+  }
+  const SrcFn source = with_source_route(rk, [](auto kk) -> SrcFn {
+    return source_cell_kernel<T, kHeat, decltype(kk)::value>;
   });
   // each kernel opted in to the shared memory it takes above the default
-  cudaError_t err = allow_smem(source_cell_kernel<T, kHeat>, tab_bytes);
+  cudaError_t err = allow_smem(source, tab_bytes);
   if (err != cudaSuccess) return err;
   err = allow_smem(stage, smem);
   if (err != cudaSuccess) return err;
-  source_cell_kernel<T, kHeat><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
+  source<<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int slot = 0;
@@ -418,7 +452,11 @@ int pyramid_sweep_slots(int Rf) {
 }
 
 // Returns the cudaError_t of the launches (0 on success).  lls and
-// band_partials may be null (no per-cell LLS; no band tracking).
+// band_partials may be null (no per-cell LLS; no band tracking); `route`
+// the host ints of parse_route (table_rates.cuh: the fixed rule, the
+// "auto" blocks or the tau tables, whose device tables photo, heat_tab
+// and hbin are then read; else null; the track entries take the fixed
+// rule only).
 #define C2RAY_SWEEP_ENTRY(NAME, T, HEAT, TRACK)                             \
   int NAME(const T* fields, const int* srcpos, const T* nflux,             \
            const T* bands, const T* lls, T* cd, T* slab, T* partials,      \
@@ -426,15 +464,16 @@ int pyramid_sweep_slots(int Rf) {
            int ntypes, int nb_all, int col0, int nb0, int lo0, int col1,   \
            int nb1, int lo1, int col2, int nb2, int lo2, double dr,        \
            double vol_over_scale, double coldensh_lls, double max_coldensh, \
-           void* stream) {                                                 \
+           const int* route, const T* photo, const T* heat_tab,            \
+           const int* hbin, void* stream) {                                \
     const int cols[3] = {col0, col1, col2};                                \
     const int nbs[3] = {nb0, nb1, nb2};                                    \
     const int los[3] = {lo0, lo1, lo2};                                    \
     return c2ray::run_sweep<T, HEAT, TRACK>(                               \
         fields, srcpos, nflux, bands, lls, cd, slab, partials,             \
         band_partials, M, S, Rf, Rb, K, ntypes, nb_all, cols, nbs, los,    \
-        dr, vol_over_scale, coldensh_lls, max_coldensh,                    \
-        static_cast<cudaStream_t>(stream));                                \
+        dr, vol_over_scale, coldensh_lls, max_coldensh, route, photo,      \
+        heat_tab, hbin, static_cast<cudaStream_t>(stream));                \
   }
 
 C2RAY_SWEEP_ENTRY(pyramid_sweep_f32, float, false, false)

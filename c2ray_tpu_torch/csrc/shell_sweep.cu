@@ -48,6 +48,11 @@
 // gaps and the sweep's other work 0.44 and 0.45 ms of the sweep's
 // CUDA-event time (phase 22).
 
+// The rate routes (kK, csrc/table_rates.cuh) through cell_step: the
+// tau tables (kTableRoute, photo.py:photoion_rates) and the "auto"
+// quadrature blocks (kBlockRoute, quadrature.py:486-489), bound as in
+// csrc/pyramid_sweep.cu's note.
+
 #include "short_char.cuh"
 
 namespace c2ray {
@@ -67,6 +72,7 @@ struct Params {
   T* partials;        // (S, nslots, 2) photon / LLS loss per block
   int M, S, nslots, nbt;
   StepConsts<T> k;
+  RouteTables<T> rt;   // the tau-table or block route's (kK < 0)
 };
 
 template <typename T>
@@ -76,12 +82,14 @@ __device__ __forceinline__ size_t src_flat(const Params<T>& p, int s) {
   return (size_t(wrap(sp[0], M)) * M + wrap(sp[1], M)) * M + wrap(sp[2], M);
 }
 
-// The source cell of each source: seeds cd, writes its rates.
-template <typename T, bool kHeat>
+// The source cell of each source: seeds cd, writes its rates (kK: the
+// route, table_rates.cuh; 0 the fixed rule).
+template <typename T, bool kHeat, int kK>
 __global__ void source_cell_kernel(Params<T> p) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  load_band_rows<T, kHeat>(p.bands, p.nbt, p.k.bt.K, tab);
+  load_route_rows<T, kHeat, kK>(p.bands, p.nbt, p.k.bt,
+                                route_of<kK>(p.rt), tab);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= p.S) return;
   StepConsts<T> k = p.k;
@@ -89,7 +97,8 @@ __global__ void source_cell_kernel(Params<T> p) {
   const size_t n = size_t(p.M) * p.M * p.M;
   const size_t flat = src_flat(p, s);
   T cc0[3], r[4];
-  source_cell<T, kHeat>(k, p.nflux + 3 * s, p.fields + flat * 5, cc0, r);
+  source_cell<T, kHeat, kK>(k, p.nflux + 3 * s, p.fields + flat * 5, cc0, r,
+                            route_of<kK>(p.rt));
   T* cd0 = p.cd + ((size_t)s * n + flat) * 3;
   for (int q = 0; q < 3; ++q) cd0[q] = cc0[q];
   T* out = p.slab + ((size_t)s * n + flat) * 4;
@@ -98,15 +107,18 @@ __global__ void source_cell_kernel(Params<T> p) {
 
 // One shell: a group of kCellLanes lanes per cell start..start+count-1
 // of the compact table, blockIdx.y = source; the table has kK nodes (0:
-// p.k.bt.K at run time).  The arithmetic is cinterp_shell + shell_step
-// (c2ray_tpu/sweep/cinterp.py:38-128, source_sweep.py:186-244).
+// p.k.bt.K at run time), or kK names the route (table_rates.cuh).  The
+// arithmetic is cinterp_shell + shell_step (c2ray_tpu/sweep/cinterp.py:
+// 38-128, source_sweep.py:186-244).
 template <typename T, bool kHeat, int kK>
 __global__ void __launch_bounds__(kBlock)
 shell_kernel(Params<T> p, long long start, int count, int slot0) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
-  T* red = tab + p.nbt * row_stride<kHeat>(p.k.bt.K);   // kBlock
-  load_band_rows<T, kHeat>(p.bands, p.nbt, p.k.bt.K, tab);
+  T* red = tab + route_tab_len<T, kHeat, kK>(
+                     p.nbt, p.k.bt, route_of<kK>(p.rt));   // kBlock
+  load_route_rows<T, kHeat, kK>(p.bands, p.nbt, p.k.bt,
+                                route_of<kK>(p.rt), tab);
 
   const int s = blockIdx.y;
   const int M = p.M;
@@ -158,7 +170,7 @@ shell_kernel(Params<T> p, long long start, int count, int slot0) {
     cell_step<T, kHeat, kK, kCellLanes>(k, p.nflux + 3 * s,
                                         p.fields + flat * 5, cin, pu, dist2,
                                         on_bound, true, cd_out, r, pl, ll,
-                                        lane);
+                                        lane, route_of<kK>(p.rt));
     if (lane == 0) {
       ploss = pl;
       lloss = ll;
@@ -187,7 +199,9 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
               T* cd, T* slab, T* partials, int M, int S, int n_shells, int K,
               int ntypes, const int cols[3], const int nbs[3],
               const int los[3], double dr, double vol_over_scale,
-              double coldensh_lls, double max_coldensh, cudaStream_t stream) {
+              double coldensh_lls, double max_coldensh, const int* route,
+              const T* photo, const T* heat_tab, const int* hbin,
+              cudaStream_t stream) {
   Params<T> p;
   p.fields = fields; p.srcpos = srcpos; p.nflux = nflux; p.bands = bands;
   p.cells = cells; p.cd = cd; p.slab = slab; p.partials = partials;
@@ -207,17 +221,25 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
   p.k.tab = nullptr;
   p.k.dr = T(dr); p.k.vol_over_scale = T(vol_over_scale);
   p.k.coldensh_lls = T(coldensh_lls); p.k.max_coldensh = T(max_coldensh);
+  const int rk = parse_route(route, photo, heat_tab, hbin, p.rt);
 
-  const size_t tab_bytes = size_t(p.nbt) * row_stride<kHeat>(K) * sizeof(T);
+  const size_t tab_bytes =
+      (rk < 0 ? size_t(p.rt.tab_len)
+              : size_t(p.nbt) * row_stride<kHeat>(K)) * sizeof(T);
   const size_t smem = tab_bytes + kBlock * sizeof(T);
-  auto shell = with_nodes(K, [](auto kk) {
+  using Fn = void (*)(Params<T>, long long, int, int);
+  using SrcFn = void (*)(Params<T>);
+  const Fn shell = with_route(rk, K, [](auto kk) -> Fn {
     return shell_kernel<T, kHeat, decltype(kk)::value>;
   });
-  cudaError_t err = allow_smem(source_cell_kernel<T, kHeat>, tab_bytes);
+  const SrcFn source = with_source_route(rk, [](auto kk) -> SrcFn {
+    return source_cell_kernel<T, kHeat, decltype(kk)::value>;
+  });
+  cudaError_t err = allow_smem(source, tab_bytes);
   if (err != cudaSuccess) return err;
   err = allow_smem(shell, smem);
   if (err != cudaSuccess) return err;
-  source_cell_kernel<T, kHeat><<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
+  source<<<(S + 31) / 32, 32, tab_bytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int slot = 0;
@@ -248,7 +270,10 @@ int shell_sweep_slots(const long long* starts, int n_shells) {
 }
 
 // Returns the cudaError_t of the launches (0 on success).  `starts` is a
-// host array of n_shells + 1 offsets into `cells`.
+// host array of n_shells + 1 offsets into `cells`; `route` the host ints
+// of parse_route (table_rates.cuh: the fixed rule, the "auto" blocks or
+// the tau tables, whose device tables photo, heat_tab and hbin are then
+// read; else null).
 #define C2RAY_SHELL_ENTRY(NAME, T, HEAT)                                     \
   int NAME(const T* fields, const int* srcpos, const T* nflux,              \
            const T* bands, const int* cells, const long long* starts,       \
@@ -256,14 +281,16 @@ int shell_sweep_slots(const long long* starts, int n_shells) {
            int ntypes, int col0, int nb0, int lo0, int col1, int nb1,       \
            int lo1, int col2, int nb2, int lo2, double dr,                  \
            double vol_over_scale, double coldensh_lls, double max_coldensh, \
-           void* stream) {                                                  \
+           const int* route, const T* photo, const T* heat_tab,             \
+           const int* hbin, void* stream) {                                 \
     const int cols[3] = {col0, col1, col2};                                 \
     const int nbs[3] = {nb0, nb1, nb2};                                     \
     const int los[3] = {lo0, lo1, lo2};                                     \
     return c2ray::run_sweep<T, HEAT>(                                       \
         fields, srcpos, nflux, bands, cells, starts, cd, slab, partials, M, \
         S, n_shells, K, ntypes, cols, nbs, los, dr, vol_over_scale,         \
-        coldensh_lls, max_coldensh, static_cast<cudaStream_t>(stream));     \
+        coldensh_lls, max_coldensh, route, photo, heat_tab, hbin,           \
+        static_cast<cudaStream_t>(stream));                                 \
   }
 
 C2RAY_SHELL_ENTRY(shell_sweep_f32, float, false)

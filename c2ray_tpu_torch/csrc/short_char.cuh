@@ -3,15 +3,16 @@
 // (csrc/octant_sweep.cu): cinterp's corner weights, the diagonal boost,
 // the path length (c2ray_tpu/sweep/cinterp.py:38-128), and the step of
 // one cell (c2ray_tpu/sweep/source_sweep.py:186-244): the LLS column,
-// cd_out, the band rates (cell_rates of band_rates.cuh), the shielding
-// mask and the photon and LLS losses.
+// cd_out, the band rates (route_rates of table_rates.cuh: the fixed
+// rule's cell_rates, the "auto" blocks or the tau tables), the
+// shielding mask and the photon and LLS losses.
 //
 // Offsets enter as magnitudes: cinterp's signed formulas give the same
 // bits for a negative offset as for its mirror (IEEE negation is exact),
 // so one code serves every octant and sign.
 #pragma once
 
-#include "band_rates.cuh"
+#include "table_rates.cuh"
 
 namespace c2ray {
 
@@ -115,16 +116,18 @@ struct StepConsts {
 // when isothermal), its escape into `ploss` when it lies on the trace
 // boundary, and its LLS absorption into `lloss`; without, the band
 // rates are not evaluated at all (a cell another octant owns).  kK is
-// the table's K (0: k.bt.K at run time).  A group of kLanes lanes may
-// share the cell (`lane` its lane): each sums its share of the bands
-// (cell_rates) and every lane ends with the same outputs.
+// the table's K (0: k.bt.K at run time), or the route kTableRoute /
+// kBlockRoute, whose tables `rt` holds (route_of).  A group of kLanes
+// lanes may share the cell (`lane` its lane): each sums its share of the
+// bands (cell_rates) and every lane ends with the same outputs.
 template <typename T, bool kHeat, int kK = 0, int kLanes = 1>
 __device__ __forceinline__ void cell_step(const StepConsts<T>& k,
                                           const T* nfl3, const T* f,
                                           T cin[3], T pu, T dist2,
                                           bool on_bound, bool deposit,
                                           T cd_out[3], T rates[4],
-                                          T& ploss, T& lloss, int lane = 0) {
+                                          T& ploss, T& lloss, int lane = 0,
+                                          const RouteTables<T>* rt = nullptr) {
   const T path = pu * k.dr;
   const bool has_lls = k.coldensh_lls > T(0);
   const T lls_add = k.coldensh_lls * pu;
@@ -139,9 +142,9 @@ __device__ __forceinline__ void cell_step(const StepConsts<T>& k,
   if constexpr (kHeat) ricotti(f[2], y);
   constexpr int kOut = kHeat ? 6 : 5;
   T r[kOut];
-  cell_rates<T, kHeat, false, kK>(k.tab, k.bt, nfl3, cin, cd_out,
-                                  vol_ratio * k.vol_over_scale, y, r, nullptr,
-                                  lane, kLanes);
+  route_rates<T, kHeat, false, kK>(k.tab, k.bt, rt, nfl3, cin, cd_out,
+                                   vol_ratio * k.vol_over_scale, y, r,
+                                   nullptr, lane, kLanes);
   for (int q = 0; q < kOut; ++q) r[q] = group_sum<kLanes>(r[q]);
   const T fl = live ? T(1) : T(0);
   rates[0] = fl * r[0] / bc[0];
@@ -159,11 +162,12 @@ __device__ __forceinline__ void cell_step(const StepConsts<T>& k,
 }
 
 // The source cell (evolve_point.F90:140-151): its half-cell columns cc0
-// and its rates (the heat unmasked).
-template <typename T, bool kHeat>
-__device__ __forceinline__ void source_cell(const StepConsts<T>& k,
-                                            const T* nfl3, const T* f,
-                                            T cc0[3], T rates[4]) {
+// and its rates (the heat unmasked); kK < 0 names the route (its tables
+// in rt), any other value the fixed rule at a K known at run time.
+template <typename T, bool kHeat, int kK = 0>
+__device__ __forceinline__ void source_cell(
+    const StepConsts<T>& k, const T* nfl3, const T* f, T cc0[3], T rates[4],
+    const RouteTables<T>* rt = nullptr) {
   T bc[3];
   base_cols(f, bc);
   const T half_dr = T(0.5) * k.dr;
@@ -172,8 +176,8 @@ __device__ __forceinline__ void source_cell(const StepConsts<T>& k,
   T y[6];
   if constexpr (kHeat) ricotti(f[2], y);
   T r[kHeat ? 6 : 5];
-  cell_rates<T, kHeat, false, 0>(k.tab, k.bt, nfl3, zero3, cc0,
-                                 k.vol_over_scale, y, r, nullptr);
+  route_rates<T, kHeat, false, (kK < 0 ? kK : 0)>(
+      k.tab, k.bt, rt, nfl3, zero3, cc0, k.vol_over_scale, y, r, nullptr);
   rates[0] = r[0] / bc[0];
   rates[1] = r[1] / bc[1];
   rates[2] = r[2] / bc[2];

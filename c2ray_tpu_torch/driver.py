@@ -10,7 +10,11 @@ Tables, state and sources live on ``Run3DConfig.device``: the card
 ("cuda", the default, which the kernels need) or, when asked for, the
 CPU, where the sweep and chemistry run their plain versions.  Files,
 halo catalogs and the suppression test are host numpy (the ionization
-grid is copied to the host once per slice for it).
+grid is copied to the host once per slice for it).  With
+``parallel="domain"`` each rank keeps its x-slab of the state between
+steps (mesh^3/D cells, as the JAX package's sharded state): the photon
+budget sums over the ranks, the suppression gathers h1 once per slice,
+and the files gather the state on rank 0, which writes them.
 """
 
 import os
@@ -232,12 +236,13 @@ class Run3D:
         shells = build_shell_table(c.mesh, c.max_subbox)
         self.evolve_cfg = Evolve3DConfig(sweep=sweep_cfg, chem=chem_cfg,
                                          shells=shells)
-        # multi-device execution: every rank holds the whole state
-        # between steps (the domain mode cuts it into slabs for the
-        # timestep); only rank 0 writes files
+        # multi-device execution: in the source mode every rank holds
+        # the whole state, in the domain mode its x-slab, between steps
+        # too; only rank 0 writes files
         self.pconfig = (None if c.parallel is None else
                         _parallel_config(c, self.evolve_cfg, self.device))
         self.is_writer = self.pconfig is None or dist.get_rank() == 0
+        self.domain = c.parallel == "domain"
 
         # kept for the JAX driver's call of evolve3d, which ignores it:
         # nothing is compiled per subbox radius
@@ -255,10 +260,41 @@ class Run3D:
     def _on_device(self, a):
         return torch.as_tensor(a, dtype=self.config.dtype, device=self.device)
 
+    def _local(self, field):
+        """A whole-grid field as this run keeps it: the rank's x-slab in
+        the domain mode, else the field itself."""
+        if not self.domain:
+            return field
+        from .parallel import shard_field
+        return shard_field(field, self.config.mesh**3)
+
     def _grid_state(self, ndens, xh1, xhe1, xhe2, temperature, clumping=1.0):
-        return initial_grid_state(ndens, xh1, xhe1, xhe2, temperature,
-                                  clumping=clumping, dtype=self.config.dtype,
-                                  device=self.device)
+        return GridState(*map(self._local, initial_grid_state(
+            ndens, xh1, xhe1, xhe2, temperature, clumping=clumping,
+            dtype=self.config.dtype, device=self.device)))
+
+    def whole_state(self, dst=None):
+        """The whole-grid state: self.state, or in the domain mode the
+        ranks' slabs gathered (every rank calls it; with `dst` only rank
+        dst gets the state, the others None)."""
+        if not self.domain:
+            return self.state
+        from .parallel import gather_state_slabs
+        return gather_state_slabs(self.state, dst=dst)
+
+    def _whole_field(self, name):
+        """One whole-grid field of the state, on every rank."""
+        if not self.domain:
+            return getattr(self.state, name)
+        from .parallel import gather_state_slabs
+        return gather_state_slabs(self.state, names=(name,))[name]
+
+    def _reduce(self):
+        """The photon budget's sum over ranks: the domain mode's."""
+        if not self.domain:
+            return None
+        from .parallel import comm
+        return comm.psum
 
     # -- material ----------------------------------------------------------
     def init_uniform_material(self, z=None):
@@ -278,7 +314,7 @@ class Run3D:
         cl = self.config.clumping.at_redshift(z)
         cl = self._on_device(np.asarray(cl, dtype=np.float64).reshape(-1)
                              if np.ndim(cl) else cl)
-        self.state = self.state._replace(clumping=cl)
+        self.state = self.state._replace(clumping=self._local(cl))
 
     def set_density(self, ndens):
         """dens_ini from an external (reader-supplied) cube."""
@@ -287,8 +323,8 @@ class Run3D:
             self.state = self._grid_state(ndens, 0.0, 0.0, 0.0,
                                           c.initial_temperature)
         else:
-            self.state = self.state._replace(
-                ndens=self._on_device(np.asarray(ndens).reshape(-1)))
+            self.state = self.state._replace(ndens=self._local(
+                self._on_device(np.asarray(ndens).reshape(-1))))
 
     # -- restart -----------------------------------------------------------
     def resume_from_iterdump(self):
@@ -299,10 +335,9 @@ class Run3D:
 
         niter, state_np, _ = load_iterdump(self.config.dump_dir, GridState,
                                            RateGrids)
-        self.state = GridState(*(self._on_device(x)
-                                 if np.asarray(x).dtype.kind == "f"
-                                 else torch.as_tensor(x, device=self.device)
-                                 for x in state_np))
+        self.state = GridState(*(self._local(
+            self._on_device(x) if np.asarray(x).dtype.kind == "f"
+            else torch.as_tensor(x, device=self.device)) for x in state_np))
         return niter
 
     def restart_from_slice(self, z):
@@ -327,7 +362,8 @@ class Run3D:
         tpath = os.path.join(base, f"Temper3D_{zs}.bin")
         if not c.isothermal and os.path.exists(tpath):
             temper = read_unformatted_cube(tpath, dtype=np.float32)
-        ndens = (self.state.ndens.cpu().numpy() if self.state is not None
+        ndens = (self._whole_field("ndens").cpu().numpy()
+                 if self.state is not None
                  else uniform_density_grid(c.mesh, z, c.nbody.cosmology))
         self.state = self._grid_state(ndens, xh1, xhe1, xhe2, temper)
 
@@ -376,7 +412,8 @@ class Run3D:
             t_mid = t1 + (step + 0.5) * dt
             self._cosmo_evolve_to(t_mid)
             vol_now = float(self.dr_proper) ** 3
-            before = species_inventory(self.state, vol_now)
+            before = species_inventory(self.state, vol_now,
+                                       reduce=self._reduce())
             ccf = (self.clock.cosmo_cool_factor()
                    if (c.cosmological and not c.isothermal) else None)
             common = dict(
@@ -388,14 +425,12 @@ class Run3D:
                 # wall clock (evolve.F90:199-212), in every mode
                 dump_dir=c.dump_dir, dump_interval_s=c.dump_interval_s,
                 start_from_dump=start_from_dump and step == 0)
-            if c.parallel == "domain":
-                from .parallel import (domain_evolve3d, gather_state_slabs,
-                                       shard_state_slabs)
+            if self.domain:
+                from .parallel import domain_evolve3d
 
-                slab, stats = domain_evolve3d(
-                    self.pconfig, shard_state_slabs(self.state), srcpos,
-                    nflux, dt, balance_halo=c.balance_halo, **common)
-                self.state = gather_state_slabs(slab)
+                self.state, stats = domain_evolve3d(
+                    self.pconfig, self.state, srcpos, nflux, dt,
+                    balance_halo=c.balance_halo, **common)
             elif c.parallel == "source":
                 from .parallel import parallel_evolve3d
 
@@ -421,7 +456,7 @@ class Run3D:
             budget = photon_budget(
                 before, self.state, rates, vol_now, dt, total_src,
                 photon_loss=stats.photon_loss * fs,
-                lls_loss=stats.lls_loss * fs)
+                lls_loss=stats.lls_loss * fs, reduce=self._reduce())
             self.last_budget = budget
             if self.is_writer:
                 self.writer.write_photon_counts(budget)
@@ -438,8 +473,10 @@ class Run3D:
                     f"loss fraction="
                     f"{(budget.total_photon_loss + budget.total_lls_loss) / max(budget.total_src, 1e-300):.4f}")
 
-        if write_output and self.is_writer:
-            self.write_output(z2, sources)
+        if write_output:
+            state = self.whole_state(dst=0)
+            if self.is_writer:
+                self.write_output(z2, sources, state)
         return stats_list
 
     # -- full redshift loop -------------------------------------------------
@@ -459,8 +496,8 @@ class Run3D:
                 raise ValueError("source_input='catalog' needs a "
                                  "halo_model (HaloSourceModel)")
             cat = read_halo_catalog(c.nbody, z)
-            xh1 = (self.state.h1.cpu().numpy() if self.state is not None
-                   else np.zeros(c.mesh**3))
+            xh1 = (self._whole_field("h1").cpu().numpy()
+                   if self.state is not None else np.zeros(c.mesh**3))
             sources, sstats = apply_suppression_and_luminosities(
                 cat, xh1, c.halo_model, self.sed, dt,
                 slice_index=nz)
@@ -559,10 +596,12 @@ class Run3D:
             s += sources.nflux[:, 2].sum() * self.sed.qso.S_star
         return float(s)
 
-    def write_output(self, z, sources: SourceList):
+    def write_output(self, z, sources: SourceList, state=None):
+        """The slice's files from `state` (the whole grid; default
+        self.state)."""
         M = self.config.mesh
         sh = (M, M, M)
-        st = self.state
+        st = self.state if state is None else state
         host = lambda t: t.cpu().numpy().reshape(sh)
         xh = np.stack([host(st.h0), host(st.h1)], axis=-1)
         xhe = np.stack([host(st.he0), host(st.he1), host(st.he2)], axis=-1)

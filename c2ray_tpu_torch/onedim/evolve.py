@@ -28,14 +28,15 @@ import torch
 
 from .. import constants as const
 from .. import cuda_build
-from ..chemistry import (IonFractions, IonState, coldens, doric,
+from ..chemistry import (IonFractions, IonState, coldens, coldens_bndry_HeI,
+                         coldens_bndry_HeII, coldens_bndry_HI, doric,
                          electrondens, prepare_doric_factors)
 from ..cooling import CoolingTables, stacked
-from ..radiation.bands import F_FACTORS
 from ..radiation.photo import photoion_rates
-from ..radiation.quadrature import (QuadTables, packed_band_rows,
-                                    photoion_rates_quad, rates_heat)
-from ..radiation.tables import RadiationTables
+from ..radiation.quadrature import (QuadTables, packed_band_blocks,
+                                    photoion_rates_quad, rates_heat,
+                                    uniform_band_rows)
+from ..radiation.tables import RadiationTables, packed_table_route
 from ..rates import rate_coefficients
 from ..sweep.global_pass import MIN_FRACTION_OF_ATOMS, MIN_FRACTIONAL_CHANGE
 from ..thermal import thermal
@@ -197,9 +198,9 @@ def _solve_cell(ctx: OneDContext, dt, cd_in, ndens_p, vol_ph, temper0, ion0):
 
 
 def _boundary_columns(ctx: OneDContext):
-    return (ctx.boundary_tauHI / const.sigma_HI_at_ion_freq,
-            ctx.boundary_tauHeI / const.sigma_HeI_at_ion_freq,
-            ctx.boundary_tauHeII / const.sigma_HeII_at_ion_freq)
+    return (coldens_bndry_HI(ctx.boundary_tauHI),
+            coldens_bndry_HeI(ctx.boundary_tauHeI),
+            coldens_bndry_HeII(ctx.boundary_tauHeII))
 
 
 def evolve1d_plain(ctx: OneDContext, state: State1D, dt):
@@ -268,28 +269,11 @@ class KernelTables1D(NamedTuple):
 
 def _table_route(ctx: OneDContext, dtype, device, heat: bool):
     """The table variant's (bands, hbin, photo, heat tables, layout)."""
-    rt = ctx.tables
-    types = [t for t, used in ((rt.bb, ctx.has_bb), (rt.pl, ctx.has_pl),
-                               (rt.qso, ctx.has_qso))
-             if t is not None and used]
-    if not types:
-        raise ValueError("the 1D kernel needs at least one source type")
-    if heat and any(t.heat_thick is None for t in types):
-        raise ValueError("a heating 1D run needs heating tables "
-                         "(build_radiation_tables(isothermal=False))")
-    to = lambda t: t.to(dtype=dtype, device=device).contiguous()
-    cols = [rt.sigma_HI, rt.sigma_HeI, rt.sigma_HeII, rt.mask_HeI,
-            rt.mask_HeII] + [getattr(rt, f) for f in F_FACTORS]
-    bands = to(torch.stack(cols, dim=-1))
-    hbin = torch.stack([rt.hbin_HI, rt.hbin_HeI, rt.hbin_HeII],
-                       dim=-1).to(dtype=torch.int32, device=device)
-    photo = to(torch.stack([torch.stack([t.photo_thick, t.photo_thin])
-                            for t in types]))
-    heat_tab = (to(torch.stack([torch.stack([t.heat_thick, t.heat_thin])
-                                for t in types])) if heat else None)
-    nheat = heat_tab.shape[-1] if heat else 0
-    layout = (0, 0, len(types)) + (0,) * 6 + (bands.shape[0], nheat)
-    return bands, hbin.contiguous(), photo, heat_tab, layout
+    tr = packed_table_route(ctx.tables, dtype, device, heat, ctx.has_bb,
+                            ctx.has_pl, ctx.has_qso)
+    nheat = tr.heat.shape[-1] if heat else 0
+    layout = (0, 0, len(tr.cols)) + (0,) * 6 + (tr.rows.shape[0], nheat)
+    return tr.rows, tr.hbin, tr.photo, tr.heat, layout
 
 
 def _pack_kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
@@ -304,7 +288,14 @@ def _pack_kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
         if heat and not rates_heat(ctx.tables, False, *flags):
             raise ValueError("a heating 1D run needs quadrature tables with "
                              "heating data (isothermal=False)")
-        bands, types, K = packed_band_rows(ctx.tables, dtype, heat, *flags)
+        flat, blocks = packed_band_blocks(ctx.tables, dtype, heat, *flags)
+        if len({b[3] for b in blocks}) > 1:
+            raise ValueError(
+                "the 1D kernel reads one node count per table (band_in / "
+                "band_out); these \"auto\" tables have blocks of "
+                f"{sorted({b[3] for b in blocks})} nodes: run them on the "
+                "CPU or build a fixed rule")
+        bands, types, K = uniform_band_rows(flat, blocks)
         bands = bands.to(device)
         smem = bands.numel() * bands.element_size()
         if smem > cuda_build.SHARED_MEM_LIMIT:

@@ -9,7 +9,7 @@ rank-local kernels of `halo.py`; `launch.py` starts the ranks.
 from .domain import (domain_evolve3d, gather_state_slabs,
                      group_sources_balanced, group_sources_by_slab,
                      make_domain_iteration, max_domain_radius,
-                     shard_state_slabs)
+                     shard_field, shard_state_slabs)
 from .sharding import (ParallelConfig, make_parallel_iteration,
                        pad_sources, parallel_evolve3d)
 
@@ -17,4 +17,4 @@ __all__ = ["ParallelConfig", "make_parallel_iteration", "pad_sources",
            "parallel_evolve3d", "domain_evolve3d", "gather_state_slabs",
            "group_sources_balanced", "group_sources_by_slab",
            "make_domain_iteration", "max_domain_radius",
-           "shard_state_slabs"]
+           "shard_field", "shard_state_slabs"]

@@ -100,6 +100,19 @@ def all_gather(x, group=None):
     return out
 
 
+def gather(x, dst: int = 0, group=None):
+    """The ranks' x concatenated along axis 0 in rank order, on rank
+    `dst` only (the others get None)."""
+    check_device(x, group)
+    x = x.contiguous()
+    if rank(group) != dst:
+        dist.gather(x, None, dst=_peer(group, dst), group=group)
+        return None
+    parts = [torch.empty_like(x) for _ in range(axis_size(group))]
+    dist.gather(x, parts, dst=_peer(group, dst), group=group)
+    return torch.cat(parts)
+
+
 def any_rank(flag: bool, device, group=None) -> bool:
     """Whether `flag` holds on any rank (one all-reduce of an int)."""
     t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)

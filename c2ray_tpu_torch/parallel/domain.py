@@ -202,17 +202,32 @@ def group_sources_balanced(srcpos, nflux, mesh: int, n_dev: int,
 def shard_state_slabs(state: GridState, group=None) -> GridState:
     """The rank's x-slab of every field of a whole-grid state (a scalar
     clumping broadcast to the slab)."""
-    sl = _slab(state.mesh3, group)
-    cl = state.clumping
-    if cl.ndim == 0:
-        cl = cl.expand(state.mesh3)
-    return GridState(*(t[sl].contiguous() for t in state[:-1]),
-                     clumping=cl[sl].contiguous())
+    return GridState(*(shard_field(t, state.mesh3, group) for t in state))
 
 
-def gather_state_slabs(state: GridState, group=None) -> GridState:
-    """The whole-grid state from the ranks' slabs (every rank gets it)."""
-    return GridState(**gather_fields(state, GridState._fields, group))
+def gather_state_slabs(state: GridState, group=None, dst=None,
+                       names=GridState._fields):
+    """The whole-grid fields `names` (all: a GridState) from the ranks'
+    slabs, in one collective: every rank gets them, or with `dst` only
+    rank dst (the others get None).  A subset of the fields comes as a
+    {name: tensor} dict."""
+    if dst is None:
+        full = gather_fields(state, names, group)
+    else:
+        blk = torch.stack([getattr(state, k) for k in names])     # (F, b)
+        g = comm.gather(blk.unsqueeze(0), dst, group)              # (D, F, b)
+        if g is None:
+            return None
+        g = g.permute(1, 0, 2).reshape(len(names), -1)
+        full = {k: g[i] for i, k in enumerate(names)}
+    return GridState(**full) if names == GridState._fields else full
+
+
+def shard_field(t, n: int, group=None):
+    """The rank's x-slab of a whole-grid field of n cells (a 0-d value
+    broadcast to the slab)."""
+    sl = _slab(n, group)
+    return t.expand(n)[sl].contiguous() if t.ndim == 0 else t[sl].contiguous()
 
 
 def _slab(n: int, group=None) -> slice:
@@ -583,7 +598,7 @@ def domain_evolve3d(pcfg: ParallelConfig, state: GridState, srcpos,
 
 
 __all__ = ["domain_evolve3d", "exchange_slab_halo", "fold_slab_halo",
-           "gather_state_slabs", "group_sources_balanced",
+           "gather_state_slabs", "shard_field", "group_sources_balanced",
            "group_sources_by_slab", "make_domain_iteration",
            "max_domain_radius", "shard_state_slabs",
            "domain_memory_elements", "replicated_memory_elements"]

@@ -5,7 +5,9 @@ Port of ``c2ray_tpu/photonstats.py``
 ionizations + recombinations against the photons emitted every
 timestep.  Sums over cells run on the state's device in its dtype; the
 volume factors (~1e68 cm^3 per cell at cosmological dr) are applied on
-the host in float64, where a float32 multiply would overflow.
+the host in float64, where a float32 multiply would overflow.  A state
+cut into slabs over ranks (the domain mode) passes `reduce`, which sums
+each function's partial sums over the ranks in one all-reduce.
 """
 
 from typing import NamedTuple
@@ -29,7 +31,16 @@ class SpeciesInventory(NamedTuple):
     he2: float
 
 
-def species_inventory(state: GridState, vol, use_start=True
+def _host_sums(terms, reduce=None):
+    """The sums of `terms` over their cells, as host floats; `reduce`
+    (e.g. parallel.comm.psum) adds the ranks' sums, all in one call."""
+    sums = torch.stack([torch.sum(t) for t in terms])
+    if reduce is not None:
+        sums = reduce(sums)
+    return [float(x) for x in sums.cpu()]
+
+
+def species_inventory(state: GridState, vol, use_start=True, reduce=None
                       ) -> SpeciesInventory:
     nd = state.ndens
     if use_start:
@@ -39,13 +50,9 @@ def species_inventory(state: GridState, vol, use_start=True
              state.he_int2)
     ab_h = float(vol) * (1.0 - const.abu_he)
     ab_he = float(vol) * const.abu_he
-    return SpeciesInventory(
-        h0=float(torch.sum(nd * f[0])) * ab_h,
-        h1=float(torch.sum(nd * f[1])) * ab_h,
-        he0=float(torch.sum(nd * f[2])) * ab_he,
-        he1=float(torch.sum(nd * f[3])) * ab_he,
-        he2=float(torch.sum(nd * f[4])) * ab_he,
-    )
+    s = _host_sums([nd * x for x in f], reduce)
+    return SpeciesInventory(h0=s[0] * ab_h, h1=s[1] * ab_h, he0=s[2] * ab_he,
+                            he1=s[3] * ab_he, he2=s[4] * ab_he)
 
 
 class PhotonBudget(NamedTuple):
@@ -64,7 +71,7 @@ class PhotonBudget(NamedTuple):
     total_lls_loss: float = 0.0
 
 
-def total_rates(state: GridState, rates: RateCoeffs, vol, dt):
+def total_rates(state: GridState, rates: RateCoeffs, vol, dt, reduce=None):
     """Recombination / collisional budgets over the step using the
     time-averaged fractions (total_rates, photonstatistics.f90:150-203)."""
     nd = state.ndens
@@ -74,23 +81,20 @@ def total_rates(state: GridState, rates: RateCoeffs, vol, dt):
     cl = state.clumping
 
     voldt = float(vol) * float(dt)
-    totrec = float(torch.sum(
+    s = _host_sums([
         nd * (avg.h1 * rates.brech0 * (1.0 - const.abu_he)
-              + avg.he1 * rates.breche0 * const.abu_he * 0.04)
-        * ne * cl)) * voldt
-    totcollisions = float(torch.sum(
+              + avg.he1 * rates.breche0 * const.abu_he * 0.04) * ne * cl,
         nd * ne * (avg.h0 * rates.colli_HI + avg.he0 * rates.colli_HeI
-                   + avg.he1 * rates.colli_HeII))) * voldt
-    recomions = float(torch.sum(
+                   + avg.he1 * rates.colli_HeII),
         nd * const.abu_he * cl
         * (avg.he2 * 1.121 * rates.breche1 + avg.he1 * rates.breche0 * 0.96)
-        * const.abu_he * ne)) * voldt
-    return totrec, totcollisions, recomions
+        * const.abu_he * ne], reduce)
+    return s[0] * voldt, s[1] * voldt, s[2] * voldt
 
 
 def photon_budget(before: SpeciesInventory, state: GridState,
                   rates: RateCoeffs, vol, dt, total_src,
-                  photon_loss=0.0, lls_loss=0.0) -> PhotonBudget:
+                  photon_loss=0.0, lls_loss=0.0, reduce=None) -> PhotonBudget:
     """Full conservation report for one step.
 
     ``total_src``: photons emitted = sum(NormFlux)*S_star*dt
@@ -98,14 +102,14 @@ def photon_budget(before: SpeciesInventory, state: GridState,
     are the last iteration's loss rates in physical photons/s; they
     enter the report as loss*dt (photonstatistics.f90:278-281).
     """
-    after = species_inventory(state, vol, use_start=True)
+    after = species_inventory(state, vol, use_start=True, reduce=reduce)
     # total_ionizations (photonstatistics.f90:239-247)
     dh0 = before.h0 - after.h0
     dhe0 = before.he0 - after.he0
     dhe2 = after.he2 - before.he2
     total_ion = dh0 + dhe0 + dhe2
 
-    totrec, totcoll, recomions = total_rates(state, rates, vol, dt)
+    totrec, totcoll, recomions = total_rates(state, rates, vol, dt, reduce)
     photcons = (total_ion - totcoll - recomions) / max(
         float(total_src), 1e-300)
     return PhotonBudget(

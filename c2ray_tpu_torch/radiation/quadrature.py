@@ -2,7 +2,8 @@
 
 Port of ``c2ray_tpu/radiation/quadrature.py``.  Each band integral of
 the source SED attenuated by e^{-tau sighat(nu)} is a fixed K-node
-Gauss-Legendre sum,
+Gauss-Legendre sum (or, with n_nodes="auto", a K chosen per band by an
+error budget, the bands grouped into blocks of one K each),
 
     G_b(tau)      ~ sum_k A_{bk} e^{-tau sighat_{bk}}
     Gthin_b(tau)  ~ sum_k A_{bk} sighat_{bk} e^{-tau sighat_{bk}}
@@ -11,9 +12,9 @@ Gauss-Legendre sum,
 with the reference's integrand (radiation_tables.f90:593-783).  The
 tables are built on the host in float64 and cast once.  The functions
 below are the plain PyTorch version of the per-cell rate evaluation; on
-the GPU the same arithmetic, isothermal or with heating, runs as a
-device function inside the pyramid-sweep kernel
-(``csrc/pyramid_sweep.cu``).
+the GPU the same arithmetic, isothermal or with heating, runs as the
+device function `cell_rates` (``csrc/band_rates.cuh``) inside the sweep
+kernels, block by block for the "auto" tables.
 """
 
 import dataclasses
@@ -35,11 +36,17 @@ from .tables import _bb_band_limits, _pl_band_limits
 # (tests/test_quadrature_pin.py pins the JAX twin of this rule).
 DEFAULT_NODES = 6
 
+# error budget of the "auto" node counts: the largest relative error of
+# a band's photon, thin and heat integrals against a 48-node rule over
+# tau in [1e-8, 1e7] (tests/test_quadrature_pin.py pins the JAX twin)
+AUTO_NODE_TOL = 1.0e-6
+
 
 class SourceQuad(NamedTuple):
     """Quadrature data for one source type, shapes (nlive, K): only the
     live band range [band_lo, band_hi] is stored
-    (radiation_tables.f90:194-256)."""
+    (radiation_tables.f90:194-256).  With n_nodes="auto" a source type
+    is a tuple of these, contiguous band blocks of one K each."""
 
     band_lo: int
     band_hi: int
@@ -123,9 +130,88 @@ def _band_quadrature(bands: Bands, sed_fn, band_lo, band_hi, isothermal,
     )
 
 
+def _band_node_data(bands: Bands, b: int):
+    """(lowest frequency, highest, the cross-section slope pli, the
+    absorbing species) of band b."""
+    lo, hi = bands.freq_min[b], bands.freq_max[b]
+    if b < bands.nbnd1:
+        return lo, hi, bands.pli_HI[b], (0,)
+    if b < bands.nbnd1 + bands.nbnd2:
+        return lo, hi, bands.pli_HeI[b], (0, 1)
+    return lo, hi, bands.pli_HeII[b], (0, 1, 2)
+
+
+def _band_nodes_auto(bands: Bands, sed_fn, b: int, tol: float) -> int:
+    """The fewest Gauss-Legendre nodes (of 2, 3, 4, 5, 6, 8, 12, 16, 24,
+    32; else 48) whose photon, thin and heat integrals of band b match
+    a 48-node rule to `tol` relative over tau in [1e-8, 1e7]."""
+    lo, hi, pli, _ = _band_node_data(bands, b)
+    taus = np.logspace(-8.0, 7.0, 40)
+
+    def integrals(K):
+        xk, wk = np.polynomial.legendre.leggauss(K)
+        nu = 0.5 * (hi - lo) * xk + 0.5 * (hi + lo)
+        w = 0.5 * (hi - lo) * wk
+        sh = (nu / lo) ** (-pli)
+        A = w * sed_fn(nu)
+        E = np.exp(-np.minimum(taus[:, None] * sh[None, :], 80.0))
+        return (A * E).sum(1), (A * sh * E).sum(1), (A * (nu - lo) * E).sum(1)
+
+    ref = integrals(48)
+    for k in (2, 3, 4, 5, 6, 8, 12, 16, 24, 32):
+        ok = True
+        for g, r in zip(integrals(k), ref):
+            scale = np.abs(r).max()
+            if scale == 0.0:
+                continue
+            m = np.abs(r) > scale * 1e-12
+            if m.any() and np.max(np.abs(g[m] - r[m]) / np.abs(r[m])) >= tol:
+                ok = False
+                break
+        if ok:
+            return k
+    return 48
+
+
+def _band_quadrature_blocks(bands: Bands, sed_fn, band_lo, band_hi,
+                            isothermal, tol, dtype, device):
+    """The "auto" tables of one source type: each live band's node count
+    (`_band_nodes_auto`), runs of equal K as blocks, a block of one band
+    merged into its neighbour where the merged block costs at most 1.25x
+    the exponentials of the two; a tuple of SourceQuad."""
+    nb = bands.nbands
+    lo_b, hi_b = int(band_lo), int(min(band_hi, nb - 1))
+    ks = [_band_nodes_auto(bands, sed_fn, b, tol)
+          for b in range(lo_b, hi_b + 1)]
+    runs, start = [], lo_b
+    for i in range(1, len(ks) + 1):
+        if i == len(ks) or ks[i] != ks[i - 1]:
+            runs.append((start, lo_b + i - 1, ks[i - 1]))
+            start = lo_b + i
+    merged = []
+    for blo, bhi, k in runs:
+        if merged and (bhi - blo < 1 or merged[-1][1] - merged[-1][0] < 1):
+            plo, phi_, pk = merged[-1]
+            cost_sep = (phi_ - plo + 1) * pk + (bhi - blo + 1) * k
+            kM = max(pk, k)
+            if (bhi - plo + 1) * kM <= 1.25 * cost_sep:
+                merged[-1] = (plo, bhi, kM)
+                continue
+        merged.append((blo, bhi, k))
+    return tuple(_band_quadrature(bands, sed_fn, blo, bhi, isothermal, k,
+                                  dtype, device)
+                 for blo, bhi, k in merged)
+
+
+def source_blocks(sq):
+    """The uniform-K blocks of a source type's tables: (sq,) for a fixed
+    rule, the tuple itself for "auto" tables."""
+    return (sq,) if isinstance(sq, SourceQuad) else tuple(sq)
+
+
 def build_quadrature_tables(sed: SEDConfig, bands: Optional[Bands] = None, *,
                             isothermal=False, dtype=torch.float32,
-                            n_nodes: int = DEFAULT_NODES,
+                            n_nodes=DEFAULT_NODES,
                             flux_scale: Optional[float] = None,
                             device=None):
     """Quadrature tables for the configured SEDs.
@@ -133,6 +219,9 @@ def build_quadrature_tables(sed: SEDConfig, bands: Optional[Bands] = None, *,
     Returns (QuadTables, normalized SEDConfig, Bands-with-flux_scale).
     In float32 the tables are divided by the summed S_star (the photon
     rates ~1e49 and up overflow float32); float64 keeps flux_scale = 1.
+    `n_nodes` is the nodes per band, or "auto": per band the fewest
+    that keep AUTO_NODE_TOL, each source type a tuple of uniform-K
+    blocks (`_band_quadrature_blocks`).
     """
     if bands is None:
         bands = make_bands()
@@ -147,6 +236,9 @@ def build_quadrature_tables(sed: SEDConfig, bands: Optional[Bands] = None, *,
     inv = 1.0 / flux_scale
 
     def build(fn, lo, hi):
+        if n_nodes == "auto":
+            return _band_quadrature_blocks(bands, fn, lo, hi, isothermal,
+                                           AUTO_NODE_TOL, dtype, device)
         return _band_quadrature(bands, fn, lo, hi, isothermal, int(n_nodes),
                                 dtype, device)
 
@@ -189,11 +281,12 @@ def build_quadrature_tables(sed: SEDConfig, bands: Optional[Bands] = None, *,
 
 
 def _types_in_use(qt: QuadTables, has_bb, has_pl, has_qso):
-    """(SourceQuad, nflux column) of each source type in use."""
-    return [(sq, col) for sq, col, used in ((qt.bb, 0, has_bb),
-                                            (qt.pl, 1, has_pl),
-                                            (qt.qso, 2, has_qso))
-            if sq is not None and used]
+    """(SourceQuad, nflux column) of each block of each source type in
+    use, in the order photoion_rates_quad sums them."""
+    return [(blk, col) for sq, col, used in ((qt.bb, 0, has_bb),
+                                             (qt.pl, 1, has_pl),
+                                             (qt.qso, 2, has_qso))
+            if sq is not None and used for blk in source_blocks(sq)]
 
 
 def rates_heat(qt: QuadTables, isothermal: bool, has_bb=True, has_pl=False,
@@ -206,16 +299,18 @@ def rates_heat(qt: QuadTables, isothermal: bool, has_bb=True, has_pl=False,
         for sq, _ in _types_in_use(qt, has_bb, has_pl, has_qso))
 
 
-def packed_band_rows(qt: QuadTables, dtype, heat: bool = False, has_bb=True,
-                     has_pl=False, has_qso=False):
-    """The live bands of every source type in use, one row each, in the
-    layout the kernels' cell_rates reads (csrc/band_rates.cuh):
-    [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII, sighat(K), A(K)],
-    and with `heat` after those
+def packed_band_blocks(qt: QuadTables, dtype, heat: bool = False,
+                       has_bb=True, has_pl=False, has_qso=False):
+    """The live bands of every block of every source type in use, one row
+    each, in the layout the kernels' cell_rates reads
+    (csrc/band_rates.cuh): [sig_HI, sig_HeI, sig_HeII, mask_HeI,
+    mask_HeII, sighat(K), A(K)], and with `heat` after those
     [A_heat_HI(K), A_heat_HeI(K), A_heat_HeII(K), the 12 f-factors in
-    F_FACTORS order]; and the (nflux column, band count, first band in
-    the full band axis) of each type.  Returns (rows, types, K)."""
-    rows, types = [], []
+    F_FACTORS order]; the rows of a block have its own K, so the row
+    length varies between blocks.  Returns (flat rows, blocks): per
+    block (nflux column, first band in the full band axis, band count,
+    K, offset of its first row in the flat rows)."""
+    rows, blocks, off = [], [], 0
     for sq, col in _types_in_use(qt, has_bb, has_pl, has_qso):
         sl = slice(sq.band_lo, sq.band_hi + 1)
         per_band = [qt.sigma_HI[sl], qt.sigma_HeI[sl], qt.sigma_HeII[sl],
@@ -225,13 +320,34 @@ def packed_band_rows(qt: QuadTables, dtype, heat: bool = False, has_bb=True,
             cols += [sq.A_heat_HI, sq.A_heat_HeI, sq.A_heat_HeII,
                      torch.stack([getattr(qt, f)[sl] for f in F_FACTORS],
                                  dim=-1)]
-        rows.append(torch.cat(cols, dim=-1))
-        types.append((col, sq.sigma_hat.shape[0], sq.band_lo))
-        K = sq.sigma_hat.shape[1]
+        r = torch.cat(cols, dim=-1)
+        nb, K = sq.sigma_hat.shape
+        rows.append(r.reshape(-1))
+        blocks.append((col, sq.band_lo, nb, K, off))
+        off += r.numel()
     if not rows:
         raise ValueError("the rates need at least one source type")
-    packed = torch.cat(rows).to(dtype=dtype).contiguous()
-    return packed, types, K
+    return torch.cat(rows).to(dtype=dtype).contiguous(), blocks
+
+
+def uniform_band_rows(flat, blocks):
+    """The flat rows and blocks of `packed_band_blocks` for tables of one
+    K (a fixed rule): (rows (nbt, row length), the (nflux column, band
+    count, first band in the full band axis) of each block, K); raises
+    for blocks of several K ("auto" tables)."""
+    Ks = sorted({b[3] for b in blocks})
+    if len(Ks) > 1:
+        raise ValueError(f"blocks of {Ks} nodes have no single row length")
+    types = [(col, nb, lo) for col, lo, nb, _, _ in blocks]
+    return flat.reshape(sum(b[2] for b in blocks), -1), types, Ks[0]
+
+
+def packed_band_rows(qt: QuadTables, dtype, heat: bool = False, has_bb=True,
+                     has_pl=False, has_qso=False):
+    """`packed_band_blocks` of tables with one K, as `uniform_band_rows`
+    gives them: (rows, types, K)."""
+    return uniform_band_rows(*packed_band_blocks(qt, dtype, heat, has_bb,
+                                                 has_pl, has_qso))
 
 
 def _attenuation(sq: SourceQuad, tau):
@@ -390,9 +506,12 @@ def photoion_rates_quad(
                       (qt.qso, nflux_qso)):
         if sq is None or nflux is None:
             continue
-        phi = phi + _one_source_quad(
-            qt, sq, bcast(nflux),
-            cd_in_HI, colum_out_HI, colum_in_HeI, colum_out_HeI,
-            colum_in_HeII, colum_out_HeII, vol, i_state, do_heating,
-            track_bands)
+        nflux = bcast(nflux)
+        # "auto" tables: the rates add up over the blocks' bands
+        for blk in source_blocks(sq):
+            phi = phi + _one_source_quad(
+                qt, blk, nflux,
+                cd_in_HI, colum_out_HI, colum_in_HeI, colum_out_HeI,
+                colum_in_HeII, colum_out_HeII, vol, i_state, do_heating,
+                track_bands)
     return phi

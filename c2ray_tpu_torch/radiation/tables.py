@@ -255,3 +255,62 @@ def build_radiation_tables(sed: SEDConfig, bands: Optional[Bands] = None, *,
     )
     bands = dataclasses.replace(bands, flux_scale=float(flux_scale))
     return tables, sed, bands
+
+
+class TableRoute(NamedTuple):
+    """The tau tables as the kernels read them (csrc/table_rates.cuh):
+    rows (nb, 17) of [sig_HI, sig_HeI, sig_HeII, mask_HeI, mask_HeII, the
+    12 f-factors in F_FACTORS order]; hbin (nb, 3) int32, the heating
+    column of each band and species; photo (ntypes, 2, NumTau + 1, nb)
+    the thick and thin photo tables of each source type in use; with
+    heating heat (ntypes, 2, NumTau + 1, nheat); cols the nflux column
+    of each type; live the bands [b0, b1) from the first to the last
+    where some type's photo tables are nonzero (live_band_range)."""
+
+    rows: torch.Tensor
+    hbin: torch.Tensor
+    photo: torch.Tensor
+    heat: Optional[torch.Tensor]
+    cols: tuple
+    live: tuple
+
+
+def live_band_range(photo: torch.Tensor) -> tuple:
+    """(b0, b1): the bands from the first to the last whose column of
+    some source type's photo tables (photo: (..., nb)) is nonzero --
+    _build_source_tables zeroes the columns outside a type's band range
+    (_bb_band_limits, _pl_band_limits), and so its heating columns; the
+    rates of the bands outside add nothing.  (0, 0) when every column is
+    zero."""
+    live = torch.nonzero(photo.reshape(-1, photo.shape[-1]).ne(0)
+                         .any(dim=0)).flatten().tolist()
+    return (live[0], live[-1] + 1) if live else (0, 0)
+
+
+def packed_table_route(rt: RadiationTables, dtype, device, heat: bool,
+                       has_bb=True, has_pl=False, has_qso=False
+                       ) -> TableRoute:
+    """The tau tables of the source types in use, packed for the kernels
+    (the 1D march and the three 3D sweeps)."""
+    types = [(t, col) for col, (t, used) in enumerate(
+        ((rt.bb, has_bb), (rt.pl, has_pl), (rt.qso, has_qso)))
+        if t is not None and used]
+    if not types:
+        raise ValueError("the rates need at least one source type")
+    if heat and any(t.heat_thick is None for t, _ in types):
+        raise ValueError("heating rates need heating tables "
+                         "(build_radiation_tables(isothermal=False))")
+    to = lambda t: t.to(dtype=dtype, device=device).contiguous()
+    cols = [rt.sigma_HI, rt.sigma_HeI, rt.sigma_HeII, rt.mask_HeI,
+            rt.mask_HeII] + [getattr(rt, f) for f in F_FACTORS]
+    hbin = torch.stack([rt.hbin_HI, rt.hbin_HeI, rt.hbin_HeII], dim=-1)
+    photo = to(torch.stack([torch.stack([t.photo_thick, t.photo_thin])
+                            for t, _ in types]))
+    heat_tab = (to(torch.stack([torch.stack([t.heat_thick, t.heat_thin])
+                                for t, _ in types])) if heat else None)
+    return TableRoute(rows=to(torch.stack(cols, dim=-1)),
+                      hbin=hbin.to(dtype=torch.int32,
+                                   device=device).contiguous(),
+                      photo=photo, heat=heat_tab,
+                      cols=tuple(col for _, col in types),
+                      live=live_band_range(photo))

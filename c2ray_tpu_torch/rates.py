@@ -87,3 +87,23 @@ def rate_coefficients(temperature: torch.Tensor) -> RateCoeffs:
         colli_HI=colli_HI, colli_HeI=colli_HeI, colli_HeII=colli_HeII,
         v=v,
     )
+
+
+def constant_rate_coefficients(dtype=torch.float64, device=None
+                               ) -> RateCoeffs:
+    """The fixed T = 1e4 K coefficients of the reference's debug variant
+    (cgsconstants.f90:270-289), as 0-d tensors."""
+    f = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    brech0 = f(2.59182e-13)
+    breche0 = f(2.61613e-13)
+    breche1 = f(1.54528e-12)
+    areche0 = f(4.22471e-13)
+    areche1 = f(2.22561e-12)
+    arech0 = f(4.29695e-13)
+    return RateCoeffs(
+        arech0=arech0, brech0=brech0,
+        areche0=areche0, breche0=breche0, oreche0=areche0 - breche0,
+        areche1=areche1, breche1=breche1, treche1=f(3.46e-13),
+        colli_HI=f(8.96396e-16), colli_HeI=f(7.46415e-22),
+        colli_HeII=f(2.28059e-37), v=f(0.285),
+    )

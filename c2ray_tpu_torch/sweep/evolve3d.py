@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..radiation.quadrature import QuadTables, source_blocks
 from ..state import GridState, begin_timestep, finish_timestep
 from .geometry import ShellTable, build_shell_table
 from .global_pass import ChemistryConfig, global_chemistry_pass
@@ -74,14 +75,20 @@ class Evolve3DStats(NamedTuple):
 
 
 def _scaled_source_strength(sweep_cfg: SweepConfig, nflux) -> float:
-    """Total photon rate of the batch in the sweep's scaled flux units
-    (sum over source types of NormFlux * type rate / flux_scale)."""
+    """Total photon rate of the batch in the sweep's scaled flux units:
+    with quadrature tables the sum over source types of NormFlux * the
+    type's rate (its coefficients summed over the blocks of "auto"
+    tables) / flux_scale; with tau tables, as in JAX, the summed NormFlux
+    (c2ray_tpu/sweep/evolve3d.py:77-95)."""
     t = sweep_cfg.tables
+    if not isinstance(t, QuadTables):
+        return float(torch.sum(torch.as_tensor(nflux)))
     total = 0.0
     for sq, j in ((t.bb, 0), (t.pl, 1), (t.qso, 2)):
         if sq is None:
             continue
-        total += float(torch.sum(sq.A_photo)) * float(torch.sum(nflux[:, j]))
+        a_sum = sum(float(torch.sum(b.A_photo)) for b in source_blocks(sq))
+        total += a_sum * float(torch.sum(nflux[:, j]))
     return total
 
 

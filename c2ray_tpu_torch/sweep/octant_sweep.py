@@ -31,6 +31,7 @@ engine.
 """
 
 import ctypes
+import sys
 
 import numpy as np
 import torch
@@ -41,13 +42,19 @@ from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
 from .source_sweep import (_ABU, _BLOCK, RateGrids, SourceFields,
                            SweepConfig, _base_cols, _cell_rates,
                            _check_kernel_inputs, _kernel_tables,
-                           _same_device, _scalars, _source_group,
-                           _type_args, stack_sweep_fields)
+                           _route_args, _same_device, _scalars,
+                           _source_group, count_launch, stack_sweep_fields)
 
 # sweeps run through the octant kernel, one count per octant_sweep_cuda
-# call (which launches one kernel per plane), isothermal or heating
+# call (which launches one kernel per plane) in the counter of its
+# variant: the fixed quadrature rule isothermal or heating, the tau
+# tables, the "auto" blocks
 launches = 0
 launches_heat = 0
+launches_table = 0
+launches_table_heat = 0
+launches_auto = 0
+launches_auto_heat = 0
 # plane launches of the octant kernel by lanes per cell
 PLANE_LANES = (1, 2, 4, 8)        # kPlaneLanes of csrc/octant_sweep.cu
 launches_lanes = {G: 0 for G in PLANE_LANES}
@@ -317,13 +324,13 @@ def octant_sweep_cuda(cfg: SweepConfig, fstack, srcpos, nflux):
     `_plane_lanes`; the ring starts filled with NaN, so a read of a
     position the sweep did not write would show in the outputs.
     """
-    global launches, launches_heat
     _check_kernel_inputs(fstack, srcpos, nflux, cfg)
     M, S = fstack.shape[0], srcpos.shape[0]
     _check_mesh(M)
     R = M // 2
     dtype, device = fstack.dtype, fstack.device
-    packed, types, K, heat = _kernel_tables(cfg, dtype)
+    kt = _kernel_tables(cfg, dtype)
+    K, type_ints, route, route_ptrs = _route_args(kt)
     fields = fstack.contiguous()
     sp = srcpos.to(dtype=torch.int32).contiguous()
     nfl = nflux.to(dtype=dtype).contiguous()
@@ -335,23 +342,21 @@ def octant_sweep_cuda(cfg: SweepConfig, fstack, srcpos, nflux):
                       device=device)
     slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
     partials = torch.zeros((S, nslots), dtype=dtype, device=device)
-    name = ("octant_sweep_" + ("heat_" if heat else "")
+    name = ("octant_sweep_" + ("heat_" if kt.heat else "")
             + ("f32" if dtype == torch.float32 else "f64"))
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
-                   + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_double] * 4 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     P = cuda_build.ptr
-    err = fn(P(fields), P(sp), P(nfl), P(packed), P(rows), P(ring), P(slab),
-             P(partials), plan.ctypes.data_as(ctypes.c_void_p), nslots, M, S,
-             K, len(types), *_type_args(types), float(cfg.dr),
+    err = fn(P(fields), P(sp), P(nfl), P(kt.packed), P(rows), P(ring),
+             P(slab), P(partials), plan.ctypes.data_as(ctypes.c_void_p),
+             nslots, M, S, K, *type_ints, float(cfg.dr),
              float(cfg.vol / cfg.flux_scale), float(cfg.coldensh_LLS),
-             float(cfg.max_coldensh), cuda_build.stream_of(fields))
+             float(cfg.max_coldensh), *route_ptrs,
+             cuda_build.stream_of(fields))
     cuda_build.check(err, name)
-    if heat:
-        launches_heat += 1
-    else:
-        launches += 1
+    count_launch(sys.modules[__name__], kt)
     for G, n in zip(*np.unique(plan[plan[:, 2] > 0, 3], return_counts=True)):
         launches_lanes[int(G)] += int(n)
     return slab, partials.sum(dim=1)

@@ -26,6 +26,7 @@ order.
 """
 
 import ctypes
+import sys
 
 import torch
 
@@ -35,18 +36,24 @@ from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
 # stack_sweep_fields, _kernel_tables, _source_group and sweep_heats are
 # also this module's names for its callers (the tests, chip_smoke.py)
 from .source_sweep import (_ABU, RateGrids, SourceFields, SweepConfig,
-                           _cell_rates, _kernel_tables, _same_device,
-                           _scalars, _source_group, stack_sweep_fields,
-                           sweep_heats)
+                           _cell_rates, _kernel_tables, _route_args,
+                           _same_device, _scalars, _source_group,
+                           count_launch, stack_sweep_fields, sweep_heats)
 
 # sweeps run through the CUDA kernel, one count per trace_cuda call
 # (which launches the 3 * Rf stage kernels of one sweep) in the counter
 # of its variant: with a per-cell LLS grid, else with band tracking,
-# else heating, else isothermal
+# else heating, else isothermal -- on the fixed quadrature rule; the
+# tau tables and the "auto" blocks count in their own counters
+# (isothermal / heating), a per-cell LLS grid among them
 launches = 0
 launches_heat = 0
 launches_lls = 0
 launches_track = 0
+launches_table = 0
+launches_table_heat = 0
+launches_auto = 0
+launches_auto_heat = 0
 
 def trace_extents(M: int, radius=None):
     """Forward / backward trace extents (Rf, Rb): +M/2 / -(M/2-1) by
@@ -255,7 +262,9 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
         if lls.shape != (M**3,) or lls.dtype != dtype or lls.device != device:
             raise ValueError(f"lls must be ({M**3},) {dtype} on {device}")
         lls = lls.contiguous()
-    packed, types, K, heat = _kernel_tables(cfg, dtype, track)
+    kt = _kernel_tables(cfg, dtype, track)
+    K, type_ints, route, route_ptrs = _route_args(kt)
+    heat = kt.heat
     nb_all = cfg.tables.sigma_HI.shape[0]
     fields = fstack.contiguous()
     sp = srcpos.to(dtype=torch.int32).contiguous()
@@ -276,19 +285,21 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
             + ("f32" if dtype == torch.float32 else "f64"))
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
-                   + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_double] * 4 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
-    type_args = [a for t in types for a in t] + [0, 0, 0] * (3 - len(types))
     P = cuda_build.ptr
     null = ctypes.c_void_p(None)
-    err = fn(P(fields), P(sp), P(nfl), P(packed),
+    err = fn(P(fields), P(sp), P(nfl), P(kt.packed),
              null if lls is None else P(lls), P(cd), P(slab), P(partials),
              null if band_partials is None else P(band_partials),
-             M, S, Rf, Rb, K, len(types), nb_all, *type_args,
+             M, S, Rf, Rb, K, type_ints[0], nb_all, *type_ints[1:],
              float(dr_t), float(vos_t), float(cfg.coldensh_LLS),
-             float(cfg.max_coldensh), cuda_build.stream_of(fields))
+             float(cfg.max_coldensh), *route_ptrs,
+             cuda_build.stream_of(fields))
     cuda_build.check(err, name)
-    if lls is not None:
+    if kt.K < 0:
+        count_launch(sys.modules[__name__], kt)
+    elif lls is not None:
         launches_lls += 1
     elif track:
         launches_track += 1

@@ -16,9 +16,15 @@ coordinates and return per-source rate slabs and losses, which
 Like JAX's, the shell engine takes the cell size and the LLS column from
 the configuration only (ROADMAP Queue 3): `evolve3d`'s `dr`,
 `vol_over_scale` and `lls_grid` reach the pyramid engine alone.
+
+Every engine takes either rate route of JAX's `_cell_rates`: quadrature
+tables (`QuadTables`, a fixed rule or the "auto" blocks) or the tau
+tables (`RadiationTables`, the reference-parity lookup); the kernels
+take the route as a template parameter (``csrc/table_rates.cuh``).
 """
 
 import ctypes
+import sys
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -27,8 +33,11 @@ import torch
 
 from .. import constants as const
 from .. import cuda_build
-from ..radiation.quadrature import (QuadTables, packed_band_rows,
-                                    photoion_rates_quad, rates_heat)
+from ..radiation.photo import photoion_rates
+from ..radiation.quadrature import (QuadTables, packed_band_blocks,
+                                    photoion_rates_quad, rates_heat,
+                                    uniform_band_rows)
+from ..radiation.tables import RadiationTables, packed_table_route
 from .cinterp import cinterp_shell
 from .geometry import ShellTable
 
@@ -39,9 +48,15 @@ MAX_COLDENSH = 2.0e29
 _ABU = (1.0 - const.abu_he, const.abu_he, const.abu_he)
 
 # sweeps run through the shell kernel, one count per shell_sweep_cuda
-# call (which launches one kernel per shell), isothermal or heating
+# call (which launches one kernel per shell) in the counter of its
+# variant: the fixed quadrature rule isothermal or heating, the tau
+# tables, the "auto" blocks
 launches = 0
 launches_heat = 0
+launches_table = 0
+launches_table_heat = 0
+launches_auto = 0
+launches_auto_heat = 0
 
 # auto source group: a group's column cube and slab (7 values per cell
 # and source) stay under this many bytes
@@ -50,9 +65,11 @@ _GROUP_BYTES = 4 * 2**30
 
 @dataclass(frozen=True)
 class SweepConfig:
-    """Static sweep configuration."""
+    """Static sweep configuration.  `tables` are quadrature tables
+    (`QuadTables`: a fixed rule, or "auto" blocks) or tau tables
+    (`RadiationTables`); `track_band_loss` needs quadrature tables."""
 
-    tables: QuadTables
+    tables: "QuadTables | RadiationTables"
     mesh: int
     dr: float
     isothermal: bool = False
@@ -120,8 +137,15 @@ def zero_rate_grids(mesh: int, dtype, device=None) -> RateGrids:
 def _cell_rates(cfg: SweepConfig, cd_in, cd_out, vol_ph, nflux, i_state,
                 track_bands=False):
     """cd_in/cd_out: (..., 3) species columns; nflux: (..., 3) per
-    source type (BB, PL, QSO), broadcast against the cells."""
-    return photoion_rates_quad(
+    source type (BB, PL, QSO), broadcast against the cells.  Quadrature
+    tables go to photoion_rates_quad, tau tables to photoion_rates
+    (JAX's source_sweep.py:118-135); only the quadrature tracks bands."""
+    quad = isinstance(cfg.tables, QuadTables)
+    if track_bands and not quad:
+        raise ValueError("track_band_loss needs the quadrature tables "
+                         "(QuadTables)")
+    kw = {"track_bands": True} if track_bands else {}
+    return (photoion_rates_quad if quad else photoion_rates)(
         cfg.tables,
         cd_in[..., 0], cd_out[..., 0], cd_in[..., 1], cd_out[..., 1],
         cd_in[..., 2], cd_out[..., 2],
@@ -130,7 +154,7 @@ def _cell_rates(cfg: SweepConfig, cd_in, cd_out, vol_ph, nflux, i_state,
         nflux_pl=nflux[..., 1] if cfg.has_pl else None,
         nflux_qso=nflux[..., 2] if cfg.has_qso else None,
         do_heating=not cfg.isothermal,
-        track_bands=track_bands,
+        **kw,
     )
 
 
@@ -172,34 +196,120 @@ def _base_cols(fc, abu):
 
 
 def sweep_heats(cfg: SweepConfig) -> bool:
-    """Whether the sweep evaluates heating (quadrature.rates_heat)."""
-    return rates_heat(cfg.tables, cfg.isothermal, cfg.has_bb, cfg.has_pl,
+    """Whether the sweep evaluates heating: a heating run over tables
+    with heating data for every source type in use (quadrature.rates_heat;
+    tau tables likewise, photo.py:photoion_rates)."""
+    t = cfg.tables
+    if isinstance(t, RadiationTables):
+        return not cfg.isothermal and all(
+            st.heat_thick is not None
+            for st, used in ((t.bb, cfg.has_bb), (t.pl, cfg.has_pl),
+                             (t.qso, cfg.has_qso)) if st is not None and used)
+    return rates_heat(t, cfg.isothermal, cfg.has_bb, cfg.has_pl,
                       cfg.has_qso)
 
 
 _BLOCK = 256   # kBlock of the sweep kernels
+# the kernels' kK of the two routes besides a fixed quadrature rule
+# (csrc/table_rates.cuh: kTableRoute, kBlockRoute)
+ROUTE_TABLE = -1
+ROUTE_BLOCKS = -2
+MAX_BLOCKS = 24   # kMaxBlocks of csrc/band_rates.cuh
 
 
-def _kernel_tables(cfg: SweepConfig, dtype, track: bool = False):
-    """(packed, types, K, heat) for a sweep kernel; raises, with the
-    byte count, when the band tables, the loss-reduction buffer and
-    (with `track`) the per-band staging buffer exceed a block's shared
-    memory."""
+class KernelTables(NamedTuple):
+    """A sweep kernel's rate tables.  The fixed quadrature rule: packed
+    (nbt, row length) band rows, types the (nflux column, band count,
+    first band) of each source type, K its node count.  "auto" tables:
+    packed the flat rows of packed_band_blocks, types its blocks, K =
+    ROUTE_BLOCKS.  Tau tables: packed their (nb, 17) band rows, types
+    the TableRoute, K = ROUTE_TABLE."""
+
+    packed: torch.Tensor
+    types: object
+    K: int
+    heat: bool
+
+
+def _kernel_tables(cfg: SweepConfig, dtype, track: bool = False
+                   ) -> KernelTables:
+    """The kernels' tables on the configuration's route (KernelTables);
+    raises, with the byte count, when the band rows, the loss-reduction
+    buffer and (with `track`) the per-band staging buffer exceed a
+    block's shared memory, and for band tracking off the fixed rule."""
     heat = sweep_heats(cfg)
-    packed, types, K = packed_band_rows(cfg.tables, dtype, heat, cfg.has_bb,
-                                        cfg.has_pl, cfg.has_qso)
+    flags = (cfg.has_bb, cfg.has_pl, cfg.has_qso)
+    if isinstance(cfg.tables, RadiationTables):
+        if track:
+            raise ValueError("track_band_loss needs the quadrature tables "
+                             "(QuadTables)")
+        tr = packed_table_route(cfg.tables, dtype, cfg.tables.sigma_HI.device,
+                                heat, *flags)
+        kt = KernelTables(tr.rows, tr, ROUTE_TABLE, heat)
+    else:
+        flat, blocks = packed_band_blocks(cfg.tables, dtype, heat, *flags)
+        if len({b[3] for b in blocks}) == 1:
+            kt = KernelTables(*uniform_band_rows(flat, blocks), heat)
+        elif track:
+            raise ValueError("the band-tracking sweep kernel takes a fixed "
+                             "quadrature rule, not \"auto\" blocks")
+        elif len(blocks) > MAX_BLOCKS:
+            raise ValueError(f"the sweep kernels take at most {MAX_BLOCKS} "
+                             f"band blocks, not {len(blocks)}")
+        else:
+            kt = KernelTables(flat, blocks, ROUTE_BLOCKS, heat)
     nstage = cfg.tables.sigma_HI.shape[0] * _BLOCK if track else 0
-    smem = (packed.numel() + 2 * _BLOCK + nstage) * packed.element_size()
+    smem = (kt.packed.numel() + 2 * _BLOCK + nstage) * kt.packed.element_size()
     if smem > cuda_build.SHARED_MEM_LIMIT:
         raise ValueError(f"band tables need {smem} B of shared memory, over "
                          f"the {cuda_build.SHARED_MEM_LIMIT} B a block can "
                          "have")
-    return packed, types, K, heat
+    return kt
 
 
 def _type_args(types):
     """The kernels' (column, band count, first band) ints of 3 types."""
     return [a for t in types for a in t] + [0, 0, 0] * (3 - len(types))
+
+
+def count_launch(module, kt: KernelTables, prefix="launches"):
+    """Add one to `module`'s counter of the route and variant of `kt`:
+    <prefix>[_table | _auto][_heat]."""
+    route = {ROUTE_TABLE: "_table", ROUTE_BLOCKS: "_auto"}.get(kt.K, "")
+    name = prefix + route + ("_heat" if kt.heat else "")
+    setattr(module, name, getattr(module, name) + 1)
+
+
+def _route_args(kt: KernelTables):
+    """The kernel arguments of the route: K and the type ints (ntypes
+    and _type_args) of a fixed rule, zero on the other routes; the host
+    route ints of csrc/table_rates.cuh:parse_route (kept alive by the
+    caller; None on a fixed rule); and the trailing pointers: those ints,
+    then the tau tables' photo, heat and hbin (null off the table
+    route).  The fixed rule's arguments are the ones the entries took
+    before the routes; the route's come after them, before the
+    stream."""
+    null = ctypes.c_void_p(None)
+    P = cuda_build.ptr
+    if kt.K >= 0:
+        return (kt.K, [len(kt.types)] + _type_args(kt.types), None,
+                [null] * 4)
+    if kt.K == ROUTE_BLOCKS:
+        ints = [ROUTE_BLOCKS, kt.packed.numel(), len(kt.types)]
+        for b in kt.types:
+            ints += list(b)
+        ptrs = [null] * 3
+    else:
+        tr = kt.types
+        nheat = tr.heat.shape[-1] if kt.heat else 0
+        cols = list(tr.cols) + [0] * (3 - len(tr.cols))
+        ints = [ROUTE_TABLE, kt.packed.numel(), tr.rows.shape[0], nheat,
+                len(tr.cols)] + cols + list(tr.live)
+        ptrs = [P(tr.photo), null if tr.heat is None else P(tr.heat),
+                P(tr.hbin)]
+    ints = np.ascontiguousarray(ints, dtype=np.int32)
+    return (0, [0] * 10, ints,
+            [ints.ctypes.data_as(ctypes.c_void_p)] + ptrs)
 
 
 def _check_kernel_inputs(fstack, srcpos, nflux, cfg):
@@ -353,12 +463,12 @@ def shell_sweep_cuda(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     from the source's column cube, and the kernel walks the compact
     table (no thread on padding).
     """
-    global launches, launches_heat
     _check_kernel_inputs(fstack, srcpos, nflux, cfg)
     M, S = fstack.shape[0], srcpos.shape[0]
     _check_extents(shells, M)
     dtype, device = fstack.dtype, fstack.device
-    packed, types, K, heat = _kernel_tables(cfg, dtype)
+    kt = _kernel_tables(cfg, dtype)
+    K, type_ints, route, route_ptrs = _route_args(kt)
     cells = _device_cells(shells, device)
     starts = np.ascontiguousarray(shells.starts, dtype=np.int64)
     fields = fstack.contiguous()
@@ -373,24 +483,21 @@ def shell_sweep_cuda(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     cd = torch.zeros((S, M**3, 3), dtype=dtype, device=device)
     slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
     partials = torch.zeros((S, nslots, 2), dtype=dtype, device=device)
-    name = ("shell_sweep_" + ("heat_" if heat else "")
+    name = ("shell_sweep_" + ("heat_" if kt.heat else "")
             + ("f32" if dtype == torch.float32 else "f64"))
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
-                   + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_double] * 4 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     P = cuda_build.ptr
-    err = fn(P(fields), P(sp), P(nfl), P(packed), P(cells), starts_p, P(cd),
-             P(slab), P(partials), M, S, shells.n_shells, K, len(types),
-             *_type_args(types), float(cfg.dr),
+    err = fn(P(fields), P(sp), P(nfl), P(kt.packed), P(cells), starts_p,
+             P(cd), P(slab), P(partials), M, S, shells.n_shells, K,
+             *type_ints, float(cfg.dr),
              float(cfg.vol / cfg.flux_scale), float(cfg.coldensh_LLS),
-             float(cfg.max_coldensh),
+             float(cfg.max_coldensh), *route_ptrs,
              cuda_build.stream_of(fields))
     cuda_build.check(err, name)
-    if heat:
-        launches_heat += 1
-    else:
-        launches += 1
+    count_launch(sys.modules[__name__], kt)
     losses = partials.sum(dim=1)
     return slab, losses[:, 0], losses[:, 1]
 

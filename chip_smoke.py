@@ -137,14 +137,19 @@ division per band) adds, last:
    (`octant_plane_groups`) with their cell steps, against the sweep's
    CUDA-event time (the rest: launch gaps and the sweep's other work),
    the octant kernel's plane launches by lanes per cell, and two calls
-   equal to the bit.
+   equal to the bit.  The tracer now and then keeps no record of a
+   launch: after five windows without one, a split is logged as not
+   measured, and a single kernel's device time (phase 23) is taken
+   with CUDA events behind a sleep kernel instead (`kernel_ms`).
 
 The chemistry and photon-loss redesign adds, last:
 
 23. with a parent build unpacked under build/parent/ (a `git archive`
    of the commit before the redesign, built after phase 2; without one
-   these two parts are not run): the pyramid, shell, octant, 1D and
-   halo sources compile to the parent's SASS, and #3 and #5 are timed
+   these two parts are not run): the 1D and halo sources compile to
+   the parent's SASS (the sweep sources' fixed rule is held to the
+   parent's time by tools/profile_torch_iteration.py --builds), and #3
+   and #5 are timed
    in turns against the
    parent's kernels (wrapper call and kernel device ms), #3's outputs
    and counters equal to the parent's to the bit; at phases 4 and 5's
@@ -156,6 +161,25 @@ The chemistry and photon-loss redesign adds, last:
    photon-loss band loop's SASS per band (no shared-memory load, no
    division check, one MUFU.RCP), the whole-row and strided layouts
    against the plain version; two calls of each equal to the bit.
+
+The tau-table and "auto" routes of the three sweep kernels add, after
+phase 16:
+
+24. the tau-table and "auto" quadrature routes of the pyramid kernel
+   (32^3, full extents and radius 8, each without and with a per-cell
+   LLS grid), the shell kernel (32^3, 33^3, 32^3 under
+   build_shell_table(32, 8)) and the octant kernel (32^3) against their
+   plain versions, 3 sources, float64 (rtol 1e-10) and float32 (the
+   sweep gates of phases 3 and 15), isothermal and heating;
+25. the bench configuration of phases 4 and 5 (128^3 x 8, float32, 4
+   timed iterations of `make_evolve3d_iteration`) on the tau tables on
+   each engine and on the "auto" quadrature on the pyramid engine,
+   isothermal and heating: cell-source-updates/s, each route's sweep
+   kernel launched, its time, plain time and bound (`table_bound` for
+   the tau tables: the positions' log10s and the reads' arithmetic over
+   the bands of nonzero table columns); on the tau tables the float64
+   kernel against the float64 plain version at the same state (rtol
+   1e-10) besides the float32 gate against float64.
 
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
@@ -192,7 +216,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tools"))
 from kernel_study import (  # noqa: E402
     achieved_occupancy, build_chem_split, build_oned, chem_pass_with,
-    chem_split_run, chem_split_stats, histogram, kernel_sass,
+    chem_split_run, chem_split_stats, comparable_sass, histogram, kernel_sass,
     parent_photon_losses, sass_band_mix, sass_issue_floor, sass_loop_mix,
     sass_per_band)
 
@@ -256,23 +280,70 @@ def sweep_bound(sweep_cfg, S, Rf, Rb, lls=False, track=False):
     """Bound of one float32 sweep of S sources over (Rf + Rb + 1)^3
     cells each.  Bytes: the 5 field channels (and the LLS grid) read
     once, the (S, M^3, 4) rate slab written once.  Operations: at each
-    of the K nodes of each live band, cell and source, 2 exponentials
-    (e_in, e_out) on the special-function units and 10 flops of the
-    photo sums (25 with the heating sums) on the float32 pipes; an
-    expm1 per cell with LLS, an add per band and cell with tracking."""
-    from c2ray_tpu_torch.radiation.quadrature import packed_band_rows
+    of the K nodes of each live band, cell and source (the blocks' own
+    K with "auto" tables), 2 exponentials (e_in, e_out) on the
+    special-function units and 10 flops of the photo sums (25 with the
+    heating sums) on the float32 pipes; an expm1 per cell with LLS, an
+    add per band and cell with tracking.  Tau tables: table_bound."""
+    from c2ray_tpu_torch.radiation.quadrature import (QuadTables,
+                                                      packed_band_blocks)
     from c2ray_tpu_torch.sweep.source_sweep import sweep_heats
 
+    if not isinstance(sweep_cfg.tables, QuadTables):
+        return table_bound(sweep_cfg, S, Rf, Rb, lls)
     heat = sweep_heats(sweep_cfg)
-    packed, _, K = packed_band_rows(sweep_cfg.tables, torch.float32, heat,
-                                    sweep_cfg.has_bb, sweep_cfg.has_pl,
-                                    sweep_cfg.has_qso)
-    M, nlive = sweep_cfg.mesh, packed.shape[0]
+    _, blocks = packed_band_blocks(sweep_cfg.tables, torch.float32, heat,
+                                   sweep_cfg.has_bb, sweep_cfg.has_pl,
+                                   sweep_cfg.has_qso)
+    M = sweep_cfg.mesh
+    nlive = sum(b[2] for b in blocks)
     cells = S * (Rf + Rb + 1) ** 3
-    nodes = cells * nlive * K
+    nodes = cells * sum(b[2] * b[3] for b in blocks)
     nbytes = 4 * (M**3 * (6 if lls else 5) + S * M**3 * 4)
     flops = nodes * (25 if heat else 10) + (cells * nlive if track else 0)
     return bound(nbytes, flops, 2 * nodes + (cells if lls else 0))
+
+
+# the tau-table route per cell and band of a float32 sweep
+# (csrc/table_rates.cuh:table_rates): tau_in, tau_out, the three tau
+# shares and their reciprocal, two positions (a log10 on the special-
+# function units and 4 flops each), and per source type two linear
+# reads (3 flops each) and 11 flops of sums; with heating per species
+# two more reads and 8 flops, the Ricotti fractions 24 flops a band
+TABLE_FLOPS = (32, 11)             # per band, per band and type
+TABLE_HEAT_FLOPS = (24, 3 * 14)    # the same with heating
+TABLE_SFU = 3                      # 2 log10 and the share's reciprocal
+
+
+def table_bound(sweep_cfg, S, Rf, Rb, lls=False):
+    """Bound of one float32 tau-table sweep of S sources over (Rf + Rb +
+    1)^3 cells: the larger of the bytes (the 5 field channels and the
+    LLS grid read once, the rate slab written once, the tables' nonzero
+    columns read once from device memory: they sit in the 50 MB L2, so a
+    cell's reads that miss it are the tables' first) and the operations
+    (TABLE_FLOPS, TABLE_SFU): the per-band part over the bands where
+    some type's tables are nonzero, the per-type part over each type's
+    own nonzero bands (the tables hold zero columns outside a type's
+    band range, whose rates add nothing)."""
+    from c2ray_tpu_torch.radiation.tables import packed_table_route
+    from c2ray_tpu_torch.sweep.source_sweep import sweep_heats
+
+    heat = sweep_heats(sweep_cfg)
+    tr = packed_table_route(sweep_cfg.tables, torch.float32, "cpu", heat,
+                            sweep_cfg.has_bb, sweep_cfg.has_pl,
+                            sweep_cfg.has_qso)
+    live = tr.photo.ne(0).any(dim=2).any(dim=1)          # (ntypes, nb)
+    n_any, n_type = int(live.any(dim=0).sum()), int(live.sum())
+    cells = S * (Rf + Rb + 1) ** 3
+    flops = TABLE_FLOPS[0] * n_any + TABLE_FLOPS[1] * n_type
+    if heat:
+        flops += TABLE_HEAT_FLOPS[0] * n_any + TABLE_HEAT_FLOPS[1] * n_type
+    cols = [t.ne(0).any(dim=-2) for t in (tr.photo, tr.heat) if t is not None]
+    tables = (tr.photo.shape[-2]) * sum(int(c.sum()) for c in cols)
+    M = sweep_cfg.mesh
+    nbytes = 4 * (M**3 * (6 if lls else 5) + S * M**3 * 4 + tables)
+    return bound(nbytes, cells * flops,
+                 cells * n_any * TABLE_SFU + (cells if lls else 0))
 
 
 # one fixed-point iteration of one cell of the 1D march (oned_bound;
@@ -361,17 +432,27 @@ def photon_losses_bound(n, nb):
 BENCH_SOURCE = (3e51, 5e4, 50.0)
 
 
-def setup(mesh, S_star, T_eff, box, dtype, dev, heating=False):
+def setup(mesh, S_star, T_eff, box, dtype, dev, heating=False,
+          tables="quad"):
+    """The configuration of a blackbody source in a box; `tables` is
+    "quad" (the default 6-node rule), "auto" (the "auto" quadrature
+    blocks) or "tau" (the tau tables)."""
     from c2ray_tpu_torch import constants as const
     from c2ray_tpu_torch.cooling import setup_cooling_tables
     from c2ray_tpu_torch.radiation import BlackBodySED, SEDConfig
     from c2ray_tpu_torch.radiation.quadrature import build_quadrature_tables
+    from c2ray_tpu_torch.radiation.tables import build_radiation_tables
     from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
                                        SweepConfig)
 
-    tables, sed, bands = build_quadrature_tables(
-        SEDConfig(bb=BlackBodySED(T_eff=T_eff, S_star=S_star)),
-        isothermal=not heating, dtype=dtype, device=dev)
+    spec = SEDConfig(bb=BlackBodySED(T_eff=T_eff, S_star=S_star))
+    if tables == "tau":
+        tables, sed, bands = build_radiation_tables(
+            spec, isothermal=not heating, dtype=dtype, device=dev)
+    else:
+        tables, sed, bands = build_quadrature_tables(
+            spec, isothermal=not heating, dtype=dtype, device=dev,
+            **({"n_nodes": "auto"} if tables == "auto" else {}))
     sweep = SweepConfig(tables=tables, mesh=mesh, dr=box * const.kpc / mesh,
                         isothermal=not heating, flux_scale=bands.flux_scale)
     if heating:
@@ -706,7 +787,20 @@ def launch_counts():
             "octant_sweep_heat": octant_sweep.launches_heat,
             "halo_pack": halo.launches_pack,
             "window_accumulate": halo.launches_accumulate,
-            "fold_halo": halo.launches_fold}
+            "fold_halo": halo.launches_fold,
+            # the tau-table and "auto" routes of the three sweep kernels
+            **{f"{name}{route}{sfx}": getattr(mod, f"launches{route}{sfx}")
+               for name, mod in route_modules().items()
+               for route in ("_table", "_auto") for sfx in ("", "_heat")}}
+
+
+def route_modules():
+    """{sweep kernel: its wrapper's module} of the kernels with the
+    tau-table and "auto" routes."""
+    from c2ray_tpu_torch.sweep import octant_sweep, pyramid_sweep, source_sweep
+
+    return {"pyramid_sweep": pyramid_sweep, "shell_sweep": source_sweep,
+            "octant_sweep": octant_sweep}
 
 
 def reset_launch_counts():
@@ -727,6 +821,10 @@ def reset_launch_counts():
     octant_sweep.launches_lanes.update(
         dict.fromkeys(octant_sweep.launches_lanes, 0))
     halo.launches_pack = halo.launches_accumulate = halo.launches_fold = 0
+    for mod in route_modules().values():
+        for route in ("_table", "_auto"):
+            for sfx in ("", "_heat"):
+                setattr(mod, f"launches{route}{sfx}", 0)
 
 
 # each kernel's launches over every main-path run that check_launches
@@ -1627,6 +1725,182 @@ def phase_engine_times(cfg, s, srcpos, nflux, engine):
     return ms, 1e3 * wall, abs_err, heat_rel, b
 
 
+# ---- the tau-table and "auto" rate routes (phases 24 and 25)
+
+ROUTES = ("tau", "auto")
+ROUTE_SUFFIX = {"tau": "_table", "auto": "_auto"}
+# the JAX functions each route replaces in the sweep kernels
+ROUTE_REPLACES = {"tau": "c2ray_tpu/radiation/photo.py:185",
+                  "auto": "c2ray_tpu/radiation/quadrature.py:486"}
+
+
+def phase_compare_routes(dev):
+    """Phase 24: the tau-table and "auto" routes of the three sweep
+    kernels against their plain versions, 3 sources (one at a grid
+    edge): the pyramid kernel at 32^3, full extents and radius 8, each
+    without and with a per-cell LLS grid; the shell kernel at 32^3, 33^3
+    and 32^3 under build_shell_table(32, 8); the octant kernel at 32^3;
+    float64 within rtol 1e-10 and float32 within the sweep gates of
+    phases 3 and 15 (compare_sweep, compare_engine); isothermal and
+    heating.  Returns the worst float32 error of each kernel variant."""
+    from c2ray_tpu_torch.sweep import build_shell_table
+
+    grid = 10.0 ** np.random.RandomState(8).uniform(14.0, 17.0, 32**3)
+    worst = {}
+    for route in ROUTES:
+        for heating in (False, True):
+            sfx = ROUTE_SUFFIX[route] + ("_heat" if heating else "")
+            cfgs = {M: tuple(setup(M, 1e48, 5e4, 10.0, dt, dev, heating,
+                                   tables=route)[0]
+                             for dt in (torch.float64, torch.float32))
+                    for M in (32, 33)}
+            worst["pyramid_sweep" + sfx] = max(
+                compare_sweep(*cfgs[32], 32, dev, r, 0.0, lls_grid=g)
+                for r in (None, 8) for g in (None, grid))
+            for engine, M, table in (("shells", 32, build_shell_table(32)),
+                                     ("shells", 33, build_shell_table(33)),
+                                     ("shells", 32,
+                                      build_shell_table(32, 8)),
+                                     ("octant", 32, None)):
+                key = ENGINE_KERNEL[engine] + sfx
+                worst[key] = max(worst.get(key, 0.0), compare_engine(
+                    *cfgs[M], M, dev, engine, table, 0.0))
+    log("tau-table and auto routes of the sweep kernels vs plain: ok")
+    return worst
+
+
+def route_trace_fns(engine, mesh):
+    """(kernel, plain version) of an engine's sweep at the full extents,
+    each mapping (sweep config, fstack, srcpos, nflux) to (slab, photon
+    loss, LLS loss)."""
+    from c2ray_tpu_torch.sweep import build_shell_table
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    if engine != "pyramid":
+        return engine_trace_fns(engine, build_shell_table(mesh))
+    Rf, Rb = ps.trace_extents(mesh)
+    return tuple(lambda c, f, sp, nf, fn=fn: fn(c, f, sp, nf, Rf, Rb)[:3]
+                 for fn in (ps.trace_cuda, ps.trace_plain))
+
+
+def phase_main_route(dev, route, engine="pyramid", heating=False, mesh=128,
+                     n_src=8, n_iter=4):
+    """Phase 25: the bench configuration of phases 4 and 5 (128^3 x 8
+    sources from RandomState(7), float32) with the tau tables or the
+    "auto" quadrature on `engine`: a warm-up and n_iter timed iterations
+    of make_evolve3d_iteration (cell-source-updates/s), which must
+    launch the route's sweep kernel and the chemistry kernel and nothing
+    else; then, at that state, the sweep kernel's time (CUDA events,
+    mean of 3 after a warm-up), its plain version's (one pass), their
+    largest difference and the bound.  The gate: "auto" blocks, whose
+    exponentials are the plain version's op for op, the main path's
+    float32 one (1e-4, with 1e-4 of each part's largest value as the
+    floor); tau tables, whose float32 table positions round apart from
+    the plain version's (its division by dlogtau runs as a product with
+    the reciprocal on the card) and whose thick reads cancel next to the
+    sources: the float64 kernel against the float64 plain version on
+    the same state within rtol 1e-10 (phase 24's float64 gate), and the
+    float32 kernel's error against the float64 plain version within
+    twice the float32 plain version's, plus 1e-6 (the heat 1e-7), the
+    sweep gate of phases 3 and 24.  Returns the route's entry of the
+    kernels line."""
+    from c2ray_tpu_torch.state import initial_grid_state
+    from c2ray_tpu_torch.sweep import make_evolve3d_iteration
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    kernel = ENGINE_KERNEL.get(engine, "pyramid_sweep")
+    sfx = "_heat" if heating else ""
+    name = kernel + ROUTE_SUFFIX[route] + sfx
+    label = (f"{engine} engine {'heating ' if heating else ''}main path on "
+             f"the {'tau tables' if route == 'tau' else 'auto quadrature'}")
+    cfg, _ = setup(mesh, *BENCH_SOURCE, torch.float32, dev, heating,
+                   tables=route)
+    cfg = dataclasses.replace(cfg, engine=engine)
+    rng = np.random.RandomState(7)
+    srcpos = torch.as_tensor(rng.randint(0, mesh, size=(n_src, 3)),
+                             device=dev)
+    nflux = torch.as_tensor(np.concatenate(
+        [rng.uniform(0.5, 2.0, (n_src, 1)), np.zeros((n_src, 2))], axis=1),
+        dtype=torch.float32, device=dev)
+    s = initial_grid_state(np.full((mesh,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
+                           1.0e4, dtype=torch.float32, device=dev)
+    dt = 1.0e14
+    iteration = make_evolve3d_iteration(cfg)
+
+    reset_launch_counts()
+    (s, conv, ploss, _), warm = synced(iteration, s, srcpos, nflux, dt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        s, conv, ploss, _ = iteration(s, srcpos, nflux, dt)
+    torch.cuda.synchronize()
+    spi = (time.perf_counter() - t0) / n_iter
+    counts = launch_counts()
+    rate = mesh**3 * n_src / spi
+    log(f"{label} {mesh}^3 x {n_src} float32: {rate:.6e} "
+        f"cell-source-updates/s, {spi:.6f} s/iteration (warm-up "
+        f"{warm:.3f} s); conv_flag {int(conv)}, photon_loss "
+        f"{float(ploss):.6e}, mean ionized fraction "
+        f"{float(s.h_av1.double().mean()):.6e}")
+    check_launches(label, counts, (name, "chemistry" + sfx))
+    for t in s:
+        if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label} produced non-finite state")
+    if s.h1.shape != (mesh**3,) or not math.isfinite(float(ploss)):
+        raise AssertionError(f"{label}: wrong shape or non-finite loss")
+
+    kern, plain = route_trace_fns(engine, mesh)
+    args = (cfg.sweep, ps.stack_sweep_fields(cfg.sweep, fields_of(s)),
+            srcpos, nflux)
+    ms = event_ms(lambda: kern(*args), 3)
+    k = kern(*args)
+    p, wall = synced(plain, *args)
+    abs_err = float((k[0][..., :3] - p[0][..., :3]).abs().max())
+    parts = zip(_sweep_parts(k, 1.0), _sweep_parts(p, 1.0), SWEEP_PARTS)
+    if route == "auto":
+        for a, b, w in parts:
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-4 * float(b.abs().max()),
+                                       msg=f"{label}: sweep {w}")
+    else:
+        cfg64, _ = setup(mesh, *BENCH_SOURCE, torch.float64, dev, heating,
+                         tables=route)
+        s64 = type(s)(*(t.double() for t in s))
+        args64 = (cfg64.sweep, ps.stack_sweep_fields(cfg64.sweep,
+                                                     fields_of(s64)),
+                  srcpos, nflux.double())
+        p64 = plain(*args64)
+        # the float64 kernel, the same template code at the main path's
+        # shapes, against the float64 plain version: phase 24's gate
+        for a, b, w in zip(_sweep_parts(kern(*args64), 1.0),
+                           _sweep_parts(p64, 1.0), SWEEP_PARTS):
+            scale = float(b.abs().max())
+            log(f"  {label} {w}: f64 kernel vs f64 plain "
+                f"{rel_err(a, b):.3e} of the largest value")
+            torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10 * scale,
+                                       msg=f"{label}: f64 sweep {w}")
+        unit = cfg.sweep.flux_scale / cfg64.sweep.flux_scale
+        for a, b, ref, w in zip(_sweep_parts(k, unit), _sweep_parts(p, unit),
+                                _sweep_parts(p64, 1.0), SWEEP_PARTS):
+            ek, ep = rel_err(a.double(), ref), rel_err(b.double(), ref)
+            log(f"  {label} {w}: vs f64 plain: f32 kernel {ek:.3e}, f32 "
+                f"plain {ep:.3e}; f32 kernel vs plain "
+                f"{rel_err(a, b):.3e} of the largest value")
+            if not ek <= 2.0 * ep + (1e-7 if w == "heat" else 1e-6):
+                raise AssertionError(f"{label}: sweep {w} kernel error "
+                                     f"{ek:.3e} vs plain {ep:.3e}")
+    b = sweep_bound(cfg.sweep, n_src, mesh // 2, mesh // 2 - 1)
+    log(f"{label}: sweep kernel {ms:.3f} ms, plain {1e3 * wall:.3f} ms, "
+        f"bound {b[0]:.3f} ms ({b[1]}), max |kernel - plain| {abs_err:.3e} "
+        f"(f32 rates, 1/s)")
+    return {"name": name, "route": "cuda",
+            "source": f"c2ray_tpu_torch/csrc/{kernel}.cu",
+            "replaces": ROUTE_REPLACES[route], "launches": counts[name],
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": 1e3 * wall,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "cell_source_updates_per_s": rate}
+
+
 # ---- the redesigned sweep kernels' evidence (phase 22)
 
 # the launches' layers (pyramid) or shells (shell kernel), grouped
@@ -1676,14 +1950,15 @@ def grouped_launches(durs, groups, cells, per=1):
     return out
 
 
-def launch_profile(fn, kernel, n, windows=3):
+def launch_profile(fn, kernel, n, windows=5, required=True):
     """(device ms of each of the n launches of a kernel whose name holds
     `kernel` in one fn(), in launch order; ms from the first one's start
     to the last one's end) under torch.profiler.  fn runs twice in the
     profiled window and the first call's launches count: the tracer may
     drop the records of a window's last launches, and now and then all of
     them, so a window that saw fewer than n is profiled again, up to
-    `windows` windows."""
+    `windows` windows.  After that it raises, or, with required=False,
+    logs it and returns None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1701,11 +1976,43 @@ def launch_profile(fn, kernel, n, windows=3):
         if len(ev) >= n:
             break
     else:
-        raise AssertionError(f"torch.profiler saw {len(ev)} launches of "
-                             f"{kernel} in {windows} windows, fewer than "
-                             f"one call's {n}")
+        what = (f"torch.profiler saw {len(ev)} launches of {kernel} in "
+                f"{windows} windows, fewer than one call's {n}")
+        if required:
+            raise AssertionError(what)
+        log(f"  {what}")
+        return None
     ev = ev[:n]
     return [(b - a) / 1e3 for a, b in ev], (ev[-1][1] - ev[0][0]) / 1e3
+
+
+def queued_ms(fn, reps=5):
+    """Device ms of fn()'s work on the stream (CUDA events, mean of
+    reps): a sleep kernel ahead of the start event keeps the card busy
+    while the host queues the calls, so no host time falls between the
+    events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms at 1.98 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, kernel):
+    """(device ms of the one launch of `kernel` in fn(), how it was
+    taken): torch.profiler's, or, when the tracer keeps no record of the
+    launch, fn()'s device work from CUDA events (queued_ms: the kernel
+    and whatever else the call queues)."""
+    prof = launch_profile(fn, kernel, 1, required=False)
+    if prof is not None:
+        return prof[0][0], "torch.profiler"
+    return queued_ms(fn), "CUDA events"
 
 
 def phase_sweep_redesign(cfg, s, srcpos, nflux):
@@ -1767,25 +2074,32 @@ def phase_sweep_redesign(cfg, s, srcpos, nflux):
         same = all(x is None and y is None or torch.equal(x, y)
                    for x, y in zip(a, b))
         ms = event_ms(fn, 3)
-        durs, span = launch_profile(fn, kernel, n_launch)
+        prof = launch_profile(fn, kernel, n_launch, required=False)
         lanes0 = dict(oc.launches_lanes)
         fn()
         lanes = {G: n - lanes0[G]
                  for G, n in oc.launches_lanes.items() if n > lanes0[G]}
-        rows = grouped_launches(durs, groups, cells, per)
-        busy = sum(durs)
         log(f"{name} at {M}^3 x {S}, K = {K}: band loop "
             f"per band {mix['ex2']:g} MUFU.EX2, {mix['fp32']:g} float32-pipe, "
             f"{mix['rcp']:g} MUFU.RCP, {mix['expf_reduction']:g} expf "
             f"range-reduction, {mix['total']:g} instructions in all")
-        log(f"  {len(durs)} launches of {kernel}: "
-            + ", ".join(f"{what} {k} {n} launches {t:.3f} ms "
-                        f"({c} cell steps, {ns:.3f} ns each)"
-                        for k, n, t, c, ns in rows)
-            + f"; device {busy:.3f} ms, first start to last end {span:.3f} "
-            f"ms (profiled); sweep {ms:.3f} ms (CUDA events): launch gaps "
-            f"and other work {ms - busy:.3f} ms ({(ms - busy) / ms:.1%}); "
-            f"two calls equal to the bit: {same}"
+        if prof is None:
+            rows, busy = [], None
+            split = (f"  launches of {kernel}: not measured (no profiler "
+                     f"records); sweep {ms:.3f} ms (CUDA events)")
+        else:
+            durs, span = prof
+            rows = grouped_launches(durs, groups, cells, per)
+            busy = sum(durs)
+            split = (f"  {len(durs)} launches of {kernel}: "
+                     + ", ".join(f"{what} {k} {n} launches {t:.3f} ms "
+                                 f"({c} cell steps, {ns:.3f} ns each)"
+                                 for k, n, t, c, ns in rows)
+                     + f"; device {busy:.3f} ms, first start to last end "
+                     f"{span:.3f} ms (profiled); sweep {ms:.3f} ms (CUDA "
+                     f"events): launch gaps and other work {ms - busy:.3f} "
+                     f"ms ({(ms - busy) / ms:.1%})")
+        log(split + f"; two calls equal to the bit: {same}"
             + (f"; plane launches by lanes per cell {lanes}"
                if lib == "octant_sweep" else ""))
         if not same:
@@ -1794,11 +2108,12 @@ def phase_sweep_redesign(cfg, s, srcpos, nflux):
             raise AssertionError(f"{name}: band loop mix {mix}")
         out[name] = {"sass_band_mix_K": K, "sass_band_mix": mix,
                      f"device_ms_by_{what[:-1]}_group": {
-                         k: t for k, _, t, _, _ in rows},
+                         k: t for k, _, t, _, _ in rows} or None,
                      f"ns_per_cell_step_by_{what[:-1]}_group": {
-                         k: ns for k, _, _, _, ns in rows},
+                         k: ns for k, _, _, _, ns in rows} or None,
                      "device_ms": busy, "event_ms": ms,
-                     "gaps_and_other_ms": ms - busy}
+                     "gaps_and_other_ms": None if busy is None
+                     else ms - busy}
         if lib == "octant_sweep":
             out[name]["plane_launches_by_lanes"] = lanes
     return out
@@ -1810,16 +2125,28 @@ def phase_sweep_redesign(cfg, s, srcpos, nflux):
 # `git archive` of the commit before the redesign unpacked under build/
 PARENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "parent")
-# the kernel sources whose SASS phase 23 holds to the parent's
-SAME_SASS = ("pyramid_sweep", "shell_sweep", "octant_sweep", "evolve1d",
-             "domain_halo")
+# the kernel sources whose SASS phase 23 holds to the parent's (the
+# sweep sources' Params gained the rate routes' tables, so their fixed
+# rule is held to the parent's time instead: tools/
+# profile_torch_iteration.py --builds and the card test
+# test_fixed_rule_sweeps_time_as_the_parent)
+SAME_SASS = ("evolve1d", "domain_halo")
+
+
+# phase 23 times the chemistry and photon-loss kernels of commit
+# 8446144 (their C entries: kernel_study.parent_chemistry_pass and
+# parent_photon_losses); a parent whose sources of the two equal this
+# tree's has nothing to time
+REDESIGNED_SOURCES = ("chemistry.cu", "chemistry.cuh", "photon_losses.cu",
+                      "common.cuh")
 
 
 def parent_libraries():
     """{source: ctypes library} of the parent build's chemistry and
-    photon-loss sources, and the other sources' SASS compared with this
-    build's ({source: (equal functions, parent's functions)}), or
-    (None, None) when no parent is unpacked under build/parent."""
+    photon-loss sources (None when they are this tree's), and the other
+    sources' SASS compared with this build's ({source: (equal functions,
+    parent's functions)}), or (None, None) when no parent is unpacked
+    under build/parent."""
     import ctypes
 
     from c2ray_tpu_torch import cuda_build
@@ -1837,16 +2164,11 @@ def parent_libraries():
         out = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the parent's {n}.cu:\n{out}")
-    # an anonymous namespace's mangled name carries a hash of the
-    # source's path: drop it before comparing
-    anon = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
-    norm = lambda path: {anon.sub("(anon)", k): anon.sub("(anon)", v)
-                         for k, v in kernel_sass(path).items()}
     same = {}
     for n in SAME_SASS:
         cuda_build.load(n)
-        mine = norm(cuda_build.library_path(n))
-        theirs = norm(base / f"lib{n}.so")
+        mine = comparable_sass(cuda_build.library_path(n))
+        theirs = comparable_sass(base / f"lib{n}.so")
         same[n] = (sum(mine.get(k) == v for k, v in theirs.items()),
                    len(theirs))
     log("  SASS equal to the parent's (functions): " + ", ".join(
@@ -1854,19 +2176,24 @@ def parent_libraries():
     if any(a != b for a, b in same.values()):
         raise AssertionError(f"a source outside the redesign compiles to "
                              f"other SASS than the parent's: {same}")
+    if all(pathlib.Path(psrc, f).read_bytes()
+           == (cuda_build.CSRC / f).read_bytes() for f in REDESIGNED_SOURCES):
+        log("  the parent's chemistry and photon-loss sources are this "
+            "tree's: their in-turns timing is not run")
+        return None, same
     return {n: ctypes.CDLL(str(base / f"lib{n}.so"))
             for n in ("chemistry", "photon_losses")}, same
 
 
 def in_turns(fns, kernel, reps):
     """{key: [(wrapper call ms (CUDA events, mean of reps), the kernel's
-    device ms (torch.profiler))] in the order parent, this, this,
-    parent} of the callables in `fns`."""
+    device ms (kernel_ms))] in the order parent, this, this, parent} of
+    the callables in `fns`."""
     out = {}
     for key in ("parent", "this", "this", "parent"):
         f = fns[key]
         out.setdefault(key, []).append(
-            (event_ms(f, reps), launch_profile(f, kernel, 1)[0][0]))
+            (event_ms(f, reps), kernel_ms(f, kernel)[0]))
     return out
 
 
@@ -1940,9 +2267,10 @@ def phase_chem_redesign(cfg, s, srcpos, nflux, dt, parent):
     if not (same and stamped_same):
         raise AssertionError(f"{name}: two calls, or the stamped copy, "
                              f"differ")
-    device_ms = launch_profile(call, "chemistry_kernel", 1)[0][0]
-    log(f"  kernel device ms (torch.profiler) {device_ms:.4f}")
+    device_ms, how = kernel_ms(call, "chemistry_kernel")
+    log(f"  kernel device ms ({how}) {device_ms:.4f}")
     extra = {"bound_ms": b[0], "bound_by": b[1], "device_ms": device_ms,
+             "device_ms_from": how,
              "iterations_summed": stats["iterations"],
              "substeps_summed": stats["substeps"],
              "iteration_histogram": histogram(nit),
@@ -2031,10 +2359,11 @@ def phase_ploss_redesign(cfg, s, srcpos, nflux, parent):
     if not ok:
         raise AssertionError("photon losses: layouts, phiheat or two calls "
                              "differ")
-    device_ms = launch_profile(lambda: pls.distribute_photon_losses_cuda(
-        tables, rates, f, vos), "photon_losses_kernel", 1)[0][0]
-    log(f"  kernel device ms (torch.profiler) {device_ms:.4f}")
-    extra = {"sass_per_band_and_cell": mix, "device_ms": device_ms}
+    device_ms, how = kernel_ms(lambda: pls.distribute_photon_losses_cuda(
+        tables, rates, f, vos), "photon_losses_kernel")
+    log(f"  kernel device ms ({how}) {device_ms:.4f}")
+    extra = {"sass_per_band_and_cell": mix, "device_ms": device_ms,
+             "device_ms_from": how}
     if parent is not None:
         fns = {"this": lambda: pls.distribute_photon_losses_cuda(
                    tables, rates, f, vos),
@@ -2931,9 +3260,13 @@ def build_kernels():
     t0 = time.perf_counter()
     names = ("pyramid_sweep", "chemistry", "photon_losses", "evolve1d",
              "shell_sweep", "octant_sweep", "domain_halo")
+    def timed_load(name):
+        t = time.perf_counter()
+        cuda_build.load(name)
+        return name, time.perf_counter() - t
+
     with ThreadPoolExecutor(len(names)) as pool:
-        for f in [pool.submit(cuda_build.load, n) for n in names]:
-            f.result()
+        seconds = dict(pool.map(timed_load, names))
     # ptxas -v per kernel: registers, stack and spills
     for name in names:
         kernel = ""
@@ -2944,7 +3277,7 @@ def build_kernels():
                           r"|shell_kernel|plane_kernel|halo_pack_kernel"
                           r"|window_accumulate_kernel|fold_halo_kernel)"
                           r"I([fd])(?:Lb([01])E)?"
-                          r"(?:Lb([01])E)?(?:Li(\d+)E)?(?:Li(\d+)E)?",
+                          r"(?:Lb([01])E)?(?:Li(n?\d+)E)?(?:Li(\d+)E)?",
                           line)
             if m:
                 dtype = "float" if m.group(2) == "f" else "double"
@@ -2955,6 +3288,8 @@ def build_kernels():
                 nodes = ("" if m.group(5) is None else
                          f", C = {m.group(5)}"
                          if m.group(1) == "halo_pack_kernel" else
+                         ", tau tables" if m.group(5) == "n1" else
+                         ", auto blocks" if m.group(5) == "n2" else
                          f", K = {m.group(5)}" if m.group(5) != "0"
                          else ", K at run time")
                 lanes = ("" if m.group(6) is None
@@ -2963,7 +3298,8 @@ def build_kernels():
                           f"{lanes}>")
             elif kernel and ("registers" in line or "spill" in line):
                 log(f"  {name}.cu {kernel}: {line.split(':', 1)[-1].strip()}")
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    log(f"build: {time.perf_counter() - t0:.1f} s (" + ", ".join(
+        f"{n}.cu {seconds[n]:.1f} s" for n in names) + ")")
 
 
 def main():
@@ -3048,6 +3384,15 @@ def run_phases(dev, workdir, ref, oned_refs):
         f"{engine} engine{' heating' if heating else ''} main path",
         phase_main, dev, heating=heating, engine=engine)
         for engine in ("shells", "octant") for heating in (False, True)}
+    route_err = phase("compare tau-table and auto routes",           # 24.
+                      phase_compare_routes, dev)
+    route_main = [phase(f"{route} route, {engine} engine"            # 25.
+                        f"{' heating' if heating else ''} main path",
+                        phase_main_route, dev, route, engine, heating)
+                  for route, engines in (("tau", ("pyramid", "shells",
+                                                  "octant")),
+                                         ("auto", ("pyramid",)))
+                  for engine in engines for heating in (False, True)]
     phase("compare halo kernels", phase_compare_halo, dev)            # 18.
     nccl = phase("NCCL", phase_nccl, dev, workdir)                   # 19.
     par_counts = [phase(f"parallel{' heating' if heating else ''} main "
@@ -3225,6 +3570,12 @@ def run_phases(dev, workdir, ref, oned_refs):
              "share_of_bound": b[0] / ms, "library_ms": lib_ms,
              "library_call": ("rc[window].add_(cube)"
                               if lib_ms is not None else None)})
+    # the tau-table and auto routes: launches, time, plain time and bound
+    # on phase 25's runs at 128^3 x 8, the float32 error at 32^3 from
+    # phase 24
+    for entry in route_main:
+        entry["max_err_f32_32cube"] = route_err[entry["name"]]
+        kernels.append(entry)
     for entry in kernels:
         entry.update(redesign.get(entry["name"], {}))
     log(f"NCCL at world size 1: {nccl}")

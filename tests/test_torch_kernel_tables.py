@@ -318,3 +318,124 @@ def test_chip_smoke_does_not_import_the_profiling_tool():
     text = open(os.path.join(ROOT, "tools", "kernel_study.py")).read()
     assert not re.search(r"^\s*(import|from) (chip_smoke|profile_torch_iteration)",
                          text, re.M)
+
+
+def test_comparable_sass_drops_the_layout_only(monkeypatch):
+    """Two builds' listings compare equal when cuobjdump lays them out
+    apart (column padding, blank lines, zero-padded addresses, the
+    anonymous namespace's hash) and unequal when an instruction,
+    operand or encoding differs."""
+    ins = ("/*{a}*/{p}LDC R1, c[0x0][0x28] ;{q}/* 0x00000a00ff017b82 */\n"
+           "{p2}/* 0x000e220000000800 */\n")
+    parent = ("_ZN5c2ray12_GLOBAL__N__1a2b3c4d_shell_sweep_cu_0f1e2d3c"
+              "1fEv\n" + ins.format(a="0000", p=" " * 19, q=" " * 46,
+                                   p2=" " * 99) + "\n")
+    mine = ("_ZN5c2ray12_GLOBAL__N__9z8y7x6w_shell_sweep_cu_a0b1c2d3"
+            "1fEv\n" + ins.format(a="00000", p=" " * 23, q=" " * 50,
+                                  p2=" " * 103) + "\n\n\n")
+    listings = {"parent": parent, "mine": mine,
+                "other": mine.replace("0x28", "0x30")}
+    monkeypatch.setattr(ks, "kernel_sass", lambda path: {
+        listings[path].split(None, 1)[0]: listings[path]})
+    a, b, c = (ks.comparable_sass(k) for k in ("parent", "mine", "other"))
+    assert list(a) == list(b) == list(c)
+    assert a == b and a != c
+
+
+def test_comparable_sass_names_the_earlier_source_cell_kernel(monkeypatch):
+    """An earlier build's source_cell_kernel<T, kHeat> compares with this
+    build's fixed-rule source_cell_kernel<T, kHeat, 0>, not with its
+    route instantiations (kK = -1, -2)."""
+    body = "\n        /*0000*/ EXIT ; /* 0x000000000000794d */\n"
+    old = "_ZN5c2ray12_GLOBAL__N_118source_cell_kernelIfLb1EEEvNS0_6ParamsIT_EE"
+    new = {k: old.replace("Lb1EEEv", f"Lb1ELi{k}EEEv")
+           for k in ("0", "n1", "n2")}
+    listings = {"parent": {old: old + body},
+                "mine": {n: n + body for n in new.values()}}
+    monkeypatch.setattr(ks, "kernel_sass", lambda path: listings[path])
+    theirs, mine = ks.comparable_sass("parent"), ks.comparable_sass("mine")
+    assert list(theirs) == [new["0"]]
+    assert theirs[new["0"]] == mine[new["0"]]
+    assert len(mine) == 3
+
+
+@pytest.mark.parametrize("heating", [False, True])
+def test_table_bound_counts_the_live_bands(heating):
+    """The tau-table sweep kernels loop over the bands from the first to
+    the last nonzero table column (TableRoute.live, passed in the route
+    ints), which for a blackbody is its band range (_bb_band_limits);
+    chip_smoke.table_bound counts its operations over those bands and
+    its bytes over the nonzero columns only."""
+    from c2ray_tpu_torch.radiation.bands import make_bands
+    from c2ray_tpu_torch.radiation.tables import (_bb_band_limits,
+                                                  packed_table_route)
+    from c2ray_tpu_torch.sweep import source_sweep as ss
+
+    cfg, sed = chip_smoke.setup(8, *chip_smoke.BENCH_SOURCE, torch.float64,
+                                "cpu", heating, tables="tau")
+    tr = packed_table_route(cfg.sweep.tables, torch.float64, "cpu", heating)
+    lo, hi = _bb_band_limits(make_bands(), sed.bb.h_over_kT)
+    assert tr.live == (lo, hi + 1)
+    nb = tr.rows.shape[0]
+    assert 0 < hi + 1 - lo < nb
+    kt = ss._kernel_tables(cfg.sweep, torch.float64)
+    ints = ss._route_args(kt)[2]
+    assert ints[0] == ss.ROUTE_TABLE and list(ints[8:10]) == [lo, hi + 1]
+
+    S, R = 2, 4
+    cells = S * (2 * R) ** 3
+    nlive = hi + 1 - lo
+    flops = nlive * (sum(chip_smoke.TABLE_FLOPS) + (
+        sum(chip_smoke.TABLE_HEAT_FLOPS) if heating else 0))
+    tables = (2001 * nlive * 2
+              + (2001 * int(tr.heat.ne(0).any(dim=-2).sum())
+                 if heating else 0))
+    nbytes = 4 * (8**3 * 5 + S * 8**3 * 4 + tables)
+    want = chip_smoke.bound(nbytes, cells * flops,
+                            cells * nlive * chip_smoke.TABLE_SFU)
+    assert chip_smoke.table_bound(cfg.sweep, S, R, R - 1) == want
+
+
+def test_earlier_sweep_entries_drop_the_route_arguments():
+    """tools/profile_torch_iteration.py drives a sweep library built
+    before the rate routes through this tree's wrappers: its sweep
+    entries get the call without the four route pointers, the stream
+    last; other entries pass through unchanged."""
+    calls = []
+
+    class Fn:
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    lib = types.SimpleNamespace(pyramid_sweep_f32=Fn(),
+                                pyramid_sweep_slots=Fn())
+    entries = pti.EarlierSweepEntries(lib)
+    fn = entries.pyramid_sweep_f32
+    fn.argtypes = ["p"] * 3 + ["route", "photo", "heat", "hbin", "stream"]
+    fn.restype = int
+    assert lib.pyramid_sweep_f32.argtypes == ["p"] * 3 + ["stream"]
+    assert lib.pyramid_sweep_f32.restype is int
+    assert fn(1, 2, 3, "r", "ph", "h", "hb", "s") == 0
+    assert calls[-1] == (1, 2, 3, "s")
+    assert entries.pyramid_sweep_slots is lib.pyramid_sweep_slots
+
+
+def test_kernel_ms_outlives_a_profiler_without_records(monkeypatch):
+    """chip_smoke.py's device times survive a tracer that keeps no
+    record of a launch: launch_profile raises, or with required=False
+    returns None, after its windows; kernel_ms then times the call with
+    CUDA events (queued_ms) and says so."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    fn = lambda: calls.append(1)
+    with pytest.raises(AssertionError, match="saw 0 launches of nothing"):
+        chip_smoke.launch_profile(fn, "nothing", 1, windows=2)
+    assert len(calls) == 1 + 2 * 2
+    assert chip_smoke.launch_profile(fn, "nothing", 3, windows=1,
+                                     required=False) is None
+    monkeypatch.setattr(chip_smoke, "queued_ms", lambda f: 1.5)
+    assert chip_smoke.kernel_ms(fn, "nothing") == (1.5, "CUDA events")
+    monkeypatch.setattr(chip_smoke, "launch_profile",
+                        lambda f, k, n, required: ([0.25], 0.25))
+    assert chip_smoke.kernel_ms(fn, "nothing") == (0.25, "torch.profiler")

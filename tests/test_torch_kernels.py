@@ -1323,3 +1323,124 @@ def test_halo_kernels_match_plain(cuda_device, shape, dtype, C):
     torch.cuda.synchronize()
     assert (halo.launches_pack - before[0], halo.launches_accumulate
             - before[1], halo.launches_fold - before[2]) == (3, 3, 3)
+
+
+# ---- the tau-table and "auto" rate routes of the three sweep kernels
+
+def _route_config(M, dtype, device, route, heating):
+    """A 5e4 K blackbody's tau tables ("tau") or "auto" quadrature blocks
+    ("auto": 1 band at K = 12, 26 at K = 3, 6 at K = 6)."""
+    from c2ray_tpu_torch.radiation.tables import build_radiation_tables
+
+    sed = SEDConfig(bb=BlackBodySED(T_eff=5e4, S_star=1e48))
+    if route == "tau":
+        tables, _, bands = build_radiation_tables(
+            sed, isothermal=not heating, dtype=dtype, device=device)
+    else:
+        tables, _, bands = build_quadrature_tables(
+            sed, isothermal=not heating, dtype=dtype, device=device,
+            n_nodes="auto")
+    return SweepConfig(tables=tables, mesh=M, dr=50.0 * const.kpc / M,
+                       isothermal=not heating, flux_scale=bands.flux_scale)
+
+
+# (engine, mesh, trace radius or shell-table radius, per-cell LLS grid)
+_ROUTE_CASES = {"pyramid": ("pyramid", 16, None, False),
+                "pyramid_radius4_lls": ("pyramid", 16, 4, True),
+                "shells_odd": ("shells", 17, None, False),
+                "shells_subbox": ("shells", 16, 5, False),
+                "octant": ("octant", 16, None, False)}
+
+
+def _route_traces(case, cfg, state, srcpos, nflux):
+    engine, M, radius, lls = _ROUTE_CASES[case]
+    if engine == "pyramid":
+        grid = (torch.as_tensor(10.0 ** np.random.RandomState(8).uniform(
+            14.0, 17.0, M**3), dtype=state.ndens.dtype,
+            device=state.ndens.device) if lls else None)
+        return _traces(cfg, state, srcpos, nflux, radius, lls=grid)
+    k, p = _engine_traces(engine, cfg, build_shell_table(M, radius), state,
+                          srcpos, nflux)
+    return k + (None,), p + (None,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_ROUTE_CASES))
+@pytest.mark.parametrize("route", ["tau", "auto"])
+@pytest.mark.parametrize("heating", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_route_sweep_kernels_match_plain(cuda_device, dtype, heating, route,
+                                         case):
+    """The tau-table and "auto" routes of the pyramid (full extents, and
+    radius 4 with a per-cell LLS grid), shell (17^3, and under a radius-5
+    table) and octant kernels against their plain versions, 3 sources:
+    float64 within rtol 1e-10 of each part's largest value, float32
+    within twice the plain float32 version's error against float64 plus
+    1e-5; each call counts one launch of its route's variant."""
+    engine = _ROUTE_CASES[case][0]
+    M = _ROUTE_CASES[case][1]
+    mod = {"pyramid": pyramid_sweep, "shells": source_sweep,
+           "octant": octant_sweep}[engine]
+    counter = ("launches" + ("_table" if route == "tau" else "_auto")
+               + ("_heat" if heating else ""))
+    parts = {}
+    for dt in (torch.float64, dtype):
+        cfg = _route_config(M, dt, cuda_device, route, heating)
+        state = _random_state(M, dt, cuda_device)
+        srcpos, nflux = _sources(M, 3, dt, cuda_device)
+        before = getattr(mod, counter)
+        k, p = _route_traces(case, cfg, state, srcpos, nflux)
+        assert getattr(mod, counter) == before + 1
+        parts[dt] = (_parts(k), _parts(p))
+    (k64, p64), (k, p) = parts[torch.float64], parts[dtype]
+    assert float(p64[0].abs().max()) > 0.0
+    if heating:
+        assert float(p64[1].abs().max()) > 0.0
+    for a, b, ref in zip(k, p, p64):
+        if dtype == torch.float64:
+            torch.testing.assert_close(a, b, rtol=1e-10,
+                                       atol=1e-10 * float(b.abs().max()))
+        else:
+            ek, ep = _rel_err(a.double(), ref), _rel_err(b.double(), ref)
+            assert ek <= 2.0 * ep + 1e-5, (ek, ep)
+
+
+def _parent_dir():
+    """The commit before the rate routes unpacked under build/parent (a
+    `git archive`), or a skip."""
+    parent = os.path.join(ROOT, "build", "parent")
+    if not os.path.isdir(os.path.join(parent, "c2ray_tpu_torch", "csrc")):
+        pytest.skip("needs the parent commit unpacked under build/parent")
+    return parent
+
+
+@pytest.mark.gpu
+def test_fixed_rule_sweeps_time_as_the_parent(cuda_device):
+    """The route switch leaves the fixed quadrature rule's sweep kernels
+    as fast as they were: at 128^3 x 8 float32 on phase 16's state, the
+    pyramid, shell and octant sweeps, isothermal and heating, within 2%
+    of the parent build's in turns (parent, this, this, parent).  Their
+    SASS moved: each kernel's Params gained the route tables as its last
+    member."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import profile_torch_iteration as pti
+
+    times = pti.fixed_rule_against_parent(_parent_dir())
+    assert len(times) == 6
+    for key, ms in times.items():
+        ratio = sum(ms["this"]) / sum(ms["parent"])
+        assert abs(ratio - 1.0) <= 0.02, (key, ms)
+
+
+@pytest.mark.gpu
+def test_unrouted_sources_sass_equals_the_parent(cuda_device):
+    """The sources outside the route switch compile as they did: with
+    the commit before it unpacked under build/parent, every function of
+    the parent's 1D and halo sources has the same SASS here
+    (kernel_study.comparable_sass)."""
+    _parent_dir()
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    _, same = chip_smoke.parent_libraries()
+    assert same and all(a == b for a, b in same.values()), same

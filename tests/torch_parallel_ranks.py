@@ -23,6 +23,7 @@ from c2ray_tpu_torch.parallel.sharding import (ParallelConfig,
                                                pad_sources)
 from c2ray_tpu_torch.radiation import BlackBodySED, SEDConfig
 from c2ray_tpu_torch.radiation.quadrature import build_quadrature_tables
+from c2ray_tpu_torch.radiation.tables import build_radiation_tables
 from c2ray_tpu_torch.state import begin_timestep, initial_grid_state
 from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
                                    SweepConfig, build_shell_table)
@@ -31,11 +32,18 @@ DT = 5e13
 
 
 def setup(M=16, isothermal=True, coldensh_LLS=0.0, engine="pyramid",
-          shells=None):
-    """The port's twin of tests/test_domain.py:_setup (float64, CPU)."""
-    tables, _, bands = build_quadrature_tables(
-        SEDConfig(bb=BlackBodySED(T_eff=1.0e5, S_star=1.0e49)),
-        isothermal=isothermal, dtype=torch.float64)
+          shells=None, tables="quad"):
+    """The port's twin of tests/test_domain.py:_setup (float64, CPU);
+    `tables` "quad" (the default rule), "auto" (the "auto" quadrature)
+    or "tau" (the tau tables)."""
+    sed = SEDConfig(bb=BlackBodySED(T_eff=1.0e5, S_star=1.0e49))
+    if tables == "tau":
+        tables, _, bands = build_radiation_tables(
+            sed, isothermal=isothermal, dtype=torch.float64)
+    else:
+        tables, _, bands = build_quadrature_tables(
+            sed, isothermal=isothermal, dtype=torch.float64,
+            **({"n_nodes": "auto"} if tables == "auto" else {}))
     cooling = None
     if not isothermal:
         from c2ray_tpu_torch.cooling import setup_cooling_tables
@@ -88,10 +96,10 @@ def _gathered(state, group=None):
 
 
 def domain_iteration_rank(radius, M=16, n_src=5, isothermal=True,
-                          lls_col=0.0, dt=DT, extra_halo=0):
+                          lls_col=0.0, dt=DT, extra_halo=0, tables="quad"):
     """One make_domain_iteration on the ranks' slabs of the test grid;
     the gathered state, conv_flag and losses."""
-    cfg, state = setup(M, isothermal=isothermal)
+    cfg, state = setup(M, isothermal=isothermal, tables=tables)
     D = comm.axis_size()
     srcpos, nflux = random_sources(M, n_src)
     sp, nf = group_sources_by_slab(srcpos, nflux, M, D)
@@ -108,10 +116,11 @@ def halo_and_domain_rank(Hs, radius):
     return halo_rank(Hs), domain_iteration_rank(radius)
 
 
-def parallel_iteration_rank(M=16, n_src=5, engine="pyramid", max_subbox=None):
+def parallel_iteration_rank(M=16, n_src=5, engine="pyramid", max_subbox=None,
+                            tables="quad"):
     """One make_parallel_iteration on the padded test sources."""
     cfg, state = setup(M, engine=engine,
-                       shells=build_shell_table(M, max_subbox))
+                       shells=build_shell_table(M, max_subbox), tables=tables)
     srcpos, nflux = random_sources(M, n_src)
     sp, nf = pad_sources(srcpos, nflux, comm.axis_size())
     it = make_parallel_iteration(ParallelConfig(cfg))
@@ -127,6 +136,13 @@ def parallel_iterations_rank(cases):
 
 def domain_iteration_kw_rank(kw):
     return domain_iteration_rank(**kw)
+
+
+def route_iterations_rank(kinds, radius):
+    """For each rate route of `kinds` ("tau", "auto"): one domain
+    iteration at `radius` and one source-parallel iteration."""
+    return {k: (domain_iteration_rank(radius, tables=k),
+                parallel_iteration_rank(tables=k)) for k in kinds}
 
 
 # tests/test_domain.py's full-step and resume sources; a heating step
@@ -205,7 +221,46 @@ def run3d_rank(mode, workdir):
     run.init_uniform_material()
     stats = run.run_slice(0, SourceList(srcpos=RUN_SOURCES[0],
                                         nflux=RUN_SOURCES[1]))
-    return run.state.h1.numpy(), stats[0].n_iterations
+    return run.whole_state().h1.numpy(), stats[0].n_iterations
+
+
+def run3d_domain_state_rank(workdir, spec):
+    """Run3D(parallel="domain") of the config dict `spec` through one
+    slice (its steps), on the CPU: the cells of every field the rank
+    holds after each step, the whole state gathered at the end, the
+    steps' stats and the last photon budget."""
+    from c2ray_tpu_torch import config, driver
+    from c2ray_tpu_torch.sources import SourceList
+
+    d = dict(spec, results_dir=workdir + "/results/", dump_dir=workdir + "/",
+             parallel="domain", n_devices=comm.axis_size(), device="cpu")
+    run = driver.Run3D(config.run3d_config_from_dict(d))
+    run.init_uniform_material()
+    held = []
+    import c2ray_tpu_torch.parallel as par
+
+    inner = par.domain_evolve3d
+
+    def counted(pcfg, state, *a, **kw):
+        held.append(sorted({t.numel() for t in state}))
+        out = inner(pcfg, state, *a, **kw)
+        held.append(sorted({t.numel() for t in out[0]}))
+        return out
+
+    par.domain_evolve3d = counted     # the name run_slice calls
+    try:
+        stats = run.run_slice(0, SourceList(*SPEC_SOURCES))
+    finally:
+        par.domain_evolve3d = inner
+    held.append(sorted({t.numel() for t in run.state}))
+    whole = run.whole_state()
+    return (held, {k: v.numpy() for k, v in whole._asdict().items()},
+            [tuple(s) for s in stats], tuple(run.last_budget))
+
+
+# the two sources of tests/test_torch_driver3d.py (SOURCES)
+SPEC_SOURCES = (np.array([[8, 8, 8], [3, 11, 5]], dtype=np.int32),
+                np.array([[1.0, 0.0, 0.0], [0.4, 0.0, 0.0]]))
 
 
 def shared_seed_rank():

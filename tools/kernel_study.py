@@ -320,6 +320,33 @@ def kernel_sass(path):
             for fn in re.split(r"\n\s*Function : ", sass)[1:]}
 
 
+_ANON = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
+_ADDR = re.compile(r"/\*0*([0-9a-f]+)\*/")
+# a sweep source's source-cell kernel before it took the rate route as
+# its third template parameter (source_cell_kernel<T, kHeat>), named as
+# the fixed rule's instantiation now (source_cell_kernel<T, kHeat, 0>)
+_SOURCE_CELL = re.compile(r"(source_cell_kernelI[fd]Lb[01]E)(EEv)")
+
+
+def comparable_sass(path):
+    """kernel_sass of a library in the form two builds compare: the hash
+    of the source's path that an anonymous namespace carries dropped
+    from names and listings, and each listing's layout -- cuobjdump pads
+    its columns to the widest function of the library -- dropped too:
+    a line's tokens, blank lines out, addresses without leading zeros;
+    an earlier build's source_cell_kernel<T, kHeat> named as the fixed
+    rule's source_cell_kernel<T, kHeat, 0> (_SOURCE_CELL).  Instructions,
+    operands and encodings stay as they are."""
+    def name(text):
+        return _SOURCE_CELL.sub(r"\1Li0E\2", _ANON.sub("(anon)", text))
+
+    def key(listing):
+        lines = (" ".join(_ADDR.sub(r"/*\1*/", line).split())
+                 for line in name(listing).splitlines())
+        return "\n".join(line for line in lines if line)
+    return {name(k): key(v) for k, v in kernel_sass(path).items()}
+
+
 def warp_efficiency(work):
     """The share of a warp's lane steps that do work when a warp runs
     until its slowest cell is done: the sum over cells of `work` (per

@@ -40,6 +40,20 @@ csrc/ under build/lanes<G>/ with band_rates.cuh's kCellLanes = G, and
 the counts run in turns (G1, G2, ..., G2, G1), CUDA events, mean of 5
 calls after a warm-up each.
 
+    python3 tools/profile_torch_iteration.py --builds --parent DIR
+        [--before DIR]
+
+`--builds` holds this tree's kernel build against the parent's (DIR, a
+`git archive` of that commit under build/): the seven kernel sources of
+each built all at once, as chip_smoke.py's phase 2 builds them (wall
+and per-source seconds, the parent first), the SASS of each function of
+the parent's sweep, 1D and halo sources against this build's, and the
+fixed quadrature rule's pyramid, shell and octant sweeps at 128^3 x 8
+float32 on phase 16's state (isothermal and heating) timed in turns
+with the parent build (parent, this, this, parent; CUDA events).  With
+`--before DIR` (another checkout) its three sweep sources are built too
+and its tau-table and "auto" sweeps timed in turns with this tree's.
+
     python3 tools/profile_torch_iteration.py --oned [--steps N]
         [--parent DIR]
 
@@ -111,7 +125,8 @@ import torch  # noqa: E402
 from kernel_study import (  # noqa: E402
     _CHEM_STAMPS, _stamp, achieved_occupancy, build_chem_split, build_oned,
     chem_layout, chem_pass_with, chem_split_run, chem_split_stats,
-    kernel_sass, parent_photon_losses, sass_loop_mix, sass_per_band)
+    comparable_sass, kernel_sass, parent_photon_losses, sass_loop_mix,
+    sass_per_band)
 
 
 def main():
@@ -133,6 +148,8 @@ def main():
     ap.add_argument("--chem", action="store_true")
     ap.add_argument("--ploss", action="store_true")
     ap.add_argument("--variants", default=None)
+    ap.add_argument("--builds", action="store_true")
+    ap.add_argument("--before", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_iteration: needs a CUDA GPU")
@@ -152,6 +169,11 @@ def main():
     if args.octant:
         profile_octant(args.mesh, args.sources, args.lanes, args.parent,
                        args.json)
+        return
+    if args.builds:
+        if not args.parent:
+            sys.exit("--builds needs --parent DIR")
+        profile_builds(args.mesh, args.sources, args.parent, args.before)
         return
 
     import dataclasses
@@ -298,6 +320,194 @@ def parent_octant_sweep(lib, cfg, fstack, srcpos, nflux):
     return slab, partials.sum(dim=1)
 
 
+class EarlierSweepEntries:
+    """A sweep library built from a commit before the rate routes, called
+    through this tree's wrappers: its sweep entries took no route
+    arguments, so each call drops the four pointers (the route ints and
+    the photo, heat and hbin tables, sweep/source_sweep.py:_route_args)
+    that this tree's entries take before the stream; the fixed rule's
+    arguments before them are the same."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if "_sweep_" not in name or name.endswith("_slots"):
+            return fn
+        return _WithoutRoute(fn)
+
+
+class _WithoutRoute:
+    def __init__(self, fn):
+        self.__dict__["fn"] = fn
+
+    def __setattr__(self, key, value):
+        if key == "argtypes":
+            value = list(value[:-5]) + list(value[-1:])
+        setattr(self.fn, key, value)
+
+    def __call__(self, *args):
+        return self.fn(*args[:-5], args[-1])
+
+
+BUILD_SOURCES = ("pyramid_sweep", "chemistry", "photon_losses", "evolve1d",
+                 "shell_sweep", "octant_sweep", "domain_halo")
+SWEEP_SOURCES = ("pyramid_sweep", "shell_sweep", "octant_sweep")
+
+
+def build_all(src, out, names):
+    """nvcc on each source `names` of the kernel directory `src` into
+    out/lib<name>.so, all started together, as chip_smoke.py's phase 2
+    does: (wall s, {name: s}, {name: the compiler's report})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(name):
+        t = time.perf_counter()
+        proc = build_oned(src, out / f"lib{name}.so", source=name)
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}/{name}.cu:\n{log}")
+        return name, (time.perf_counter() - t, log)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        done = dict(pool.map(one, names))
+    return (time.perf_counter() - t0, {n: t for n, (t, _) in done.items()},
+            {n: log for n, (_, log) in done.items()})
+
+
+def profile_builds(M, S, parent, before=None, reps=5):
+    """The route switch against the build before it (`parent`, a `git
+    archive` of that commit): both builds of the seven kernel sources
+    timed (each build all sources at once, parent first); the SASS of
+    every function of the parent's sweep, 1D and halo sources against
+    this build's (kernel_study.comparable_sass); and the fixed rule's
+    sweep kernels (pyramid, shell, octant engine; isothermal and
+    heating) at M^3 x S float32 on phase 16's state, timed in turns
+    (parent, this, this, parent; CUDA events, mean of `reps` calls after
+    a warm-up).  With `before` (another checkout, e.g. the route
+    kernels' previous design), its sweep sources are built too and its
+    tau-table and "auto" sweeps are timed in turns with this build's."""
+    import ctypes
+    import shutil
+
+    import chip_smoke as cs
+
+    from c2ray_tpu_torch import cuda_build
+
+    base = cuda_build.BUILD_DIR.parent / "builds"
+    dirs = {"parent": Path(parent) / "c2ray_tpu_torch" / "csrc",
+            "this": cuda_build.CSRC}
+    print(cs.smi_line())
+    for key in ("parent", "this"):
+        wall, secs, logs = build_all(dirs[key], base / key, BUILD_SOURCES)
+        print(f"build of {key}: {wall:.1f} s wall, the {len(secs)} sources "
+              f"at once (" + ", ".join(f"{n}.cu {t:.1f} s"
+                                       for n, t in secs.items()) + ")",
+              flush=True)
+    # this build is cuda_build's too: later runs in this checkout load it
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for n in BUILD_SOURCES:
+        so = cuda_build.library_path(n)
+        if not so.exists():
+            shutil.copy(base / "this" / f"lib{n}.so", so)
+            so.with_suffix(".log").write_text(logs[n])
+    if before:
+        dirs["before"] = Path(before) / "c2ray_tpu_torch" / "csrc"
+        build_all(dirs["before"], base / "before", SWEEP_SOURCES)
+    for n in ("pyramid_sweep", "shell_sweep", "octant_sweep", "evolve1d",
+              "domain_halo"):
+        mine = comparable_sass(base / "this" / f"lib{n}.so")
+        theirs = comparable_sass(base / "parent" / f"lib{n}.so")
+        differ = [k for k, v in theirs.items() if mine.get(k) != v]
+        print(f"SASS {n}.cu: {len(theirs) - len(differ)} of {len(theirs)} "
+              f"parent functions equal here" + "".join(
+                  f"\n  differs: {k[:140]}" for k in differ), flush=True)
+
+    def libs(key):
+        """{source: library} of build `key` for this tree's wrappers."""
+        out = {}
+        for n in SWEEP_SOURCES:
+            lib = ctypes.CDLL(str(base / key / f"lib{n}.so"))
+            out[n] = EarlierSweepEntries(lib) if key == "parent" else lib
+        return out
+
+    cases = [("quad", e, ("parent", "this", "this", "parent"))
+             for e in ENGINES]
+    if before:
+        cases += [(r, e, ("before", "this", "this", "before"))
+                  for r in ("tau", "auto") for e in ENGINES]
+    sweeps_in_turns({key: libs(key) for key in dirs}, M, S, cases, reps)
+
+
+ENGINES = ("pyramid", "shells", "octant")
+
+
+def sweeps_in_turns(loaded, M, S, cases, reps=5):
+    """The sweep kernels of several builds timed in turns at M^3 x S
+    float32 on phase 16's state, isothermal and heating: `loaded` maps
+    a build's key to its {source: library}, which this tree's wrappers
+    call in that build's turn (through cuda_build's table of loaded
+    libraries; "this" is loaded again after each case); `cases` are
+    (route, engine, turns), turns e.g. ("parent", "this", "this",
+    "parent"); CUDA events, mean of `reps` calls after a warm-up.
+    Prints each case; returns {(route, engine, heating): {key: [ms,
+    ...]}}."""
+    import chip_smoke as cs
+
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    cuda_build._LIBS.update(loaded["this"])
+    for heating in (False, True):
+        _, state, srcpos, nflux = bench_state(M, S, heating, dev, "pyramid")
+        for route, engine, turns in cases:
+            cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev,
+                              heating, tables=route)
+            kern = cs.route_trace_fns(engine, M)[0]
+            args = (cfg.sweep, ps.stack_sweep_fields(cfg.sweep,
+                                                     cs.fields_of(state)),
+                    srcpos, nflux)
+            ms = {}
+            for key in turns:
+                cuda_build._LIBS.update(loaded[key])
+                ms.setdefault(key, []).append(
+                    cs.event_ms(lambda: kern(*args), reps))
+            cuda_build._LIBS.update(loaded["this"])
+            a, b = turns[0], turns[1]
+            print(f"{engine} sweep, {route}, "
+                  f"{'heating' if heating else 'isothermal'}, {M}^3 x {S} "
+                  f"float32: {a} " + " / ".join(f"{t:.3f}" for t in ms[a])
+                  + f" ms, {b} " + " / ".join(f"{t:.3f}" for t in ms[b])
+                  + f" ms; {b}/{a} {sum(ms[b]) / sum(ms[a]):.4f}",
+                  flush=True)
+            out[(route, engine, heating)] = ms
+    return out
+
+
+def fixed_rule_against_parent(parent, M=128, S=8, reps=5):
+    """The fixed quadrature rule's pyramid, shell and octant sweeps of
+    this build against those of `parent` (a checkout of the commit
+    before the rate routes), in turns (sweeps_in_turns): the parent's
+    three sweep sources built under build/builds/parent, called through
+    EarlierSweepEntries."""
+    import ctypes
+
+    from c2ray_tpu_torch import cuda_build
+
+    base = cuda_build.BUILD_DIR.parent / "builds" / "parent"
+    build_all(Path(parent) / "c2ray_tpu_torch" / "csrc", base, SWEEP_SOURCES)
+    loaded = {"parent": {n: EarlierSweepEntries(ctypes.CDLL(
+                  str(base / f"lib{n}.so"))) for n in SWEEP_SOURCES},
+              "this": {n: cuda_build.load(n) for n in SWEEP_SOURCES}}
+    cases = [("quad", e, ("parent", "this", "this", "parent"))
+             for e in ENGINES]
+    return sweeps_in_turns(loaded, M, S, cases, reps)
+
+
 def print_split(label, ms, rows, what):
     """One sweep's device ms by groups of layers or planes
     (chip_smoke.grouped_launches rows) against its CUDA-event time."""
@@ -353,12 +563,9 @@ def profile_octant(M, S, lanes, parent, json_path=None):
                 raise RuntimeError(f"nvcc failed for the {key} {n}.cu:\n{out}")
         plibs = {n: ctypes.CDLL(str(base / "octant_parent" / f"lib{n}.so"))
                  for n in ("octant_sweep", "domain_halo")}
-        anon = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
-        norm = lambda path: {anon.sub("(anon)", k): anon.sub("(anon)", v)
-                             for k, v in kernel_sass(path).items()}
         for n in same_sass:
-            mine = norm(base / "octant_this" / f"lib{n}.so")
-            theirs = norm(base / "octant_parent" / f"lib{n}.so")
+            mine = comparable_sass(base / "octant_this" / f"lib{n}.so")
+            theirs = comparable_sass(base / "octant_parent" / f"lib{n}.so")
             same = sum(mine.get(k) == v for k, v in theirs.items())
             print(f"{n}.cu: {same} of {len(theirs)} kernel functions' SASS "
                   f"equal to the parent's ({len(mine)} in this build)")
@@ -1138,14 +1345,9 @@ def profile_oned(steps, parent):
             out = proc.communicate()[0]
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed for the {key} {n}.cu:\n{out}")
-        # an anonymous namespace's mangled name carries a hash of the
-        # source's path: drop it before comparing
-        anon = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
-        norm = lambda path: {anon.sub("(anon)", k): anon.sub("(anon)", v)
-                             for k, v in kernel_sass(path).items()}
         for n in shared:
-            mine = norm(base / "oned_this" / f"lib{n}.so")
-            theirs = norm(base / "oned_parent" / f"lib{n}.so")
+            mine = comparable_sass(base / "oned_this" / f"lib{n}.so")
+            theirs = comparable_sass(base / "oned_parent" / f"lib{n}.so")
             same = sum(mine.get(k) == v for k, v in theirs.items())
             print(f"{n}.cu: {same} of {len(theirs)} kernel functions' SASS "
                   f"equal to the parent's ({len(mine)} in this build)")

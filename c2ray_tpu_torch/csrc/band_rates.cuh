@@ -251,6 +251,74 @@ __device__ __forceinline__ void node_sums(const T* rb, int K, T tau_in,
   }
 }
 
+// One band row's terms of _one_source_quad, added to a lane's sums:
+// acc the photo_cell_{HI,HeI,HeII}, photo_in and photo_out sums, with
+// kHeat hacc the heat (compensated, hcomp) and the f_ion_HI / f_ion_HeI
+// sums (quadrature.py:437-439); nfl the type's flux, nv = nfl / vol.
+// Returns the band's photo_out (kTrack's staging).  The row holds K
+// nodes (kK, or 0: K at run time).
+template <typename T, bool kHeat, int kK>
+__device__ __forceinline__ T band_terms(const T* rb, int K, T nfl, T nv,
+                                        T inv_vol, const T* cin,
+                                        const T* cout, const T* y, T acc[5],
+                                        T hacc[3], T& hcomp) {
+  const T tiny = Limits<T>::tiny();
+  const T sHI = rb[0], sHeI = rb[1], sHeII = rb[2];
+  const T mHeI = rb[3], mHeII = rb[4];
+  const T tau_in = cin[0] * sHI + cin[1] * sHeI + cin[2] * sHeII;
+  const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
+  const T tcHI = sHI * (cout[0] - cin[0]);
+  const T tcHeI = sHeI * (cout[1] - cin[1]);
+  const T tcHeII = sHeII * (cout[2] - cin[2]);
+  const T inv = T(1) / maxp(tcHI + tcHeI + tcHeII, tiny);
+  // the node sums this band's regime reads: the photo rates thick
+  // (e_in - e_out) or thin (sighat e_in) at kTauPhotoLimit, the heat at
+  // kTauHeatLimit (thick heat implies thick photo rates)
+  const T dtau = tau_out - tau_in;
+  const bool thick = xabs(dtau) > T(kTauPhotoLimit);
+  const bool hthick = kHeat && xabs(dtau) > T(kTauHeatLimit);
+  T g_in = T(0), g_x = T(0), h_x[3] = {T(0), T(0), T(0)};
+  if (!thick) {
+    node_sums<T, kHeat, false, false, kK>(rb, K, tau_in, tau_out, g_in, g_x,
+                                          h_x);
+  } else if (!kHeat || hthick) {
+    node_sums<T, kHeat, true, true, kK>(rb, K, tau_in, tau_out, g_in, g_x,
+                                        h_x);
+  } else {
+    node_sums<T, kHeat, true, false, kK>(rb, K, tau_in, tau_out, g_in, g_x,
+                                         h_x);
+  }
+  const T phi_in = nfl * g_in;
+  const T phi_all = thick ? nfl * g_x : nfl * dtau * g_x;
+  const T pv = phi_all * inv_vol;
+  acc[0] += tcHI * inv * pv;
+  acc[1] += mHeI * (tcHeI * inv) * pv;
+  acc[2] += mHeII * (tcHeII * inv) * pv;
+  acc[3] += phi_in;
+  acc[4] += phi_in - phi_all;
+  if constexpr (kHeat) {
+    // species_heat (quadrature.py:404-415): thick/thin at the heat
+    // limit, masked like the photo rates
+    const T tc[3] = {tcHI, tcHeI, tcHeII};
+    const T mk[3] = {T(1), mHeI, mHeII};
+    T ph[3];
+    for (int sp = 0; sp < 3; ++sp) {
+      ph[sp] = mk[sp] * (hthick ? tc[sp] * inv * h_x[sp] * nv
+                                : tc[sp] * h_x[sp] * nv);
+    }
+    const T* f = rb + 5 + 5 * K;
+    const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];
+    const T fra2 = f[3] * ph[0] + f[4] * ph[1] + f[5] * ph[2];
+    const T fra3 = f[6] * ph[0] + f[7] * ph[1] + f[8] * ph[2];
+    const T fra4 = f[9] * ph[0] + f[10] * ph[1] + f[11] * ph[2];
+    kahan_add(hacc[0], hcomp,
+              ph[0] + ph[1] + ph[2] - y[2] * fra3 + y[5] * fra4);
+    hacc[1] += y[0] * fra1 - y[3] * fra2;
+    hacc[2] += y[1] * fra1 - y[4] * fra2;
+  }
+  return phi_in - phi_all;
+}
+
 // _one_source_quad summed over the source types (photoion_rates_quad):
 // out = photo_cell_{HI,HeI,HeII}, photo_in, photo_out and, with kHeat,
 // heat; `y` holds the cell's ricotti() values (heating only); `tab` the
@@ -270,7 +338,6 @@ __device__ __forceinline__ void cell_rates(const T* tab, const BandTables& d,
   constexpr int kOut = kHeat ? 6 : 5;
   const int K = kK > 0 ? kK : d.K;
   const int stride = row_stride<kHeat>(K);
-  const T tiny = Limits<T>::tiny();
   const T inv_vol = T(1) / vol;
   for (int q = 0; q < kOut; ++q) out[q] = T(0);
   int b0 = 0;
@@ -281,66 +348,11 @@ __device__ __forceinline__ void cell_rates(const T* tab, const BandTables& d,
     // heat (compensated), f_ion_HI, f_ion_HeI (quadrature.py:437-439)
     T hacc[3] = {T(0), T(0), T(0)}, hcomp = T(0);
     for (int b = lane; b < d.type_nb[t]; b += nlanes) {
-      const T* rb = tab + (b0 + b) * stride;
-      const T sHI = rb[0], sHeI = rb[1], sHeII = rb[2];
-      const T mHeI = rb[3], mHeII = rb[4];
-      const T* sh = rb + 5;
-      const T* A = rb + 5 + K;
-      const T tau_in = cin[0] * sHI + cin[1] * sHeI + cin[2] * sHeII;
-      const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
-      const T tcHI = sHI * (cout[0] - cin[0]);
-      const T tcHeI = sHeI * (cout[1] - cin[1]);
-      const T tcHeII = sHeII * (cout[2] - cin[2]);
-      const T inv = T(1) / maxp(tcHI + tcHeI + tcHeII, tiny);
-      // the node sums this band's regime reads: the photo rates thick
-      // (e_in - e_out) or thin (sighat e_in) at kTauPhotoLimit, the heat
-      // at kTauHeatLimit (thick heat implies thick photo rates)
-      const T dtau = tau_out - tau_in;
-      const bool thick = xabs(dtau) > T(kTauPhotoLimit);
-      const bool hthick = kHeat && xabs(dtau) > T(kTauHeatLimit);
-      T g_in = T(0), g_x = T(0), h_x[3] = {T(0), T(0), T(0)};
-      if (!thick) {
-        node_sums<T, kHeat, false, false, kK>(rb, K, tau_in, tau_out, g_in,
-                                              g_x, h_x);
-      } else if (!kHeat || hthick) {
-        node_sums<T, kHeat, true, true, kK>(rb, K, tau_in, tau_out, g_in,
-                                            g_x, h_x);
-      } else {
-        node_sums<T, kHeat, true, false, kK>(rb, K, tau_in, tau_out, g_in,
-                                             g_x, h_x);
-      }
-      const T phi_in = nfl * g_in;
-      const T phi_all = thick ? nfl * g_x : nfl * dtau * g_x;
-      const T pv = phi_all * inv_vol;
-      acc[0] += tcHI * inv * pv;
-      acc[1] += mHeI * (tcHeI * inv) * pv;
-      acc[2] += mHeII * (tcHeII * inv) * pv;
-      acc[3] += phi_in;
-      acc[4] += phi_in - phi_all;
+      const T phi_out = band_terms<T, kHeat, kK>(
+          tab + (b0 + b) * stride, K, nfl, nv, inv_vol, cin, cout, y, acc,
+          hacc, hcomp);
       if constexpr (kTrack) {
-        if (bstage) {
-          bstage[(d.type_lo[t] + b) * kStageStride] += phi_in - phi_all;
-        }
-      }
-      if constexpr (kHeat) {
-        // species_heat (quadrature.py:404-415): thick/thin at the heat
-        // limit, masked like the photo rates
-        const T tc[3] = {tcHI, tcHeI, tcHeII};
-        const T mk[3] = {T(1), mHeI, mHeII};
-        T ph[3];
-        for (int sp = 0; sp < 3; ++sp) {
-          ph[sp] = mk[sp] * (hthick ? tc[sp] * inv * h_x[sp] * nv
-                                    : tc[sp] * h_x[sp] * nv);
-        }
-        const T* f = rb + 5 + 5 * K;
-        const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];
-        const T fra2 = f[3] * ph[0] + f[4] * ph[1] + f[5] * ph[2];
-        const T fra3 = f[6] * ph[0] + f[7] * ph[1] + f[8] * ph[2];
-        const T fra4 = f[9] * ph[0] + f[10] * ph[1] + f[11] * ph[2];
-        kahan_add(hacc[0], hcomp,
-                  ph[0] + ph[1] + ph[2] - y[2] * fra3 + y[5] * fra4);
-        hacc[1] += y[0] * fra1 - y[3] * fra2;
-        hacc[2] += y[1] * fra1 - y[4] * fra2;
+        if (bstage) bstage[(d.type_lo[t] + b) * kStageStride] += phi_out;
       }
     }
     if constexpr (kHeat) {
@@ -355,18 +367,28 @@ __device__ __forceinline__ void cell_rates(const T* tab, const BandTables& d,
   }
 }
 
-// ---- "auto" tables: bands in blocks of one K each
+// ---- "auto" tables: node groups
 //
 // quadrature.py:photoion_rates_quad sums _one_source_quad over the
 // blocks of each source type (n_nodes="auto": 1 band at K = 12, 26 at
 // K = 3 and 6 at K = 6 for the bench's 5e4 K blackbody, 126 exponential
-// terms a cell against 198 of the fixed 6-node rule).  block_rates runs
-// cell_rates once per block, as a table of one type of the block's K:
-// the node loop unrolled for the Ks that occur (3, 6, 8, 12; any other
-// at run time), the block's rows at their offset in the flat rows
-// (packed_band_blocks), the blocks' sums added in the plain version's
-// order.  Every lane of a cell takes the same block at the same time, so
-// the switch on K does not diverge.
+// terms a cell against 198 of the fixed 6-node rule).  The sweep kernels
+// take them as node groups (quadrature.py:packed_node_groups): each band
+// cut into rows of at most 6 of its nodes (the K = 12 band into two), the
+// rows of one source type and K in a group, the groups by descending K
+// (the bench: 8 rows at K = 6, 26 at K = 3).  block_rates runs one band
+// loop over all rows, band_terms on each: the rows are dealt to the
+// lanes of a cell in turn, continuing from one group into the next, so
+// the lanes' node terms differ by at most the largest K (63 and 63 at
+// two lanes; one block at a time dealt 69 and 57); every lane of a warp
+// is in the same group at the same turn, so the switch on K does not
+// diverge; only the Ks that rows of at most 6 nodes take in practice (3
+// and 6) are unrolled, any other runs at run time.  The lanes' sums and
+// the groups' follow that order, not the plain version's per-block sums
+// (the same terms; float64 within 1e-12 of it).
+//
+// A group: (nflux column, unused, rows, K, first row), the ints of
+// packed_band_blocks' blocks; at most kMaxBlocks.
 constexpr int kMaxBlocks = 24;
 
 struct BandBlocks {
@@ -381,39 +403,42 @@ __device__ __forceinline__ void block_rates(const T* tab, const BandBlocks& bl,
                                             const T* cout, T vol, const T* y,
                                             T out[kHeat ? 6 : 5], int lane,
                                             int nlanes) {
-  constexpr int kOut = kHeat ? 6 : 5;
-  for (int q = 0; q < kOut; ++q) out[q] = T(0);
-  for (int i = 0; i < bl.n; ++i) {
-    BandTables d;
-    d.K = bl.K[i];
-    d.ntypes = 1;
-    d.type_col[0] = bl.col[i];
-    d.type_nb[0] = bl.nb[i];
-    d.type_lo[0] = bl.lo[i];
-    const T* rows = tab + bl.row0[i];
-    T o[kOut];
-    switch (d.K) {
+  const T inv_vol = T(1) / vol;
+  T acc[5] = {T(0), T(0), T(0), T(0), T(0)};
+  T hacc[3] = {T(0), T(0), T(0)}, hcomp = T(0);
+  int first = 0;   // the lane dealt the group's first row
+  for (int g = 0; g < bl.n; ++g) {
+    const int K = bl.K[g], n = bl.nb[g];
+    const T nfl = nfl3[bl.col[g]];
+    const T nv = nfl * inv_vol;
+    const int e0 = (lane - first + nlanes) % nlanes;
+    const T* rows = tab + bl.row0[g];
+    // this lane's rows of the group, at its K
+    auto group = [&](auto kk) {
+      constexpr int kRowK = decltype(kk)::value;
+      const int stride = row_stride<kHeat>(K);
+      for (int e = e0; e < n; e += nlanes) {
+        band_terms<T, kHeat, kRowK>(rows + e * stride, K, nfl, nv, inv_vol,
+                                    cin, cout, y, acc, hacc, hcomp);
+      }
+    };
+    switch (K) {
       case 3:
-        cell_rates<T, kHeat, false, 3>(rows, d, nfl3, cin, cout, vol, y, o,
-                                       nullptr, lane, nlanes);
+        group(std::integral_constant<int, 3>{});
         break;
       case 6:
-        cell_rates<T, kHeat, false, 6>(rows, d, nfl3, cin, cout, vol, y, o,
-                                       nullptr, lane, nlanes);
-        break;
-      case 8:
-        cell_rates<T, kHeat, false, 8>(rows, d, nfl3, cin, cout, vol, y, o,
-                                       nullptr, lane, nlanes);
-        break;
-      case 12:
-        cell_rates<T, kHeat, false, 12>(rows, d, nfl3, cin, cout, vol, y, o,
-                                        nullptr, lane, nlanes);
+        group(std::integral_constant<int, 6>{});
         break;
       default:
-        cell_rates<T, kHeat, false, 0>(rows, d, nfl3, cin, cout, vol, y, o,
-                                       nullptr, lane, nlanes);
+        group(std::integral_constant<int, 0>{});
     }
-    for (int q = 0; q < kOut; ++q) out[q] += o[q];
+    first = (first + n) % nlanes;
+  }
+  for (int q = 0; q < 5; ++q) out[q] = acc[q];
+  if constexpr (kHeat) {
+    out[0] += hacc[1] / T(kIonEnergyHI);
+    out[1] += hacc[2] / T(kIonEnergyHeI);
+    out[5] = hacc[0];
   }
 }
 
@@ -564,6 +589,86 @@ __device__ __forceinline__ void band_out(const T* tab, const BandTables& d,
       for (int q = 0; q < 3; ++q) out[q] += acc[q];
     }
     b0 += d.type_nb[t];
+  }
+}
+
+// ---- "auto" tables in the 1D march
+//
+// The march takes the blocks of "auto" tables (quadrature.py:
+// packed_band_blocks) as a block list (onedim/evolve.py:_block_list),
+// kBlockInts ints per block: its K, its band count, the offset of its
+// first row value in the band rows and of its first incoming value in
+// `in`.  Each block's incoming side (in_values(K) values of each of its
+// bands, laid out as band_in lays out a table of one type) lies at its
+// own offset, so the split stays: blocks_in once per shell, blocks_out
+// once per iteration, band_in / band_out of the block's K on each block.
+constexpr int kBlockInts = 4;
+
+// f(std::integral_constant<int, kK>) with kK = K for the Ks the "auto"
+// rule picks for a blackbody (3, 6, 8, 12), else 0: the runtime-K
+// instantiation.
+template <typename F>
+__device__ __forceinline__ void with_block_nodes(int K, F&& f) {
+  switch (K) {
+    case 3:
+      f(std::integral_constant<int, 3>{});
+      break;
+    case 6:
+      f(std::integral_constant<int, 6>{});
+      break;
+    case 8:
+      f(std::integral_constant<int, 8>{});
+      break;
+    case 12:
+      f(std::integral_constant<int, 12>{});
+      break;
+    default:
+      f(std::integral_constant<int, 0>{});
+  }
+}
+
+// The band rows of block `blk` (kBlockInts ints) as a table of one type
+__device__ __forceinline__ BandTables block_table(const int* blk) {
+  BandTables d{};
+  d.K = blk[0];
+  d.ntypes = 1;
+  d.type_nb[0] = blk[1];
+  return d;
+}
+
+template <typename T, bool kHeat>
+__device__ __forceinline__ void blocks_in(const T* tab, const int* blocks,
+                                          int nblk, const T* cin, T* in,
+                                          int lane, int nlanes) {
+  for (int i = 0; i < nblk; ++i) {
+    const int* blk = blocks + kBlockInts * i;
+    const BandTables d = block_table(blk);
+    with_block_nodes(d.K, [&](auto kk) {
+      band_in<T, kHeat, decltype(kk)::value>(tab + blk[2], d, cin,
+                                             in + blk[3], lane, nlanes);
+    });
+  }
+}
+
+// band_out over the blocks: each block's partial sums added in block
+// order (the plain version adds the blocks' rates in that order too)
+template <typename T, bool kHeat>
+__device__ __forceinline__ void blocks_out(const T* tab, const int* blocks,
+                                           int nblk, const T* cin,
+                                           const T* cout, T inv_vol,
+                                           const T* y, const T* in, T out[4],
+                                           int lane, int nlanes) {
+  for (int q = 0; q < 4; ++q) out[q] = T(0);
+  for (int i = 0; i < nblk; ++i) {
+    const int* blk = blocks + kBlockInts * i;
+    const BandTables d = block_table(blk);
+    T o[4];
+    with_block_nodes(d.K, [&](auto kk) {
+      band_out<T, kHeat, decltype(kk)::value>(tab + blk[2], d, cin, cout,
+                                              inv_vol, y, in + blk[3], o,
+                                              lane, nlanes);
+    });
+    for (int q = 0; q < 4; ++q) out[q] += o[q];
   }
 }
 

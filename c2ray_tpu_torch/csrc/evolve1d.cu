@@ -84,6 +84,14 @@ namespace {
 constexpr int kLanes = 32;
 constexpr double kMaxColdensh1D = 2.0e26;    // onedim/evolve.py:MAX_COLDENSH_1D
 
+// "auto" tables (kK = kBlockRoute): the block list of band_rates.cuh's
+// blocks_in / blocks_out, the value count of the blocks' rows (in
+// `bands`) and of their incoming side
+struct BlockList1D {
+  const int* list;      // (n, kBlockInts)
+  int n, nrow, nin;
+};
+
 template <typename T>
 struct Args1D {
   const T* ndens;       // (mesh)
@@ -106,6 +114,7 @@ struct Args1D {
   BandTables bt;        // quadrature rows; tables: ntypes only
   T dr, dt, clump, eps, one_m_eps, ccf;
   T g[3], bnd[3];
+  BlockList1D blk;      // "auto" tables only
 };
 
 // onedim/evolve.py:_cell_columns (chemistry.py:coldens per species)
@@ -273,23 +282,32 @@ __device__ __forceinline__ void spread_fits(const FitOps<T>& o, T t, T x,
 }
 
 // kK: the quadrature table's K (0: a.bt.K at run time; 0 on the table
-// route)
+// route), or kBlockRoute: "auto" tables, blocks of their own K
 template <typename T, bool kHeat, bool kTable, int kK>
 __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
+  constexpr bool kBlocks = kK == kBlockRoute;
   // shared memory: the band rows, the shell's incoming side, with
-  // heating the cooling table
+  // heating the cooling table; "auto" blocks: then the block list
   T* tab = reinterpret_cast<T*>(smem);
-  const int nrow = kTable ? a.nb * kTableRow
-                          : a.nbt * row_stride<kHeat>(kK > 0 ? kK : a.bt.K);
+  const int nrow = kTable    ? a.nb * kTableRow
+                   : kBlocks ? a.blk.nrow
+                             : a.nbt * row_stride<kHeat>(kK > 0 ? kK : a.bt.K);
   for (int k = lane; k < nrow; k += kLanes) tab[k] = a.bands[k];
   T* in = tab + nrow;
-  T* cool = in + (kTable ? a.nb * table_in_values<kHeat>(a.bt.ntypes)
-                         : a.nbt * in_values<kHeat>(a.bt.K));
+  T* cool = in + (kTable    ? a.nb * table_in_values<kHeat>(a.bt.ntypes)
+                  : kBlocks ? a.blk.nin
+                            : a.nbt * in_values<kHeat>(a.bt.K));
   if constexpr (kHeat) {
     for (int k = lane; k < kTempPoints * 5; k += kLanes) {
       cool[k] = a.cool_tab[k];
+    }
+  }
+  int* blocks = reinterpret_cast<int*>(cool + (kHeat ? kTempPoints * 5 : 0));
+  if constexpr (kBlocks) {
+    for (int k = lane; k < a.blk.n * kBlockInts; k += kLanes) {
+      blocks[k] = a.blk.list[k];
     }
   }
   __syncwarp();
@@ -310,6 +328,8 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
     // the incoming side, fixed while the shell iterates
     if constexpr (kTable) {
       table_in<T, kHeat, kLanes>(a, tab, cd, in, lane);
+    } else if constexpr (kBlocks) {
+      blocks_in<T, kHeat>(tab, blocks, a.blk.n, cd, in, lane, kLanes);
     } else {
       band_in<T, kHeat, kK>(tab, a.bt, cd, in, lane, kLanes);
     }
@@ -330,6 +350,9 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
       T r[4];
       if constexpr (kTable) {
         table_out<T, kHeat, kLanes>(a, tab, cd, cout, vol, y, in, r, lane);
+      } else if constexpr (kBlocks) {
+        blocks_out<T, kHeat>(tab, blocks, a.blk.n, cd, cout, inv_vol, y,
+                             in, r, lane, kLanes);
       } else {
         band_out<T, kHeat, kK>(tab, a.bt, cd, cout, inv_vol, y, in, r, lane,
                                kLanes);
@@ -413,6 +436,21 @@ int run_evolve1d(const Args1D<T>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// "auto" tables: shared memory holds the blocks' rows, their incoming
+// sides, with heating the cooling table, then the block list
+template <typename T, bool kHeat>
+int run_evolve1d_blocks(const Args1D<T>& a, cudaStream_t stream) {
+  const size_t smem =
+      (size_t(a.blk.nrow) + a.blk.nin + (kHeat ? kTempPoints * 5 : 0)) *
+          sizeof(T) +
+      size_t(a.blk.n) * kBlockInts * sizeof(int);
+  auto kernel = evolve1d_kernel<T, kHeat, false, kBlockRoute>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kLanes, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // div_flat against `/`, elementwise (the card test of div_flat)
 __global__ void div_check_kernel(const float* a, const float* b,
                                  float* q_flat, float* q_ieee, int n) {
@@ -462,7 +500,35 @@ extern "C" {
     a.one_m_eps = T(1.0 - eps); a.ccf = T(ccf);                            \
     a.g[0] = T(g0); a.g[1] = T(g1); a.g[2] = T(g2);                        \
     a.bnd[0] = T(bnd0); a.bnd[1] = T(bnd1); a.bnd[2] = T(bnd2);            \
+    a.blk = {};                                                            \
     return c2ray::run_evolve1d<T, HEAT, TABLE>(                            \
+        a, static_cast<cudaStream_t>(stream));                             \
+  }
+
+// "auto" tables, the same contract: bands holds the blocks' rows (nrow
+// values), blocks their list (nblk blocks of kBlockInts ints: K, band
+// count, first row value, first incoming value), nin the value count of
+// their incoming side.
+#define C2RAY_EVOLVE1D_AUTO_ENTRY(NAME, T, HEAT)                            \
+  int NAME(const T* ndens, const T* temper, const T* xh, const T* xhe,     \
+           const T* vol, const T* bands, const int* blocks,                \
+           const T* cool_tab, T* xh_out, T* xhe_out, T* temper_out,        \
+           int* nits, int* counters, int mesh, int nblk, int nrow,         \
+           int nin, int max_iter, double dr, double dt, double clump,      \
+           double g0, double g1, double g2, double eps, double ccf,        \
+           double bnd0, double bnd1, double bnd2, void* stream) {          \
+    c2ray::Args1D<T> a{};                                                  \
+    a.ndens = ndens; a.temper = temper; a.xh = xh; a.xhe = xhe;            \
+    a.vol = vol; a.bands = bands; a.cool_tab = cool_tab;                   \
+    a.xh_out = xh_out; a.xhe_out = xhe_out; a.temper_out = temper_out;     \
+    a.nits = nits; a.counters = counters;                                  \
+    a.mesh = mesh; a.max_iter = max_iter;                                  \
+    a.blk = {blocks, nblk, nrow, nin};                                     \
+    a.dr = T(dr); a.dt = T(dt); a.clump = T(clump); a.eps = T(eps);        \
+    a.one_m_eps = T(1.0 - eps); a.ccf = T(ccf);                            \
+    a.g[0] = T(g0); a.g[1] = T(g1); a.g[2] = T(g2);                        \
+    a.bnd[0] = T(bnd0); a.bnd[1] = T(bnd1); a.bnd[2] = T(bnd2);            \
+    return c2ray::run_evolve1d_blocks<T, HEAT>(                            \
         a, static_cast<cudaStream_t>(stream));                             \
   }
 
@@ -474,6 +540,10 @@ C2RAY_EVOLVE1D_ENTRY(evolve1d_table_iso_f32, float, false, true)
 C2RAY_EVOLVE1D_ENTRY(evolve1d_table_iso_f64, double, false, true)
 C2RAY_EVOLVE1D_ENTRY(evolve1d_table_heat_f32, float, true, true)
 C2RAY_EVOLVE1D_ENTRY(evolve1d_table_heat_f64, double, true, true)
+C2RAY_EVOLVE1D_AUTO_ENTRY(evolve1d_auto_iso_f32, float, false)
+C2RAY_EVOLVE1D_AUTO_ENTRY(evolve1d_auto_iso_f64, double, false)
+C2RAY_EVOLVE1D_AUTO_ENTRY(evolve1d_auto_heat_f32, float, true)
+C2RAY_EVOLVE1D_AUTO_ENTRY(evolve1d_auto_heat_f64, double, true)
 
 // q_flat = div_flat(a, b) and q_ieee = a / b for n float pairs; returns
 // the cudaError_t of the launch.

@@ -79,7 +79,8 @@
 // The rate routes (kK, csrc/table_rates.cuh) through cell_step: the
 // tau tables (kTableRoute, photo.py:photoion_rates) and the "auto"
 // quadrature blocks (kBlockRoute, quadrature.py:486-489), at every lane
-// count, bound as in csrc/pyramid_sweep.cu's note.
+// count, bound as in csrc/pyramid_sweep.cu's note; the tau route with
+// heating as plane_kernel_capped (table_rates.cuh: route_capped).
 
 #include "short_char.cuh"
 
@@ -151,8 +152,8 @@ __global__ void source_cell_kernel(Params<T> p) {
 // kK names the route (table_rates.cuh).
 // The arithmetic is plane_step (octant_sweep.py:157-267).
 template <typename T, bool kHeat, int kK, int kLanes>
-__global__ void __launch_bounds__(kBlock)
-plane_kernel(Params<T> p, int s, PlanePlan q) {
+__device__ __forceinline__ void plane_body(const Params<T>& p, int s,
+                                           const PlanePlan& q) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
   T* red = tab + route_tab_len<T, kHeat, kK>(
@@ -245,13 +246,31 @@ plane_kernel(Params<T> p, int s, PlanePlan q) {
   }
 }
 
+template <typename T, bool kHeat, int kK, int kLanes>
+__global__ void __launch_bounds__(kBlock)
+plane_kernel(Params<T> p, int s, PlanePlan q) {
+  plane_body<T, kHeat, kK, kLanes>(p, s, q);
+}
+
+// the route_capped instantiations (table_rates.cuh)
+template <typename T, bool kHeat, int kK, int kLanes>
+__global__ void __launch_bounds__(kBlock, kCappedBlocks)
+plane_kernel_capped(Params<T> p, int s, PlanePlan q) {
+  plane_body<T, kHeat, kK, kLanes>(p, s, q);
+}
+
 template <typename T>
 using PlaneFn = void (*)(Params<T>, int, PlanePlan);
 
 template <typename T, bool kHeat, int kLanes>
 PlaneFn<T> plane_with_nodes(int route, int K) {
   return with_route(route, K, [](auto kk) -> PlaneFn<T> {
-    return plane_kernel<T, kHeat, decltype(kk)::value, kLanes>;
+    constexpr int k = decltype(kk)::value;
+    if constexpr (route_capped<kHeat, k>()) {
+      return plane_kernel_capped<T, kHeat, k, kLanes>;
+    } else {
+      return plane_kernel<T, kHeat, k, kLanes>;
+    }
   });
 }
 

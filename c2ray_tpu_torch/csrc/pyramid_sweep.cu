@@ -92,11 +92,11 @@
 // The rate routes (kK, csrc/table_rates.cuh): kTableRoute replaces
 // c2ray_tpu/radiation/photo.py:photoion_rates (:185) in the stage and
 // source-cell kernels -- per cell, band and source type the tau
-// positions and the table reads (table_rates), bound by those
-// operations (the tables sit in L2); kBlockRoute the "auto" quadrature's
-// sum over band blocks (quadrature.py:486-489, block_rates), bound like
-// the fixed rule by the blocks' 2 sum(nb K) exponentials.  Both run with
-// the homogeneous or the per-cell LLS column, not with kTrack.
+// positions and the band-major table records (table_rates), bound by
+// those operations (the tables sit in L2); kBlockRoute the "auto" quadrature's sum
+// over its node groups (quadrature.py:486-489, block_rates), bound like
+// the fixed rule by the 2 sum(nb K) exponentials.  Both run with the
+// homogeneous or the per-cell LLS column, not with kTrack.
 
 #include "table_rates.cuh"
 
@@ -189,8 +189,8 @@ __global__ void source_cell_kernel(Params<T> p) {
 // (table_rates.cuh; kTrack on the fixed rule only).  The arithmetic is
 // compute_stage (pyramid_sweep.py:205-310).
 template <typename T, bool kHeat, bool kTrack, int kK>
-__global__ void __launch_bounds__(kBlock)
-stage_kernel(Params<T> p, int l, int m, int slot0) {
+__device__ __forceinline__ void stage_body(const Params<T>& p, int l, int m,
+                                           int slot0) {
   extern __shared__ unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
   T* red = tab + route_tab_len<T, kHeat, kK>(
@@ -364,6 +364,19 @@ stage_kernel(Params<T> p, int l, int m, int slot0) {
   }
 }
 
+template <typename T, bool kHeat, bool kTrack, int kK>
+__global__ void __launch_bounds__(kBlock)
+stage_kernel(Params<T> p, int l, int m, int slot0) {
+  stage_body<T, kHeat, kTrack, kK>(p, l, m, slot0);
+}
+
+// the route_capped instantiations (table_rates.cuh)
+template <typename T, bool kHeat, bool kTrack, int kK>
+__global__ void __launch_bounds__(kBlock, kCappedBlocks)
+stage_kernel_capped(Params<T> p, int l, int m, int slot0) {
+  stage_body<T, kHeat, kTrack, kK>(p, l, m, slot0);
+}
+
 inline int stage_blocks(int l) {
   const int W = 2 * l + 1;
   return (2 * W * W * kCellLanes + kBlock - 1) / kBlock;
@@ -412,7 +425,12 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
     });
   } else {
     stage = with_route(rk, K, [](auto kk) -> Fn {
-      return stage_kernel<T, kHeat, false, decltype(kk)::value>;
+      constexpr int k = decltype(kk)::value;
+      if constexpr (route_capped<kHeat, k>()) {
+        return stage_kernel_capped<T, kHeat, false, k>;
+      } else {
+        return stage_kernel<T, kHeat, false, k>;
+      }
     });
   }
   const SrcFn source = with_source_route(rk, [](auto kk) -> SrcFn {

@@ -15,14 +15,27 @@
 // Bound: per band and source type, two (thin: one) position
 // computations (a log10 each) and two to four table reads, against the
 // quadrature's 2K exponentials.  The tables stay in device memory, read
-// through the read-only cache: a blackbody's float32 photo table is
-// 2 x 2001 x 47 x 4 B = 0.75 MB and sits in the 50 MB L2; a cell's two
-// positions are data-dependent rows, so each read is a gather of one
-// word.  Only the 17-value band rows go to shared memory.  A cell's
-// lanes (kCellLanes in the 3D sweeps, the warp in the 1D march) split
-// the bands; every sum and expression is the plain version's, op for op
-// (positions to rtol 1e-12 in float64, a decided deviation that
-// ROADMAP.md records: log10 rounds differently on the card).
+// through the read-only cache (a blackbody's float32 photo records are
+// 33 x 2001 x 16 B = 1.06 MB, its heat records 3.2 MB, in the 50 MB
+// L2).  Only the 17-value band rows go to shared memory.  A cell's lanes
+// (kCellLanes in the pyramid and shell sweeps, the plane's lanes in the
+// octant sweep, the warp in the 1D march) split the bands.
+//
+// The 3D design, from the split of the first one (PERF.md section 6;
+// tools/profile_torch_iteration.py --route tau: knock-out copies, 128^3
+// x 8 float32 on an H100): its reads took 13% / 29% of the stage kernel
+// (isothermal / heating), the positions 18% / nothing (hidden behind
+// the reads), the rest -- four IEEE divisions a band and type, seven
+// with heating -- two thirds / half; sending every read of a band to one
+// row saved nothing with heating, so the reads cost instructions, not
+// locality.  So table_rates reads band-major records (TauRec: one
+// 16-byte load per position and type instead of two to four word
+// gathers and the heating columns' index loads) and takes 1/vol once
+// per cell; the positions stay the plain version's log10, op for op
+// (rtol 1e-12 in float64, a decided deviation that ROADMAP.md records:
+// log10 rounds differently on the card); two lanes a cell, against one
+// (14% slower) and four (8% slower).  The 1D march keeps table_in /
+// table_out on the unpacked tables (csrc/evolve1d.cu's design).
 //
 // The route switch: the 3D sweep kernels take their rate route in the
 // template parameter kK.  kK >= 0 is the quadrature rule's node count (0:
@@ -50,19 +63,35 @@ constexpr int kTableRow = 17;
 constexpr int kTableRoute = -1;
 constexpr int kBlockRoute = -2;
 
-// The tau tables of the source types in use (radiation/tables.py:
-// TableRoute): the names the 1D march's Args1D gives them too, so that
-// table_in / table_out read either.  bt.ntypes types, bt.type_col[t]
-// their nflux columns.
+// The tau route with heating runs as a capped pyramid or octant kernel
+// (stage_kernel_capped, plane_kernel_capped, the same body): held to
+// kCappedBlocks resident blocks of 256 threads an SM (__launch_bounds__)
+// ptxas keeps it to 80 registers, where uncapped it took 100 and held
+// two: 8% faster on the pyramid engine, 10% on the octant one
+// (tools/profile_torch_iteration.py --route tau --variants uncapped;
+// PERF.md section 6).  Every other instantiation keeps the plain
+// __launch_bounds__(kBlock) (a minimum of one block moved the isothermal
+// tau kernel to 80 registers, 8% slower).  The shell kernel stays whole:
+// its body moved into a function for a capped twin slowed its fixed rule
+// by 1.2-1.4%.
+constexpr int kCappedBlocks = 3;
+
+template <bool kHeat, int kK>
+__host__ __device__ constexpr bool route_capped() {
+  return kHeat && kK == kTableRoute;
+}
+
+// The tau tables of the source types in use as the 3D sweeps read them
+// (radiation/tables.py:PackedTauTables): band-major, for each type and
+// live band a column over the kNumTau + 1 rows of 4-value records
+// (TauRec).  bt.ntypes types, bt.type_col[t] their nflux columns.
 template <typename T>
 struct TauTables {
-  const T* photo_tab;   // (ntypes, 2, kNumTau + 1, nb) thick, thin
-  const T* heat_tab;    // heating: (ntypes, 2, kNumTau + 1, nheat)
-  const int* hbin;      // (nb, 3) heating-table column per species
-  int nb, nheat;
+  const T* photo;       // (ntypes, b1 - b0, kNumTau + 1, 4)
+  const T* heat;        // heating: (ntypes, b1 - b0, 3, kNumTau + 1, 4)
   BandTables bt;
-  int b0, b1;           // 3D sweeps: the bands [b0, b1) of any type's
-                        // nonzero table columns
+  int b0, b1;           // the bands [b0, b1) of any type's nonzero table
+                        // columns
 };
 
 // What a 3D sweep needs besides the fixed rule's BandTables: the band
@@ -226,6 +255,38 @@ __device__ __forceinline__ void table_out(const A& a, const T* rows,
 
 // ---- One cell of a 3D sweep
 //
+// A record of a band-major column at row i (PackedTauTables): the thick
+// table's v[i] and v[i1] - v[i], the thin table's (photo) or the heat
+// tables' likewise, i1 = min(i + 1, kNumTau).  One 16-byte load in
+// float32 (two in float64) gives both rows of a read and the thin (or
+// thin heat) read beside it; table_read's lo + (hi - lo) r is then
+// v + d r, the same bits, d being the same IEEE subtraction made when the
+// tables were packed.
+template <typename T>
+struct TauRec {
+  T v, d, tv, td;
+};
+
+__device__ __forceinline__ TauRec<float> load_rec(const float* p) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  return {q.x, q.y, q.z, q.w};
+}
+
+__device__ __forceinline__ TauRec<double> load_rec(const double* p) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  return {a.x, a.y, b.x, b.y};
+}
+
+// photo.py:_read from a record's value and difference
+template <typename T>
+__device__ __forceinline__ T rec_read(T v, T d, T r) {
+  return v + d * r;
+}
+
+// The values of one column
+constexpr size_t kTauColumn = size_t(kNumTau + 1) * 4;
+//
 // photo.py:photoion_rates of one cell (the types' fluxes nfl3 at their
 // columns, the cell's scaled volume `vol`), over this lane's bands b =
 // b0 + lane, b0 + lane + nlanes, ... below b1: the bands where some type
@@ -242,9 +303,8 @@ __device__ __forceinline__ void table_rates(const T* rows,
                                             T out[kHeat ? 6 : 5], int lane,
                                             int nlanes) {
   const T tiny = Limits<T>::tiny();
-  const size_t ptab = size_t(kNumTau + 1) * a.nb;
-  const size_t htab = size_t(kNumTau + 1) * a.nheat;
-  const int nb = a.nb;
+  const int nl = a.b1 - a.b0;
+  const T inv_vol = T(1) / vol;
   T p[5] = {T(0), T(0), T(0), T(0), T(0)};
   // heat (compensated), f_ion_HI, f_ion_HeI (photo.py:_heat_lookup)
   T heat = T(0), hcomp = T(0), fion[2] = {T(0), T(0)};
@@ -266,30 +326,38 @@ __device__ __forceinline__ void table_rates(const T* rows,
     if (thick) pout = table_position(tau_out);
     for (int t = 0; t < a.bt.ntypes; ++t) {
       const T nfl = nfl3[a.bt.type_col[t]];
-      const T* tk = a.photo_tab + 2 * t * ptab;
-      const T phi_in = nfl * table_read(tk, nb, b, pin);
-      const T phi_all =
-          thick ? phi_in - nfl * table_read(tk, nb, b, pout)
-                : nfl * dtau * table_read(tk + ptab, nb, b, pin);
-      p[0] += sc[0] * phi_all / vol;
-      p[1] += mHeI * sc[1] * phi_all / vol;
-      p[2] += mHeII * sc[2] * phi_all / vol;
+      const size_t column = size_t(t) * nl + (b - a.b0);
+      const T* col = a.photo + column * kTauColumn;
+      const TauRec<T> ri = load_rec(col + 4 * pin.i);
+      const T phi_in = nfl * rec_read(ri.v, ri.d, pin.r);
+      T phi_all;
+      if (thick) {
+        const TauRec<T> ro = load_rec(col + 4 * pout.i);
+        phi_all = phi_in - nfl * rec_read(ro.v, ro.d, pout.r);
+      } else {
+        phi_all = nfl * dtau * rec_read(ri.tv, ri.td, pin.r);
+      }
+      p[0] += sc[0] * phi_all * inv_vol;
+      p[1] += mHeI * sc[1] * phi_all * inv_vol;
+      p[2] += mHeII * sc[2] * phi_all * inv_vol;
       p[3] += phi_in;
       p[4] += phi_in - phi_all;
       if constexpr (kHeat) {
         const T mk[3] = {T(1), mHeI, mHeII};
-        const T* hk = a.heat_tab + 2 * t * htab;
+        const T* hcol = a.heat + 3 * column * kTauColumn;
         const T* f = rb + 5;
         T ph[3];
         for (int sp = 0; sp < 3; ++sp) {
-          const int col = a.hbin[3 * b + sp];
+          const T* hc = hcol + sp * kTauColumn;
+          const TauRec<T> hi = load_rec(hc + 4 * pin.i);
           if (hthick) {
-            const T hin = nfl * table_read(hk, a.nheat, col, pin);
-            const T hout = nfl * table_read(hk, a.nheat, col, pout);
-            ph[sp] = mk[sp] * (sc[sp] * (hin - hout) / vol);
+            const TauRec<T> ho = load_rec(hc + 4 * pout.i);
+            const T hin = nfl * rec_read(hi.v, hi.d, pin.r);
+            const T hout = nfl * rec_read(ho.v, ho.d, pout.r);
+            ph[sp] = mk[sp] * (sc[sp] * (hin - hout) * inv_vol);
           } else {
-            ph[sp] = mk[sp] * (nfl * tc[sp] *
-                               table_read(hk + htab, a.nheat, col, pin) / vol);
+            ph[sp] = mk[sp] * (nfl * tc[sp] * rec_read(hi.tv, hi.td, pin.r) *
+                               inv_vol);
           }
         }
         const T fra1 = f[0] * ph[0] + f[1] * ph[1] + f[2] * ph[2];
@@ -406,9 +474,11 @@ inline auto with_source_route(int route, F&& f) {
 
 // Host side: the route of a launch from the host ints the wrappers pass
 // (sweep/source_sweep.py:_route_args): [route, tab_len, then on the block
-// route nblk and per block (column, first band, bands, K, first row), on
+// route the node groups' count and per group (column, 0, rows, K, first
+// row value), on
 // the table route nb, nheat, ntypes, the types' columns and the live
-// bands b0, b1]; and the tau tables' device pointers.
+// bands b0, b1]; and the tau tables' device pointers: photo and heat the
+// columns of PackedTauTables, hbin unread (the packing resolved it).
 template <typename T>
 inline int parse_route(const int* ri, const T* photo, const T* heat,
                        const int* hbin, RouteTables<T>& rt) {
@@ -427,11 +497,9 @@ inline int parse_route(const int* ri, const T* photo, const T* heat,
       rt.blocks.row0[i] = b[4];
     }
   } else if (route == kTableRoute) {
-    rt.tau.photo_tab = photo;
-    rt.tau.heat_tab = heat;
-    rt.tau.hbin = hbin;
-    rt.tau.nb = ri[2];
-    rt.tau.nheat = ri[3];
+    (void)hbin;
+    rt.tau.photo = photo;
+    rt.tau.heat = heat;
     rt.tau.bt.ntypes = ri[4];
     for (int t = 0; t < 3; ++t) rt.tau.bt.type_col[t] = ri[5 + t];
     rt.tau.b0 = ri[8];

@@ -7,8 +7,9 @@ fixed point (photo rates -> two doric passes averaged -> thermal, until
 converged, evolve_new.F90:239-394).  `evolve1d_plain` is a Python loop
 over the shells with each fixed point on 0-d tensors; `evolve1d_cuda`
 runs the whole march in one launch of the hand-written kernel
-``csrc/evolve1d.cu`` (one warp; the quadrature or tau-table rate route,
-isothermal or with heating).  `evolve1d` takes the kernel for CUDA
+``csrc/evolve1d.cu`` (one warp; the quadrature rate route -- a fixed
+rule or the "auto" blocks -- or the tau-table route, isothermal or with
+heating).  `evolve1d` takes the kernel for CUDA
 tensors and the plain version for CPU tensors.
 
 Reference deviations (documented, both are reference bugs):
@@ -46,11 +47,18 @@ MAX_COLDENSH_1D = 2.0e26
 MAX_CELL_ITER = 4000
 
 # timesteps run through the CUDA kernel, one count per variant:
-# quadrature isothermal / heating, tau tables isothermal / heating
+# quadrature isothermal / heating (a fixed rule), tau tables isothermal
+# / heating, "auto" quadrature blocks isothermal / heating
 launches = 0
 launches_heat = 0
 launches_table = 0
 launches_table_heat = 0
+launches_auto = 0
+launches_auto_heat = 0
+
+# the ints of each block in the block list of "auto" tables
+# (band_rates.cuh: kBlockInts)
+BLOCK_INTS = 4
 
 
 class State1D(NamedTuple):
@@ -251,13 +259,16 @@ def evolve1d_plain(ctx: OneDContext, state: State1D, dt):
 
 class KernelTables1D(NamedTuple):
     """The 1D kernel's table inputs: the band rows (quadrature: the
-    packed rows of `packed_band_rows`; tables: (nb, 17) rows of sigmas,
-    masks and the f-factors), on the table route the heating columns
-    (nb, 3) int32, the photo tables (ntypes, 2, NumTau + 1, nb) and with
-    heating the heating tables (ntypes, 2, NumTau + 1, nheat), with
-    heating the stacked cooling table; and the layout integers of the
-    entry point (nbt, K, ntypes, the types' band counts and first bands,
-    nb, nheat)."""
+    packed rows of `packed_band_rows`; "auto" tables: the flat rows of
+    `packed_band_blocks`; tables: (nb, 17) rows of sigmas, masks and the
+    f-factors), on the table route the heating columns (nb, 3) int32,
+    the photo tables (ntypes, 2, NumTau + 1, nb) and with heating the
+    heating tables (ntypes, 2, NumTau + 1, nheat), with heating the
+    stacked cooling table; the layout integers of the entry point (nbt,
+    K, ntypes, the types' band counts and first bands, nb, nheat; "auto"
+    tables, whose entries are their own: the block count, the rows' and
+    the incoming side's value counts); on "auto" tables the block list
+    of `_block_list` (int32)."""
 
     bands: torch.Tensor
     hbin: Optional[torch.Tensor]
@@ -265,6 +276,7 @@ class KernelTables1D(NamedTuple):
     heat: Optional[torch.Tensor]
     cool: Optional[torch.Tensor]
     layout: Tuple[int, ...]
+    blocks: Optional[torch.Tensor] = None
 
 
 def _table_route(ctx: OneDContext, dtype, device, heat: bool):
@@ -276,10 +288,32 @@ def _table_route(ctx: OneDContext, dtype, device, heat: bool):
     return tr.rows, tr.hbin, tr.photo, tr.heat, layout
 
 
+def _block_list(blocks, heat: bool):
+    """The kernel's block list of "auto" tables (packed_band_blocks'
+    blocks) and the value count of their incoming side: per block its K,
+    band count, the offset of its first row value in the flat rows and
+    of its first incoming value (band_rates.cuh: blocks_in), each block
+    nb x in_values(K) values (quadrature tables' values per band of the
+    incoming side: tau_in, the thin sum, with heating the three thin
+    heat sums, then e_in(K))."""
+    ints, off = [], 0
+    for _, _, nb, K, row0 in blocks:
+        ints += [K, nb, row0, off]
+        off += nb * ((5 if heat else 2) + K)
+    return ints, off
+
+
+def _shared_limit(nbytes: int, what: str):
+    if nbytes > cuda_build.SHARED_MEM_LIMIT:
+        raise ValueError(f"{what} need {nbytes} B of shared memory, over the "
+                         f"{cuda_build.SHARED_MEM_LIMIT} B a block can have")
+
+
 def _pack_kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
     heat = not ctx.isothermal
     if heat and ctx.cooling is None:
         raise ValueError("a heating 1D run needs cooling tables")
+    block_list = None
     if isinstance(ctx.tables, RadiationTables):
         bands, hbin, photo, heat_tab, layout = _table_route(ctx, dtype,
                                                             device, heat)
@@ -289,27 +323,30 @@ def _pack_kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
             raise ValueError("a heating 1D run needs quadrature tables with "
                              "heating data (isothermal=False)")
         flat, blocks = packed_band_blocks(ctx.tables, dtype, heat, *flags)
+        photo = heat_tab = hbin = None
         if len({b[3] for b in blocks}) > 1:
-            raise ValueError(
-                "the 1D kernel reads one node count per table (band_in / "
-                "band_out); these \"auto\" tables have blocks of "
-                f"{sorted({b[3] for b in blocks})} nodes: run them on the "
-                "CPU or build a fixed rule")
-        bands, types, K = uniform_band_rows(flat, blocks)
-        bands = bands.to(device)
-        smem = bands.numel() * bands.element_size()
-        if smem > cuda_build.SHARED_MEM_LIMIT:
-            raise ValueError(f"band tables need {smem} B of shared memory, "
-                             f"over the {cuda_build.SHARED_MEM_LIMIT} B a "
-                             "block can have")
-        pad = [0] * (3 - len(types))
-        layout = ((bands.shape[0], K, len(types))
-                  + tuple([t[1] for t in types] + pad)
-                  + tuple([t[2] for t in types] + pad) + (0, 0))
-        hbin = photo = heat_tab = None
+            # "auto" tables: the blocks' rows and their block list
+            ints, n_in = _block_list(blocks, heat)
+            bands = flat.to(device)
+            block_list = torch.tensor(ints, dtype=torch.int32, device=device)
+            _shared_limit((bands.numel() + n_in
+                           + (stacked(ctx.cooling).numel() if heat
+                              else 0)) * bands.element_size()
+                          + 4 * len(ints), "\"auto\" band tables")
+            layout = (len(blocks), bands.numel(), n_in)
+        else:
+            bands, types, K = uniform_band_rows(flat, blocks)
+            bands = bands.to(device)
+            _shared_limit(bands.numel() * bands.element_size(),
+                          "band tables")
+            pad = [0] * (3 - len(types))
+            layout = ((bands.shape[0], K, len(types))
+                      + tuple([t[1] for t in types] + pad)
+                      + tuple([t[2] for t in types] + pad) + (0, 0))
     cool = (stacked(ctx.cooling).to(dtype=dtype, device=device).contiguous()
             if heat else None)
-    return KernelTables1D(bands, hbin, photo, heat_tab, cool, layout)
+    return KernelTables1D(bands, hbin, photo, heat_tab, cool, layout,
+                          block_list)
 
 
 def _kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
@@ -342,6 +379,7 @@ def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
     The tables are packed at the first launch and kept (`_kernel_tables`).
     """
     global launches, launches_heat, launches_table, launches_table_heat
+    global launches_auto, launches_auto_heat
     nd = state.ndens
     dtype, device = nd.dtype, nd.device
     if not nd.is_cuda:
@@ -369,17 +407,23 @@ def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
     counters = torch.zeros(4, dtype=torch.int32, device=device)
 
     lib = cuda_build.load("evolve1d")
-    name = ("evolve1d_" + ("table_" if table else "quad_")
+    auto = kt.blocks is not None
+    name = ("evolve1d_" + ("table_" if table else "auto_" if auto else "quad_")
             + ("heat_" if heat else "iso_")
             + ("f32" if dtype == torch.float32 else "f64"))
+    # "auto" tables have entries of their own: no tau-table pointers, the
+    # block list and its counts
+    tabs = ((kt.bands, kt.blocks, kt.cool) if auto
+            else (kt.bands, kt.hbin, kt.photo, kt.heat, kt.cool))
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * (10 + len(tabs))
+                   + [ctypes.c_int] * (2 + len(kt.layout))
                    + [ctypes.c_double] * 11 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     bnd = _boundary_columns(ctx)
-    err = fn(*(P(t) for t in ins), P(kt.bands), P(kt.hbin), P(kt.photo),
-             P(kt.heat), P(kt.cool), P(xh_out), P(xhe_out),
-             P(temper_out), P(nits), P(counters), mesh, *kt.layout,
+    err = fn(*(P(t) for t in ins), *(P(t) for t in tabs), P(xh_out),
+             P(xhe_out), P(temper_out), P(nits), P(counters), mesh,
+             *kt.layout,
              int(ctx.max_cell_iter), float(ctx.dr), float(dt),
              float(ctx.clumping), *(float(g) for g in ctx.gamma_uvb),
              float(ctx.epsilon), float(ctx.cosmo_cool_factor),
@@ -390,6 +434,11 @@ def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
             launches_table_heat += 1
         else:
             launches_table += 1
+    elif auto:
+        if heat:
+            launches_auto_heat += 1
+        else:
+            launches_auto += 1
     elif heat:
         launches_heat += 1
     else:

@@ -14,7 +14,8 @@ tables are built on the host in float64 and cast once.  The functions
 below are the plain PyTorch version of the per-cell rate evaluation; on
 the GPU the same arithmetic, isothermal or with heating, runs as the
 device function `cell_rates` (``csrc/band_rates.cuh``) inside the sweep
-kernels, block by block for the "auto" tables.
+kernels, and for the "auto" tables `block_rates` over the node groups of
+`packed_node_groups`.
 """
 
 import dataclasses
@@ -328,6 +329,58 @@ def packed_band_blocks(qt: QuadTables, dtype, heat: bool = False,
     if not rows:
         raise ValueError("the rates need at least one source type")
     return torch.cat(rows).to(dtype=dtype).contiguous(), blocks
+
+
+# the most nodes of one row of the sweep kernels' "auto" route: a band
+# of more nodes is cut into rows of at most this many (packed_node_groups)
+GROUP_MAX_NODES = 6
+
+
+def packed_node_groups(qt: QuadTables, dtype, heat: bool = False,
+                       has_bb=True, has_pl=False, has_qso=False,
+                       max_nodes: int = GROUP_MAX_NODES):
+    """The "auto" tables as the sweep kernels' block route reads them
+    (csrc/band_rates.cuh: block_rates): each live band of each block cut
+    into rows of at most `max_nodes` of its nodes (the band's sigmas,
+    masks and f-factors in each; the rate of a band is linear in its
+    node sums, so its rows add up to it), the rows of one source type
+    and node count K gathered into a group, the groups by descending K
+    (so that dealing the rows to a cell's lanes in turn leaves the
+    lanes' node counts within the largest K of each other).  A row has
+    packed_band_blocks' layout at its own K.  Returns (flat rows, groups,
+    entries): groups as packed_band_blocks' blocks -- (nflux column, 0,
+    rows, K, offset of its first row in the flat rows) -- and per group
+    the (band, first node) of each row."""
+    cut = {}
+    for sq, col in _types_in_use(qt, has_bb, has_pl, has_qso):
+        sl = slice(sq.band_lo, sq.band_hi + 1)
+        per_band = torch.stack([qt.sigma_HI[sl], qt.sigma_HeI[sl],
+                                qt.sigma_HeII[sl], qt.mask_HeI[sl],
+                                qt.mask_HeII[sl]], dim=-1)
+        f = (torch.stack([getattr(qt, n)[sl] for n in F_FACTORS], dim=-1)
+             if heat else None)
+        K = sq.sigma_hat.shape[1]
+        for i in range(sq.sigma_hat.shape[0]):
+            for k0 in range(0, K, max_nodes):
+                nodes = slice(k0, min(K, k0 + max_nodes))
+                cols = [per_band[i], sq.sigma_hat[i, nodes],
+                        sq.A_photo[i, nodes]]
+                if heat:
+                    cols += [sq.A_heat_HI[i, nodes], sq.A_heat_HeI[i, nodes],
+                             sq.A_heat_HeII[i, nodes], f[i]]
+                k = nodes.stop - k0
+                cut.setdefault((-k, col), []).append(
+                    (sq.band_lo + i, k0, torch.cat(cols)))
+    if not cut:
+        raise ValueError("the rates need at least one source type")
+    rows, groups, entries, off = [], [], [], 0
+    for (negk, col), members in sorted(cut.items()):
+        groups.append((col, 0, len(members), -negk, off))
+        entries.append([(b, k0) for b, k0, _ in members])
+        for _, _, r in members:
+            rows.append(r)
+            off += r.numel()
+    return torch.cat(rows).to(dtype=dtype).contiguous(), groups, entries
 
 
 def uniform_band_rows(flat, blocks):

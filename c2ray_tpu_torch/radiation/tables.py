@@ -314,3 +314,68 @@ def packed_table_route(rt: RadiationTables, dtype, device, heat: bool,
                       photo=photo, heat=heat_tab,
                       cols=tuple(col for _, col in types),
                       live=live_band_range(photo))
+
+
+class PackedTauTables(NamedTuple):
+    """The tau tables as the 3D sweep kernels read them
+    (csrc/table_rates.cuh: table_rates), band-major: for each source
+    type in use and each live band b0 <= b < b1 a column over the
+    NumTau + 1 rows, each row one record [v_thick[i], v_thick[i1] -
+    v_thick[i], v_thin[i], v_thin[i1] - v_thin[i]] (i1 = min(i + 1,
+    NumTau), photo.py:_table_positions' next row), so that one 16-byte
+    load (float32; two in float64) gives both reads of photo.py:_read
+    at a row.  photo (ntypes, b1 - b0, NumTau + 1, 4) of the photo
+    tables; with heating heat (ntypes, b1 - b0, 3, NumTau + 1, 4) of the
+    heating tables at each band's column per species (hbin resolved);
+    rows, cols and live as TableRoute's.  The differences are the same
+    IEEE subtraction in the same dtype that the reads do, so every read
+    v + d r is the unpacked read's to the bit."""
+
+    rows: torch.Tensor
+    photo: torch.Tensor
+    heat: Optional[torch.Tensor]
+    cols: tuple
+    live: tuple
+
+
+def _tau_records(thick, thin, row_dim):
+    """Records [v, next - v] of the thick and thin tables along the
+    table rows (dim row_dim; the next row capped at the last), as a new
+    last axis of 4."""
+    def v_and_d(t):
+        last = t.narrow(row_dim, t.shape[row_dim] - 1, 1)
+        nxt = torch.cat([t.narrow(row_dim, 1, t.shape[row_dim] - 1), last],
+                        dim=row_dim)
+        return t, nxt - t
+
+    return torch.stack([*v_and_d(thick), *v_and_d(thin)], dim=-1)
+
+
+def pack_tau_columns(tr: TableRoute) -> PackedTauTables:
+    """TableRoute's tables band-major (PackedTauTables), made with torch
+    operations on the tables' device (on the card for the kernels'
+    tables), once per table set (sweep/source_sweep.py caches them)."""
+    b0, b1 = tr.live
+    # photo (ntypes, 2, rows, nb) -> (ntypes, rows, nlive, 4) -> band-major
+    photo = _tau_records(tr.photo[:, 0, :, b0:b1], tr.photo[:, 1, :, b0:b1],
+                         row_dim=1).permute(0, 2, 1, 3).contiguous()
+    heat = None
+    if tr.heat is not None:
+        cols = tr.hbin[b0:b1].long()                 # (nlive, 3)
+        # heat (ntypes, 2, rows, nheat) -> (ntypes, rows, nlive, 3, 4)
+        rec = _tau_records(tr.heat[:, 0][:, :, cols],
+                           tr.heat[:, 1][:, :, cols], row_dim=1)
+        heat = rec.permute(0, 2, 3, 1, 4).contiguous()
+    return PackedTauTables(rows=tr.rows, photo=photo, heat=heat,
+                           cols=tr.cols, live=tr.live)
+
+
+def read_tau_column(column, ipos, residual, thin: bool = False):
+    """photo.py:_read on one band-major column (PackedTauTables' photo
+    [t, b - b0] or heat [t, b - b0, species]: (NumTau + 1, 4)) at rows
+    ipos with residuals `residual` -- the kernel's read, v + d r of the
+    row's thick (or thin) record: the plain version of what
+    table_rates' record loads compute."""
+    rec = column[ipos]
+    k = 2 if thin else 0
+    return rec[..., k] + rec[..., k + 1] * residual

@@ -25,7 +25,7 @@ take the route as a template parameter (``csrc/table_rates.cuh``).
 
 import ctypes
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -35,9 +35,10 @@ from .. import constants as const
 from .. import cuda_build
 from ..radiation.photo import photoion_rates
 from ..radiation.quadrature import (QuadTables, packed_band_blocks,
-                                    photoion_rates_quad, rates_heat,
-                                    uniform_band_rows)
-from ..radiation.tables import RadiationTables, packed_table_route
+                                    packed_node_groups, photoion_rates_quad,
+                                    rates_heat, uniform_band_rows)
+from ..radiation.tables import (RadiationTables, pack_tau_columns,
+                                packed_table_route)
 from .cinterp import cinterp_shell
 from .geometry import ShellTable
 
@@ -96,6 +97,11 @@ class SweepConfig:
     # of the photon-loss redistribution (sweep/photon_losses.py;
     # pyramid engine only)
     track_band_loss: bool = False
+    # the kernels' packed tables (`_kernel_tables`), made at the first
+    # launch and kept for the next ones; a configuration made from this
+    # one by dataclasses.replace shares them, keyed by the tables' identity
+    kernel_cache: dict = field(default_factory=dict, compare=False,
+                               repr=False)
 
     @property
     def vol(self) -> float:
@@ -221,9 +227,9 @@ class KernelTables(NamedTuple):
     """A sweep kernel's rate tables.  The fixed quadrature rule: packed
     (nbt, row length) band rows, types the (nflux column, band count,
     first band) of each source type, K its node count.  "auto" tables:
-    packed the flat rows of packed_band_blocks, types its blocks, K =
+    packed the flat rows of packed_node_groups, types its groups, K =
     ROUTE_BLOCKS.  Tau tables: packed their (nb, 17) band rows, types
-    the TableRoute, K = ROUTE_TABLE."""
+    the PackedTauTables, K = ROUTE_TABLE."""
 
     packed: torch.Tensor
     types: object
@@ -231,33 +237,48 @@ class KernelTables(NamedTuple):
     heat: bool
 
 
-def _kernel_tables(cfg: SweepConfig, dtype, track: bool = False
-                   ) -> KernelTables:
+def _pack_kernel_tables(cfg: SweepConfig, dtype, heat: bool
+                        ) -> KernelTables:
     """The kernels' tables on the configuration's route (KernelTables);
-    raises, with the byte count, when the band rows, the loss-reduction
-    buffer and (with `track`) the per-band staging buffer exceed a
-    block's shared memory, and for band tracking off the fixed rule."""
-    heat = sweep_heats(cfg)
+    raises for more node groups than the kernels take."""
     flags = (cfg.has_bb, cfg.has_pl, cfg.has_qso)
     if isinstance(cfg.tables, RadiationTables):
-        if track:
-            raise ValueError("track_band_loss needs the quadrature tables "
-                             "(QuadTables)")
-        tr = packed_table_route(cfg.tables, dtype, cfg.tables.sigma_HI.device,
-                                heat, *flags)
-        kt = KernelTables(tr.rows, tr, ROUTE_TABLE, heat)
-    else:
-        flat, blocks = packed_band_blocks(cfg.tables, dtype, heat, *flags)
-        if len({b[3] for b in blocks}) == 1:
-            kt = KernelTables(*uniform_band_rows(flat, blocks), heat)
-        elif track:
-            raise ValueError("the band-tracking sweep kernel takes a fixed "
-                             "quadrature rule, not \"auto\" blocks")
-        elif len(blocks) > MAX_BLOCKS:
-            raise ValueError(f"the sweep kernels take at most {MAX_BLOCKS} "
-                             f"band blocks, not {len(blocks)}")
-        else:
-            kt = KernelTables(flat, blocks, ROUTE_BLOCKS, heat)
+        pk = pack_tau_columns(packed_table_route(
+            cfg.tables, dtype, cfg.tables.sigma_HI.device, heat, *flags))
+        return KernelTables(pk.rows, pk, ROUTE_TABLE, heat)
+    flat, blocks = packed_band_blocks(cfg.tables, dtype, heat, *flags)
+    if len({b[3] for b in blocks}) == 1:
+        return KernelTables(*uniform_band_rows(flat, blocks), heat)
+    flat, groups, _ = packed_node_groups(cfg.tables, dtype, heat, *flags)
+    if len(groups) > MAX_BLOCKS:
+        raise ValueError(f"the sweep kernels take at most {MAX_BLOCKS} node "
+                         f"groups, not {len(groups)}")
+    return KernelTables(flat, groups, ROUTE_BLOCKS, heat)
+
+
+def _kernel_tables(cfg: SweepConfig, dtype, track: bool = False
+                   ) -> KernelTables:
+    """The kernels' tables on the configuration's route (KernelTables),
+    packed once and kept in cfg.kernel_cache under the identity of the
+    tables, the physics flags and the dtype: a configuration with other
+    tables never reads stale rows.  Raises, with the byte count, when
+    the band rows, the loss-reduction buffer and (with `track`) the
+    per-band staging buffer exceed a block's shared memory, and for band
+    tracking off the fixed rule."""
+    heat = sweep_heats(cfg)
+    key = (id(cfg.tables), cfg.has_bb, cfg.has_pl, cfg.has_qso, heat, dtype)
+    hit = cfg.kernel_cache.get(key)
+    if hit is None:
+        # the entry holds the tables, so their id stays unique
+        hit = (cfg.tables, _pack_kernel_tables(cfg, dtype, heat))
+        cfg.kernel_cache[key] = hit
+    kt = hit[1]
+    if track and kt.K == ROUTE_TABLE:
+        raise ValueError("track_band_loss needs the quadrature tables "
+                         "(QuadTables)")
+    if track and kt.K == ROUTE_BLOCKS:
+        raise ValueError("the band-tracking sweep kernel takes a fixed "
+                         "quadrature rule, not \"auto\" blocks")
     nstage = cfg.tables.sigma_HI.shape[0] * _BLOCK if track else 0
     smem = (kt.packed.numel() + 2 * _BLOCK + nstage) * kt.packed.element_size()
     if smem > cuda_build.SHARED_MEM_LIMIT:
@@ -285,8 +306,8 @@ def _route_args(kt: KernelTables):
     and _type_args) of a fixed rule, zero on the other routes; the host
     route ints of csrc/table_rates.cuh:parse_route (kept alive by the
     caller; None on a fixed rule); and the trailing pointers: those ints,
-    then the tau tables' photo, heat and hbin (null off the table
-    route).  The fixed rule's arguments are the ones the entries took
+    then the tau tables' packed photo and heat columns and a null (the
+    hbin slot; all null off the table route).  The fixed rule's arguments are the ones the entries took
     before the routes; the route's come after them, before the
     stream."""
     null = ctypes.c_void_p(None)
@@ -300,13 +321,11 @@ def _route_args(kt: KernelTables):
             ints += list(b)
         ptrs = [null] * 3
     else:
-        tr = kt.types
-        nheat = tr.heat.shape[-1] if kt.heat else 0
-        cols = list(tr.cols) + [0] * (3 - len(tr.cols))
-        ints = [ROUTE_TABLE, kt.packed.numel(), tr.rows.shape[0], nheat,
-                len(tr.cols)] + cols + list(tr.live)
-        ptrs = [P(tr.photo), null if tr.heat is None else P(tr.heat),
-                P(tr.hbin)]
+        pk = kt.types
+        cols = list(pk.cols) + [0] * (3 - len(pk.cols))
+        ints = [ROUTE_TABLE, kt.packed.numel(), pk.rows.shape[0], 0,
+                len(pk.cols)] + cols + list(pk.live)
+        ptrs = [P(pk.photo), null if pk.heat is None else P(pk.heat), null]
     ints = np.ascontiguousarray(ints, dtype=np.int32)
     return (0, [0] * 10, ints,
             [ints.ctypes.data_as(ctypes.c_void_p)] + ptrs)

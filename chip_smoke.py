@@ -74,7 +74,8 @@ The 1D slice adds, before phase 9's wait for its CPU reference:
    spread that a few ulps of the volumes give the plain version (the
    problem is ill-conditioned next to the source), measured alike.
 
-Then the 1D kernels' times at mesh 10000 after the others'.
+Then the 1D kernels' times at mesh 10000 (phase 12's last steps)
+after the others'.
 
 The shell and octant slice adds, after phase 8:
 
@@ -173,8 +174,9 @@ phase 16:
    sweep gates of phases 3 and 15), isothermal and heating;
 25. the bench configuration of phases 4 and 5 (128^3 x 8, float32, 4
    timed iterations of `make_evolve3d_iteration`) on the tau tables on
-   each engine and on the "auto" quadrature on the pyramid engine,
-   isothermal and heating: cell-source-updates/s, each route's sweep
+   each engine and on the "auto" quadrature on the pyramid engine (with
+   a parent build under build/parent, on every engine, each in turns
+   with the parent's), isothermal and heating: cell-source-updates/s, each route's sweep
    kernel launched, its time, plain time and bound (`table_bound` for
    the tau tables: the positions' log10s and the reads' arithmetic over
    the bands of nonzero table columns); on the tau tables the float64
@@ -196,6 +198,7 @@ The last line is
 """
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -217,8 +220,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from kernel_study import (  # noqa: E402
     achieved_occupancy, build_chem_split, build_oned, chem_pass_with,
     chem_split_run, chem_split_stats, comparable_sass, histogram, kernel_sass,
-    parent_photon_losses, sass_band_mix, sass_issue_floor, sass_loop_mix,
-    sass_per_band)
+    parent_photon_losses, parent_sweeps, sass_band_mix, sass_issue_floor,
+    sass_loop_mix, sass_per_band, with_library)
+
+# a library's SASS is read once a run: the builds do not change in it
+kernel_sass = functools.lru_cache(maxsize=None)(kernel_sass)
 
 
 def log(*a):
@@ -781,6 +787,8 @@ def launch_counts():
             "evolve1d_heat": ev1.launches_heat,
             "evolve1d_table": ev1.launches_table,
             "evolve1d_table_heat": ev1.launches_table_heat,
+            "evolve1d_auto": ev1.launches_auto,
+            "evolve1d_auto_heat": ev1.launches_auto_heat,
             "shell_sweep": source_sweep.launches,
             "shell_sweep_heat": source_sweep.launches_heat,
             "octant_sweep": octant_sweep.launches,
@@ -816,6 +824,7 @@ def reset_launch_counts():
     photon_losses.launches = 0
     ev1.launches = ev1.launches_heat = 0
     ev1.launches_table = ev1.launches_table_heat = 0
+    ev1.launches_auto = ev1.launches_auto_heat = 0
     source_sweep.launches = source_sweep.launches_heat = 0
     octant_sweep.launches = octant_sweep.launches_heat = 0
     octant_sweep.launches_lanes.update(
@@ -1784,7 +1793,7 @@ def route_trace_fns(engine, mesh):
 
 
 def phase_main_route(dev, route, engine="pyramid", heating=False, mesh=128,
-                     n_src=8, n_iter=4):
+                     n_src=8, n_iter=4, psweeps=None):
     """Phase 25: the bench configuration of phases 4 and 5 (128^3 x 8
     sources from RandomState(7), float32) with the tau tables or the
     "auto" quadrature on `engine`: a warm-up and n_iter timed iterations
@@ -1802,8 +1811,10 @@ def phase_main_route(dev, route, engine="pyramid", heating=False, mesh=128,
     the same state within rtol 1e-10 (phase 24's float64 gate), and the
     float32 kernel's error against the float64 plain version within
     twice the float32 plain version's, plus 1e-6 (the heat 1e-7), the
-    sweep gate of phases 3 and 24.  Returns the route's entry of the
-    kernels line."""
+    sweep gate of phases 3 and 24.  With the parent build's sweep
+    libraries (`psweeps`), the sweep kernel is also timed in turns with
+    the parent's design of the route (sweeps_in_turns) and the two
+    outputs compared.  Returns the route's entry of the kernels line."""
     from c2ray_tpu_torch.state import initial_grid_state
     from c2ray_tpu_torch.sweep import make_evolve3d_iteration
     from c2ray_tpu_torch.sweep import pyramid_sweep as ps
@@ -1893,12 +1904,26 @@ def phase_main_route(dev, route, engine="pyramid", heating=False, mesh=128,
     log(f"{label}: sweep kernel {ms:.3f} ms, plain {1e3 * wall:.3f} ms, "
         f"bound {b[0]:.3f} ms ({b[1]}), max |kernel - plain| {abs_err:.3e} "
         f"(f32 rates, 1/s)")
-    return {"name": name, "route": "cuda",
-            "source": f"c2ray_tpu_torch/csrc/{kernel}.cu",
-            "replaces": ROUTE_REPLACES[route], "launches": counts[name],
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": 1e3 * wall,
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
-            "cell_source_updates_per_s": rate}
+    entry = {"name": name, "route": "cuda",
+             "source": f"c2ray_tpu_torch/csrc/{kernel}.cu",
+             "replaces": ROUTE_REPLACES[route], "launches": counts[name],
+             "max_abs_err": abs_err, "ms": ms, "plain_ms": 1e3 * wall,
+             "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+             "cell_source_updates_per_s": rate}
+    if psweeps is not None:
+        with parent_sweeps(psweeps):
+            pk = kern(*args)
+        same = all(torch.equal(x, y) for x, y in zip(pk, k))
+        diff = max(rel_err(x, y) for x, y in zip(_sweep_parts(k, 1.0),
+                                                   _sweep_parts(pk, 1.0)))
+        t = sweeps_in_turns(lambda: kern(*args), psweeps)
+        log(f"  {label}: in turns with the parent build's design (ms): "
+            f"parent {t['parent'][0]:.3f} / {t['parent'][1]:.3f}, this "
+            f"{t['this'][0]:.3f} / {t['this'][1]:.3f}; this/parent "
+            f"{turns_ratio(t):.4f}; outputs equal to the bit: {same}, "
+            f"largest difference {diff:.3e} of the largest value")
+        entry["parent_in_turns_ms"] = t
+    return entry
 
 
 # ---- the redesigned sweep kernels' evidence (phase 22)
@@ -2125,12 +2150,15 @@ def phase_sweep_redesign(cfg, s, srcpos, nflux):
 # `git archive` of the commit before the redesign unpacked under build/
 PARENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "parent")
-# the kernel sources whose SASS phase 23 holds to the parent's (the
-# sweep sources' Params gained the rate routes' tables, so their fixed
-# rule is held to the parent's time instead: tools/
+# the kernel sources whose SASS is held to the parent's: the halo
+# kernels to the instruction, the 1D kernel's parent functions compared
+# and, where any differs, its three main-path variants timed in turns
+# with the parent's (phase_oned_in_turns; the sweep sources' fixed rule
+# is held to the parent's time: phase_fixed_rule_in_turns, tools/
 # profile_torch_iteration.py --builds and the card test
 # test_fixed_rule_sweeps_time_as_the_parent)
 SAME_SASS = ("evolve1d", "domain_halo")
+SASS_FATAL = ("domain_halo",)
 
 
 # phase 23 times the chemistry and photon-loss kernels of commit
@@ -2141,25 +2169,45 @@ REDESIGNED_SOURCES = ("chemistry.cu", "chemistry.cuh", "photon_losses.cu",
                       "common.cuh")
 
 
-def parent_libraries():
-    """{source: ctypes library} of the parent build's chemistry and
-    photon-loss sources (None when they are this tree's), and the other
+# the parent's sweep sources, whose route kernels phase 25 times in
+# turns with this build's (kernel_study.parent_sweeps)
+PARENT_SWEEPS = ("pyramid_sweep", "shell_sweep", "octant_sweep")
+
+
+def start_parent_build():
+    """{source: nvcc process} of the parent build (its chemistry,
+    photon-loss, 1D, halo and sweep sources), started beside phase 2's
+    build; None when no parent is unpacked under build/parent."""
+    from c2ray_tpu_torch import cuda_build
+
+    psrc = pathlib.Path(PARENT_DIR, "c2ray_tpu_torch", "csrc")
+    if not psrc.is_dir():
+        return None
+    base = cuda_build.BUILD_DIR.parent / "parent_libs"
+    names = ("chemistry", "photon_losses") + SAME_SASS + PARENT_SWEEPS
+    return {n: build_oned(psrc, base / f"lib{n}.so", source=n)
+            for n in names}
+
+
+def parent_libraries(procs=None):
+    """({source: ctypes library} of the parent build's chemistry and
+    photon-loss sources, None when they are this tree's; the other
     sources' SASS compared with this build's ({source: (equal functions,
-    parent's functions)}), or (None, None) when no parent is unpacked
-    under build/parent."""
+    parent's functions)}); {source: ctypes library} of its sweep and 1D
+    sources), or (None, None, None) when no parent is unpacked under
+    build/parent.  `procs`: start_parent_build's processes (started here
+    when not given)."""
     import ctypes
 
     from c2ray_tpu_torch import cuda_build
 
-    psrc = os.path.join(PARENT_DIR, "c2ray_tpu_torch", "csrc")
-    if not os.path.isdir(psrc):
+    procs = start_parent_build() if procs is None else procs
+    if procs is None:
         log(f"  no parent build under {PARENT_DIR}: the in-turns timing "
             f"and the SASS comparison are not run")
-        return None, None
+        return None, None, None
+    psrc = os.path.join(PARENT_DIR, "c2ray_tpu_torch", "csrc")
     base = cuda_build.BUILD_DIR.parent / "parent_libs"
-    names = ("chemistry", "photon_losses") + SAME_SASS
-    procs = {n: build_oned(pathlib.Path(psrc), base / f"lib{n}.so",
-                           source=n) for n in names}
     for n, proc in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
@@ -2171,18 +2219,77 @@ def parent_libraries():
         theirs = comparable_sass(base / f"lib{n}.so")
         same[n] = (sum(mine.get(k) == v for k, v in theirs.items()),
                    len(theirs))
+        for k, v in theirs.items():
+            if mine.get(k) != v:
+                a, b = (mine.get(k) or "").splitlines(), v.splitlines()
+                at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                          min(len(a), len(b)))
+                log(f"  {n}.cu differs from the parent in {k[:120]} "
+                    f"({len(a)} / {len(b)} lines) from line {at}:\n    "
+                    + "\n    ".join(a[at:at + 4]) + "\n  parent:\n    "
+                    + "\n    ".join(b[at:at + 4]))
     log("  SASS equal to the parent's (functions): " + ", ".join(
         f"{n}.cu {a} of {b}" for n, (a, b) in same.items()))
-    if any(a != b for a, b in same.values()):
+    if any(same[n][0] != same[n][1] for n in SASS_FATAL):
         raise AssertionError(f"a source outside the redesign compiles to "
                              f"other SASS than the parent's: {same}")
+    sweeps = {n: ctypes.CDLL(str(base / f"lib{n}.so"))
+              for n in PARENT_SWEEPS + ("evolve1d",)}
     if all(pathlib.Path(psrc, f).read_bytes()
            == (cuda_build.CSRC / f).read_bytes() for f in REDESIGNED_SOURCES):
         log("  the parent's chemistry and photon-loss sources are this "
             "tree's: their in-turns timing is not run")
-        return None, same
-    return {n: ctypes.CDLL(str(base / f"lib{n}.so"))
-            for n in ("chemistry", "photon_losses")}, same
+        return None, same, sweeps
+    return ({n: ctypes.CDLL(str(base / f"lib{n}.so"))
+             for n in ("chemistry", "photon_losses")}, same, sweeps)
+
+
+def sweeps_in_turns(fn, psweeps, reps=3):
+    """{"parent": [ms, ms], "this": [ms, ms]} of fn() (a sweep through
+    this tree's wrappers) with the parent build's sweep libraries and
+    with this build's, in turns (parent, this, this, parent; CUDA
+    events, mean of reps calls after a warm-up)."""
+    out = {}
+    for key in ("parent", "this", "this", "parent"):
+        if key == "parent":
+            with parent_sweeps(psweeps):
+                ms = event_ms(fn, reps)
+        else:
+            ms = event_ms(fn, reps)
+        out.setdefault(key, []).append(ms)
+    return out
+
+
+def turns_ratio(t):
+    return sum(t["this"]) / sum(t["parent"])
+
+
+def phase_fixed_rule_in_turns(cfg, s, srcpos, nflux, psweeps):
+    """Phase 25, the fixed 6-node rule: its pyramid, shell and octant
+    sweeps at phase 4's (heating: 5's) state in turns with the parent
+    build (sweeps_in_turns); the route redesign is to leave them within
+    +-1% of the parent's.  Returns {engine: times}, or None without a
+    parent."""
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    if psweeps is None:
+        log("  no parent build: the fixed rule's in-turns timing is not run")
+        return None
+    M = cfg.sweep.mesh
+    fstack = ps.stack_sweep_fields(cfg.sweep, fields_of(s))
+    out = {}
+    for engine in ("pyramid", "shells", "octant"):
+        kern = route_trace_fns(engine, M)[0]
+        t = sweeps_in_turns(lambda: kern(cfg.sweep, fstack, srcpos, nflux),
+                            psweeps)
+        out[engine] = t
+        log(f"  fixed rule, {engine} sweep, "
+            f"{'heating' if not cfg.chem.isothermal else 'isothermal'}, in "
+            f"turns with the parent build (ms): parent "
+            f"{t['parent'][0]:.3f} / {t['parent'][1]:.3f}, this "
+            f"{t['this'][0]:.3f} / {t['this'][1]:.3f}; this/parent "
+            f"{turns_ratio(t):.4f}")
+    return out
 
 
 def in_turns(fns, kernel, reps):
@@ -2724,12 +2831,15 @@ ONED_VARIANTS = {
     "table heating": (1, False, False, False, 1.0),
     "monochromatic": (1, True, True, True, 10.0),
     "test 4": (4, True, True, False, 5.0),
+    "auto": (1, True, True, "auto", 10.0),
+    "auto heating": (1, False, True, "auto", 1.0),
 }
 # the kernel variant each runs, the name of its `kernels` entry
 ONED_KERNEL = {"quadrature": "evolve1d", "quadrature heating": "evolve1d_heat",
                "table": "evolve1d_table",
                "table heating": "evolve1d_table_heat",
-               "monochromatic": "evolve1d", "test 4": "evolve1d"}
+               "monochromatic": "evolve1d", "test 4": "evolve1d",
+               "auto": "evolve1d_auto", "auto heating": "evolve1d_auto_heat"}
 # phase 12's runs and phase 14's: (kernels entry, isothermal, quadrature)
 ONED_MAIN = (("evolve1d", True, True), ("evolve1d_heat", False, True),
              ("evolve1d_table", True, False))
@@ -2760,14 +2870,17 @@ def oned_problem(testnum, isothermal=True):
 
 def oned_run(testnum, mesh, dtype, device, isothermal=True, quadrature=True,
              mono=False):
-    """A `OneDRun` of a test problem on `device`; `mono`: the 13.6 eV
-    monochromatic tables (one band, K = 1, a zero HeI mask)."""
+    """A `OneDRun` of a test problem on `device`; `mono`: True for the
+    13.6 eV monochromatic tables (one band, K = 1, a zero HeI mask),
+    "auto" for the "auto" quadrature blocks (a 1e5 K blackbody: 7 blocks
+    of K = 12, 3, 4, 3, 5, 8, 8)."""
     from c2ray_tpu_torch import constants as const
     from c2ray_tpu_torch.grid import RadialGrid
     from c2ray_tpu_torch.onedim.driver import OneDRun
     from c2ray_tpu_torch.radiation import BlackBodySED, SEDConfig
     from c2ray_tpu_torch.radiation.monochromatic import \
         build_monochromatic_tables
+    from c2ray_tpu_torch.radiation.quadrature import build_quadrature_tables
 
     problem, r_out, S_star = oned_problem(testnum, isothermal)
     sed = SEDConfig(bb=BlackBodySED(T_eff=1.0e5, S_star=S_star))
@@ -2775,8 +2888,10 @@ def oned_run(testnum, mesh, dtype, device, isothermal=True, quadrature=True,
                         sed, dtype=dtype, use_quadrature=quadrature,
                         device=device)
     if mono:
-        qt, _, bands = build_monochromatic_tables(
-            sed, 13.6, isothermal=isothermal, dtype=dtype, device=device)
+        qt, _, bands = (build_quadrature_tables(
+            sed, isothermal=isothermal, dtype=dtype, device=device,
+            n_nodes="auto") if mono == "auto" else build_monochromatic_tables(
+            sed, 13.6, isothermal=isothermal, dtype=dtype, device=device))
         run.ctx = dataclasses.replace(
             run.ctx, tables=qt, flux_scale=bands.flux_scale,
             vol=torch.as_tensor(run.grid.vol / bands.flux_scale,
@@ -2866,20 +2981,25 @@ def phase_main_1d(dev, mesh=ONED_FULL_MESH, n_steps=12):
 
     out = {}
     dt = 10.0 * MYR
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     for name, iso, quad in ONED_MAIN:
         run = oned_run(1, mesh, torch.float32, dev, iso, quad)
         reset_launch_counts()
-        walls, hosts, counters, capped = [], [], [], []
+        walls, hosts, counters, capped, event_ms = [], [], [], [], []
         for _ in range(n_steps):
             before = run.state
             # the host's share: the time until step() returns (the launch
             # is asynchronous; the first step also packs the tables)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            start.record()
             nits = run.step(dt)
+            end.record()
             hosts.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            event_ms.append(start.elapsed_time(end))
             counters.append(run.last_counters.tolist())
             capped.append(int((nits == run.ctx.max_cell_iter).sum()))
         counts = launch_counts()
@@ -2917,8 +3037,99 @@ def phase_main_1d(dev, mesh=ONED_FULL_MESH, n_steps=12):
             raise AssertionError(f"1D {name}: front error "
                                  f"{fc.relative_error:.4f} (limit {limit})")
         out[name] = {"run": run, "dt": dt, "launches": counts[name],
-                     "front": fc, "walls": walls,
+                     "front": fc, "walls": walls, "event_ms": event_ms,
+                     "counters": counters,
                      "host_share": sum(hosts) / sum(walls)}
+    return out
+
+
+def phase_auto_1d(dev, compare, mesh=ONED_FULL_MESH):
+    """Phase 26: the 1D kernel on "auto" quadrature blocks at full
+    width: one test-1 10 Myr step at 10000 shells in float32 through
+    `OneDRun` (CUDA events around the step), which launches the block
+    variant once and no other kernel and leaves a finite state of the
+    right shape that has begun to ionize; with phase 11's mesh-128
+    comparison (kernel against plain, float64 and float32) its entry of
+    the kernels line."""
+    from c2ray_tpu_torch.onedim import evolve as ev1
+
+    name = "evolve1d_auto"
+    run = oned_run(1, mesh, torch.float32, dev, True, True, "auto")
+    dt = 10.0 * MYR
+    reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    nits = run.step(dt)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    counts = launch_counts()
+    check_launches(f"1D {name}", counts, (name,))
+    counters = run.last_counters.tolist()
+    for t in run.state:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"1D {name} produced non-finite state")
+    if run.state.xh.shape != (mesh, 2) or not float(run.state.xh[0, 1]) > 0.5:
+        raise AssertionError(f"1D {name}: wrong shape or no ionization")
+    b = oned_bound(run.ctx, counters, False, False, oned_issue_floors())
+    blk = ev1._kernel_tables(run.ctx, torch.float32, dev).blocks.tolist()
+    worst, kp_abs, k128, p128 = compare["auto"]
+    log(f"1D {name} (test 1, mesh {mesh}, float32, one 10 Myr step): "
+        f"{ms:.3f} ms, {counters[0]} iterations ({1e3 * ms / counters[0]:.4f}"
+        f" us each), largest of a shell {counters[1]}, shells at the cap "
+        f"{int((nits == run.ctx.max_cell_iter).sum())}; blocks (K, bands) "
+        f"{list(zip(blk[0::ev1.BLOCK_INTS], blk[1::ev1.BLOCK_INTS]))}; "
+        f"bound {b[0]:.3f} ms ({b[2]}); at mesh 128 kernel {k128:.3f} ms, "
+        f"plain (CPU) {p128:.1f} ms")
+    return {"name": name, "route": "cuda",
+            "source": "c2ray_tpu_torch/csrc/evolve1d.cu",
+            "replaces": "c2ray_tpu/radiation/quadrature.py:486",
+            "launches": counts[name], "max_abs_err": kp_abs,
+            "max_abs_err_of": "float32 kernel vs plain, mesh 128, 2 steps "
+                              "(phase 11; float64 within rtol 1e-10 there)",
+            "max_err_f32_vs_f64_mesh128": worst,
+            "ms": ms, "plain_ms": p128,
+            "plain_shape": "mesh 128, one float32 step, on the CPU",
+            "us_per_iteration": 1e3 * ms / counters[0],
+            "bound_ms": b[0], "bound_by": b[1], "bound_detail": b[2],
+            "counters": counters, "library_ms": None}
+
+
+def phase_oned_in_turns(main, plibs, same):
+    """Phase 26, the 1D fixed rule against the parent build: when a
+    parent function of csrc/evolve1d.cu compiles to other SASS here, the
+    three kernel variants of phase 12 (quadrature isothermal and heating,
+    tau tables) each run one step on phase 12's final state with the
+    parent's library and with this build's, in turns (parent, this,
+    this, parent; CUDA events), their outputs compared; the "auto"
+    blocks are to leave them within +-1%.  Returns {name: times}, or
+    None (no parent, or the SASS equal)."""
+    from c2ray_tpu_torch.onedim import evolve as ev1
+
+    if plibs is None or same["evolve1d"][0] == same["evolve1d"][1]:
+        log("  the 1D kernel's parent functions: "
+            + ("no parent build" if plibs is None else "SASS equal")
+            + "; no timing in turns")
+        return None
+    out = {}
+    for name, _, _ in ONED_MAIN:
+        run, dt = main[name]["run"], main[name]["dt"]
+        call = lambda: ev1.evolve1d_cuda(run.ctx, run.state, dt)
+        mine = call()
+        theirs = with_library("evolve1d", plibs["evolve1d"], call)
+        equal = all(torch.equal(a, b) for a, b in zip(mine[0], theirs[0]))
+        t = {}
+        for key in ("parent", "this", "this", "parent"):
+            fn = ((lambda: with_library("evolve1d", plibs["evolve1d"], call))
+                  if key == "parent" else call)
+            t.setdefault(key, []).append(event_ms(fn, 1))
+        out[name] = t
+        log(f"  1D {name}, one step at mesh {run.ctx.vol.shape[0]} in turns "
+            f"with the parent build (ms): parent {t['parent'][0]:.3f} / "
+            f"{t['parent'][1]:.3f}, this {t['this'][0]:.3f} / "
+            f"{t['this'][1]:.3f}; this/parent {turns_ratio(t):.4f}; "
+            f"states equal to the bit: {equal}")
     return out
 
 
@@ -3160,16 +3371,18 @@ def unrolled_k(K):
 def oned_issue_floors(path=None):
     """sass_issue_floor of each float32 evolve1d_kernel instantiation of
     the library at `path` (default: this run's build): {(heat, table,
-    kK): instructions}, kK the unrolled node count (0: at run time)."""
+    kK): instructions}, kK the unrolled node count (0: at run time; -2
+    the "auto" blocks, csrc/table_rates.cuh: kBlockRoute)."""
     from c2ray_tpu_torch import cuda_build
 
     floors = {}
     for name, fn in kernel_sass(
             path or cuda_build.library_path("evolve1d")).items():
-        m = re.match(r"\S*evolve1d_kernelIfLb([01])ELb([01])ELi(\d+)E", name)
+        m = re.match(r"\S*evolve1d_kernelIfLb([01])ELb([01])ELi(n?\d+)E",
+                     name)
         if m:
             floors[m.group(1) == "1", m.group(2) == "1",
-                   int(m.group(3))] = sass_issue_floor(fn)
+                   int(m.group(3).replace("n", "-"))] = sass_issue_floor(fn)
     return floors
 
 
@@ -3183,15 +3396,25 @@ def oned_bound(ctx, counters, heat, table, floors):
     (b) the latency of the iterations' dependent chains (ONED_CHAIN) and
     (c) one warp's issue floor at one instruction a cycle: per
     iteration the fewer of `floors` (this build's) and
-    PARENT_ONED_FLOORS (the same function built before the redesign)."""
-    from c2ray_tpu_torch.radiation.quadrature import packed_band_rows
+    PARENT_ONED_FLOORS (the same function built before the redesign);
+    "auto" tables (blocks of several K) count every block's nodes and
+    take this build's floor of the block instantiation."""
+    from c2ray_tpu_torch.radiation.quadrature import (packed_band_blocks,
+                                                      packed_band_rows)
 
     its, subs = int(counters[0]), int(counters[3])
     mesh = ctx.vol.shape[0]
+    flags = (ctx.has_bb, ctx.has_pl, ctx.has_qso)
+    blocks = (None if table else
+              packed_band_blocks(ctx.tables, torch.float32, heat, *flags)[1])
     if table:
         nb = ctx.tables.sigma_HI.shape[0]
         sfu_it, flops_it = 2 * nb, nb * (60 if heat else 20)
         kk = 0
+    elif len({b[3] for b in blocks}) > 1:
+        nodes = sum(b[2] * b[3] for b in blocks)
+        sfu_it, flops_it = 2 * nodes, nodes * (25 if heat else 10)
+        kk = -2
     else:
         packed, _, K = packed_band_rows(ctx.tables, torch.float32, heat,
                                         ctx.has_bb, ctx.has_pl, ctx.has_qso)
@@ -3205,23 +3428,21 @@ def oned_bound(ctx, counters, heat, table, floors):
     cycles = CYCLES_PER_DEPENDENT_OP * (its * ONED_CHAIN[heat, table]
                                         + subs * ONED_CHAIN_SUBSTEP)
     lat_ms = 1e3 * cycles / SM_CLOCK_HZ
-    floor = min(floors[heat, table, kk],
+    floor = min(floors.get((heat, table, kk), math.inf),
                 PARENT_ONED_FLOORS.get((heat, table, kk), math.inf))
-    issue_ms = 1e3 * its * floor / SM_CLOCK_HZ
+    issue_ms = 1e3 * its * floor / SM_CLOCK_HZ if floor < math.inf else 0.0
     return max((work[0], work[1], "throughput"),
                (lat_ms, "operations", "latency of the dependent chain"),
                (issue_ms, "operations", "one warp's instruction issue"))
 
 
 def phase_oned_times(main, compare, full):
-    """The 1D kernels' times at mesh 10000 (CUDA events, a wrapper call
-    on phase 12's final state, mean of 3 after a warm-up) beside their
-    bounds, per fixed-point iteration and thermal sub-steps per
-    iteration too, and the float64 step wall of phase 14's one step
-    (`full`); the plain version's step wall from phase 11 (mesh 128, on
-    the CPU)."""
-    from c2ray_tpu_torch.onedim import evolve as ev1
-
+    """The 1D kernels' times at mesh 10000 (phase 12's last step: CUDA
+    events around `OneDRun.step`, whose one launch is the step's device
+    work, and that step's counters) beside their bounds, per fixed-point
+    iteration and thermal sub-steps per iteration too, and the float64
+    step wall of phase 14's one step (`full`); the plain version's step
+    wall from phase 11 (mesh 128, on the CPU)."""
     floors = oned_issue_floors()
     log("issue floors, SASS instructions per fixed-point iteration (this "
         "build; the parent build's, a26c0a1, in parentheses; the bound "
@@ -3233,12 +3454,11 @@ def phase_oned_times(main, compare, full):
             ("evolve1d", "quadrature", False, False),
             ("evolve1d_heat", "quadrature heating", True, False),
             ("evolve1d_table", "table", False, True)):
-        run, dt = main[name]["run"], main[name]["dt"]
-        ms = event_ms(lambda: ev1.evolve1d_cuda(run.ctx, run.state, dt), 3)
-        _, _, counters = ev1.evolve1d_cuda(run.ctx, run.state, dt)
-        b = oned_bound(run.ctx, counters.tolist(), heat, table, floors)
+        run = main[name]["run"]
+        ms, counters = main[name]["event_ms"][-1], main[name]["counters"][-1]
+        b = oned_bound(run.ctx, counters, heat, table, floors)
         worst, kp_abs, k128, p128 = compare[variant]
-        its, subs = int(counters[0]), int(counters[3])
+        its, subs = counters[0], counters[3]
         log(f"{name} at mesh {run.ctx.vol.shape[0]}: {ms:.3f} ms per step "
             f"({its} iterations, {subs} thermal sub-steps): "
             f"{1e3 * ms / its:.4f} us per iteration, {subs / its:.3f} "
@@ -3246,7 +3466,7 @@ def phase_oned_times(main, compare, full):
             f"float64 one step from the initial state (phase 14) "
             f"{full[name][2]:.3f} ms; at mesh 128 kernel {k128:.3f} ms, "
             f"plain (CPU) {p128:.1f} ms")
-        rows[name] = (ms, b, worst, kp_abs, k128, p128, counters.tolist())
+        rows[name] = (ms, b, worst, kp_abs, k128, p128, counters)
     return rows
 
 
@@ -3271,10 +3491,11 @@ def build_kernels():
     for name in names:
         kernel = ""
         for line in cuda_build.build_log(name).splitlines():
-            m = re.search(r"Compiling entry .*?(stage_kernel"
+            m = re.search(r"Compiling entry .*?(stage_kernel(?:_capped)?"
                           r"|source_cell_kernel|chemistry_kernel"
                           r"|photon_losses_kernel|evolve1d_kernel"
-                          r"|shell_kernel|plane_kernel|halo_pack_kernel"
+                          r"|shell_kernel(?:_capped)?"
+                          r"|plane_kernel(?:_capped)?|halo_pack_kernel"
                           r"|window_accumulate_kernel|fold_halo_kernel)"
                           r"I([fd])(?:Lb([01])E)?"
                           r"(?:Lb([01])E)?(?:Li(n?\d+)E)?(?:Li(\d+)E)?",
@@ -3356,11 +3577,14 @@ def run_phases(dev, workdir, ref, oned_refs):
         log(f"[phase {label}: {time.perf_counter() - t0:.1f} s]")
         return out
 
+    procs = start_parent_build()      # the parent's nvcc beside phase 2's
     phase("build", build_kernels)                                   # 2.
-    # phase 23's libraries, loaded before torch.profiler's first window
-    # (phase 22): the profiler showed no launch from a library loaded
-    # after it
-    parent, _ = phase("parent build", parent_libraries)
+    # phase 23's and 25's libraries, loaded before torch.profiler's first
+    # window (phase 22): the profiler showed no launch from a library
+    # loaded after it
+    parent, same, plibs = phase("parent build", parent_libraries, procs)
+    psweeps = (None if plibs is None
+               else {n: plibs[n] for n in PARENT_SWEEPS})
     phase("stamped chemistry build", stamped_chemistry)
     sweep_err32, chem_err32 = phase("compare", phase_compare, dev)  # 3.
     hsweep_err32, hchem_err32 = phase("compare heating", phase_compare,
@@ -3386,13 +3610,19 @@ def run_phases(dev, workdir, ref, oned_refs):
         for engine in ("shells", "octant") for heating in (False, True)}
     route_err = phase("compare tau-table and auto routes",           # 24.
                       phase_compare_routes, dev)
+    # the "auto" blocks on the shell and octant engines (phase 24 holds
+    # them to plain at 32^3 / 33^3) only in turns with a parent build
     route_main = [phase(f"{route} route, {engine} engine"            # 25.
                         f"{' heating' if heating else ''} main path",
-                        phase_main_route, dev, route, engine, heating)
-                  for route, engines in (("tau", ("pyramid", "shells",
-                                                  "octant")),
-                                         ("auto", ("pyramid",)))
-                  for engine in engines for heating in (False, True)]
+                        phase_main_route, dev, route, engine, heating,
+                        psweeps=psweeps)
+                  for route in ("tau", "auto")
+                  for engine in ("pyramid", "shells", "octant")
+                  for heating in (False, True)
+                  if route == "tau" or engine == "pyramid" or psweeps]
+    for c, st in ((cfg, s), (hcfg, hs)):
+        phase(f"fixed rule in turns{'' if c.chem.isothermal else ' heating'}",
+              phase_fixed_rule_in_turns, c, st, srcpos, nflux, psweeps)
     phase("compare halo kernels", phase_compare_halo, dev)            # 18.
     nccl = phase("NCCL", phase_nccl, dev, workdir)                   # 19.
     par_counts = [phase(f"parallel{' heating' if heating else ''} main "
@@ -3402,6 +3632,9 @@ def run_phases(dev, workdir, ref, oned_refs):
     # the 1D program while phase 9's CPU reference runs
     compare_1d = phase("1D compare", phase_compare_1d, dev)          # 11.
     main_1d = phase("1D main path", phase_main_1d, dev)              # 12.
+    auto_1d = phase("1D auto blocks", phase_auto_1d, dev, compare_1d)  # 26.
+    phase("1D fixed rule in turns", phase_oned_in_turns, main_1d, plibs,
+          same)
     phase("1D physics", phase_physics_1d, dev, main_1d)              # 13.
     phase("driver physics", phase_driver_physics, dev, workdir, ref)  # 9.
     ocounts = phase("driver physics 33^3", phase_driver_physics,    # 17.
@@ -3549,6 +3782,7 @@ def run_phases(dev, workdir, ref, oned_refs):
              "bound_ms": b[0], "bound_by": b[1],
              "bound_detail": b[2], "counters": counters,
              "library_ms": None})
+    kernels.append(auto_1d)
     # the halo kernels: launches on the domain paths of phases 20 and 21,
     # time, plain time and bound at world size 1, 128^3, full radius
     for name, replaces in (

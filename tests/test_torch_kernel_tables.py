@@ -439,3 +439,65 @@ def test_kernel_ms_outlives_a_profiler_without_records(monkeypatch):
     monkeypatch.setattr(chip_smoke, "launch_profile",
                         lambda f, k, n, required: ([0.25], 0.25))
     assert chip_smoke.kernel_ms(fn, "nothing") == (0.25, "torch.profiler")
+
+
+@pytest.mark.parametrize("name", sorted(pti.ROUTE_VARIANTS))
+def test_route_variants_apply_to_the_kernel(name):
+    """Each knock-out copy or lane count that --route times is a set of
+    edits that finds its one place in csrc/ as it stands (the knobs live
+    only in the copy it builds) and changes the source; csrc/ that has
+    none of the places raises."""
+    files = sorted({e[0] for alts in pti.ROUTE_VARIANTS.values()
+                    for edits in alts for e in edits})
+    src = {f: (cuda_build.CSRC / f).read_text() for f in files}
+    out = dict(src)
+    pti.apply_route_variant(name, out.__getitem__, out.__setitem__)
+    assert out != src
+    with pytest.raises(RuntimeError, match="no set of edits"):
+        pti.apply_route_variant(name, lambda f: "", out.__setitem__)
+
+
+def test_lane_node_terms_deal_each_block():
+    """--route's node terms per lane: the bands of each block dealt to
+    the lanes from lane 0 (the design before the node groups): the
+    bench's blocks give 69 and 57 at two lanes."""
+    blocks = [(0, 0, 1, 12, 0), (0, 1, 26, 3, 0), (0, 27, 6, 6, 0)]
+    assert pti.lane_node_terms(blocks, 2) == [69, 57]
+    assert pti.lane_node_terms(blocks, 1) == [126]
+
+
+@pytest.mark.parametrize("route", ["tau", "auto", "quad"])
+def test_parent_route_tables_and_arguments(route):
+    """kernel_study.parent_route_tables / parent_route_args give the
+    parent build's (commit 91213d1) tables and arguments: the unpacked
+    tau tables with their hbin pointer, the blocks of
+    packed_band_blocks, the fixed rule as this tree's; parent_sweeps
+    swaps them into the sweep modules and back."""
+    from c2ray_tpu_torch.radiation.quadrature import packed_band_blocks
+    from c2ray_tpu_torch.sweep import octant_sweep, pyramid_sweep
+    from c2ray_tpu_torch.sweep import source_sweep as ss
+
+    cfg = chip_smoke.setup(8, *chip_smoke.BENCH_SOURCE, torch.float32,
+                           torch.device("cpu"), heating=True,
+                           tables=route)[0].sweep
+    kt = ks.parent_route_tables(cfg, torch.float32)
+    K, ints, route_ints, ptrs = ks.parent_route_args(kt)
+    if route == "tau":
+        assert kt.K == ss.ROUTE_TABLE and kt.types.photo.dim() == 4
+        assert ptrs[1].value == kt.types.photo.data_ptr()
+        assert ptrs[3].value == kt.types.hbin.data_ptr()
+        assert route_ints[3] == kt.types.heat.shape[-1]
+    elif route == "auto":
+        blocks = packed_band_blocks(cfg.tables, torch.float32, True)[1]
+        assert kt.K == ss.ROUTE_BLOCKS and kt.types == blocks
+        assert list(route_ints[3:]) == [x for b in blocks for x in b]
+    else:
+        mine = ss._kernel_tables(cfg, torch.float32)
+        assert kt.K == mine.K == 6 and torch.equal(kt.packed, mine.packed)
+    with ks.parent_sweeps({}):
+        for mod in (ss, pyramid_sweep, octant_sweep):
+            assert mod._kernel_tables is ks.parent_route_tables
+            assert mod._route_args is ks.parent_route_args
+    for mod in (ss, pyramid_sweep, octant_sweep):
+        assert mod._kernel_tables is ss._kernel_tables
+        assert mod._route_args is ss._route_args

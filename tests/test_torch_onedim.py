@@ -11,9 +11,12 @@ version on the CPU in float64.  Tolerances:
   (values down to 1e-20 carry no relative digits), temperatures within
   1e-10 relative, and each shell's iteration count equal -- for the
   quadrature and tau-table rate routes, isothermal and heating, the
-  monochromatic tables and the cosmological test 4.  Heating runs use
+  "auto" quadrature blocks, the monochromatic tables and the
+  cosmological test 4.  Heating runs use
   1 Myr steps, whose fixed points converge in a few rounds (longer ones
   amplify last-bit differences, ROADMAP Queue 3);
+- the 1D kernel's packing of "auto" blocks (block list, offsets, the
+  shared memory it asks for), no card needed;
 - the output file byte for byte, the photon statistics to rtol 1e-13
   (the rate fit at T differs in the last bit between XLA and PyTorch).
 """
@@ -21,6 +24,7 @@ version on the CPU in float64.  Tolerances:
 import dataclasses
 import filecmp
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -35,6 +39,7 @@ from c2ray_tpu.onedim import material as j_material
 from c2ray_tpu.onedim import output as j_output
 from c2ray_tpu.onedim.driver import OneDRun as JRun
 from c2ray_tpu.radiation import monochromatic as j_mono
+from c2ray_tpu.radiation import quadrature as j_quad
 from c2ray_tpu.radiation import sed as j_sed
 from c2ray_tpu_torch import config as t_config
 from c2ray_tpu_torch import convert
@@ -46,6 +51,7 @@ from c2ray_tpu_torch.onedim import material as t_material
 from c2ray_tpu_torch.onedim import output as t_output
 from c2ray_tpu_torch.onedim.driver import OneDRun
 from c2ray_tpu_torch.radiation import monochromatic as t_mono
+from c2ray_tpu_torch.radiation import quadrature as t_quad
 from c2ray_tpu_torch.radiation import sed as t_sed
 
 # one intra-op thread: the suite runs in parallel workers, and at
@@ -165,8 +171,11 @@ def test_setup_needs_cuda_by_default():
 
 
 # variant: (test problem, isothermal, quadrature route, power law beside
-# the blackbody, monochromatic tables, UV background, mesh, dt in Myr)
+# the blackbody, monochromatic tables, UV background, mesh, dt in Myr);
+# the "auto" variants swap in "auto" quadrature tables
 _VARIANTS = {
+    "auto": (1, True, True, True, False, False, 48, 10.0),
+    "auto_heating": (1, False, True, False, False, False, 32, 1.0),
     "quadrature": (1, True, True, True, False, False, 48, 10.0),
     "quadrature_heating": (1, False, True, False, False, False, 48, 1.0),
     "table": (2, True, False, True, False, True, 48, 10.0),
@@ -194,6 +203,17 @@ def _runs(variant):
                                                      30.0, isothermal=iso)
         tq, _, _ = t_mono.build_monochromatic_tables(_sed(t_sed, testnum),
                                                      30.0, isothermal=iso)
+        jr.ctx = dataclasses.replace(jr.ctx, tables=jq)
+        jr._step_fn = j_evolve.make_evolve1d(jr.ctx)
+        tr.ctx = dataclasses.replace(tr.ctx, tables=tq)
+    if variant.startswith("auto"):
+        jq, _, _ = j_quad.build_quadrature_tables(
+            _sed(j_sed, testnum, pl), isothermal=iso, n_nodes="auto",
+            dtype=jnp.float64)
+        tq, _, _ = t_quad.build_quadrature_tables(
+            _sed(t_sed, testnum, pl), isothermal=iso, n_nodes="auto",
+            dtype=torch.float64)
+        assert len({b.sigma_hat.shape[1] for b in tq.bb}) > 1
         jr.ctx = dataclasses.replace(jr.ctx, tables=jq)
         jr._step_fn = j_evolve.make_evolve1d(jr.ctx)
         tr.ctx = dataclasses.replace(tr.ctx, tables=tq)
@@ -231,6 +251,45 @@ def test_evolve1d_plain_matches_jax(variant):
         # the heating runs do heat, and run the thermal sub-cycle
         assert tr.last_counters[2] > 0
         assert float(tr.state.temper.max()) > 1.5e4
+
+
+@pytest.mark.parametrize("heat", [False, True])
+def test_evolve1d_kernel_packs_auto_blocks(heat, monkeypatch):
+    """The 1D kernel's tables of "auto" blocks (no card needed): the
+    blocks' flat rows as packed_band_blocks gives them, the block list
+    (K, bands, first row value, first incoming value: each block's
+    incoming side nb x in_values(K) values after the one before), the
+    layout ints of the block entries (the block count, the rows' and the
+    incoming side's value counts) and the shared memory they need,
+    refused over the limit."""
+    from c2ray_tpu_torch.cooling import setup_cooling_tables, stacked
+
+    _, tr, _ = _runs("auto_heating" if heat else "auto")
+    ctx = tr.ctx
+    if heat:
+        assert ctx.cooling is not None
+    kt = t_evolve._pack_kernel_tables(ctx, torch.float32, "cpu")
+    flat, blocks = t_quad.packed_band_blocks(ctx.tables, torch.float32, heat,
+                                             ctx.has_bb, ctx.has_pl,
+                                             ctx.has_qso)
+    assert torch.equal(kt.bands, flat) and kt.photo is None
+    assert kt.hbin is None
+    ints = kt.blocks.tolist()
+    assert kt.blocks.dtype == torch.int32
+    assert len(ints) == t_evolve.BLOCK_INTS * len(blocks)
+    n_in = 0
+    for i, (_, _, nb, K, row0) in enumerate(blocks):
+        assert ints[4 * i:4 * i + 4] == [K, nb, row0, n_in]
+        n_in += nb * ((5 if heat else 2) + K)
+    assert kt.layout == (len(blocks), flat.numel(), n_in)
+    cool = stacked(ctx.cooling).numel() if heat else 0
+    need = 4 * (flat.numel() + n_in + cool) + 4 * len(ints)
+    monkeypatch.setattr(t_evolve.cuda_build, "SHARED_MEM_LIMIT", need)
+    t_evolve._pack_kernel_tables(ctx, torch.float32, "cpu")
+    monkeypatch.setattr(t_evolve.cuda_build, "SHARED_MEM_LIMIT", need - 1)
+    with pytest.raises(ValueError, match=f"need {need} B of shared"):
+        t_evolve._pack_kernel_tables(ctx, torch.float32, "cpu")
+    assert setup_cooling_tables  # the cooling tables the heating run has
 
 
 def test_evolve1d_one_step_direct():

@@ -753,3 +753,116 @@ def build_oned(src, out, source="evolve1d"):
         [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
          str(out), str(src / f"{source}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
+
+
+# ---- the sweep kernels of commit 91213d1, timed in turns with this build
+
+# this tree's source_sweep._kernel_tables and _route_args, which
+# parent_sweeps replaces in the sweep modules for the parent's turn
+_THIS = {}
+
+
+def _this(name):
+    from c2ray_tpu_torch.sweep import source_sweep as ss
+
+    return _THIS.get(name) or getattr(ss, name)
+
+def parent_route_tables(cfg, dtype, track=False):
+    """The sweep kernels' tables as commit 91213d1's kernels read them:
+    on the tau route the TableRoute itself (unpacked (ntypes, 2, rows,
+    nb) tables and the heating columns), on "auto" tables the blocks of
+    packed_band_blocks; the fixed rule's are this tree's.  Packed once
+    per configuration, tables, dtype and heating, as this tree's."""
+    from c2ray_tpu_torch.radiation.quadrature import packed_band_blocks
+    from c2ray_tpu_torch.radiation.tables import (RadiationTables,
+                                                  packed_table_route)
+    from c2ray_tpu_torch.sweep import source_sweep as ss
+
+    heat = ss.sweep_heats(cfg)
+    flags = (cfg.has_bb, cfg.has_pl, cfg.has_qso)
+    # kept in the configuration's cache as this tree's are, so that the
+    # two builds in turns differ in their kernels, not in packing
+    key = ("91213d1", id(cfg.tables), *flags, heat, dtype)
+    hit = cfg.kernel_cache.get(key)
+    if hit is not None:
+        return hit[1]
+    if isinstance(cfg.tables, RadiationTables):
+        tr = packed_table_route(cfg.tables, dtype,
+                                cfg.tables.sigma_HI.device, heat, *flags)
+        kt = ss.KernelTables(tr.rows, tr, ss.ROUTE_TABLE, heat)
+    else:
+        flat, blocks = packed_band_blocks(cfg.tables, dtype, heat, *flags)
+        if len({b[3] for b in blocks}) == 1 or track:
+            return _this("_kernel_tables")(cfg, dtype, track)
+        kt = ss.KernelTables(flat, blocks, ss.ROUTE_BLOCKS, heat)
+    cfg.kernel_cache[key] = (cfg.tables, kt)
+    return kt
+
+
+def parent_route_args(kt):
+    """source_sweep._route_args of commit 91213d1: on the tau route the
+    unpacked tables' pointers (photo, heat, hbin); the block list and
+    the fixed rule's arguments have this tree's form."""
+    import ctypes
+
+    import numpy as np
+
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.sweep import source_sweep as ss
+
+    if kt.K != ss.ROUTE_TABLE:
+        return _this("_route_args")(kt)
+    tr = kt.types
+    nheat = tr.heat.shape[-1] if kt.heat else 0
+    cols = list(tr.cols) + [0] * (3 - len(tr.cols))
+    ints = np.ascontiguousarray(
+        [ss.ROUTE_TABLE, kt.packed.numel(), tr.rows.shape[0], nheat,
+         len(tr.cols)] + cols + list(tr.live), dtype=np.int32)
+    P = cuda_build.ptr
+    null = ctypes.c_void_p(None)
+    return (0, [0] * 10, ints,
+            [ints.ctypes.data_as(ctypes.c_void_p), P(tr.photo),
+             null if tr.heat is None else P(tr.heat), P(tr.hbin)])
+
+
+class parent_sweeps:
+    """with parent_sweeps(libs): this tree's sweep wrappers launch the
+    parent build's libraries ({source: ctypes library} of
+    pyramid_sweep, shell_sweep, octant_sweep) with the tables and route
+    arguments that build reads (parent_route_tables, parent_route_args)."""
+
+    _MODULES = ("source_sweep", "pyramid_sweep", "octant_sweep")
+
+    def __init__(self, libs):
+        self.libs = libs
+
+    def __enter__(self):
+        import importlib
+
+        from c2ray_tpu_torch import cuda_build
+
+        from c2ray_tpu_torch.sweep import source_sweep as ss
+
+        _THIS.setdefault("_kernel_tables", ss._kernel_tables)
+        _THIS.setdefault("_route_args", ss._route_args)
+        self.saved_libs = {n: cuda_build._LIBS.get(n) for n in self.libs}
+        cuda_build._LIBS.update(self.libs)
+        self.saved = []
+        for name in self._MODULES:
+            mod = importlib.import_module(f"c2ray_tpu_torch.sweep.{name}")
+            self.saved.append((mod, mod._kernel_tables, mod._route_args))
+            mod._kernel_tables = parent_route_tables
+            mod._route_args = parent_route_args
+        return self
+
+    def __exit__(self, *exc):
+        from c2ray_tpu_torch import cuda_build
+
+        for mod, kt, ra in self.saved:
+            mod._kernel_tables, mod._route_args = kt, ra
+        for n, lib in self.saved_libs.items():
+            if lib is None:
+                cuda_build._LIBS.pop(n, None)
+            else:
+                cuda_build._LIBS[n] = lib
+        return False

@@ -106,6 +106,23 @@ phase 8's state: the band loop's SASS per band and cell
 (kernel_study.sass_per_band), registers, the kernel's device ms, the
 wrapper call's and the device time of each kernel one call launches;
 with `--parent` the parent's kernel in turns.
+
+    python3 tools/profile_torch_iteration.py --route tau|auto
+        [--variants V1,V2,...]
+
+`--route` splits the pyramid sweep kernel on a rate route at phase 4's
+and 5's states (128^3 x 8 float32, the route's own iterations):
+knock-out copies of csrc/ (ROUTE_VARIANTS, built under
+build/route_<name>/) timed in turns with this build (CUDA events):
+on the tau tables the table reads replaced by their position's residual
+(`noread`), the positions by a constant row (`nopos`), both; on the
+"auto" blocks one runtime-K instantiation for every block (`onek`).
+`--variants` times those of ROUTE_VARIANTS instead (e.g. lanes1,lanes4:
+the route's kernels at 1 or 4 lanes per cell, uncapped: the tau
+route's heating kernels without their cap on resident blocks).  Also the fixed 6-node rule's sweep at
+the same state, the route's stage
+kernels' registers, spills and theoretical occupancy (ptxas -v), and on
+the blocks the node terms of each lane of a cell.
 """
 
 import argparse
@@ -150,6 +167,7 @@ def main():
     ap.add_argument("--variants", default=None)
     ap.add_argument("--builds", action="store_true")
     ap.add_argument("--before", default=None)
+    ap.add_argument("--route", default=None, choices=("tau", "auto"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_iteration: needs a CUDA GPU")
@@ -162,6 +180,10 @@ def main():
         return
     if args.ploss:
         profile_ploss(args.mesh, args.sources, args.parent)
+        return
+    if args.route:
+        profile_route(args.route, args.mesh, args.sources,
+                      args.variants.split(",") if args.variants else None)
         return
     if args.oned:
         profile_oned(args.steps, args.parent)
@@ -255,17 +277,19 @@ def bench_sources(M, S, dev):
     return srcpos, nflux
 
 
-def bench_state(M, S, heating, dev, engine, iters=4):
+def bench_state(M, S, heating, dev, engine, iters=4, tables="quad"):
     """(config, state, srcpos, nflux) of chip_smoke.py's phase 16 on
     `engine`: the bench configuration in float32 after a warm-up
-    iteration and `iters` more from the initial state."""
+    iteration and `iters` more from the initial state, on the rate
+    route `tables` (chip_smoke.setup's)."""
     import dataclasses
 
     import chip_smoke as cs
     from c2ray_tpu_torch.state import initial_grid_state
     from c2ray_tpu_torch.sweep import make_evolve3d_iteration
 
-    cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev, heating)
+    cfg, _ = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev, heating,
+                      tables=tables)
     cfg = dataclasses.replace(cfg, engine=engine)
     srcpos, nflux = bench_sources(M, S, dev)
     state = initial_grid_state(np.full((M,) * 3, 1.0e-4), 0.0, 0.0, 0.0,
@@ -490,18 +514,22 @@ def sweeps_in_turns(loaded, M, S, cases, reps=5):
 
 def fixed_rule_against_parent(parent, M=128, S=8, reps=5):
     """The fixed quadrature rule's pyramid, shell and octant sweeps of
-    this build against those of `parent` (a checkout of the commit
-    before the rate routes), in turns (sweeps_in_turns): the parent's
-    three sweep sources built under build/builds/parent, called through
-    EarlierSweepEntries."""
+    this build against those of `parent` (a checkout of another commit),
+    in turns (sweeps_in_turns): the parent's three sweep sources built
+    under build/builds/parent, called through EarlierSweepEntries when
+    they predate the rate routes' arguments."""
     import ctypes
 
     from c2ray_tpu_torch import cuda_build
 
+    src = Path(parent) / "c2ray_tpu_torch" / "csrc"
     base = cuda_build.BUILD_DIR.parent / "builds" / "parent"
-    build_all(Path(parent) / "c2ray_tpu_torch" / "csrc", base, SWEEP_SOURCES)
-    loaded = {"parent": {n: EarlierSweepEntries(ctypes.CDLL(
-                  str(base / f"lib{n}.so"))) for n in SWEEP_SOURCES},
+    build_all(src, base, SWEEP_SOURCES)
+    routed = (src / "table_rates.cuh").exists()
+    loaded = {"parent": {n: (lambda lib: lib if routed
+                             else EarlierSweepEntries(lib))(
+                  ctypes.CDLL(str(base / f"lib{n}.so")))
+                  for n in SWEEP_SOURCES},
               "this": {n: cuda_build.load(n) for n in SWEEP_SOURCES}}
     cases = [("quad", e, ("parent", "this", "this", "parent"))
              for e in ENGINES]
@@ -1359,6 +1387,207 @@ def profile_oned(steps, parent):
             print(f"  {name} {str(dtype)[6:]} x {n} {key}: {ms:.3f} ms, "
                   f"{its} iterations, {1e3 * ms / its:.4f} us per "
                   f"iteration, {subs / its:.3f} sub-steps per iteration")
+
+
+# --route's knock-out copies of the rate routes: per variant, edits of
+# this design and of the design before it (commit 91213d1: the tau
+# tables read as word gathers, the blocks one cell_rates each), the first
+# whose patterns are all found once applied; each edit is [(file in
+# csrc/, pattern, replacement), ...]; "a+b" applies both.  An edit puts
+# an early return at the top of a device function (the rest of its body
+# is then dead code in the copy) or skips a switch.
+_NOREAD = (r"\1\n  if (true) return {T((reinterpret_cast<size_t>(p) >> 4) & 7), "
+           r"T(0.5), T(1), T(0.25)};")
+ROUTE_VARIANTS = {
+    # a table read made of its address and position (no load; the
+    # positions still computed and used)
+    "noread": (
+        [("table_rates.cuh",
+          r"(TauRec<float> load_rec\(const float\* p\) \{)",
+          _NOREAD.replace("T(", "float(")),
+         ("table_rates.cuh",
+          r"(TauRec<double> load_rec\(const double\* p\) \{)",
+          _NOREAD.replace("T(", "double("))],
+        [("table_rates.cuh",
+          r"(T table_read\(const T\* tab, int ncols, int col,\s*"
+          r"const Pos<T>& p\) \{)",
+          r"\1\n  if (true) return T(col) + p.r;")]),
+    # a position is row 800 or 1200 (by tau > 1, so tau_in and tau_out
+    # may differ): no log10, the reads still made, at two rows
+    "nopos": (
+        [("table_rates.cuh",
+          r"(Pos<T> table_position\(T tau\) \{)",
+          r"\1\n  if (true) {\n    Pos<T> q;\n"
+          r"    q.i = tau > T(1) ? 1200 : 800;\n    q.i1 = q.i + 1;\n"
+          r"    q.r = T(0.5);\n    return q;\n  }")],),
+    # every row (block) of the "auto" route through the runtime-K
+    # instantiation instead of the unrolled Ks
+    "onek": (
+        [("band_rates.cuh", r"(\n    switch \(K\) \{\n      case 3:\n"
+          r"        group\()",
+          r"\n    group(std::integral_constant<int, 0>{});\n    if (false)\1")],
+        [("band_rates.cuh", r"(\n    switch \(d\.K\) \{)",
+          r"\n    cell_rates<T, kHeat, false, 0>(rows, d, nfl3, cin, "
+          r"cout, vol, y, o,\n                                   "
+          r"nullptr, lane, nlanes);\n    if (false)\1")]),
+    # the tau route's heating kernels without the cap on resident blocks
+    # (table_rates.cuh: route_capped)
+    "uncapped": ([("table_rates.cuh",
+                   r"return kHeat && kK == kTableRoute;", "return false;")],),
+    # the lanes per cell of the pyramid and shell kernels
+    # (band_rates.cuh: kCellLanes), timed here on a route
+    "lanes1": ([("band_rates.cuh", r"constexpr int kCellLanes = \d+;",
+                 "constexpr int kCellLanes = 1;")],),
+    "lanes4": ([("band_rates.cuh", r"constexpr int kCellLanes = \d+;",
+                 "constexpr int kCellLanes = 4;")],),
+}
+# the variants --route times on each route (--variants: others)
+ROUTE_SPLIT = {"tau": ("noread", "nopos", "noread+nopos"),
+               "auto": ("onek",)}
+# the kK of each route in the stage kernel's mangled name
+ROUTE_MANGLED = {"tau": "Lin1E", "auto": "Lin2E"}
+
+
+def apply_route_variant(name, read, write):
+    """Apply ROUTE_VARIANTS' edits for each part of `name` ("a+b": both)
+    through read(file) -> text and write(file, text): of each part the
+    first set of edits whose patterns are each found exactly once;
+    raises if no set fits."""
+    for part in name.split("+"):
+        for edits in ROUTE_VARIANTS[part]:
+            texts, ok = {}, True
+            for fname, pattern, repl in edits:
+                text, k = re.subn(pattern, repl,
+                                  texts.get(fname) or read(fname))
+                ok = ok and k == 1
+                texts[fname] = text
+            if ok:
+                for fname, text in texts.items():
+                    write(fname, text)
+                break
+        else:
+            raise RuntimeError(f"variant {part}: no set of edits fits csrc/")
+
+
+def build_route_variant(name):
+    """csrc/pyramid_sweep.cu built from a copy of csrc/ under
+    build/route_<name>/ with the edits of ROUTE_VARIANTS: (nvcc process,
+    directory)."""
+    import shutil
+
+    from c2ray_tpu_torch import cuda_build
+
+    d = cuda_build.BUILD_DIR.parent / f"route_{name.replace('+', '_')}"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(cuda_build.CSRC, d)
+    apply_route_variant(name, lambda f: (d / f).read_text(),
+                        lambda f, t: (d / f).write_text(t))
+    return build_oned(d, d / "libpyramid_sweep.so",
+                      source="pyramid_sweep"), d
+
+
+def lane_node_terms(blocks, lanes):
+    """The node terms (K per band) each of a cell's `lanes` lanes sums on
+    the "auto" route, blocks as packed_band_blocks gives them: lane j
+    takes the bands j, j + lanes, ... of every block."""
+    terms = [0] * lanes
+    for _, _, nb, K, _ in blocks:
+        for b in range(nb):
+            terms[b % lanes] += K
+    return terms
+
+
+def group_node_terms(groups, lanes):
+    """The node terms each of a cell's `lanes` lanes sums on the node
+    groups (packed_node_groups) as band_rates.cuh:block_rates deals
+    them: the rows in turn, continuing from group to group."""
+    terms, first = [0] * lanes, 0
+    for _, _, n, K, _ in groups:
+        for e in range(n):
+            terms[(first + e) % lanes] += K
+        first = (first + n) % lanes
+    return terms
+
+
+def profile_route(route, M, S, variants=None, reps=5):
+    """--route: the pyramid sweep kernel on `route` split by knock-out
+    copies (ROUTE_SPLIT, or the ROUTE_VARIANTS named in `variants`),
+    timed in turns with this build at phase 4's and 5's states."""
+    import ctypes
+
+    import chip_smoke as cs
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.radiation import quadrature
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    dev = torch.device("cuda", 0)
+    lanes = int(re.search(r"constexpr int kCellLanes = (\d+);",
+                          (cuda_build.CSRC / "band_rates.cuh").read_text())
+                .group(1))
+    names = tuple(variants) if variants else ROUTE_SPLIT[route]
+    procs = {v: build_route_variant(v) for v in names}
+    this = cuda_build.load("pyramid_sweep")
+    libs = {"this": this}
+    for v, (proc, d) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for route variant {v}:\n{out}")
+        libs[v] = ctypes.CDLL(str(d / "libpyramid_sweep.so"))
+        use = ptxas_usage(out, "stage_kernel")
+        for inst, (regs, st, ld) in sorted(use.items()):
+            if ROUTE_MANGLED[route] in inst and "If" in inst:
+                print(f"  variant {v}: {inst[:70]} {regs} registers, "
+                      f"spills {st} / {ld} B", flush=True)
+    print(f"{cs.smi_line()}; the {route} route's pyramid sweep, {M}^3 x {S} "
+          f"float32")
+    use = ptxas_usage(cuda_build.build_log("pyramid_sweep"), "stage_kernel")
+    for inst, (regs, st, ld) in sorted(use.items()):
+        if ROUTE_MANGLED[route] in inst or "Li6E" in inst:
+            print(f"  {inst[:80]}: {regs} registers, spills {st} / {ld} B, "
+                  f"theoretical occupancy "
+                  f"{theoretical_occupancy(regs, 256):.3f}")
+    Rf, Rb = ps.trace_extents(M)
+    turns = ("this",) + names + names[::-1] + ("this",)
+    for heating in (False, True):
+        cfg, state, srcpos, nflux = bench_state(M, S, heating, dev,
+                                                "pyramid", tables=route)
+        fstack = ps.stack_sweep_fields(cfg.sweep, cs.fields_of(state))
+        quad = cs.setup(M, *cs.BENCH_SOURCE, torch.float32, dev,
+                        heating)[0].sweep
+        ms = {}
+        for key in turns:
+            cuda_build._LIBS["pyramid_sweep"] = libs[key]
+            ms.setdefault(key, []).append(cs.event_ms(
+                lambda: ps.trace_cuda(cfg.sweep, fstack, srcpos, nflux, Rf,
+                                      Rb), reps))
+        cuda_build._LIBS["pyramid_sweep"] = this
+        fixed = cs.event_ms(lambda: ps.trace_cuda(quad, fstack, srcpos,
+                                                  nflux, Rf, Rb), reps)
+        label = "heating" if heating else "isothermal"
+        base = sum(ms["this"]) / len(ms["this"])
+        print(f"  {label}: this build " + " / ".join(
+            f"{t:.3f}" for t in ms["this"]) + f" ms; the fixed 6-node rule "
+            f"{fixed:.3f} ms", flush=True)
+        for v in names:
+            t = sum(ms[v]) / len(ms[v])
+            print(f"    {v}: " + " / ".join(f"{x:.3f}" for x in ms[v])
+                  + f" ms, {base - t:+.3f} ms against this build "
+                  f"({(base - t) / base:.1%})", flush=True)
+        if route == "auto":
+            blocks = quadrature.packed_band_blocks(
+                cfg.sweep.tables, torch.float32, heating)[1]
+            line = (f"    blocks (band count, K): "
+                    f"{[(b[2], b[3]) for b in blocks]}, node terms per lane "
+                    f"dealt a block at a time "
+                    f"{lane_node_terms(blocks, lanes)}")
+            # a tree before the node groups (a parent's split) has none
+            if hasattr(quadrature, "packed_node_groups"):
+                groups = quadrature.packed_node_groups(
+                    cfg.sweep.tables, torch.float32, heating)[1]
+                line += (f"; node groups (rows, K) "
+                         f"{[(g[2], g[3]) for g in groups]}, dealt in turn "
+                         f"{group_node_terms(groups, lanes)}")
+            print(line)
 
 
 if __name__ == "__main__":

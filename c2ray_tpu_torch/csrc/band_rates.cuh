@@ -592,83 +592,170 @@ __device__ __forceinline__ void band_out(const T* tab, const BandTables& d,
   }
 }
 
-// ---- "auto" tables in the 1D march
+// ---- "auto" tables in the 1D march: rows dealt to the warp's lanes
 //
 // The march takes the blocks of "auto" tables (quadrature.py:
-// packed_band_blocks) as a block list (onedim/evolve.py:_block_list),
-// kBlockInts ints per block: its K, its band count, the offset of its
-// first row value in the band rows and of its first incoming value in
-// `in`.  Each block's incoming side (in_values(K) values of each of its
-// bands, laid out as band_in lays out a table of one type) lies at its
-// own offset, so the split stays: blocks_in once per shell, blocks_out
-// once per iteration, band_in / band_out of the block's K on each block.
-constexpr int kBlockInts = 4;
+// packed_band_blocks: K = 12, 3, 4, 3, 5, 8, 8 for test 1's 1e5 K
+// blackbody, 36 bands, 156 nodes) as rows of kRowNodes nodes
+// (onedim/evolve.py:_row_deal): every live band of every block cut into
+// rows, the last row of a band padded with nodes of weight 0 (sighat
+// and A 0: e_in - e_out and A sighat e_in are 0, so the sums gain exact
+// zeros).  A row keeps its band's sigmas, masks and f-factors, and a
+// band's rates are linear in its node sums (the thin branch dtau x the
+// row's thin sum), so its rows add up to it.  Row j lies in slot j / 32
+// of lane j % 32; zero rows fill the last slot (their terms are exact
+// zeros; the heat's Kahan sum still applies its carry).  Shared memory
+// holds the rows slot-major, value-major, lane-fastest: value v of slot
+// s, lane l at (s * kRowValues + v) * 32 + l, so every read is
+// conflict-free at an immediate offset; the incoming side likewise,
+// in_values(kRowNodes) values a row.
+//
+// Design, from the split of the block-by-block route it replaces
+// (tools/profile_torch_iteration.py --oned --auto; PERF.md section 6):
+// seven block passes, each on 1-16 of the 32 lanes at ~460
+// cycles before its nodes and ~32 a node, were 57% of an iteration.
+// Here one pass deals every row: test 1's 59 rows fill 2 slots, 6
+// exponentials a lane (the fixed 6-node rule's 36 bands: 2 rounds of 6).
+// A row computes both regimes' node sums and selects, where band_out
+// branches (a warp holds thick and thin rows alike); each lane forms its
+// outputs once.  Every sum, regime test and expression of a row is
+// band_out's (band_in's) op for op on its nodes.  Measured and not
+// taken (--oned --auto --variants): two slots a turn in one body, for
+// their chains to interleave (no faster), rows of 4 or 6 nodes (2-7%
+// slower an iteration).
+constexpr int kRowNodes = 3;
+constexpr int kRowLanes = 32;
 
-// f(std::integral_constant<int, kK>) with kK = K for the Ks the "auto"
-// rule picks for a blackbody (3, 6, 8, 12), else 0: the runtime-K
-// instantiation.
-template <typename F>
-__device__ __forceinline__ void with_block_nodes(int K, F&& f) {
-  switch (K) {
-    case 3:
-      f(std::integral_constant<int, 3>{});
-      break;
-    case 6:
-      f(std::integral_constant<int, 6>{});
-      break;
-    case 8:
-      f(std::integral_constant<int, 8>{});
-      break;
-    case 12:
-      f(std::integral_constant<int, 12>{});
-      break;
-    default:
-      f(std::integral_constant<int, 0>{});
+// values of a row (row_stride) and of its incoming side (in_values)
+template <bool kHeat>
+constexpr int kRowValues = kHeat ? 17 + 5 * kRowNodes : 5 + 2 * kRowNodes;
+template <bool kHeat>
+constexpr int kRowInValues = (kHeat ? 5 : 2) + kRowNodes;
+
+// One row's incoming side: `rb` its first value, `ri` its first
+// incoming value (both at this lane); band_in on the row's nodes.
+template <typename T, bool kHeat>
+__device__ __forceinline__ void row_in(const T* rb, const T* cin, T* ri) {
+  constexpr int W = kRowLanes, M = kRowNodes, e0 = kHeat ? 5 : 2;
+  const T tau_in = cin[0] * rb[0] + cin[1] * rb[W] + cin[2] * rb[2 * W];
+  T g_x = T(0), h_x[3] = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const T sh = rb[(5 + k) * W];
+    const T e_in = xexp(-minp(tau_in * sh, T(80)));
+    ri[(e0 + k) * W] = e_in;
+    g_x += rb[(5 + M + k) * W] * sh * e_in;
+    if constexpr (kHeat) {
+      for (int sp = 0; sp < 3; ++sp) {
+        h_x[sp] += rb[(5 + (2 + sp) * M + k) * W] * sh * e_in;
+      }
+    }
+  }
+  ri[0] = tau_in;
+  ri[W] = g_x;
+  if constexpr (kHeat) {
+    for (int sp = 0; sp < 3; ++sp) ri[(2 + sp) * W] = h_x[sp];
   }
 }
 
-// The band rows of block `blk` (kBlockInts ints) as a table of one type
-__device__ __forceinline__ BandTables block_table(const int* blk) {
-  BandTables d{};
-  d.K = blk[0];
-  d.ntypes = 1;
-  d.type_nb[0] = blk[1];
-  return d;
-}
-
+// One row's terms of band_out, added to this lane's sums: acc the
+// photo_cell_{HI,HeI,HeII} sums, with kHeat hacc the heat (compensated,
+// hcomp) and the f_ion_HI / f_ion_HeI sums.
 template <typename T, bool kHeat>
-__device__ __forceinline__ void blocks_in(const T* tab, const int* blocks,
-                                          int nblk, const T* cin, T* in,
-                                          int lane, int nlanes) {
-  for (int i = 0; i < nblk; ++i) {
-    const int* blk = blocks + kBlockInts * i;
-    const BandTables d = block_table(blk);
-    with_block_nodes(d.K, [&](auto kk) {
-      band_in<T, kHeat, decltype(kk)::value>(tab + blk[2], d, cin,
-                                             in + blk[3], lane, nlanes);
-    });
+__device__ __forceinline__ void row_out(const T* rb, const T* ri,
+                                        const T* cin, const T* cout,
+                                        T inv_vol, const T* y, T acc[3],
+                                        T hacc[3], T& hcomp) {
+  constexpr int W = kRowLanes, M = kRowNodes, e0 = kHeat ? 5 : 2;
+  const T tiny = Limits<T>::tiny();
+  const T sHI = rb[0], sHeI = rb[W], sHeII = rb[2 * W];
+  const T mHeI = rb[3 * W], mHeII = rb[4 * W];
+  const T tau_in = ri[0];
+  const T tau_out = cout[0] * sHI + cout[1] * sHeI + cout[2] * sHeII;
+  const T tcHI = sHI * (cout[0] - cin[0]);
+  const T tcHeI = sHeI * (cout[1] - cin[1]);
+  const T tcHeII = sHeII * (cout[2] - cin[2]);
+  const T inv = div_flat(T(1), maxp(tcHI + tcHeI + tcHeII, tiny));
+  const T dtau = tau_out - tau_in;
+  const bool thick = xabs(dtau) > T(kTauPhotoLimit);
+  const bool hthick = kHeat && xabs(dtau) > T(kTauHeatLimit);
+  // the thick sums A (e_in - e_out) (A_heat (e_in - e_out)) on every
+  // row; a thin row takes its incoming thin sums
+  T g_d = T(0), h_d[3] = {T(0), T(0), T(0)};
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const T e_d = ri[(e0 + k) * W] -
+                  xexp(-minp(tau_out * rb[(5 + k) * W], T(80)));
+    g_d += rb[(5 + M + k) * W] * e_d;
+    if constexpr (kHeat) {
+      for (int sp = 0; sp < 3; ++sp) {
+        h_d[sp] += rb[(5 + (2 + sp) * M + k) * W] * e_d;
+      }
+    }
+  }
+  const T g_x = thick ? g_d : ri[W];
+  const T phi_all = thick ? g_x : dtau * g_x;
+  const T pv = phi_all * inv_vol;
+  acc[0] += tcHI * inv * pv;
+  acc[1] += mHeI * (tcHeI * inv) * pv;
+  acc[2] += mHeII * (tcHeII * inv) * pv;
+  if constexpr (kHeat) {
+    const T tc[3] = {tcHI, tcHeI, tcHeII};
+    const T mk[3] = {T(1), mHeI, mHeII};
+    T ph[3];
+    for (int sp = 0; sp < 3; ++sp) {
+      ph[sp] = mk[sp] * (hthick ? tc[sp] * inv * h_d[sp] * inv_vol
+                                : tc[sp] * ri[(2 + sp) * W] * inv_vol);
+    }
+    const T* f = rb + (5 + 5 * M) * W;
+    const T fra1 = f[0] * ph[0] + f[W] * ph[1] + f[2 * W] * ph[2];
+    const T fra2 = f[3 * W] * ph[0] + f[4 * W] * ph[1] + f[5 * W] * ph[2];
+    const T fra3 = f[6 * W] * ph[0] + f[7 * W] * ph[1] + f[8 * W] * ph[2];
+    const T fra4 = f[9 * W] * ph[0] + f[10 * W] * ph[1] + f[11 * W] * ph[2];
+    kahan_add(hacc[0], hcomp,
+              ph[0] + ph[1] + ph[2] - y[2] * fra3 + y[5] * fra4);
+    hacc[1] += y[0] * fra1 - y[3] * fra2;
+    hacc[2] += y[1] * fra1 - y[4] * fra2;
   }
 }
 
-// band_out over the blocks: each block's partial sums added in block
-// order (the plain version adds the blocks' rates in that order too)
+// The incoming side of every row (once per shell)
 template <typename T, bool kHeat>
-__device__ __forceinline__ void blocks_out(const T* tab, const int* blocks,
-                                           int nblk, const T* cin,
-                                           const T* cout, T inv_vol,
-                                           const T* y, const T* in, T out[4],
-                                           int lane, int nlanes) {
-  for (int q = 0; q < 4; ++q) out[q] = T(0);
-  for (int i = 0; i < nblk; ++i) {
-    const int* blk = blocks + kBlockInts * i;
-    const BandTables d = block_table(blk);
-    T o[4];
-    with_block_nodes(d.K, [&](auto kk) {
-      band_out<T, kHeat, decltype(kk)::value>(tab + blk[2], d, cin, cout,
-                                              inv_vol, y, in + blk[3], o,
-                                              lane, nlanes);
-    });
-    for (int q = 0; q < 4; ++q) out[q] += o[q];
+__device__ __forceinline__ void rows_in(const T* tab, int slots,
+                                        const T* cin, T* in, int lane) {
+  constexpr int R = kRowValues<kHeat> * kRowLanes;
+  constexpr int I = kRowInValues<kHeat> * kRowLanes;
+#pragma unroll 1
+  for (int s = 0; s < slots; ++s) {
+    row_in<T, kHeat>(tab + s * R + lane, cin, in + s * I + lane);
+  }
+}
+
+// out = photo_cell_{HI,HeI,HeII} and the heat of this lane's rows from
+// the incoming side `in` (rows_in's, for the same cin) and the outgoing
+// columns; y holds ricotti()'s values (heating only).
+template <typename T, bool kHeat>
+__device__ __forceinline__ void rows_out(const T* tab, int slots,
+                                         const T* cin, const T* cout,
+                                         T inv_vol, const T* y, const T* in,
+                                         T out[4], int lane) {
+  constexpr int R = kRowValues<kHeat> * kRowLanes;
+  constexpr int I = kRowInValues<kHeat> * kRowLanes;
+  T acc[3] = {T(0), T(0), T(0)};
+  T hacc[3] = {T(0), T(0), T(0)}, hcomp = T(0);
+#pragma unroll 1
+  for (int s = 0; s < slots; ++s) {
+    row_out<T, kHeat>(tab + s * R + lane, in + s * I + lane, cin, cout,
+                      inv_vol, y, acc, hacc, hcomp);
+  }
+  if constexpr (kHeat) {
+    out[0] = acc[0] + div_flat(hacc[1], T(kIonEnergyHI));
+    out[1] = acc[1] + div_flat(hacc[2], T(kIonEnergyHeI));
+    out[2] = acc[2];
+    out[3] = hacc[0];
+  } else {
+    for (int q = 0; q < 3; ++q) out[q] = acc[q];
+    out[3] = T(0);
   }
 }
 

@@ -1,8 +1,9 @@
 // One timestep of the 1D program: the radial march over the shells with
 // each shell's fixed point, in one launch of one warp.  Variants: the
-// quadrature rate route or the tau-table route (template flag kTable),
-// each isothermal or with heating (template flag kHeat: the heating
-// rates, the T-dependent rate fits and the thermal sub-cycle).
+// quadrature rate route (a fixed rule, kK its K, or "auto" tables, kK =
+// kBlockRoute) or the tau-table route (template flag kTable), each
+// isothermal or with heating (template flag kHeat: the heating rates,
+// the T-dependent rate fits and the thermal sub-cycle).
 //
 // Replaces c2ray_tpu/onedim/evolve.py: _solve_cell (:104) inside the
 // radial lax.scan of make_evolve1d / evolve1d (:190-239), with
@@ -10,7 +11,9 @@
 // c2ray_tpu/radiation/photo.py: _table_positions (:65), _read (:78),
 // _photo_lookup (:90), _heat_lookup (:123) and photoion_rates (:185);
 // on the quadrature route band_in / band_out (csrc/band_rates.cuh,
-// cell_rates' split form), on the table route table_in / table_out
+// cell_rates' split form; on "auto" tables, with the blocks loop of
+// c2ray_tpu/radiation/quadrature.py:486-489, rows_in / rows_out), on
+// the table route table_in / table_out
 // (csrc/table_rates.cuh); the chemistry device functions of
 // csrc/chemistry.cuh.
 //
@@ -29,14 +32,17 @@
 // scan is, so one SM of the card's 132 runs it and latency, not
 // throughput, bounds it: one warp's dependent instructions, each waiting
 // for the one before.  Each lane takes the bands b = lane, lane + 32,
-// ... of every source type; a shuffle butterfly adds the lanes' partial
-// rates (the heat a Kahan sum per lane) in a fixed order that leaves the
-// same bits on every lane, so every lane then runs the chemistry on the
-// same values, with no broadcast and no divergence, and a result
-// repeats to the last digit between calls.  A second warp (a lane per
-// band at test 1's 36-47 bands) would add a barrier and a shared-memory
-// sum to every iteration to save part of the rate side, which is not
-// where the time goes (below).
+// ... of every source type (on "auto" tables its rows of band_rates.cuh's
+// row deal: every block's bands cut into rows of 3 nodes, dealt to the
+// lanes in one pass); a shuffle butterfly adds the
+// lanes' partial rates (the heat a Kahan sum per lane) in a fixed order
+// that leaves the same bits on every lane, so every lane then runs the
+// chemistry on the same values, with no broadcast and no divergence, and
+// a result repeats to the last digit between calls.  A second warp (a
+// lane per band at test 1's 36-47 bands) would add a barrier and a
+// shared-memory sum to every iteration to save part of the rate side,
+// which is not where the time goes on a fixed rule (below); on "auto"
+// tables the row deal fills the 32 lanes (band_rates.cuh).
 //
 // Design, from the cycles each part of an iteration took on the
 // chip (clock64 stamps in a copy of this file that
@@ -72,7 +78,12 @@
 // heating, 4.528 -> 3.316 us on the tau tables; doric's two passes
 // still take ~3200-3800 of ~4900-8500 cycles, a dependent chain now.
 // The quadrature route takes band_rates.cuh's unrolled node loop (K a
-// template parameter).
+// template parameter).  "auto" tables take band_rates.cuh's row deal:
+// their earlier block-by-block route spent 57% of an iteration in seven
+// passes over 1-16 lanes each (--oned --auto).  Per float32 iteration
+// over 12 steps, the block route (commit e7dcd29) -> the row deal, the
+// two builds in turns on the same card: 4.535 -> 2.023 us isothermal,
+// 7.177 -> 3.727 us heating (the outgoing side 5926 -> 856 cycles).
 
 #include "band_rates.cuh"
 #include "chemistry.cuh"
@@ -83,14 +94,6 @@ namespace {
 
 constexpr int kLanes = 32;
 constexpr double kMaxColdensh1D = 2.0e26;    // onedim/evolve.py:MAX_COLDENSH_1D
-
-// "auto" tables (kK = kBlockRoute): the block list of band_rates.cuh's
-// blocks_in / blocks_out, the value count of the blocks' rows (in
-// `bands`) and of their incoming side
-struct BlockList1D {
-  const int* list;      // (n, kBlockInts)
-  int n, nrow, nin;
-};
 
 template <typename T>
 struct Args1D {
@@ -114,7 +117,8 @@ struct Args1D {
   BandTables bt;        // quadrature rows; tables: ntypes only
   T dr, dt, clump, eps, one_m_eps, ccf;
   T g[3], bnd[3];
-  BlockList1D blk;      // "auto" tables only
+  int slots;            // "auto" tables: the rows' slots (band_rates.cuh:
+                        // rows_in / rows_out)
 };
 
 // onedim/evolve.py:_cell_columns (chemistry.py:coldens per species)
@@ -282,32 +286,32 @@ __device__ __forceinline__ void spread_fits(const FitOps<T>& o, T t, T x,
 }
 
 // kK: the quadrature table's K (0: a.bt.K at run time; 0 on the table
-// route), or kBlockRoute: "auto" tables, blocks of their own K
+// route), or kBlockRoute: "auto" tables, dealt as rows of kRowNodes.
+// The "auto" instantiations ask for one resident block (a launch has
+// one): ptxas then keeps more registers (102 -> 112 isothermal, float32)
+// and schedules the march's doric passes with fewer stalls, 2.75 -> 2.03
+// us an isothermal iteration (PERF.md section 6); 0 (no minimum)
+// leaves the other instantiations as they were.
 template <typename T, bool kHeat, bool kTable, int kK>
-__global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
+__global__ void __launch_bounds__(kLanes, kK == kBlockRoute ? 1 : 0)
+    evolve1d_kernel(const Args1D<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   constexpr bool kBlocks = kK == kBlockRoute;
   // shared memory: the band rows, the shell's incoming side, with
-  // heating the cooling table; "auto" blocks: then the block list
+  // heating the cooling table
   T* tab = reinterpret_cast<T*>(smem);
   const int nrow = kTable    ? a.nb * kTableRow
-                   : kBlocks ? a.blk.nrow
+                   : kBlocks ? a.slots * kRowValues<kHeat> * kRowLanes
                              : a.nbt * row_stride<kHeat>(kK > 0 ? kK : a.bt.K);
   for (int k = lane; k < nrow; k += kLanes) tab[k] = a.bands[k];
   T* in = tab + nrow;
   T* cool = in + (kTable    ? a.nb * table_in_values<kHeat>(a.bt.ntypes)
-                  : kBlocks ? a.blk.nin
+                  : kBlocks ? a.slots * kRowInValues<kHeat> * kRowLanes
                             : a.nbt * in_values<kHeat>(a.bt.K));
   if constexpr (kHeat) {
     for (int k = lane; k < kTempPoints * 5; k += kLanes) {
       cool[k] = a.cool_tab[k];
-    }
-  }
-  int* blocks = reinterpret_cast<int*>(cool + (kHeat ? kTempPoints * 5 : 0));
-  if constexpr (kBlocks) {
-    for (int k = lane; k < a.blk.n * kBlockInts; k += kLanes) {
-      blocks[k] = a.blk.list[k];
     }
   }
   __syncwarp();
@@ -329,7 +333,7 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
     if constexpr (kTable) {
       table_in<T, kHeat, kLanes>(a, tab, cd, in, lane);
     } else if constexpr (kBlocks) {
-      blocks_in<T, kHeat>(tab, blocks, a.blk.n, cd, in, lane, kLanes);
+      rows_in<T, kHeat>(tab, a.slots, cd, in, lane);
     } else {
       band_in<T, kHeat, kK>(tab, a.bt, cd, in, lane, kLanes);
     }
@@ -351,8 +355,8 @@ __global__ void __launch_bounds__(kLanes) evolve1d_kernel(const Args1D<T> a) {
       if constexpr (kTable) {
         table_out<T, kHeat, kLanes>(a, tab, cd, cout, vol, y, in, r, lane);
       } else if constexpr (kBlocks) {
-        blocks_out<T, kHeat>(tab, blocks, a.blk.n, cd, cout, inv_vol, y,
-                             in, r, lane, kLanes);
+        rows_out<T, kHeat>(tab, a.slots, cd, cout, inv_vol, y, in, r,
+                           lane);
       } else {
         band_out<T, kHeat, kK>(tab, a.bt, cd, cout, inv_vol, y, in, r, lane,
                                kLanes);
@@ -436,14 +440,13 @@ int run_evolve1d(const Args1D<T>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// "auto" tables: shared memory holds the blocks' rows, their incoming
-// sides, with heating the cooling table, then the block list
+// "auto" tables: shared memory holds the rows, their incoming side and,
+// with heating, the cooling table
 template <typename T, bool kHeat>
-int run_evolve1d_blocks(const Args1D<T>& a, cudaStream_t stream) {
-  const size_t smem =
-      (size_t(a.blk.nrow) + a.blk.nin + (kHeat ? kTempPoints * 5 : 0)) *
-          sizeof(T) +
-      size_t(a.blk.n) * kBlockInts * sizeof(int);
+int run_evolve1d_rows(const Args1D<T>& a, cudaStream_t stream) {
+  const size_t rows =
+      size_t(a.slots) * kRowLanes * (kRowValues<kHeat> + kRowInValues<kHeat>);
+  const size_t smem = (rows + (kHeat ? kTempPoints * 5 : 0)) * sizeof(T);
   auto kernel = evolve1d_kernel<T, kHeat, false, kBlockRoute>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -500,21 +503,19 @@ extern "C" {
     a.one_m_eps = T(1.0 - eps); a.ccf = T(ccf);                            \
     a.g[0] = T(g0); a.g[1] = T(g1); a.g[2] = T(g2);                        \
     a.bnd[0] = T(bnd0); a.bnd[1] = T(bnd1); a.bnd[2] = T(bnd2);            \
-    a.blk = {};                                                            \
+    a.slots = 0;                                                           \
     return c2ray::run_evolve1d<T, HEAT, TABLE>(                            \
         a, static_cast<cudaStream_t>(stream));                             \
   }
 
-// "auto" tables, the same contract: bands holds the blocks' rows (nrow
-// values), blocks their list (nblk blocks of kBlockInts ints: K, band
-// count, first row value, first incoming value), nin the value count of
-// their incoming side.
+// "auto" tables, the same contract: bands holds the rows as
+// onedim/evolve.py:_row_deal lays them out, `slots` of 32 rows each
+// (band_rates.cuh: rows_in / rows_out).
 #define C2RAY_EVOLVE1D_AUTO_ENTRY(NAME, T, HEAT)                            \
   int NAME(const T* ndens, const T* temper, const T* xh, const T* xhe,     \
-           const T* vol, const T* bands, const int* blocks,                \
-           const T* cool_tab, T* xh_out, T* xhe_out, T* temper_out,        \
-           int* nits, int* counters, int mesh, int nblk, int nrow,         \
-           int nin, int max_iter, double dr, double dt, double clump,      \
+           const T* vol, const T* bands, const T* cool_tab, T* xh_out,     \
+           T* xhe_out, T* temper_out, int* nits, int* counters, int mesh,  \
+           int slots, int max_iter, double dr, double dt, double clump,    \
            double g0, double g1, double g2, double eps, double ccf,        \
            double bnd0, double bnd1, double bnd2, void* stream) {          \
     c2ray::Args1D<T> a{};                                                  \
@@ -523,12 +524,12 @@ extern "C" {
     a.xh_out = xh_out; a.xhe_out = xhe_out; a.temper_out = temper_out;     \
     a.nits = nits; a.counters = counters;                                  \
     a.mesh = mesh; a.max_iter = max_iter;                                  \
-    a.blk = {blocks, nblk, nrow, nin};                                     \
+    a.slots = slots;                                                       \
     a.dr = T(dr); a.dt = T(dt); a.clump = T(clump); a.eps = T(eps);        \
     a.one_m_eps = T(1.0 - eps); a.ccf = T(ccf);                            \
     a.g[0] = T(g0); a.g[1] = T(g1); a.g[2] = T(g2);                        \
     a.bnd[0] = T(bnd0); a.bnd[1] = T(bnd1); a.bnd[2] = T(bnd2);            \
-    return c2ray::run_evolve1d_blocks<T, HEAT>(                            \
+    return c2ray::run_evolve1d_rows<T, HEAT>(                              \
         a, static_cast<cudaStream_t>(stream));                             \
   }
 

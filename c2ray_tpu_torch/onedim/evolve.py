@@ -56,9 +56,10 @@ launches_table_heat = 0
 launches_auto = 0
 launches_auto_heat = 0
 
-# the ints of each block in the block list of "auto" tables
-# (band_rates.cuh: kBlockInts)
-BLOCK_INTS = 4
+# "auto" tables in the kernel: the nodes of a row and the lanes a slot
+# of rows spans (band_rates.cuh: kRowNodes, kRowLanes)
+ROW_NODES = 3
+ROW_LANES = 32
 
 
 class State1D(NamedTuple):
@@ -259,16 +260,15 @@ def evolve1d_plain(ctx: OneDContext, state: State1D, dt):
 
 class KernelTables1D(NamedTuple):
     """The 1D kernel's table inputs: the band rows (quadrature: the
-    packed rows of `packed_band_rows`; "auto" tables: the flat rows of
-    `packed_band_blocks`; tables: (nb, 17) rows of sigmas, masks and the
+    packed rows of `packed_band_rows`; "auto" tables: the rows of
+    `_row_deal`; tables: (nb, 17) rows of sigmas, masks and the
     f-factors), on the table route the heating columns (nb, 3) int32,
     the photo tables (ntypes, 2, NumTau + 1, nb) and with heating the
     heating tables (ntypes, 2, NumTau + 1, nheat), with heating the
     stacked cooling table; the layout integers of the entry point (nbt,
     K, ntypes, the types' band counts and first bands, nb, nheat; "auto"
-    tables, whose entries are their own: the block count, the rows' and
-    the incoming side's value counts); on "auto" tables the block list
-    of `_block_list` (int32)."""
+    tables, whose entries are their own: the rows' slot count); the
+    route of the entry points: "quad", "table" or "auto"."""
 
     bands: torch.Tensor
     hbin: Optional[torch.Tensor]
@@ -276,7 +276,7 @@ class KernelTables1D(NamedTuple):
     heat: Optional[torch.Tensor]
     cool: Optional[torch.Tensor]
     layout: Tuple[int, ...]
-    blocks: Optional[torch.Tensor] = None
+    route: str = "quad"
 
 
 def _table_route(ctx: OneDContext, dtype, device, heat: bool):
@@ -288,19 +288,48 @@ def _table_route(ctx: OneDContext, dtype, device, heat: bool):
     return tr.rows, tr.hbin, tr.photo, tr.heat, layout
 
 
-def _block_list(blocks, heat: bool):
-    """The kernel's block list of "auto" tables (packed_band_blocks'
-    blocks) and the value count of their incoming side: per block its K,
-    band count, the offset of its first row value in the flat rows and
-    of its first incoming value (band_rates.cuh: blocks_in), each block
-    nb x in_values(K) values (quadrature tables' values per band of the
-    incoming side: tau_in, the thin sum, with heating the three thin
-    heat sums, then e_in(K))."""
-    ints, off = [], 0
-    for _, _, nb, K, row0 in blocks:
-        ints += [K, nb, row0, off]
-        off += nb * ((5 if heat else 2) + K)
-    return ints, off
+def _row_deal(flat, blocks, heat: bool):
+    """"auto" tables as the 1D kernel deals them to its warp's lanes
+    (band_rates.cuh: rows_in / rows_out): every live band of every block
+    of packed_band_blocks (flat rows, blocks) cut into rows of ROW_NODES
+    nodes, the last row of a band padded with nodes of weight 0 (sighat
+    and A 0); a row holds its band's values in packed_band_blocks'
+    layout at K = ROW_NODES.  Row j lies in slot j // ROW_LANES of lane
+    j % ROW_LANES; zero rows fill the last slot.
+    Returns (rows, slots, deal): the rows slot-major, value-major,
+    lane-fastest (value v of slot s, lane l at (s * values + v) *
+    ROW_LANES + l), and per row its (block, band of the block, first
+    node, nodes), None for a zero row."""
+    M = ROW_NODES
+    rows, deal = [], []
+    for bi, (_, _, nb, K, row0) in enumerate(blocks):
+        width = 17 + 5 * K if heat else 5 + 2 * K
+        band = flat[row0:row0 + nb * width].reshape(nb, width)
+        # the node arrays of a row: sighat, A, with heating A_heat x 3
+        arrays = 5 if heat else 2
+        for i in range(nb):
+            for k0 in range(0, K, M):
+                k1 = min(K, k0 + M)
+                pad = band.new_zeros(M - (k1 - k0))
+                cols = [band[i, :5]]
+                for q in range(arrays):
+                    cols += [band[i, 5 + q * K + k0:5 + q * K + k1], pad]
+                cols.append(band[i, 5 + arrays * K:])
+                rows.append(torch.cat(cols))
+                deal.append((bi, i, k0, k1 - k0))
+    slots = -(-len(rows) // ROW_LANES)
+    table = flat.new_zeros(slots * ROW_LANES, rows[0].numel())
+    table[:len(rows)] = torch.stack(rows)
+    packed = table.reshape(slots, ROW_LANES, -1).transpose(1, 2).reshape(-1)
+    return (packed.contiguous(), slots,
+            deal + [None] * (slots * ROW_LANES - len(rows)))
+
+
+def _row_in_values(heat: bool) -> int:
+    """Values of one row's incoming side (band_rates.cuh: kRowInValues):
+    tau_in, the thin sum, with heating the three thin heat sums, then
+    e_in of each node."""
+    return (5 if heat else 2) + ROW_NODES
 
 
 def _shared_limit(nbytes: int, what: str):
@@ -313,8 +342,9 @@ def _pack_kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
     heat = not ctx.isothermal
     if heat and ctx.cooling is None:
         raise ValueError("a heating 1D run needs cooling tables")
-    block_list = None
+    route = "quad"
     if isinstance(ctx.tables, RadiationTables):
+        route = "table"
         bands, hbin, photo, heat_tab, layout = _table_route(ctx, dtype,
                                                             device, heat)
     else:
@@ -325,15 +355,16 @@ def _pack_kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
         flat, blocks = packed_band_blocks(ctx.tables, dtype, heat, *flags)
         photo = heat_tab = hbin = None
         if len({b[3] for b in blocks}) > 1:
-            # "auto" tables: the blocks' rows and their block list
-            ints, n_in = _block_list(blocks, heat)
-            bands = flat.to(device)
-            block_list = torch.tensor(ints, dtype=torch.int32, device=device)
-            _shared_limit((bands.numel() + n_in
+            # "auto" tables: every band's rows dealt to the warp's lanes
+            rows, slots, _ = _row_deal(flat, blocks, heat)
+            bands = rows.to(device)
+            route = "auto"
+            _shared_limit((bands.numel()
+                           + slots * ROW_LANES * _row_in_values(heat)
                            + (stacked(ctx.cooling).numel() if heat
-                              else 0)) * bands.element_size()
-                          + 4 * len(ints), "\"auto\" band tables")
-            layout = (len(blocks), bands.numel(), n_in)
+                              else 0)) * bands.element_size(),
+                          "\"auto\" band tables")
+            layout = (slots,)
         else:
             bands, types, K = uniform_band_rows(flat, blocks)
             bands = bands.to(device)
@@ -346,7 +377,7 @@ def _pack_kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
     cool = (stacked(ctx.cooling).to(dtype=dtype, device=device).contiguous()
             if heat else None)
     return KernelTables1D(bands, hbin, photo, heat_tab, cool, layout,
-                          block_list)
+                          route)
 
 
 def _kernel_tables(ctx: OneDContext, dtype, device) -> KernelTables1D:
@@ -394,7 +425,6 @@ def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
             raise ValueError(f"the 1D state and volumes must be {dtype} on "
                              f"{device}, shapes (mesh,), (mesh, 2), (mesh, 3)")
     heat = not ctx.isothermal
-    table = isinstance(ctx.tables, RadiationTables)
     kt = _kernel_tables(ctx, dtype, device)
     null = ctypes.c_void_p(None)
     P = lambda t: null if t is None else cuda_build.ptr(t)
@@ -407,13 +437,12 @@ def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
     counters = torch.zeros(4, dtype=torch.int32, device=device)
 
     lib = cuda_build.load("evolve1d")
-    auto = kt.blocks is not None
-    name = ("evolve1d_" + ("table_" if table else "auto_" if auto else "quad_")
-            + ("heat_" if heat else "iso_")
+    table, auto = kt.route == "table", kt.route == "auto"
+    name = (f"evolve1d_{kt.route}_" + ("heat_" if heat else "iso_")
             + ("f32" if dtype == torch.float32 else "f64"))
     # "auto" tables have entries of their own: no tau-table pointers, the
-    # block list and its counts
-    tabs = ((kt.bands, kt.blocks, kt.cool) if auto
+    # rows' slot count
+    tabs = ((kt.bands, kt.cool) if auto
             else (kt.bands, kt.hbin, kt.photo, kt.heat, kt.cool))
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * (10 + len(tabs))

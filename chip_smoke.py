@@ -220,6 +220,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from kernel_study import (  # noqa: E402
     achieved_occupancy, build_chem_split, build_oned, chem_pass_with,
     chem_split_run, chem_split_stats, comparable_sass, histogram, kernel_sass,
+    oned_block_rows, parent_evolve1d, parent_oned_tables,
     parent_photon_losses, parent_sweeps, sass_band_mix, sass_issue_floor,
     sass_loop_mix, sass_per_band, with_library)
 
@@ -1911,7 +1912,7 @@ def phase_main_route(dev, route, engine="pyramid", heating=False, mesh=128,
              "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
              "cell_source_updates_per_s": rate}
     if psweeps is not None:
-        with parent_sweeps(psweeps):
+        with parent_sweeps(psweeps, PARENT_CSRC):
             pk = kern(*args)
         same = all(torch.equal(x, y) for x, y in zip(pk, k))
         diff = max(rel_err(x, y) for x, y in zip(_sweep_parts(k, 1.0),
@@ -2150,6 +2151,7 @@ def phase_sweep_redesign(cfg, s, srcpos, nflux):
 # `git archive` of the commit before the redesign unpacked under build/
 PARENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "parent")
+PARENT_CSRC = os.path.join(PARENT_DIR, "c2ray_tpu_torch", "csrc")
 # the kernel sources whose SASS is held to the parent's: the halo
 # kernels to the instruction, the 1D kernel's parent functions compared
 # and, where any differs, its three main-path variants timed in turns
@@ -2159,6 +2161,9 @@ PARENT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # test_fixed_rule_sweeps_time_as_the_parent)
 SAME_SASS = ("evolve1d", "domain_halo")
 SASS_FATAL = ("domain_halo",)
+# functions of those sources that a redesign changed, left out of the
+# comparison: the 1D kernel's "auto" instantiations (kK = kBlockRoute)
+REDESIGNED_FUNCTIONS = {"evolve1d": r"evolve1d_kernelI[fd]Lb[01]ELb0ELin2E"}
 
 
 # phase 23 times the chemistry and photon-loss kernels of commit
@@ -2180,7 +2185,7 @@ def start_parent_build():
     build; None when no parent is unpacked under build/parent."""
     from c2ray_tpu_torch import cuda_build
 
-    psrc = pathlib.Path(PARENT_DIR, "c2ray_tpu_torch", "csrc")
+    psrc = pathlib.Path(PARENT_CSRC)
     if not psrc.is_dir():
         return None
     base = cuda_build.BUILD_DIR.parent / "parent_libs"
@@ -2206,7 +2211,7 @@ def parent_libraries(procs=None):
         log(f"  no parent build under {PARENT_DIR}: the in-turns timing "
             f"and the SASS comparison are not run")
         return None, None, None
-    psrc = os.path.join(PARENT_DIR, "c2ray_tpu_torch", "csrc")
+    psrc = PARENT_CSRC
     base = cuda_build.BUILD_DIR.parent / "parent_libs"
     for n, proc in procs.items():
         out = proc.communicate()[0]
@@ -2216,7 +2221,9 @@ def parent_libraries(procs=None):
     for n in SAME_SASS:
         cuda_build.load(n)
         mine = comparable_sass(cuda_build.library_path(n))
-        theirs = comparable_sass(base / f"lib{n}.so")
+        theirs = {k: v for k, v in comparable_sass(
+            base / f"lib{n}.so").items()
+            if not re.search(REDESIGNED_FUNCTIONS.get(n, "^$"), k)}
         same[n] = (sum(mine.get(k) == v for k, v in theirs.items()),
                    len(theirs))
         for k, v in theirs.items():
@@ -2228,8 +2235,9 @@ def parent_libraries(procs=None):
                     f"({len(a)} / {len(b)} lines) from line {at}:\n    "
                     + "\n    ".join(a[at:at + 4]) + "\n  parent:\n    "
                     + "\n    ".join(b[at:at + 4]))
-    log("  SASS equal to the parent's (functions): " + ", ".join(
-        f"{n}.cu {a} of {b}" for n, (a, b) in same.items()))
+    log("  SASS equal to the parent's (functions; the redesigned ones "
+        f"{REDESIGNED_FUNCTIONS} left out): " + ", ".join(
+            f"{n}.cu {a} of {b}" for n, (a, b) in same.items()))
     if any(same[n][0] != same[n][1] for n in SASS_FATAL):
         raise AssertionError(f"a source outside the redesign compiles to "
                              f"other SASS than the parent's: {same}")
@@ -2252,7 +2260,7 @@ def sweeps_in_turns(fn, psweeps, reps=3):
     out = {}
     for key in ("parent", "this", "this", "parent"):
         if key == "parent":
-            with parent_sweeps(psweeps):
+            with parent_sweeps(psweeps, PARENT_CSRC):
                 ms = event_ms(fn, reps)
         else:
             ms = event_ms(fn, reps)
@@ -2843,6 +2851,8 @@ ONED_KERNEL = {"quadrature": "evolve1d", "quadrature heating": "evolve1d_heat",
 # phase 12's runs and phase 14's: (kernels entry, isothermal, quadrature)
 ONED_MAIN = (("evolve1d", True, True), ("evolve1d_heat", False, True),
              ("evolve1d_table", True, False))
+# phase 26's runs: (kernels entry, isothermal) on "auto" tables
+ONED_AUTO = (("evolve1d_auto", True), ("evolve1d_auto_heat", False))
 ONED_FULL_MESH = 10000     # files_for_1D/sizes.f90:27
 
 
@@ -3043,46 +3053,78 @@ def phase_main_1d(dev, mesh=ONED_FULL_MESH, n_steps=12):
     return out
 
 
-def phase_auto_1d(dev, compare, mesh=ONED_FULL_MESH):
-    """Phase 26: the 1D kernel on "auto" quadrature blocks at full
+def phase_auto_1d(dev, compare, plibs=None, mesh=ONED_FULL_MESH):
+    """Phase 26: the 1D kernel on "auto" quadrature tables at full
     width: one test-1 10 Myr step at 10000 shells in float32 through
-    `OneDRun` (CUDA events around the step), which launches the block
-    variant once and no other kernel and leaves a finite state of the
-    right shape that has begun to ionize; with phase 11's mesh-128
-    comparison (kernel against plain, float64 and float32) its entry of
-    the kernels line."""
+    `OneDRun`, isothermal and heating (CUDA events around the step, the
+    tables packed before it), each launching its variant once and no
+    other kernel and leaving a finite state of the right shape that has
+    begun to ionize.  With a parent build (`plibs`) the same step from
+    the same state then runs with the parent's library and with this
+    build's in turns (parent, this, this, parent;
+    kernel_study.parent_evolve1d: the parent's entries on its block
+    list), their fractions compared.  Returns the two entries of the
+    kernels line, with phase 11's mesh-128 comparison (kernel against
+    plain, float64 and float32)."""
     from c2ray_tpu_torch.onedim import evolve as ev1
 
-    name = "evolve1d_auto"
-    run = oned_run(1, mesh, torch.float32, dev, True, True, "auto")
+    out = []
+    floors = oned_issue_floors()
     dt = 10.0 * MYR
-    reset_launch_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    nits = run.step(dt)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end)
-    counts = launch_counts()
-    check_launches(f"1D {name}", counts, (name,))
-    counters = run.last_counters.tolist()
-    for t in run.state:
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"1D {name} produced non-finite state")
-    if run.state.xh.shape != (mesh, 2) or not float(run.state.xh[0, 1]) > 0.5:
-        raise AssertionError(f"1D {name}: wrong shape or no ionization")
-    b = oned_bound(run.ctx, counters, False, False, oned_issue_floors())
-    blk = ev1._kernel_tables(run.ctx, torch.float32, dev).blocks.tolist()
-    worst, kp_abs, k128, p128 = compare["auto"]
-    log(f"1D {name} (test 1, mesh {mesh}, float32, one 10 Myr step): "
-        f"{ms:.3f} ms, {counters[0]} iterations ({1e3 * ms / counters[0]:.4f}"
-        f" us each), largest of a shell {counters[1]}, shells at the cap "
-        f"{int((nits == run.ctx.max_cell_iter).sum())}; blocks (K, bands) "
-        f"{list(zip(blk[0::ev1.BLOCK_INTS], blk[1::ev1.BLOCK_INTS]))}; "
-        f"bound {b[0]:.3f} ms ({b[2]}); at mesh 128 kernel {k128:.3f} ms, "
-        f"plain (CPU) {p128:.1f} ms")
-    return {"name": name, "route": "cuda",
+    for name, iso in ONED_AUTO:
+        run = oned_run(1, mesh, torch.float32, dev, iso, True, "auto")
+        ev1._kernel_tables(run.ctx, torch.float32, dev)
+        before = run.state
+        reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        nits = run.step(dt)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        counts = launch_counts()
+        check_launches(f"1D {name}", counts, (name,))
+        counters = run.last_counters.tolist()
+        for t in run.state:
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"1D {name} produced non-finite state")
+        if (run.state.xh.shape != (mesh, 2)
+                or not float(run.state.xh[0, 1]) > 0.5):
+            raise AssertionError(f"1D {name}: wrong shape or no ionization")
+        b = oned_bound(run.ctx, counters, not iso, False, floors)
+        worst, kp_abs, k128, p128 = compare["auto" if iso else "auto heating"]
+        turns = None
+        if plibs is not None:
+            turns = {}
+            mine = lambda: ev1.evolve1d_cuda(run.ctx, before, dt)
+            theirs = lambda: parent_evolve1d(plibs["evolve1d"], run.ctx,
+                                             before, dt)
+            parent_oned_tables(run.ctx, torch.float32, dev)
+            for key in ("parent", "this", "this", "parent"):
+                turns.setdefault(key, []).append(
+                    event_ms(theirs if key == "parent" else mine, 1))
+            diff = max(float((a - b).abs().max()) for a, b in zip(
+                mine()[0][2:], theirs()[0][2:]))
+            log(f"  1D {name}, one step at mesh {mesh} in turns with the "
+                f"parent build (ms): parent {turns['parent'][0]:.3f} / "
+                f"{turns['parent'][1]:.3f}, this {turns['this'][0]:.3f} / "
+                f"{turns['this'][1]:.3f}; this/parent "
+                f"{turns_ratio(turns):.4f}; fractions differ by at most "
+                f"{diff:.3e}")
+        blocks, (nodes, rows, slots) = oned_block_rows(run.ctx)
+        its = counters[0]
+        log(f"1D {name} (test 1, mesh {mesh}, float32, one 10 Myr step): "
+            f"{ms:.3f} ms, {its} iterations ({1e3 * ms / its:.4f} us each), "
+            f"{counters[3]} thermal sub-steps, largest of a shell "
+            f"{counters[1]}, shells at the cap "
+            f"{int((nits == run.ctx.max_cell_iter).sum())}; blocks (K, "
+            f"bands, live lanes of the parent's passes) {blocks}, dealt as "
+            f"{rows} rows of {ev1.ROW_NODES} nodes ({nodes} nodes) in "
+            f"{slots} slots; bound {b[0]:.3f} ms ({b[2]}); at mesh 128 "
+            f"kernel {k128:.3f} ms, plain (CPU) {p128:.1f} ms")
+        out.append({
+            "name": name, "route": "cuda",
             "source": "c2ray_tpu_torch/csrc/evolve1d.cu",
             "replaces": "c2ray_tpu/radiation/quadrature.py:486",
             "launches": counts[name], "max_abs_err": kp_abs,
@@ -3091,9 +3133,12 @@ def phase_auto_1d(dev, compare, mesh=ONED_FULL_MESH):
             "max_err_f32_vs_f64_mesh128": worst,
             "ms": ms, "plain_ms": p128,
             "plain_shape": "mesh 128, one float32 step, on the CPU",
-            "us_per_iteration": 1e3 * ms / counters[0],
+            "us_per_iteration": 1e3 * ms / its,
+            "substeps_per_iteration": counters[3] / its,
+            "parent_in_turns_ms": turns,
             "bound_ms": b[0], "bound_by": b[1], "bound_detail": b[2],
-            "counters": counters, "library_ms": None}
+            "counters": counters, "library_ms": None})
+    return out
 
 
 def phase_oned_in_turns(main, plibs, same):
@@ -3350,13 +3395,16 @@ def phase_compare_1d_full(dev, refs):
 ONED_CHAIN = {(False, False): 168, (False, True): 186,
               (True, False): 208, (True, True): 213}
 ONED_CHAIN_SUBSTEP = 52
-# The issue floors of the kernel before its redesign (commit a26c0a1):
-# sass_issue_floor per fixed-point iteration, (heat, table, kK) as in
-# oned_issue_floors (tools/profile_torch_iteration.py --oned --parent).
-# oned_bound takes the smaller of these and this build's floor: both
-# builds compute the same function, so the fewer instructions bound it.
+# The issue floors of the kernel before its redesign: sass_issue_floor
+# per fixed-point iteration, (heat, table, kK) as in oned_issue_floors
+# (tools/profile_torch_iteration.py --oned [--auto] --parent); the fixed
+# rule and the tau tables of commit a26c0a1, the "auto" blocks (kK = -2)
+# of commit e7dcd29 (the block loop counted once).  oned_bound takes the
+# smaller of these and this build's floor: both builds compute the same
+# function, so the fewer instructions bound it.
 PARENT_ONED_FLOORS = {(False, False, 6): 1111, (True, False, 6): 1861,
-                      (False, True, 0): 1115, (True, True, 0): 1888}
+                      (False, True, 0): 1115, (True, True, 0): 1888,
+                      (False, False, -2): 1481, (True, False, -2): 2207}
 CYCLES_PER_DEPENDENT_OP = 4
 SM_CLOCK_HZ = 1.98e9
 
@@ -3397,8 +3445,8 @@ def oned_bound(ctx, counters, heat, table, floors):
     (c) one warp's issue floor at one instruction a cycle: per
     iteration the fewer of `floors` (this build's) and
     PARENT_ONED_FLOORS (the same function built before the redesign);
-    "auto" tables (blocks of several K) count every block's nodes and
-    take this build's floor of the block instantiation."""
+    "auto" tables (blocks of several K) count every block's nodes, not
+    the zero nodes that the kernel's row deal pads them with."""
     from c2ray_tpu_torch.radiation.quadrature import (packed_band_blocks,
                                                       packed_band_rows)
 
@@ -3632,7 +3680,8 @@ def run_phases(dev, workdir, ref, oned_refs):
     # the 1D program while phase 9's CPU reference runs
     compare_1d = phase("1D compare", phase_compare_1d, dev)          # 11.
     main_1d = phase("1D main path", phase_main_1d, dev)              # 12.
-    auto_1d = phase("1D auto blocks", phase_auto_1d, dev, compare_1d)  # 26.
+    auto_1d = phase("1D auto blocks", phase_auto_1d, dev, compare_1d,  # 26.
+                    plibs)
     phase("1D fixed rule in turns", phase_oned_in_turns, main_1d, plibs,
           same)
     phase("1D physics", phase_physics_1d, dev, main_1d)              # 13.
@@ -3782,7 +3831,7 @@ def run_phases(dev, workdir, ref, oned_refs):
              "bound_ms": b[0], "bound_by": b[1],
              "bound_detail": b[2], "counters": counters,
              "library_ms": None})
-    kernels.append(auto_1d)
+    kernels += auto_1d
     # the halo kernels: launches on the domain paths of phases 20 and 21,
     # time, plain time and bound at world size 1, 128^3, full radius
     for name, replaces in (

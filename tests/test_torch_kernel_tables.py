@@ -501,3 +501,29 @@ def test_parent_route_tables_and_arguments(route):
     for mod in (ss, pyramid_sweep, octant_sweep):
         assert mod._kernel_tables is ss._kernel_tables
         assert mod._route_args is ss._route_args
+
+
+def test_parent_sweeps_keep_this_trees_arguments_for_newer_parents(
+        tmp_path):
+    """A parent whose tau route reads band-major records (table_rates.cuh
+    with load_rec, as this tree's: commit e7dcd29 on) takes this tree's
+    tables and route arguments: parent_sweeps(libs, src) then swaps the
+    libraries alone, and back."""
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.sweep import octant_sweep, pyramid_sweep
+    from c2ray_tpu_torch.sweep import source_sweep as ss
+
+    (tmp_path / "table_rates.cuh").write_text(
+        (cuda_build.CSRC / "table_rates.cuh").read_text())
+    assert "load_rec(" in (tmp_path / "table_rates.cuh").read_text()
+    lib = object()
+    before = cuda_build._LIBS.get("pyramid_sweep")
+    with ks.parent_sweeps({"pyramid_sweep": lib}, tmp_path):
+        assert cuda_build._LIBS["pyramid_sweep"] is lib
+        for mod in (ss, pyramid_sweep, octant_sweep):
+            assert mod._kernel_tables is ss._kernel_tables
+            assert mod._route_args is ss._route_args
+    assert cuda_build._LIBS.get("pyramid_sweep") is before
+    (tmp_path / "table_rates.cuh").write_text("// commit 91213d1's reads\n")
+    with ks.parent_sweeps({}, tmp_path):
+        assert pyramid_sweep._kernel_tables is ks.parent_route_tables

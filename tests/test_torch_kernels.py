@@ -883,6 +883,30 @@ def test_oned_split_stamps_fit_the_kernel():
         pti.stamp_evolve1d(src.replace("++nit;", "nit += 1;"))
 
 
+def test_oned_block_stamps_fit_band_rates():
+    """--oned --auto also stamps each pass of the "auto" route in a copy
+    of csrc/band_rates.cuh: the row deal's design ("rows") fits this
+    tree, each stamp in its one place, begin before end, outgoing and
+    incoming; the copy is the header plus the stamps; a header that no
+    design fits raises."""
+    import re
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import profile_torch_iteration as pti
+
+    src = (cuda_build.CSRC / "band_rates.cuh").read_text()
+    out, design = pti.stamp_band_rates(src)
+    assert design == "rows"
+    assert re.findall(r"BLOCK_SPLIT_(BEGIN|END)\((.*?)\);", out) == [
+        ("BEGIN", ""), ("END", "kSplitBlocks + s"), ("BEGIN", ""),
+        ("END", "s")]
+    bare = re.sub(r"\n *BLOCK_SPLIT_(BEGIN|END)\(.*?\);", "",
+                  out.replace(pti._BLOCK_SPLIT_DEFS, ""))
+    assert bare == src
+    with pytest.raises(RuntimeError, match="no design"):
+        pti.stamp_band_rates(src.replace("row_in<", "row_in_<"))
+
+
 def _oned_errors(state, ref):
     """Largest |difference| of the fractions and relative one of the
     temperatures from the float64 reference state."""
@@ -897,13 +921,15 @@ def _oned_errors(state, ref):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("variant", sorted(_ONED))
 def test_evolve1d_kernel_matches_plain(cuda_device, variant, dtype):
-    """Two timesteps at mesh 64 through the kernel and the plain version
-    (on the CPU).  float64: rtol 1e-10 (fractions with a 1e-12 floor)
-    and every shell's iteration count equal.  float32: the kernel's error
-    against the plain float64 run within twice the plain float32 run's
-    plus 1e-5 (the lanes add the bands in another order, and FMA
-    contraction rounds the columns differently)."""
-    mesh = 64
+    """Two timesteps at mesh 64 (the "auto" tables, whose rows the
+    kernel deals to its lanes in another order than the plain version's
+    blocks: mesh 128) through the kernel and the plain version (on the
+    CPU).  float64: rtol 1e-10 (fractions with a 1e-12 floor) and every
+    shell's iteration count equal.  float32: the kernel's error against
+    the plain float64 run within twice the plain float32 run's plus 1e-5
+    (the lanes add the bands in another order, and FMA contraction
+    rounds the columns differently)."""
+    mesh = 128 if variant.startswith("auto") else 64
     kern, dt = _oned_run(variant, mesh, dtype, cuda_device)
     plain, _ = _oned_run(variant, mesh, dtype, "cpu")
     ref, _ = (_oned_run(variant, mesh, torch.float64, "cpu")

@@ -15,8 +15,8 @@ version on the CPU in float64.  Tolerances:
   cosmological test 4.  Heating runs use
   1 Myr steps, whose fixed points converge in a few rounds (longer ones
   amplify last-bit differences, ROADMAP Queue 3);
-- the 1D kernel's packing of "auto" blocks (block list, offsets, the
-  shared memory it asks for), no card needed;
+- the 1D kernel's packing of "auto" blocks (the row deal, its slot
+  count, the shared memory it asks for), no card needed;
 - the output file byte for byte, the photon statistics to rtol 1e-13
   (the rate fit at T differs in the last bit between XLA and PyTorch).
 """
@@ -256,12 +256,12 @@ def test_evolve1d_plain_matches_jax(variant):
 @pytest.mark.parametrize("heat", [False, True])
 def test_evolve1d_kernel_packs_auto_blocks(heat, monkeypatch):
     """The 1D kernel's tables of "auto" blocks (no card needed): the
-    blocks' flat rows as packed_band_blocks gives them, the block list
-    (K, bands, first row value, first incoming value: each block's
-    incoming side nb x in_values(K) values after the one before), the
-    layout ints of the block entries (the block count, the rows' and the
-    incoming side's value counts) and the shared memory they need,
-    refused over the limit."""
+    blocks of packed_band_blocks dealt as rows (`_row_deal`: every node
+    once, rows of ROW_NODES nodes, 32 to a slot; the deal itself in
+    tests/test_torch_oned_blocks.py), the layout int of the "auto"
+    entries (the slot count), no block list, and the shared memory they
+    need -- the rows, every row's incoming side, with heating the
+    cooling table -- refused over the limit."""
     from c2ray_tpu_torch.cooling import setup_cooling_tables, stacked
 
     _, tr, _ = _runs("auto_heating" if heat else "auto")
@@ -272,18 +272,15 @@ def test_evolve1d_kernel_packs_auto_blocks(heat, monkeypatch):
     flat, blocks = t_quad.packed_band_blocks(ctx.tables, torch.float32, heat,
                                              ctx.has_bb, ctx.has_pl,
                                              ctx.has_qso)
-    assert torch.equal(kt.bands, flat) and kt.photo is None
-    assert kt.hbin is None
-    ints = kt.blocks.tolist()
-    assert kt.blocks.dtype == torch.int32
-    assert len(ints) == t_evolve.BLOCK_INTS * len(blocks)
-    n_in = 0
-    for i, (_, _, nb, K, row0) in enumerate(blocks):
-        assert ints[4 * i:4 * i + 4] == [K, nb, row0, n_in]
-        n_in += nb * ((5 if heat else 2) + K)
-    assert kt.layout == (len(blocks), flat.numel(), n_in)
+    rows, slots, deal = t_evolve._row_deal(flat, blocks, heat)
+    assert torch.equal(kt.bands, rows) and kt.photo is None
+    assert kt.hbin is None and kt.route == "auto"
+    assert kt.layout == (slots,) and slots == -(-len(deal) // 32)
+    nodes = sum(d[3] for d in deal if d is not None)
+    assert nodes == sum(nb * K for _, _, nb, K, _ in blocks)
+    n_in = slots * t_evolve.ROW_LANES * t_evolve._row_in_values(heat)
     cool = stacked(ctx.cooling).numel() if heat else 0
-    need = 4 * (flat.numel() + n_in + cool) + 4 * len(ints)
+    need = 4 * (rows.numel() + n_in + cool)
     monkeypatch.setattr(t_evolve.cuda_build, "SHARED_MEM_LIMIT", need)
     t_evolve._pack_kernel_tables(ctx, torch.float32, "cpu")
     monkeypatch.setattr(t_evolve.cuda_build, "SHARED_MEM_LIMIT", need - 1)

@@ -10,7 +10,7 @@ chemistry.py: the port against the JAX package, float64 on the CPU.
   meets tests/test_quadrature_pin.py's criteria against the fixed 8-node
   and the dense 32-node rules;
 - the kernels' block layout (`packed_band_blocks`, the 1D kernel's
-  block list) and the sweep kernels' node groups (`packed_node_groups`:
+  row deal) and the sweep kernels' node groups (`packed_node_groups`:
   every node once, the lanes' node counts within the largest K) with the
   plain version of their order (`node_group_rates`, here) against JAX's
   `photoion_rates_quad` to rtol 1e-12;
@@ -175,8 +175,8 @@ def test_auto_rates_match_jax_and_the_pin(isothermal):
 def test_block_layout_of_the_kernels():
     """packed_band_blocks: per block (column, first band, bands, K,
     first row), the rows of each block at its K; the sweep's kernel
-    tables take the block route; the 1D kernel takes the blocks with
-    their block list."""
+    tables take the block route; the 1D kernel takes the blocks as its
+    row deal."""
     tt, _, bands = build_quadrature_tables(SED_ALL, isothermal=False,
                                            n_nodes="auto",
                                            dtype=torch.float64)
@@ -207,19 +207,20 @@ def test_block_layout_of_the_kernels():
     with pytest.raises(ValueError, match="fixed"):
         _kernel_tables(cfg, torch.float32, track=True)
 
-    # the 1D kernel takes the blocks with their block list
+    # the 1D kernel takes the blocks dealt as rows of ROW_NODES nodes
     from c2ray_tpu_torch.onedim import evolve as onedim_evolve
     ctx = onedim_evolve.OneDContext(tables=tt, cooling=None, dr=1e20,
                                     vol=torch.ones(4, dtype=torch.float64),
                                     has_pl=True, has_qso=True)
     k1 = onedim_evolve._pack_kernel_tables(ctx, torch.float64, "cpu")
-    flat_iso, _ = packed_band_blocks(tt, torch.float64, False, True, True,
-                                     True)
-    assert torch.equal(k1.bands, flat_iso)
-    assert k1.layout[0] == len(blocks) and k1.hbin is None
-    rows0 = np.cumsum([0] + [b[2] * (5 + 2 * b[3]) for b in blocks])
-    assert k1.blocks.tolist()[2::4] == rows0[:-1].tolist()
-    assert k1.layout[1] == rows0[-1] == flat_iso.numel()
+    flat_iso, blocks_iso = packed_band_blocks(tt, torch.float64, False, True,
+                                              True, True)
+    rows, slots, _ = onedim_evolve._row_deal(flat_iso, blocks_iso, False)
+    assert torch.equal(k1.bands, rows) and k1.hbin is None
+    assert k1.route == "auto" and k1.layout == (slots,)
+    n_rows = sum(b[2] * -(-b[3] // onedim_evolve.ROW_NODES) for b in blocks)
+    assert slots == -(-n_rows // 32)
+    assert k1.bands.numel() == slots * 32 * (5 + 2 * onedim_evolve.ROW_NODES)
 
 
 # the spectra of the node-group tests: the bench's blackbody, a 1e5 K

@@ -14,6 +14,7 @@ import math
 import os
 import re
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -826,15 +827,20 @@ def parent_route_args(kt):
 
 
 class parent_sweeps:
-    """with parent_sweeps(libs): this tree's sweep wrappers launch the
-    parent build's libraries ({source: ctypes library} of
+    """with parent_sweeps(libs, src=None): this tree's sweep wrappers
+    launch the parent build's libraries ({source: ctypes library} of
     pyramid_sweep, shell_sweep, octant_sweep) with the tables and route
-    arguments that build reads (parent_route_tables, parent_route_args)."""
+    arguments that build reads: commit 91213d1's (parent_route_tables,
+    parent_route_args), or this tree's when the parent's kernel
+    directory `src` reads the tau tables as band-major records, as this
+    tree does (its table_rates.cuh has load_rec: commit e7dcd29 on)."""
 
     _MODULES = ("source_sweep", "pyramid_sweep", "octant_sweep")
 
-    def __init__(self, libs):
+    def __init__(self, libs, src=None):
         self.libs = libs
+        self.parent_args = src is None or "load_rec(" not in (
+            Path(src) / "table_rates.cuh").read_text()
 
     def __enter__(self):
         import importlib
@@ -848,6 +854,8 @@ class parent_sweeps:
         self.saved_libs = {n: cuda_build._LIBS.get(n) for n in self.libs}
         cuda_build._LIBS.update(self.libs)
         self.saved = []
+        if not self.parent_args:
+            return self
         for name in self._MODULES:
             mod = importlib.import_module(f"c2ray_tpu_torch.sweep.{name}")
             self.saved.append((mod, mod._kernel_tables, mod._route_args))
@@ -866,3 +874,106 @@ class parent_sweeps:
             else:
                 cuda_build._LIBS[n] = lib
         return False
+
+
+# ---- the 1D kernel of commit e7dcd29 on "auto" tables, timed in turns
+# with this build
+
+def parent_oned_tables(ctx, dtype, device):
+    """The block list of "auto" tables as commit e7dcd29's 1D kernel
+    reads it: (flat rows of packed_band_blocks, the list (int32: per
+    block its K, band count, first row value, first incoming value),
+    (block count, row values, incoming values), cooling table or None);
+    each block's incoming side nb x ((5 if heating else 2) + K) values
+    after the one before.  Kept in the context's cache as this tree's
+    tables are, so that the two builds in turns differ in their kernels,
+    not in packing."""
+    import torch
+
+    from c2ray_tpu_torch.cooling import stacked
+    from c2ray_tpu_torch.radiation.quadrature import packed_band_blocks
+
+    heat = not ctx.isothermal
+    flags = (ctx.has_bb, ctx.has_pl, ctx.has_qso)
+    key = ("e7dcd29", id(ctx.tables), id(ctx.cooling), heat, *flags, dtype,
+           device)
+    hit = ctx.kernel_cache.get(key)
+    if hit is not None:
+        return hit[2]
+    flat, blocks = packed_band_blocks(ctx.tables, dtype, heat, *flags)
+    ints, off = [], 0
+    for _, _, nb, K, row0 in blocks:
+        ints += [K, nb, row0, off]
+        off += nb * ((5 if heat else 2) + K)
+    cool = (stacked(ctx.cooling).to(dtype=dtype, device=device).contiguous()
+            if heat else None)
+    out = (flat.to(device), torch.tensor(ints, dtype=torch.int32,
+                                         device=device),
+           (len(blocks), flat.numel(), off), cool)
+    ctx.kernel_cache[key] = (ctx.tables, ctx.cooling, out)
+    return out
+
+
+def parent_evolve1d(lib, ctx, state, dt):
+    """onedim.evolve.evolve1d_cuda with commit e7dcd29's library `lib`:
+    on "auto" tables through that build's entries (the block list of
+    parent_oned_tables), on the other tables through this tree's wrapper,
+    whose entries that build shares.  Returns (state, nits, counters)."""
+    import ctypes
+
+    import torch
+
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.onedim import evolve as ev1
+
+    call = lambda: ev1.evolve1d_cuda(ctx, state, dt)
+    kt = ev1._kernel_tables(ctx, state.ndens.dtype, state.ndens.device)
+    if kt.route != "auto":
+        return with_library("evolve1d", lib, call)
+    nd = state.ndens
+    dtype, device, mesh = nd.dtype, nd.device, nd.shape[0]
+    flat, blist, layout, cool = parent_oned_tables(ctx, dtype, device)
+    heat = not ctx.isothermal
+    name = ("evolve1d_auto_" + ("heat_" if heat else "iso_")
+            + ("f32" if dtype == torch.float32 else "f64"))
+    ins = [t.contiguous() for t in (nd, state.temper, state.xh, state.xhe,
+                                    ctx.vol)]
+    xh_out = torch.empty((mesh, 2), dtype=dtype, device=device)
+    xhe_out = torch.empty((mesh, 3), dtype=dtype, device=device)
+    temper_out = torch.empty(mesh, dtype=dtype, device=device)
+    nits = torch.empty(mesh, dtype=torch.int32, device=device)
+    counters = torch.zeros(4, dtype=torch.int32, device=device)
+    P = lambda t: (ctypes.c_void_p(None) if t is None
+                   else cuda_build.ptr(t))
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                   + [ctypes.c_double] * 11 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(*(P(t) for t in ins), P(flat), P(blist), P(cool), P(xh_out),
+             P(xhe_out), P(temper_out), P(nits), P(counters), mesh, *layout,
+             int(ctx.max_cell_iter), float(ctx.dr), float(dt),
+             float(ctx.clumping), *(float(g) for g in ctx.gamma_uvb),
+             float(ctx.epsilon), float(ctx.cosmo_cool_factor),
+             *(float(b) for b in ev1._boundary_columns(ctx)),
+             cuda_build.stream_of(nd))
+    cuda_build.check(err, name + " (parent build)")
+    return (ev1.State1D(ndens=nd, temper=temper_out, xh=xh_out, xhe=xhe_out),
+            nits, counters)
+
+
+def oned_block_rows(ctx):
+    """(K, bands, live lanes of the warp) of each block of "auto" tables
+    in commit e7dcd29's 1D kernel, and (nodes, rows dealt, rows' slots)
+    of this tree's row deal (onedim.evolve._row_deal)."""
+    import torch
+
+    from c2ray_tpu_torch.onedim import evolve as ev1
+    from c2ray_tpu_torch.radiation.quadrature import packed_band_blocks
+
+    flat, blocks = packed_band_blocks(ctx.tables, torch.float64,
+                                      not ctx.isothermal, ctx.has_bb,
+                                      ctx.has_pl, ctx.has_qso)
+    _, slots, deal = ev1._row_deal(flat, blocks, not ctx.isothermal)
+    real = [d for d in deal if d is not None]
+    return ([(K, nb, min(nb, 32)) for _, _, nb, K, _ in blocks],
+            (sum(d[3] for d in real), len(real), slots))

@@ -54,7 +54,7 @@ with the parent build (parent, this, this, parent; CUDA events).  With
 `--before DIR` (another checkout) its three sweep sources are built too
 and its tau-table and "auto" sweeps timed in turns with this tree's.
 
-    python3 tools/profile_torch_iteration.py --oned [--steps N]
+    python3 tools/profile_torch_iteration.py --oned [--auto] [--steps N]
         [--parent DIR]
 
 `--oned` profiles the 1D kernel (csrc/evolve1d.cu) on test 1 at 10000
@@ -74,7 +74,21 @@ wall; and each build's issue floor (kernel_study.sass_issue_floor: SASS
 instructions per iteration).  It also builds the parent's 3D kernel
 sources that share the 1D kernel's headers (chemistry, pyramid, shell
 and octant sweeps) and counts the
-kernel functions whose SASS equals this tree's.
+kernel functions whose SASS equals this tree's.  With `--auto` the runs
+are the "auto" quadrature tables' (test 1's 1e5 K blackbody, 7 blocks),
+isothermal and heating, instead of phase 12's three, and a stamped copy
+of csrc/band_rates.cuh (stamp_band_rates) adds the cycles of each pass
+of the "auto" route: per block of commit e7dcd29's design, per slot of
+this tree's row deal; the parent build then runs through its own
+"auto" entries (kernel_study.parent_evolve1d).
+
+    python3 tools/profile_torch_iteration.py --oned --auto
+        --variants V1,V2,... [--steps N]
+
+times copies of csrc/ with one change each to the row deal
+(ONED_ROW_VARIANTS, built under build/oned_<name>/: two slots a turn,
+rows of 4 or 6 nodes, fences, the split's stamps, ...) in turns with
+this build on the "auto" steps, isothermal and heating, float32.
 
     python3 tools/profile_torch_iteration.py --chem [--parent DIR]
         [--variants V1,V2,...]
@@ -142,8 +156,9 @@ import torch  # noqa: E402
 from kernel_study import (  # noqa: E402
     _CHEM_STAMPS, _stamp, achieved_occupancy, build_chem_split, build_oned,
     chem_layout, chem_pass_with, chem_split_run, chem_split_stats,
-    comparable_sass, kernel_sass, parent_photon_losses, sass_loop_mix,
-    sass_per_band)
+    comparable_sass, kernel_sass, oned_block_rows, parent_evolve1d,
+    parent_oned_tables, parent_photon_losses, sass_loop_mix, sass_per_band,
+    with_library)
 
 
 def main():
@@ -158,6 +173,7 @@ def main():
     ap.add_argument("--sources", type=int, default=8)
     ap.add_argument("--lanes", default=None)
     ap.add_argument("--oned", action="store_true")
+    ap.add_argument("--auto", action="store_true")
     ap.add_argument("--steps", type=int, default=12)
     ap.add_argument("--parent", default=None)
     ap.add_argument("--octant", action="store_true")
@@ -186,7 +202,10 @@ def main():
                       args.variants.split(",") if args.variants else None)
         return
     if args.oned:
-        profile_oned(args.steps, args.parent)
+        if args.variants:
+            time_oned_variants(args.variants.split(","), args.steps)
+        else:
+            profile_oned(args.steps, args.parent, args.auto)
         return
     if args.octant:
         profile_octant(args.mesh, args.sources, args.lanes, args.parent,
@@ -739,7 +758,9 @@ enum SplitPart {
   kSplitThermal, kSplitConv, kSplitShell, kSplitParts
 };
 __device__ unsigned long long g_split[kSplitParts];
+__device__ unsigned long long g_blk_split[2 * kSplitBlocks];
 #define SPLIT_INIT()                                  \\
+  for (int q = lane; q < 2 * kSplitBlocks; q += 32) s_blk_split[q] = 0; \\
   unsigned long long split_c[kSplitParts] = {};       \\
   long long split_t = clock64()
 #define SPLIT(part)                                   \\
@@ -752,7 +773,9 @@ __device__ unsigned long long g_split[kSplitParts];
 #define SPLIT_STORE()                                 \\
   if (lane == 0) {                                    \\
     for (int q = 0; q < kSplitParts; ++q) g_split[q] = split_c[q]; \\
-  }
+  }                                                   \\
+  __syncwarp();                                       \\
+  for (int q = lane; q < 2 * kSplitBlocks; q += 32) g_blk_split[q] = s_blk_split[q]
 
 """
 _SPLIT_ENTRY = """
@@ -761,6 +784,13 @@ _SPLIT_ENTRY = """
 extern "C" int evolve1d_split(unsigned long long* out) {
   return cudaMemcpyFromSymbol(out, c2ray::g_split,
                               sizeof(unsigned long long) * c2ray::kSplitParts);
+}
+// The last launch's cycles per block of "auto" tables into
+// out[2 * kSplitBlocks]: the outgoing side's, then the incoming side's.
+extern "C" int evolve1d_block_split(unsigned long long* out) {
+  return cudaMemcpyFromSymbol(
+      out, c2ray::g_blk_split,
+      sizeof(unsigned long long) * 2 * c2ray::kSplitBlocks);
 }
 """
 # (pattern, stamp): each pattern matches once in csrc/evolve1d.cu; its
@@ -788,9 +818,75 @@ _SPLIT_AT = (
 
 def stamp_evolve1d(text):
     """csrc/evolve1d.cu's `text` with the clock64() stamps of the split
-    per part and the entry evolve1d_split that reads them; raises if the
-    kernel no longer has a place that a stamp goes to."""
+    per part and the entries evolve1d_split / evolve1d_block_split that
+    read them; raises if the kernel no longer has a place that a stamp
+    goes to."""
     return _stamp(text, _SPLIT_AT, "evolve1d.cu") + _SPLIT_ENTRY
+
+
+# The stamps of "auto" tables in csrc/band_rates.cuh: lane 0 adds up the
+# cycles of each block's pass (outgoing side per iteration, incoming
+# side per shell) in shared memory, from a __syncwarp() before the pass
+# to one after it; each stamp costs a shared-memory add (~30 cycles).
+_BLOCK_SPLIT_DEFS = """
+constexpr int kSplitBlocks = 64;
+__shared__ unsigned long long s_blk_split[2 * kSplitBlocks];
+#define BLOCK_SPLIT_BEGIN() \\
+  __syncwarp();             \\
+  const long long blk_t = clock64()
+#define BLOCK_SPLIT_END(slot)                                       \\
+  do {                                                              \\
+    __syncwarp();                                                   \\
+    if (lane == 0) s_blk_split[slot] += clock64() - blk_t;          \\
+  } while (0)
+
+"""
+# per design of the block functions, the stamps' places (as _SPLIT_AT);
+# the first design whose places are all found is stamped
+_BLOCK_SPLIT_AT = {
+    # commit e7dcd29: blocks_in / blocks_out run band_in / band_out per
+    # block
+    "blocks": (
+        (r"(?P<at>)// ---- \"auto\" tables in the 1D march",
+         _BLOCK_SPLIT_DEFS),
+        (r"int lane, int nlanes\) \{\n  for \(int i = 0; i < nblk; "
+         r"\+\+i\) \{(?P<at>)", "\n    BLOCK_SPLIT_BEGIN();"),
+        (r"in \+ blk\[3\], lane, nlanes\);\n    \}\);(?P<at>)",
+         "\n    BLOCK_SPLIT_END(kSplitBlocks + i);"),
+        (r"out\[q\] = T\(0\);\n  for \(int i = 0; i < nblk; \+\+i\) "
+         r"\{(?P<at>)", "\n    BLOCK_SPLIT_BEGIN();"),
+        (r"for \(int q = 0; q < 4; \+\+q\) out\[q\] \+= o\[q\];(?P<at>)",
+         "\n    BLOCK_SPLIT_END(i);"),
+    ),
+    # this tree: rows_in / rows_out deal the rows a slot a turn; a pass
+    # is a slot
+    "rows": (
+        (r"(?P<at>)// ---- \"auto\" tables in the 1D march",
+         _BLOCK_SPLIT_DEFS),
+        (r"for \(int s = 0; s < slots; \+\+s\) \{(?P<at>)\n    row_in<",
+         "\n    BLOCK_SPLIT_BEGIN();"),
+        (r"cin, in \+ s \* I \+ lane\);(?P<at>)",
+         "\n    BLOCK_SPLIT_END(kSplitBlocks + s);"),
+        (r"for \(int s = 0; s < slots; \+\+s\) \{(?P<at>)\n    row_out<",
+         "\n    BLOCK_SPLIT_BEGIN();"),
+        (r"inv_vol, y, acc, hacc, hcomp\);(?P<at>)",
+         "\n    BLOCK_SPLIT_END(s);"),
+    ),
+}
+
+
+# the blocks whose cycles the stamped build keeps (kSplitBlocks)
+SPLIT_BLOCKS = 64
+
+
+def stamp_band_rates(text):
+    """(csrc/band_rates.cuh's `text` with the per-pass stamps of "auto"
+    tables, the design stamped): the first design of _BLOCK_SPLIT_AT
+    whose places are all found; raises if none fits."""
+    for design, places in _BLOCK_SPLIT_AT.items():
+        if all(len(re.findall(p, text)) == 1 for p, _ in places):
+            return _stamp(text, places, "band_rates.cuh"), design
+    raise RuntimeError("no design of _BLOCK_SPLIT_AT fits band_rates.cuh")
 
 
 def chem_inputs(M, S, heating, dev, iters=4):
@@ -1275,18 +1371,24 @@ def profile_ploss(M, S, parent):
             f"{k} {a:.4f} / {b:.4f}" for k, a, b in res))
 
 
-def oned_runs(steps):
-    """(name, heating, table, dtype, steps) of the profiled 1D runs."""
+def oned_runs(steps, auto=False):
+    """(name, heating, table, mono, dtype, steps) of the profiled 1D
+    runs: phase 12's three variants, or with `auto` the "auto" blocks
+    isothermal and heating (chip_smoke.ONED_AUTO)."""
     import chip_smoke as cs
 
-    return [(name, not iso, not quad, dtype, n)
-            for name, iso, quad in cs.ONED_MAIN
+    variants = ([(name, iso, True, "auto") for name, iso in cs.ONED_AUTO]
+                if auto else
+                [(name, iso, quad, False) for name, iso, quad in cs.ONED_MAIN])
+    return [(name, not iso, not quad, mono, dtype, n)
+            for name, iso, quad, mono in variants
             for dtype, n in ((torch.float32, steps), (torch.float64, 1))]
 
 
-def profile_oned(steps, parent):
-    """--oned: the 1D kernel's split per part and, with a parent build,
-    the two builds in turns."""
+def profile_oned(steps, parent, auto=False):
+    """--oned: the 1D kernel's split per part (with `auto`, per block of
+    the "auto" tables too) and, with a parent build, the two builds in
+    turns."""
     import ctypes
     import shutil
 
@@ -1301,6 +1403,9 @@ def profile_oned(steps, parent):
     shutil.copytree(cuda_build.CSRC, stamped)
     (stamped / "evolve1d.cu").write_text(
         stamp_evolve1d((cuda_build.CSRC / "evolve1d.cu").read_text()))
+    text, design = stamp_band_rates(
+        (cuda_build.CSRC / "band_rates.cuh").read_text())
+    (stamped / "band_rates.cuh").write_text(text)
     jobs = {"split": build_oned(stamped, stamped / "libevolve1d.so")}
     shared = ("chemistry", "pyramid_sweep", "shell_sweep", "octant_sweep")
     if parent:
@@ -1312,49 +1417,70 @@ def profile_oned(steps, parent):
             for key, src in (("this", cuda_build.CSRC), ("parent", psrc))
             for n in shared}
     libs = {"this": cuda_build.load("evolve1d")}
+    logs = {"this": cuda_build.build_log("evolve1d")}
     for key, proc in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the {key} build:\n{out}")
         libs[key] = ctypes.CDLL(str(base / f"oned_{key}" / "libevolve1d.so"))
+        logs[key] = out
     print(f"{cs.smi_line()}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; 1D test 1, mesh {cs.ONED_FULL_MESH}")
+    for key in ("this", "parent"):
+        if key in logs:
+            print(f"ptxas, {key} build (registers, spill stores, spill "
+                  f"loads in bytes): " + ", ".join(
+                      f"{k[k.index('evolve1d_kernel') + 15:]}: {v}"
+                      for k, v in sorted(ptxas_usage(
+                          logs[key], "evolve1d_kernel").items())))
 
-    def step_with(lib, run, dt):
-        cuda_build._LIBS["evolve1d"] = lib
+    def step_with(key, run, dt):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        run.state, nits, run.last_counters = ev1.evolve1d_cuda(
-            run.ctx, run.state, dt)
+        if key == "parent":
+            out = parent_evolve1d(libs[key], run.ctx, run.state, dt)
+        else:
+            out = with_library("evolve1d", libs[key],
+                               lambda: ev1.evolve1d_cuda(run.ctx, run.state,
+                                                         dt))
+        run.state, nits, run.last_counters = out
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end), run.last_counters.tolist()
 
-    def runs_of(lib, name, heat, table, dtype, n, split=None):
+    def runs_of(key, name, heat, table, mono, dtype, n, split=None,
+                blk=None):
         """ms, iterations, thermal sub-steps summed over n steps from
-        the initial state; with `split` the cycles per part added in."""
+        the initial state with build `key`; with `split` the cycles per
+        part added in, with `blk` those per block."""
+        lib = libs[key]
         run = cs.oned_run(1, cs.ONED_FULL_MESH, dtype, dev, not heat,
-                          not table)
+                          not table, mono)
         # pack the tables before the first timed launch
         ev1._kernel_tables(run.ctx, dtype, dev)
+        if key == "parent" and mono == "auto":
+            parent_oned_tables(run.ctx, dtype, dev)
         ms = its = subs = 0
         for _ in range(n):
-            t, c = step_with(lib, run, 10.0 * cs.MYR)
+            t, c = step_with(key, run, 10.0 * cs.MYR)
             ms, its, subs = ms + t, its + c[0], subs + c[3]
-            if split is not None:
-                part = (ctypes.c_ulonglong * len(SPLIT_PARTS))()
-                cuda_build.check(lib.evolve1d_split(part), "evolve1d_split")
-                for q in range(len(SPLIT_PARTS)):
-                    split[q] += part[q]
+            for out, entry in ((split, "evolve1d_split"),
+                               (blk, "evolve1d_block_split")):
+                if out is not None:
+                    part = (ctypes.c_ulonglong * len(out))()
+                    cuda_build.check(getattr(lib, entry)(part), entry)
+                    for q in range(len(out)):
+                        out[q] += part[q]
         return ms, its, subs
 
     print("cycles per fixed-point iteration by part (clock64 stamps, "
           "lane 0; the effective clock is the stamped launches' cycles "
           "over their CUDA-event time)")
-    for name, heat, table, dtype, n in oned_runs(steps):
+    for name, heat, table, mono, dtype, n in oned_runs(steps, auto):
         split = [0] * len(SPLIT_PARTS)
-        ms, its, subs = runs_of(libs["split"], name, heat, table, dtype, n,
-                                split)
+        blk = [0] * (2 * SPLIT_BLOCKS)
+        ms, its, subs = runs_of("split", name, heat, table, mono, dtype, n,
+                                split, blk)
         ghz = sum(split) / (ms * 1e6)
         parts = ", ".join(f"{p} {c / its:.0f}" for p, c in
                           zip(SPLIT_PARTS, split))
@@ -1362,6 +1488,20 @@ def profile_oned(steps, parent):
               f"{subs / its:.3f} thermal sub-steps per iteration; "
               f"{sum(split) / its:.0f} cycles ({1e3 * ms / its:.3f} us) per "
               f"iteration at {ghz:.3f} GHz: {parts}")
+        if mono == "auto":
+            small = cs.oned_run(1, 8, dtype, dev, not heat, True, "auto")
+            blocks, (nodes, rows, slots) = oned_block_rows(small.ctx)
+            passes = ([f"block {b}" for b in blocks] if design == "blocks"
+                      else [f"slot {i}" for i in range(slots)])
+            shells = n * cs.ONED_FULL_MESH
+            print(f"    blocks (K, bands, live lanes) {blocks}; the row "
+                  f"deal: {nodes} nodes in {rows} rows of "
+                  f"{ev1.ROW_NODES}, {slots} slots; per pass of the "
+                  f"{design!r} design: outgoing cycles per iteration, "
+                  f"incoming cycles per shell: " + "; ".join(
+                      f"{p}: {blk[i] / its:.0f}, "
+                      f"{blk[SPLIT_BLOCKS + i] / shells:.0f}"
+                      for i, p in enumerate(passes)))
 
     floors = {key: cs.oned_issue_floors(
         None if key == "this" else base / f"oned_{key}" / "libevolve1d.so")
@@ -1381,12 +1521,151 @@ def profile_oned(steps, parent):
                   f"equal to the parent's ({len(mine)} in this build)")
     order = ["parent", "this", "this", "parent"] if parent else ["this"]
     print("builds in turns: " + ", ".join(order))
-    for name, heat, table, dtype, n in oned_runs(steps):
+    for name, heat, table, mono, dtype, n in oned_runs(steps, auto):
         for key in order:
-            ms, its, subs = runs_of(libs[key], name, heat, table, dtype, n)
+            ms, its, subs = runs_of(key, name, heat, table, mono, dtype,
+                                    n)
             print(f"  {name} {str(dtype)[6:]} x {n} {key}: {ms:.3f} ms, "
                   f"{its} iterations, {1e3 * ms / its:.4f} us per "
                   f"iteration, {subs / its:.3f} sub-steps per iteration")
+
+
+# --oned --auto --variants: copies of csrc/ with one change each to the
+# "auto" route's row deal (edits as ROUTE_VARIANTS', or a function of a
+# file's text), and the onedim module's constants that the change needs
+# (the packing's row size)
+ONED_ROW_VARIANTS = {
+    # two slots a turn in one body, for their rows' chains to interleave
+    "pairs": ([("band_rates.cuh",
+                r"#pragma unroll 1\n  for \(int s = 0; s < slots; \+\+s\) \{\n"
+                r"    row_out<T, kHeat>\(tab \+ s \* R \+ lane, in \+ s \* I "
+                r"\+ lane, cin, cout,\n\s+inv_vol, y, acc, hacc, hcomp\);\n  \}",
+                "int s = 0;\n  for (; s + 1 < slots; s += 2) {\n"
+                "    row_out<T, kHeat>(tab + s * R + lane, in + s * I + lane, "
+                "cin, cout,\n                      inv_vol, y, acc, hacc, "
+                "hcomp);\n    row_out<T, kHeat>(tab + (s + 1) * R + lane, "
+                "in + (s + 1) * I + lane, cin,\n                      cout, "
+                "inv_vol, y, acc, hacc, hcomp);\n  }\n  if (s < slots) {\n"
+                "    row_out<T, kHeat>(tab + s * R + lane, in + s * I + lane, "
+                "cin, cout,\n                      inv_vol, y, acc, hacc, "
+                "hcomp);\n  }")], {}),
+    # the rate side fenced by __syncwarp() before and after
+    "sync": ([("evolve1d.cu",
+               r"(\n        rows_out<T, kHeat>\(tab, a\.slots, cd, cout, "
+               r"inv_vol, y, in, r,\n\s+lane\);)",
+               r"\n        __syncwarp();\1\n        __syncwarp();")], {}),
+    # the split's build (every stamp of stamp_evolve1d and
+    # stamp_band_rates), and the stamps of the parts only
+    "stamped": ([("evolve1d.cu", stamp_evolve1d),
+                 ("band_rates.cuh", lambda t: stamp_band_rates(t)[0])], {}),
+    "partstamps": ([("evolve1d.cu", stamp_evolve1d),
+                    ("band_rates.cuh", lambda t: _stamp(
+                        t, _BLOCK_SPLIT_AT["rows"][:1], "band_rates.cuh"))],
+                   {}),
+    # the rate side a call of its own (scheduled apart from the march),
+    # its slot loop unrolled by 2, or the "auto" instantiations without
+    # their launch bounds' one resident block
+    "noinline": ([("band_rates.cuh",
+                   r"__device__ __forceinline__ void rows_out\(",
+                   "__device__ __noinline__ void rows_out(")], {}),
+    "unroll2": ([("band_rates.cuh",
+                  r"#pragma unroll 1(\n  for \(int s = 0; s < slots; \+\+s\) "
+                  r"\{\n    row_out<)", r"#pragma unroll 2\1")], {}),
+    "lb0": ([("evolve1d.cu",
+              r"__launch_bounds__\(kLanes, kK == kBlockRoute \? 1 : 0\)",
+              "__launch_bounds__(kLanes)")], {}),
+    # rows of 4 or 6 nodes (fewer rows, more exponentials a lane)
+    "rows4": ([("band_rates.cuh", r"constexpr int kRowNodes = \d+;",
+                "constexpr int kRowNodes = 4;")], {"ROW_NODES": 4}),
+    "rows6": ([("band_rates.cuh", r"constexpr int kRowNodes = \d+;",
+                "constexpr int kRowNodes = 6;")], {"ROW_NODES": 6}),
+}
+
+
+def time_oned_variants(names, steps):
+    """--oned --auto --variants: each variant of ONED_ROW_VARIANTS built
+    from a copy of csrc/ under build/oned_<name>/ and run in turns with
+    this build (this, variant, variant, this) on test 1's "auto" steps,
+    isothermal and heating, float32: ms, iterations and us per
+    iteration; the variants' registers and spills (ptxas)."""
+    import contextlib
+    import ctypes
+    import shutil
+
+    import chip_smoke as cs
+    from c2ray_tpu_torch import cuda_build
+    from c2ray_tpu_torch.onedim import evolve as ev1
+
+    dev = torch.device("cuda", 0)
+    base = cuda_build.BUILD_DIR.parent
+    procs = {}
+    for name in names:
+        d = base / f"oned_{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(cuda_build.CSRC, d)
+        for fname, *edit in ONED_ROW_VARIANTS[name][0]:
+            text, k = (edit[0]((d / fname).read_text()), 1) if callable(
+                edit[0]) else re.subn(*edit, (d / fname).read_text())
+            if k != 1:
+                raise RuntimeError(f"variant {name}: {k} places for "
+                                   f"{edit[0]!r} in {fname}")
+            (d / fname).write_text(text)
+        procs[name] = build_oned(d, d / "libevolve1d.so")
+    libs = {"this": cuda_build.load("evolve1d")}
+    print(f"{cs.smi_line()}; 1D test 1, mesh {cs.ONED_FULL_MESH}, "
+          f"\"auto\" tables, float32, {steps} x 10 Myr")
+    for name, proc in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
+        libs[name] = ctypes.CDLL(str(base / f"oned_{name}" /
+                                     "libevolve1d.so"))
+        use = {k[k.index("evolve1d_kernel") + 15:][:18]: v
+               for k, v in ptxas_usage(out, "evolve1d_kernel").items()
+               if "Lin2E" in k}
+        print(f"  {name}: ptxas (registers, spill stores, spill loads) of "
+              f"the \"auto\" instantiations {use}")
+
+    @contextlib.contextmanager
+    def constants(name):
+        saved = {k: getattr(ev1, k) for k in
+                 ONED_ROW_VARIANTS.get(name, ((), {}))[1]}
+        for k, v in ONED_ROW_VARIANTS.get(name, ((), {}))[1].items():
+            setattr(ev1, k, v)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                setattr(ev1, k, v)
+
+    def steps_of(key, iso):
+        run = cs.oned_run(1, cs.ONED_FULL_MESH, torch.float32, dev, iso,
+                          True, "auto")
+        with constants(key):
+            ev1._kernel_tables(run.ctx, torch.float32, dev)
+            ms = its = 0
+            for _ in range(steps):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                run.state, _, c = with_library(
+                    "evolve1d", libs[key],
+                    lambda: ev1.evolve1d_cuda(run.ctx, run.state,
+                                              10.0 * cs.MYR))
+                end.record()
+                torch.cuda.synchronize()
+                ms += start.elapsed_time(end)
+                its += int(c[0])
+        return ms, its
+
+    for name in names:
+        for label, iso in (("isothermal", True), ("heating", False)):
+            res = []
+            for key in ("this", name, name, "this"):
+                ms, its = steps_of(key, iso)
+                res.append(f"{key} {ms:.3f} ms / {its} iterations = "
+                           f"{1e3 * ms / its:.4f} us")
+            print(f"  {name}, {label}: " + "; ".join(res))
 
 
 # --route's knock-out copies of the rate routes: per variant, edits of

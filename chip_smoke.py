@@ -183,6 +183,24 @@ phase 16:
    kernel against the float64 plain version at the same state (rtol
    1e-10) besides the float32 gate against float64.
 
+The last slice (the cross-check and the tools) adds, after phase 13:
+
+27. the 1D/3D cross-check of tests/test_1d3d_crosscheck.py at the
+   bench's width in float32: one 1e5 K blackbody of 2e51 photons/s at
+   the centre of a 128^3 grid of n = 1e-3 with 1 kpc cells, isothermal,
+   the 6-node rule, 6 x 10 Myr through `evolve3d`, and the same problem
+   through `OneDRun` on 512 shells out to 128 kpc: the 3D front (from
+   the ionized volume, summed in float64 on the host) within one cell
+   of the 1D front, the on-axis 3D ionized fraction within 0.15 of the
+   1D profile at 1/4, 1/2 and 3/4 of the front; the pyramid, chemistry
+   and 1D kernels launched by it (the kernels line counts them in);
+28. tools/table_write_torch.py on the card against the CPU, in its
+   three modes (heating and isothermal tau tables, 8-node quadrature):
+   the same files, byte for byte;
+29. tools/bench_scaling_torch.py at world size 1 over NCCL (one spawned
+   rank) at 128^3 x 8 sources in the source and domain modes: its JSON
+   line.
+
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
 operations over their peak rate (`bound`; for the 1D kernels the
@@ -197,8 +215,10 @@ The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -3208,6 +3228,161 @@ def phase_physics_1d(dev, main):
         raise AssertionError("1D physics check failed")
 
 
+# phase 27's problem: tests/test_1d3d_crosscheck.py's (uniform n = 1e-3,
+# one 1e5 K blackbody, 1 kpc cells, isothermal, the 6-node rule) at the
+# bench's width, 128^3 and 4 x 128 = 512 shells out to 128 kpc;
+# S_star 2e51 photons/s puts the Stroemgren radius near 40 kpc, and after
+# 6 x 10 Myr (t ~ t_rec / 2) the front near 0.75 of it, ~30 cells, well
+# inside the box's half width of 64
+CROSSCHECK_MESH = 128
+CROSSCHECK_S_STAR = 2.0e51
+CROSSCHECK_STEPS = 6
+CROSSCHECK_KERNELS = ("pyramid_sweep", "chemistry", "evolve1d")
+
+
+def phase_crosscheck(dev, M=CROSSCHECK_MESH, S_star=CROSSCHECK_S_STAR,
+                     n_steps=CROSSCHECK_STEPS):
+    """Phase 27: the 1D/3D cross-check of tests/test_1d3d_crosscheck.py
+    in float32 on the card through the public entry points: `OneDRun`
+    (4M shells out to M dr) and `evolve3d` (one source at the centre of
+    an M^3 grid), n_steps x 10 Myr each.  The 3D front, from the ionized
+    volume summed in float64 on the host, within one cell of the 1D
+    front (`numerical_front`); the on-axis 3D ionized fraction within
+    0.15 of the 1D profile at 1/4, 1/2 and 3/4 of the 1D front.  The
+    pyramid, chemistry and 1D kernels must have run it, no other kernel
+    and no plain version.  Returns their launches."""
+    from c2ray_tpu_torch import constants as const
+    from c2ray_tpu_torch.grid import RadialGrid
+    from c2ray_tpu_torch.onedim import OneDProblem, numerical_front
+    from c2ray_tpu_torch.onedim.driver import OneDRun
+    from c2ray_tpu_torch.onedim.evolve import MAX_CELL_ITER
+    from c2ray_tpu_torch.radiation import BlackBodySED, SEDConfig
+    from c2ray_tpu_torch.radiation.quadrature import build_quadrature_tables
+    from c2ray_tpu_torch.state import initial_grid_state
+    from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
+                                       SweepConfig, build_shell_table,
+                                       evolve3d)
+
+    dens, dr, dt = 1.0e-3, const.kpc, 10.0 * MYR
+    sed = SEDConfig(bb=BlackBodySED(T_eff=1.0e5, S_star=S_star))
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    problem = OneDProblem(testnum=1, dens_val=dens, temper_val=1e4,
+                          isothermal=True)
+    rgrid = RadialGrid(r_in=0.0, r_out=M * dr, mesh=4 * M)
+    run1d = OneDRun.setup(problem, rgrid, sed, dtype=torch.float32,
+                          device=dev)
+    its, capped = [], []
+    for _ in range(n_steps):
+        nits = run1d.step(dt)
+        its.append(int(run1d.last_counters[0]))
+        capped.append(int((nits >= MAX_CELL_ITER).sum()))
+    xh1 = run1d.state.xh[:, 1].double().cpu().numpy()
+    front_1d = numerical_front(rgrid.x, rgrid.dr, xh1)
+    wall_1d = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    tables, _, bands = build_quadrature_tables(
+        sed, isothermal=True, dtype=torch.float32, device=dev)
+    cfg = Evolve3DConfig(
+        sweep=SweepConfig(tables=tables, mesh=M, dr=dr, isothermal=True,
+                          flux_scale=bands.flux_scale),
+        chem=ChemistryConfig(isothermal=True, isothermal_temperature=1.0e4),
+        shells=build_shell_table(M))
+    state = initial_grid_state(np.full((M,) * 3, dens), 0.0, 0.0, 0.0,
+                               1.0e4, dtype=torch.float32, device=dev)
+    srcpos = torch.tensor([[M // 2] * 3], device=dev)
+    nflux = torch.tensor([[1.0, 0.0, 0.0]], dtype=torch.float32, device=dev)
+    steps = []
+    for _ in range(n_steps):
+        state, stats = evolve3d(cfg, state, srcpos, nflux, dt)
+        steps.append((stats.n_iterations, stats.subbox_radius,
+                      stats.conv_flag))
+    h1 = state.h1.double().cpu().numpy().reshape(M, M, M)
+    wall_3d = time.perf_counter() - t1
+    counts = launch_counts()
+
+    front_3d = (3.0 * h1.sum() * dr**3 / (4.0 * np.pi)) ** (1.0 / 3.0)
+    log(f"1D/3D cross-check {M}^3 / {4 * M} shells float32, S_star "
+        f"{S_star:.3e}, {n_steps} x 10 Myr: 1D front {front_1d / dr:.5f} "
+        f"cells, 3D front {front_3d / dr:.5f} cells (difference "
+        f"{(front_3d - front_1d) / dr:+.5f})")
+    log(f"  3D steps (iterations, subbox radius, conv_flag): {steps}")
+    log(f"  1D summed iterations per step {its}; shells at the "
+        f"{MAX_CELL_ITER} cap per step {capped}")
+    log(f"  walls: 1D {wall_1d:.3f} s, 3D {wall_3d:.3f} s, phase "
+        f"{time.perf_counter() - t0:.3f} s")
+    check_launches("1D/3D cross-check", counts, CROSSCHECK_KERNELS)
+    if not (np.isfinite(h1).all() and np.isfinite(xh1).all()
+            and h1.shape == (M,) * 3 and xh1.shape == (4 * M,)):
+        raise AssertionError("1D/3D cross-check state is not finite or has "
+                             "the wrong shape")
+    if not 0.0 < front_1d < 0.5 * M * dr:
+        raise AssertionError(f"1D front {front_1d / dr} cells outside "
+                             f"(0, {M // 2})")
+    if abs(front_3d - front_1d) >= dr:
+        raise AssertionError(f"3D front {front_3d / dr} and 1D front "
+                             f"{front_1d / dr} cells more than a cell apart")
+    prof_3d = h1[M // 2, M // 2, M // 2:]
+    for frac in (0.25, 0.5, 0.75):
+        k = int(round(frac * front_1d / dr))
+        i1 = int(np.argmin(np.abs(np.asarray(rgrid.x) - k * dr)))
+        log(f"  profile at {frac} of the front (cell {k}): 3D "
+            f"{prof_3d[k]:.6f}, 1D {xh1[i1]:.6f}")
+        if abs(prof_3d[k] - xh1[i1]) >= 0.15:
+            raise AssertionError(f"on-axis profile at cell {k}: 3D "
+                                 f"{prof_3d[k]} vs 1D {xh1[i1]}")
+    return {k: counts[k] for k in CROSSCHECK_KERNELS}
+
+
+TABLE_WRITE_MODES = (("heating", ()), ("isothermal", ("--isothermal",)),
+                     ("quadrature", ("--quadrature",)))
+
+
+def phase_table_write(workdir):
+    """Phase 28: tools/table_write_torch.py with --device cuda against
+    --device cpu, in its three modes: the same files, byte for byte."""
+    import table_write_torch
+
+    for mode, extra in TABLE_WRITE_MODES:
+        dirs = {d: os.path.join(workdir, f"tables_{mode}_{d}")
+                for d in ("cuda", "cpu")}
+        for d, path in dirs.items():
+            with contextlib.redirect_stdout(io.StringIO()):
+                table_write_torch.main([path, *extra, "--device", d])
+        names = sorted(os.listdir(dirs["cpu"]))
+        if not names or sorted(os.listdir(dirs["cuda"])) != names:
+            raise AssertionError(f"table_write {mode}: files differ")
+        for n in names:
+            a = pathlib.Path(dirs["cuda"], n).read_bytes()
+            if a != pathlib.Path(dirs["cpu"], n).read_bytes():
+                raise AssertionError(f"table_write {mode}: {n} differs "
+                                     f"between cuda and cpu")
+        log(f"table_write {mode}: cuda and cpu dumps equal byte for byte "
+            f"({', '.join(names)})")
+
+
+def phase_bench_scaling(mesh=128, src=8):
+    """Phase 29: tools/bench_scaling_torch.py at world size 1 over NCCL
+    (a spawned rank on the card) in both parallel modes; logs its JSON
+    line."""
+    import bench_scaling_torch
+
+    for mode in ("source", "domain"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = bench_scaling_torch.main(
+                ["--mesh", str(mesh), "--src-per-device", str(src),
+                 "--devices", "1", "--mode", mode, "--device", "cuda"])
+        line = buf.getvalue().strip().splitlines()[-1]
+        log(f"bench_scaling {mode}: {line}")
+        d = out["detail"]["1"]
+        if (json.loads(line) != out or out["metric"] !=
+                f"weak_scaling_efficiency_{mode}_isothermal_1dev_mesh{mesh}"
+                or not all(math.isfinite(v) and v > 0 for v in d.values())):
+            raise AssertionError(f"bench_scaling {mode}: {line}")
+
+
 # phase 14's conditioning runs of the heating variant: its plain step
 # over the first ONED_PREFIX shells (which depend on no later one) with
 # their volumes k float64 ulps off, k = +-1..+-ONED_ULPS
@@ -3615,7 +3790,7 @@ def main():
 
 
 def run_phases(dev, workdir, ref, oned_refs):
-    """Phases 2-17; returns the entries of the `kernels` line.  Phase
+    """Phases 2-29; returns the entries of the `kernels` line.  Phase
     14's CPU runs start, into `oned_refs`, once the 3D main paths
     (phases 4, 5, 8 and 16) have been timed, so that they do not share
     the host with those timings."""
@@ -3685,6 +3860,9 @@ def run_phases(dev, workdir, ref, oned_refs):
     phase("1D fixed rule in turns", phase_oned_in_turns, main_1d, plibs,
           same)
     phase("1D physics", phase_physics_1d, dev, main_1d)              # 13.
+    cross = phase("1D/3D cross-check", phase_crosscheck, dev)        # 27.
+    phase("table_write on the card", phase_table_write, workdir)     # 28.
+    phase("bench_scaling at world size 1", phase_bench_scaling)      # 29.
     phase("driver physics", phase_driver_physics, dev, workdir, ref)  # 9.
     ocounts = phase("driver physics 33^3", phase_driver_physics,    # 17.
                     dev, workdir, ref, mesh=33)
@@ -3740,7 +3918,12 @@ def run_phases(dev, workdir, ref, oned_refs):
              "source": "c2ray_tpu_torch/csrc/pyramid_sweep.cu",
              "replaces": ("c2ray_tpu/radiation/quadrature.py:330" if sfx
                           else "c2ray_tpu/sweep/pyramid_sweep.py:116"),
-             "launches": counts["pyramid_sweep" + sfx], "max_abs_err": sw[2],
+             "launches": (counts["pyramid_sweep" + sfx]
+                          + cross.get("pyramid_sweep" + sfx, 0)),
+             "launches_of": "phase 4 (5) and the 1D/3D cross-check "
+                            "(phase 27)",
+             "launches_crosscheck": cross.get("pyramid_sweep" + sfx, 0),
+             "max_abs_err": sw[2],
              "max_rel_err_heat": sw[3],
              "max_rel_err_f32_32cube": sw_err,
              "ms": sw[0], "plain_ms": sw[1], "bound_ms": sb[0],
@@ -3752,7 +3935,8 @@ def run_phases(dev, workdir, ref, oned_refs):
              "launches": MAIN_PATH_LAUNCHES["chemistry" + sfx],
              "launches_of": "every main-path run that checks its "
                             "launches (phases 4, 5, 8, 10, 16, 17, 20, "
-                            "21)",
+                            "21, 27)",
+             "launches_crosscheck": cross.get("chemistry" + sfx, 0),
              "max_abs_err": ch[2],
              "max_rel_err_temperature": ch[3],
              "max_err_f32_32cube": ch_err,
@@ -3814,7 +3998,11 @@ def run_phases(dev, workdir, ref, oned_refs):
         kernels.append(
             {"name": name, "route": "cuda",
              "source": "c2ray_tpu_torch/csrc/evolve1d.cu",
-             "replaces": replaces, "launches": main_1d[name]["launches"],
+             "replaces": replaces,
+             "launches": (main_1d[name]["launches"]
+                          + cross.get(name, 0)),
+             "launches_of": "phase 12 and the 1D/3D cross-check (phase 27)",
+             "launches_crosscheck": cross.get(name, 0),
              "max_abs_err": f_abs,
              "max_abs_err_of": "float64, mesh 10000, one 10 Myr step",
              "max_rel_err_f64_mesh10000": f_rel,

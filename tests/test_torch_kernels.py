@@ -51,6 +51,9 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(c2ray_tpu_torch.__path__,\n"
             "                               'c2ray_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "sys.path.insert(0, 'tools')\n"
+            "for t in ('table_write_torch', 'bench_scaling_torch'):\n"
+            "    importlib.import_module(t)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax'\n"
             "             or k.startswith(('jax.', 'c2ray_tpu.')))\n"
             "print(bad)\n"

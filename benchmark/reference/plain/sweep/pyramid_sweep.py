@@ -1,0 +1,194 @@
+"""Pyramid short-characteristics sweep of a source batch.
+
+Port of ``c2ray_tpu/sweep/pyramid_sweep.py``.  The domain around each
+source splits into six dominant-axis pyramids (the partition cinterp's
+dominant-axis choice induces, column_density.f90:107,199,275, ties
+z > y > x).  A stage-m cell at |offset_m| = l reads its four cinterp
+corners on layer l-1 along m only, so the causal order is: layers
+l = 1..Rf, and within a layer stage x, then y, then z.
+
+The JAX version carries only plane windows through a scan, because 3D
+updates are expensive on a TPU.  Here every source keeps its 3D
+outgoing-column cube cd[s] (source-centred, index ctr + offset with
+ctr = M/2 - 1) and each (layer, stage) step reads its corners straight
+from it.  `trace_plain` does that with index tensors and returns the
+per-source rate slabs and losses (optionally the per-band escape and a
+per-cell LLS column).
+"""
+
+import torch
+
+from .. import constants as const
+from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
+from .source_sweep import _ABU, SweepConfig, _cell_rates, _same_device, _scalars
+
+
+def trace_extents(M: int, radius=None):
+    """Forward / backward trace extents (Rf, Rb): +M/2 / -(M/2-1) by
+    default (evolve_source.F90:103-109), cut to +-radius."""
+    R = M // 2
+    if radius is None:
+        return R, R - 1
+    return min(radius, R), min(radius, R - 1)
+
+
+def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
+                dr=None, vol_over_scale=None, lls=None, track=False):
+    """Plain PyTorch version of the sweep kernel.
+
+    fstack: (M, M, M, 5) stacked fields; srcpos: (S, 3) int; nflux:
+    (S, 3); `lls` (M^3,) per-cell LLS columns (position-dependent LLS,
+    evolve_point.F90:177-180), in place of cfg.coldensh_LLS; `track`
+    also returns the per-band escape.  Returns (slab (S, M^3, 4)
+    per-source rates in absolute coordinates, photon_loss (S,),
+    lls_loss (S,), photon_loss_bands (S, nbands) or None)."""
+    _same_device(fstack, srcpos, nflux, cfg)
+    M = fstack.shape[0]
+    ctr = M // 2 - 1
+    S = srcpos.shape[0]
+    dtype, device = fstack.dtype, fstack.device
+    dr, vos = _scalars(cfg, dtype, device, dr, vol_over_scale)
+    abu = torch.tensor(_ABU, dtype=dtype, device=device)
+    sig = torch.tensor(_SIGMAS, dtype=dtype, device=device)
+    f = fstack.reshape(M**3, 5)
+    sp = srcpos.to(dtype=torch.long)
+    nfl = nflux.to(dtype=dtype)
+    s_idx = torch.arange(S, device=device)
+
+    cd = torch.zeros((S, M, M, M, 3), dtype=dtype, device=device)
+    slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
+    ploss = torch.zeros(S, dtype=dtype, device=device)
+    lloss = torch.zeros(S, dtype=dtype, device=device)
+    plb = (torch.zeros((S, cfg.tables.sigma_HI.shape[0]), dtype=dtype,
+                       device=device) if track else None)
+    lls_cells = None if lls is None else lls.reshape(-1)
+
+    def flat_of(off):
+        """absolute flat index of (srcpos + off) mod M; off (..., 3)."""
+        pos = torch.remainder(sp.view((S,) + (1,) * (off.ndim - 1) + (3,))
+                              + off, M)
+        return (pos[..., 0] * M + pos[..., 1]) * M + pos[..., 2]
+
+    def base_cols(fc):
+        return (torch.stack([fc[..., 1], fc[..., 3], fc[..., 4]], dim=-1)
+                * fc[..., 0:1] * abu)
+
+    # source cell (evolve_point.F90:140-151) seeds cd with half-cell
+    # columns and gets its own rates
+    flat0 = flat_of(torch.zeros(3, dtype=torch.long, device=device))
+    f0 = f[flat0]
+    bc0 = base_cols(f0)
+    cc0 = bc0 * (0.5 * dr)
+    cd[s_idx, ctr, ctr, ctr] = cc0
+    phi0 = _cell_rates(cfg, torch.zeros_like(cc0), cc0, vos, nfl, f0[:, 2])
+    slab[s_idx, flat0] = torch.stack(
+        [phi0.photo_cell_HI / bc0[:, 0], phi0.photo_cell_HeI / bc0[:, 1],
+         phi0.photo_cell_HeII / bc0[:, 2], phi0.heat], dim=-1)
+
+    nfl_cells = nfl.view(S, 1, 1, 1, 3)
+    sign = torch.tensor([1, -1], device=device).view(2, 1, 1)
+    for l in range(1, Rf + 1):
+        o = torch.arange(-l, l + 1, device=device)
+        U, V = torch.meshgrid(o, o, indexing="ij")            # (W, W)
+        su, sv = torch.sign(U), torch.sign(V)
+        lf = torch.tensor(float(l), dtype=dtype, device=device)
+        d_u, d_v = U.abs().to(dtype), V.abs().to(dtype)
+        alam = (lf - 0.5) / lf
+        du = 2.0 * torch.abs(alam * d_u - (d_u - 0.5))
+        dv = 2.0 * torch.abs(alam * d_v - (d_v - 0.5))
+        s1 = (1.0 - du) * (1.0 - dv)
+        s2 = du * (1.0 - dv)
+        s3 = (1.0 - du) * dv
+        s4 = du * dv
+        on_diag = (l == 1) & ((d_u == 1.0) | (d_v == 1.0))
+        full_diag = (d_u == 1.0) & (d_v == 1.0)
+        boost = torch.where(
+            on_diag, torch.where(full_diag, torch.full_like(d_u, SQRT3),
+                                 torch.full_like(d_u, SQRT2)),
+            torch.ones_like(d_u))
+        path_units = torch.sqrt((d_u * d_u + d_v * d_v) / (lf * lf) + 1.0)
+        path = path_units * dr
+        dist2 = d_u * d_u + d_v * d_v + lf * lf
+        vol_ratio = 4.0 * const.pi * dist2 * path_units
+        in_dom = (U >= -Rb) & (U <= Rf) & (V >= -Rb) & (V <= Rf)
+        bnd_uv = (U == Rf) | (U == -Rb) | (V == Rf) | (V == -Rb)
+        sign_ok = torch.tensor([l <= Rf, l <= Rb], device=device)
+        on_bound = bnd_uv | torch.tensor(
+            [l == Rf, l == Rb], device=device).view(2, 1, 1)   # (2, W, W)
+        lls_scalar = (cfg.coldensh_LLS * path_units
+                      if cfg.coldensh_LLS > 0.0 else None)
+
+        for m in range(3):
+            au, av = (1, 2) if m == 0 else ((0, 2) if m == 1 else (0, 1))
+            lim_u = l - 1 if m == 0 else l
+            lim_v = l if m == 2 else l - 1
+            valid = (((U.abs() <= lim_u) & (V.abs() <= lim_v) & in_dom)[None]
+                     & sign_ok.view(2, 1, 1))                 # (2, W, W)
+
+            def offsets(om, ou, ov):
+                off = torch.empty((2,) + U.shape + (3,), dtype=torch.long,
+                                  device=device)
+                off[..., m] = om
+                off[..., au] = ou
+                off[..., av] = ov
+                return off
+
+            def corner(off):
+                # clamp: only invalid cells can point outside the cube
+                i = torch.clamp(ctr + off, 0, M - 1)
+                return cd[:, i[..., 0], i[..., 1], i[..., 2]]  # (S,2,W,W,3)
+
+            om = sign * (l - 1)
+            c4 = corner(offsets(om, U, V))                     # W
+            c3 = corner(offsets(om, U - su, V))                # C_mu
+            c2 = corner(offsets(om, U, V - sv))                # C_mv
+            c1 = corner(offsets(om, U - su, V - sv))           # C_mm
+
+            w = lambda s, c: s[..., None] / torch.clamp(c * sig,
+                                                        min=MIN_WEIGHT_DENOM)
+            w1, w2, w3, w4 = w(s1, c1), w(s2, c2), w(s3, c3), w(s4, c4)
+            wsum = w1 + w2 + w3 + w4
+            cd_in = (c1 * w1 + c2 * w2 + c3 * w3 + c4 * w4) / wsum
+            cd_in = cd_in * boost[..., None]
+            off = offsets(sign * l, U, V)
+            flat = flat_of(off)                                # (S,2,W,W)
+            # the LLS column of the cell being entered
+            # (pyramid_sweep.py:253-267), or the homogeneous one
+            lls_add = (lls_cells[flat] * path_units if lls_cells is not None
+                       else lls_scalar)
+            if lls_add is not None:
+                cd_in[..., 0] += lls_add
+            fc = f[flat]
+            bcols = base_cols(fc)
+            cd_out = cd_in + bcols * path[..., None]
+            phi = _cell_rates(cfg, cd_in, cd_out, vol_ratio * vos,
+                              nfl_cells, fc[..., 2], track_bands=track)
+
+            live = valid & (cd_in[..., 0] < cfg.max_coldensh)
+            fl = live.to(dtype)
+            rates = torch.stack(
+                [fl * phi.photo_cell_HI / bcols[..., 0],
+                 fl * phi.photo_cell_HeI / bcols[..., 1],
+                 fl * phi.photo_cell_HeII / bcols[..., 2],
+                 fl * phi.heat], dim=-1)
+            ploss = ploss + torch.where(
+                live & on_bound, phi.photo_out / vol_ratio,
+                0.0).sum(dim=(1, 2, 3))
+            if track:
+                plb = plb + torch.where(
+                    (live & on_bound)[..., None],
+                    phi.photo_out_bands / vol_ratio[..., None],
+                    0.0).sum(dim=(1, 2, 3))
+            if lls_add is not None:
+                # photons absorbed by the LLS fog (total_LLS_loss,
+                # photonstatistics.f90:250-267)
+                tau_lls = const.sigma_HI_at_ion_freq * lls_add
+                lloss = lloss + torch.where(
+                    live, phi.photo_in / vol_ratio * (-torch.expm1(-tau_lls)),
+                    0.0).sum(dim=(1, 2, 3))
+
+            # write the valid cells; the rest of cd and slab stays 0
+            ov = ctr + off[valid]                              # (nv, 3)
+            cd[:, ov[:, 0], ov[:, 1], ov[:, 2]] = cd_out[:, valid]
+            slab[s_idx[:, None], flat[:, valid]] = rates[:, valid]
+    return slab, ploss, lloss, plb

@@ -41,6 +41,7 @@ from .sources import SourceList
 from .state import GridState, initial_grid_state
 from .sweep import Evolve3DConfig, SweepConfig, build_shell_table, evolve3d
 from .sweep.global_pass import ChemistryConfig
+from .utils.clocks import span
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -398,86 +399,97 @@ class Run3D:
         t1, t2, dt = set_timesteps(self.clock, z1, z2, c.steps_per_slice)
 
         if ndens is not None:
-            self.set_density(ndens)
+            with span("c2ray.slice.upload"):
+                self.set_density(ndens)
         elif self.state is None:
             self.init_uniform_material(z1)
-        self.set_clumping(z1)
+        with span("c2ray.slice.upload"):
+            self.set_clumping(z1)
 
-        srcpos = torch.as_tensor(np.asarray(sources.srcpos),
-                                 dtype=torch.int32, device=self.device)
-        nflux = self._on_device(np.asarray(sources.nflux))
+        with span("c2ray.slice.suppression"):
+            srcpos = torch.as_tensor(np.asarray(sources.srcpos),
+                                     dtype=torch.int32, device=self.device)
+            nflux = self._on_device(np.asarray(sources.nflux))
 
         stats_list = []
         for step in range(c.steps_per_slice):
-            t_mid = t1 + (step + 0.5) * dt
-            self._cosmo_evolve_to(t_mid)
-            vol_now = float(self.dr_proper) ** 3
-            before = species_inventory(self.state, vol_now,
-                                       reduce=self._reduce())
-            ccf = (self.clock.cosmo_cool_factor()
-                   if (c.cosmological and not c.isothermal) else None)
-            common = dict(
-                dr=float(self.dr_proper), cosmo_cool_factor=ccf,
-                iteration_cache=self._iteration_cache,
-                initial_radius=self._subbox_radius,
-                lls_grid=self._current_lls_grid(),
-                # mid-iteration checkpoints on the reference's 15-min
-                # wall clock (evolve.F90:199-212), in every mode
-                dump_dir=c.dump_dir, dump_interval_s=c.dump_interval_s,
-                start_from_dump=start_from_dump and step == 0)
-            if self.domain:
-                from .parallel import domain_evolve3d
+            with span("c2ray.step", slice_index=nz, step_index=step):
+                t_mid = t1 + (step + 0.5) * dt
+                self._cosmo_evolve_to(t_mid)
+                vol_now = float(self.dr_proper) ** 3
+                before = species_inventory(self.state, vol_now,
+                                           reduce=self._reduce())
+                ccf = (self.clock.cosmo_cool_factor()
+                       if (c.cosmological and not c.isothermal) else None)
+                common = dict(
+                    dr=float(self.dr_proper), cosmo_cool_factor=ccf,
+                    iteration_cache=self._iteration_cache,
+                    initial_radius=self._subbox_radius,
+                    lls_grid=self._current_lls_grid(),
+                    # mid-iteration checkpoints on the reference's
+                    # 15-min wall clock (evolve.F90:199-212), in every mode
+                    dump_dir=c.dump_dir, dump_interval_s=c.dump_interval_s,
+                    start_from_dump=start_from_dump and step == 0)
+                with span("c2ray.step.evolve3d"):
+                    self.state, stats = self._evolve(srcpos, nflux, dt,
+                                                     common)
+                if stats.subbox_radius:
+                    self._subbox_radius = stats.subbox_radius
+                self.time = t1 + (step + 1) * dt
+                stats_list.append(stats)
 
-                self.state, stats = domain_evolve3d(
-                    self.pconfig, self.state, srcpos, nflux, dt,
-                    balance_halo=c.balance_halo, **common)
-            elif c.parallel == "source":
-                from .parallel import parallel_evolve3d
+                with span("c2ray.step.budget"):
+                    total_src = self._total_source_rate(sources) * dt
+                    # the budget's recombination/collision rates use the
+                    # evolved time-averaged temperature field, not the
+                    # initial value (photonstatistics.f90:150-203 re-runs
+                    # ini_rec_colion_factors per cell on temperature_grid
+                    # slot 1)
+                    t_for_rates = (self._on_device(c.initial_temperature)
+                                   if c.isothermal else self.state.t_av)
+                    rates = rate_coefficients(t_for_rates)
+                    fs = self.bands.flux_scale
+                    budget = photon_budget(
+                        before, self.state, rates, vol_now, dt, total_src,
+                        photon_loss=stats.photon_loss * fs,
+                        lls_loss=stats.lls_loss * fs, reduce=self._reduce())
+                    self.last_budget = budget
+                    if self.is_writer:
+                        self.writer.write_photon_counts(budget)
 
-                self.state, stats = parallel_evolve3d(
-                    self.pconfig, self.state, srcpos, nflux, dt, **common)
-            else:
-                self.state, stats = evolve3d(
-                    self.evolve_cfg, self.state, srcpos, nflux, dt, **common)
-            if stats.subbox_radius:
-                self._subbox_radius = stats.subbox_radius
-            self.time = t1 + (step + 1) * dt
-            stats_list.append(stats)
-
-            total_src = self._total_source_rate(sources) * dt
-            # the budget's recombination/collision rates use the evolved
-            # time-averaged temperature field, not the initial value
-            # (photonstatistics.f90:150-203 re-runs
-            # ini_rec_colion_factors per cell on temperature_grid slot 1)
-            t_for_rates = (self._on_device(c.initial_temperature)
-                           if c.isothermal else self.state.t_av)
-            rates = rate_coefficients(t_for_rates)
-            fs = self.bands.flux_scale
-            budget = photon_budget(
-                before, self.state, rates, vol_now, dt, total_src,
-                photon_loss=stats.photon_loss * fs,
-                lls_loss=stats.lls_loss * fs, reduce=self._reduce())
-            self.last_budget = budget
-            if self.is_writer:
-                self.writer.write_photon_counts(budget)
-
-            # photcons_flag + stop_on_photon_violation
-            # (C2Ray.F90:351-372, output.F90:522-533)
-            self.photcons_flag = photcons_violation(
-                budget, c.photcons_tolerance)
-            if self.photcons_flag and c.stop_on_photon_violation:
-                raise PhotonConservationError(
-                    f"photon conservation violated at z-slice {nz} "
-                    f"step {step}: photcons="
-                    f"{float(budget.photon_conservation):.4f}, "
-                    f"loss fraction="
-                    f"{(budget.total_photon_loss + budget.total_lls_loss) / max(budget.total_src, 1e-300):.4f}")
+                    # photcons_flag + stop_on_photon_violation
+                    # (C2Ray.F90:351-372, output.F90:522-533)
+                    self.photcons_flag = photcons_violation(
+                        budget, c.photcons_tolerance)
+                    if self.photcons_flag and c.stop_on_photon_violation:
+                        raise PhotonConservationError(
+                            f"photon conservation violated at z-slice {nz} "
+                            f"step {step}: photcons="
+                            f"{float(budget.photon_conservation):.4f}, "
+                            f"loss fraction="
+                            f"{(budget.total_photon_loss + budget.total_lls_loss) / max(budget.total_src, 1e-300):.4f}")
 
         if write_output:
             state = self.whole_state(dst=0)
             if self.is_writer:
                 self.write_output(z2, sources, state)
         return stats_list
+
+    def _evolve(self, srcpos, nflux, dt, common):
+        """One timestep's evolve3d in the run's mode."""
+        c = self.config
+        if self.domain:
+            from .parallel import domain_evolve3d
+
+            return domain_evolve3d(self.pconfig, self.state, srcpos, nflux,
+                                   dt, balance_halo=c.balance_halo, **common)
+        if c.parallel == "source":
+            from .parallel import parallel_evolve3d
+
+            return parallel_evolve3d(self.pconfig, self.state, srcpos, nflux,
+                                     dt, **common)
+        return evolve3d(self.evolve_cfg, self.state, srcpos, nflux, dt,
+                        **common)
 
     # -- full redshift loop -------------------------------------------------
     def slice_sources(self, nz: int, dt) -> SourceList:
@@ -495,12 +507,15 @@ class Run3D:
             if c.halo_model is None:
                 raise ValueError("source_input='catalog' needs a "
                                  "halo_model (HaloSourceModel)")
-            cat = read_halo_catalog(c.nbody, z)
-            xh1 = (self._whole_field("h1").cpu().numpy()
-                   if self.state is not None else np.zeros(c.mesh**3))
-            sources, sstats = apply_suppression_and_luminosities(
-                cat, xh1, c.halo_model, self.sed, dt,
-                slice_index=nz)
+            with span("c2ray.slice.catalog"):
+                cat = read_halo_catalog(c.nbody, z)
+            with span("c2ray.slice.h1_to_host"):
+                xh1 = (self._whole_field("h1").cpu().numpy()
+                       if self.state is not None else np.zeros(c.mesh**3))
+            with span("c2ray.slice.suppression"):
+                sources, sstats = apply_suppression_and_luminosities(
+                    cat, xh1, c.halo_model, self.sed, dt,
+                    slice_index=nz)
             self.last_suppression = sstats
         elif c.source_input == "file":
             sources = read_test_source_file(c.source_file, self.sed)
@@ -524,20 +539,25 @@ class Run3D:
         c = self.config
         z = float(c.nbody.zred_array[nz])
         if c.density_input == "files":
-            nd = read_density_file(c.nbody, z, c.mesh,
-                                   density_unit=c.density_unit)
-            self.set_density(nd)
+            with span("c2ray.slice.read"):
+                nd = read_density_file(c.nbody, z, c.mesh,
+                                       density_unit=c.density_unit)
+            with span("c2ray.slice.upload"):
+                self.set_density(nd)
         elif self.state is None:
             self.init_uniform_material(z)
         if c.clumping_input == "files":
-            c.clumping = ClumpingModel(
-                type_of_clumping=5,
-                grid=read_clumping_file(c.nbody, z))
+            with span("c2ray.slice.read"):
+                c.clumping = ClumpingModel(
+                    type_of_clumping=5,
+                    grid=read_clumping_file(c.nbody, z))
         if c.lls_input == "files":
-            self.lls = LLSModel(type_of_LLS=2,
-                                grid=read_lls_file(c.nbody, z))
-            self.lls_grid = self._on_device(
-                np.asarray(self.lls.grid).reshape(-1))
+            with span("c2ray.slice.read"):
+                self.lls = LLSModel(type_of_LLS=2,
+                                    grid=read_lls_file(c.nbody, z))
+            with span("c2ray.slice.upload"):
+                self.lls_grid = self._on_device(
+                    np.asarray(self.lls.grid).reshape(-1))
 
     def run(self, sources: Optional[SourceList] = None, nz0: int = 0,
             num_slices: Optional[int] = None, write_output=True):
@@ -557,17 +577,18 @@ class Run3D:
                 else min(nz0 + num_slices, len(zs) - 1))
         all_stats = []
         for nz in range(nz0, last):
-            self.prepare_slice(nz)
-            z1, z2 = float(zs[nz]), float(zs[nz + 1])
-            _, _, dt = set_timesteps(self.clock, z1, z2,
-                                     c.steps_per_slice)
-            slice_srcs = (sources if c.source_input == "static"
-                          else self.slice_sources(nz, dt))
-            if slice_srcs is None:
-                raise ValueError("no sources: pass a SourceList or "
-                                 "configure source_input")
-            stats = self.run_slice(nz, slice_srcs,
-                                   write_output=write_output)
+            with span("c2ray.slice", slice_index=nz):
+                self.prepare_slice(nz)
+                z1, z2 = float(zs[nz]), float(zs[nz + 1])
+                _, _, dt = set_timesteps(self.clock, z1, z2,
+                                         c.steps_per_slice)
+                slice_srcs = (sources if c.source_input == "static"
+                              else self.slice_sources(nz, dt))
+                if slice_srcs is None:
+                    raise ValueError("no sources: pass a SourceList or "
+                                     "configure source_input")
+                stats = self.run_slice(nz, slice_srcs,
+                                       write_output=write_output)
             all_stats.append(stats)
         return all_stats
 

@@ -41,20 +41,11 @@ from ..radiation.tables import RadiationTables, packed_table_route
 from ..rates import rate_coefficients
 from ..sweep.global_pass import MIN_FRACTION_OF_ATOMS, MIN_FRACTIONAL_CHANGE
 from ..thermal import thermal
+from ..utils.clocks import count
 
 # evolve_new.F90:156
 MAX_COLDENSH_1D = 2.0e26
 MAX_CELL_ITER = 4000
-
-# timesteps run through the CUDA kernel, one count per variant:
-# quadrature isothermal / heating (a fixed rule), tau tables isothermal
-# / heating, "auto" quadrature blocks isothermal / heating
-launches = 0
-launches_heat = 0
-launches_table = 0
-launches_table_heat = 0
-launches_auto = 0
-launches_auto_heat = 0
 
 # "auto" tables in the kernel: the nodes of a row and the lanes a slot
 # of rows spans (band_rates.cuh: kRowNodes, kRowLanes)
@@ -409,8 +400,6 @@ def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
     evaluation and run the chemistry redundantly on identical values.
     The tables are packed at the first launch and kept (`_kernel_tables`).
     """
-    global launches, launches_heat, launches_table, launches_table_heat
-    global launches_auto, launches_auto_heat
     nd = state.ndens
     dtype, device = nd.dtype, nd.device
     if not nd.is_cuda:
@@ -437,7 +426,7 @@ def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
     counters = torch.zeros(4, dtype=torch.int32, device=device)
 
     lib = cuda_build.load("evolve1d")
-    table, auto = kt.route == "table", kt.route == "auto"
+    auto = kt.route == "auto"
     name = (f"evolve1d_{kt.route}_" + ("heat_" if heat else "iso_")
             + ("f32" if dtype == torch.float32 else "f64"))
     # "auto" tables have entries of their own: no tau-table pointers, the
@@ -458,20 +447,11 @@ def evolve1d_cuda(ctx: OneDContext, state: State1D, dt):
              float(ctx.epsilon), float(ctx.cosmo_cool_factor),
              *(float(b) for b in bnd), cuda_build.stream_of(nd))
     cuda_build.check(err, name)
-    if table:
-        if heat:
-            launches_table_heat += 1
-        else:
-            launches_table += 1
-    elif auto:
-        if heat:
-            launches_auto_heat += 1
-        else:
-            launches_auto += 1
-    elif heat:
-        launches_heat += 1
-    else:
-        launches += 1
+    # one count a timestep, by route (a fixed rule, tau tables, "auto"
+    # blocks) and variant
+    count("launches.evolve1d"
+          + {"table": ".table", "auto": ".auto"}.get(kt.route, "")
+          + (".heat" if heat else ""))
     new_state = State1D(ndens=state.ndens, temper=temper_out, xh=xh_out,
                         xhe=xhe_out)
     return new_state, nits, counters

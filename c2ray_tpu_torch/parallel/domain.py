@@ -32,10 +32,11 @@ import torch
 
 from ..state import GridState, begin_timestep, finish_timestep
 from ..sweep.evolve3d import (Evolve3DStats, _scaled_source_strength,
-                              _subbox_radii)
+                              _subbox_radii, subbox_iteration)
 from ..sweep.global_pass import global_chemistry_pass
 from ..sweep.pyramid_sweep import trace_cuda, trace_extents, trace_plain
 from ..sweep.source_sweep import RateGrids
+from ..utils.clocks import span
 from . import comm
 # JAX's _cyclic_pad and its inverse for accumulands, _fold_cyclic, are
 # the plain halo kernels' (halo.py)
@@ -407,12 +408,14 @@ def make_domain_iteration(pcfg: ParallelConfig, radius: int,
         if state.mesh3 != S * M * M:
             raise ValueError(f"state must be the rank's slab of "
                              f"{S * M * M} cells, not {state.mesh3}")
-        r4, pl, ll = _trace_slab(state, srcpos, nflux, lls_grid, dr,
-                                 vol_over_scale)
+        with span("c2ray.sweep"):
+            r4, pl, ll = _trace_slab(state, srcpos, nflux, lls_grid, dr,
+                                     vol_over_scale)
         rates = RateGrids(phih=r4[0], phihe0=r4[1], phihe1=r4[2],
                           phiheat=r4[3], photon_loss=pl, lls_loss=ll)
-        new_state, conv = global_chemistry_pass(cfg.chem, state, rates, dt,
-                                                cosmo_cool_factor)
+        with span("c2ray.chemistry"):
+            new_state, conv = global_chemistry_pass(cfg.chem, state, rates,
+                                                    dt, cosmo_cool_factor)
         # the losses and the convergence count summed in one all-reduce
         tot = comm.psum(torch.stack([pl.double(), ll.double(),
                                      conv.double()]), group)
@@ -525,6 +528,7 @@ def domain_evolve3d(pcfg: ParallelConfig, state: GridState, srcpos,
         radii = [radius if radius is not None
                  else max_domain_radius(cfg.sweep.mesh)]
         r_idx = 0
+        loss_wall = None   # one radius: never read
     kw = _step_kwargs(cfg, dr, cosmo_cool_factor, lls_grid)
 
     n = cfg.sweep.mesh ** 3
@@ -565,16 +569,10 @@ def domain_evolve3d(pcfg: ParallelConfig, state: GridState, srcpos,
             break
         niter += 1
         prev_state = state
-        while True:
-            out = iteration_at(radii[r_idx])(state, sp, nf, dt, **kw)
-            if (not adaptive or r_idx + 1 >= len(radii)
-                    or float(out[2]) <= loss_wall):
-                break
-            r_idx += 1
+        out, r_idx, conv_flag, ploss, lls_loss = subbox_iteration(
+            lambda r: iteration_at(radii[r])(state, sp, nf, dt, **kw),
+            r_idx, len(radii), loss_wall)
         state = out[0]
-        conv_flag = int(out[1])
-        ploss = float(out[2])
-        lls_loss = float(out[3])
         if want_rates and dump_due(last_dump, dump_interval_s, device,
                                    group):
             # gather the slabs and write the single-device format (a

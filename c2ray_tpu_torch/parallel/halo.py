@@ -21,11 +21,7 @@ import ctypes
 import torch
 
 from .. import cuda_build
-
-# launches of each kernel, one per wrapper call that reaches the card
-launches_pack = 0
-launches_accumulate = 0
-launches_fold = 0
+from ..utils.clocks import count
 
 
 def _suffix(dtype):
@@ -87,7 +83,6 @@ def halo_pack_cuda(fields, M, eps, left=None, right=None, pad=0,
     (HR, M, M, C) received halos, or None; `planes` = (c0, c1): the
     rank's x planes that go between them (all S by default); `pad`: the
     periodic y / z pad P."""
-    global launches_pack
     _need_cuda("halo_pack", *fields, left, right)
     f = fields[0]
     dtype, device = f.dtype, f.device
@@ -127,7 +122,7 @@ def halo_pack_cuda(fields, M, eps, left=None, right=None, pad=0,
              M, HL, c0, NC, HR, int(pad), float(eps), P(out),
              cuda_build.stream_of(out))
     cuda_build.check(err, "halo_pack")
-    launches_pack += 1
+    count("launches.domain_halo.pack")
     return out
 
 
@@ -167,7 +162,6 @@ def window_accumulate_plain(rc, cube, start):
 def window_accumulate_cuda(rc, cube, start):
     """The window kernel: rc[start:start+Mw, ...] += cube, in place; rc
     (X, Y, Z, 4) contiguous, cube (Mw, Mw, Mw, 4)."""
-    global launches_accumulate
     _need_cuda("window_accumulate", rc, cube)
     w = _window(rc, cube, start)
     if cube.dtype != rc.dtype or cube.device != rc.device:
@@ -181,7 +175,7 @@ def window_accumulate_cuda(rc, cube, start):
     err = fn(P(rc), P(cube), *rc.shape[:3], cube.shape[0],
              *(s.start for s in w), cuda_build.stream_of(rc))
     cuda_build.check(err, "window_accumulate")
-    launches_accumulate += 1
+    count("launches.domain_halo.accumulate")
     return rc
 
 
@@ -234,7 +228,6 @@ def fold_halo_cuda(rc, M, planes, recv=None, chunks=(), planar=True):
     recv planes [b0, b0+n) added onto planes [lo, lo+n) of the result --
     in order.  `planar`: the four rate grids (4, (x1-x0)*M*M); else
     (x1-x0, M, M, 4)."""
-    global launches_fold
     _need_cuda("fold_halo", rc, recv)
     x0, x1 = planes
     P = (rc.shape[1] - M) // 2
@@ -271,7 +264,7 @@ def fold_halo_cuda(rc, M, planes, recv=None, chunks=(), planar=True):
              P_(recv) if chunks else ctypes.c_void_p(None), P_(tab),
              len(chunks), int(planar), P_(out), cuda_build.stream_of(rc))
     cuda_build.check(err, "fold_halo")
-    launches_fold += 1
+    count("launches.domain_halo.fold")
     return out
 
 

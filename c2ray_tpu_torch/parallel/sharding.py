@@ -25,13 +25,14 @@ import torch
 from ..state import GridState, begin_timestep, finish_timestep
 from ..sweep.evolve3d import (Evolve3DConfig, Evolve3DStats, _full_extent,
                               _scaled_source_strength, _subbox_radii,
-                              sweep_engine)
+                              subbox_iteration, sweep_engine)
 from ..sweep.geometry import build_shell_table
 from ..sweep.global_pass import global_chemistry_pass
 from ..sweep.octant_sweep import sweep_octant_source_batch
 from ..sweep.pyramid_sweep import sweep_pyramid_source_batch
 from ..sweep.source_sweep import (RateGrids, SourceFields,
                                   sweep_sources_accumulate)
+from ..utils.clocks import span
 from . import comm
 
 # the fields the chemistry pass writes: what the ranks gather
@@ -152,18 +153,21 @@ def make_parallel_iteration(pcfg: ParallelConfig, radius: int = None,
         fields = SourceFields(ndens=state.ndens, h_av0=state.h_av0,
                               h_av1=state.h_av1, he_av0=state.he_av0,
                               he_av1=state.he_av1)
-        rates = psum_rates(sweep(fields, srcpos[mine], nflux[mine], dr,
-                                 vol_over_scale, lls_grid), group)
+        with span("c2ray.sweep"):
+            rates = psum_rates(sweep(fields, srcpos[mine], nflux[mine], dr,
+                                     vol_over_scale, lls_grid), group)
         cells = _rank_block(state.mesh3, D, d)
-        blk, conv = global_chemistry_pass(
-            cfg.chem, _cell_block(state, cells),
-            rates._replace(phih=rates.phih[cells],
-                           phihe0=rates.phihe0[cells],
-                           phihe1=rates.phihe1[cells],
-                           phiheat=rates.phiheat[cells]),
-            dt, cosmo_cool_factor)
-        conv = comm.psum(conv, group)
-        new_state = state._replace(**gather_fields(blk, CHEM_FIELDS, group))
+        with span("c2ray.chemistry"):
+            blk, conv = global_chemistry_pass(
+                cfg.chem, _cell_block(state, cells),
+                rates._replace(phih=rates.phih[cells],
+                               phihe0=rates.phihe0[cells],
+                               phihe1=rates.phihe1[cells],
+                               phiheat=rates.phiheat[cells]),
+                dt, cosmo_cool_factor)
+            conv = comm.psum(conv, group)
+            new_state = state._replace(**gather_fields(blk, CHEM_FIELDS,
+                                                       group))
         out = (new_state, conv, rates.photon_loss, rates.lls_loss)
         return out + (rates,) if return_rates else out
 
@@ -268,16 +272,11 @@ def parallel_evolve3d(pcfg: ParallelConfig, state: GridState, srcpos,
             break
         niter += 1
         prev_state = state
-        while True:
-            out = iterations[r_idx](state, srcpos, nflux, dt, **kw)
-            if r_idx + 1 >= len(iterations) or float(out[2]) <= loss_wall:
-                break
-            r_idx += 1
+        out, r_idx, conv_flag, ploss, lls_loss = subbox_iteration(
+            lambda r: iterations[r](state, srcpos, nflux, dt, **kw), r_idx,
+            len(iterations), loss_wall)
         radius_used = radii[r_idx] if adaptive else 0
         state = out[0]
-        conv_flag = int(out[1])
-        ploss = float(out[2])
-        lls_loss = float(out[3])
         if want_rates and dump_due(last_dump, dump_interval_s, device,
                                    group):
             if comm.rank(group) == 0:

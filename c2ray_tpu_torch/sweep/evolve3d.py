@@ -18,6 +18,7 @@ import torch
 
 from ..radiation.quadrature import QuadTables, source_blocks
 from ..state import GridState, begin_timestep, finish_timestep
+from ..utils.clocks import count, span
 from .geometry import ShellTable, build_shell_table
 from .global_pass import ChemistryConfig, global_chemistry_pass
 from .octant_sweep import sweep_octant_source_batch
@@ -169,18 +170,47 @@ def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None,
         fields = SourceFields(ndens=state.ndens, h_av0=state.h_av0,
                               h_av1=state.h_av1, he_av0=state.he_av0,
                               he_av1=state.he_av1)
-        rates = sweep(fields, srcpos, nflux, dr, vol_over_scale, lls_grid)
-        if cfg.add_photon_losses:
-            vos = (vol_over_scale if vol_over_scale is not None
-                   else cfg.sweep.vol / cfg.sweep.flux_scale)
-            rates = distribute_photon_losses(cfg.sweep.tables, rates, fields,
-                                             vos)
-        new_state, conv_flag = global_chemistry_pass(cfg.chem, state, rates,
-                                                     dt, cosmo_cool_factor)
+        with span("c2ray.sweep"):
+            rates = sweep(fields, srcpos, nflux, dr, vol_over_scale,
+                          lls_grid)
+            if cfg.add_photon_losses:
+                vos = (vol_over_scale if vol_over_scale is not None
+                       else cfg.sweep.vol / cfg.sweep.flux_scale)
+                rates = distribute_photon_losses(cfg.sweep.tables, rates,
+                                                 fields, vos)
+        with span("c2ray.chemistry"):
+            new_state, conv_flag = global_chemistry_pass(
+                cfg.chem, state, rates, dt, cosmo_cool_factor)
         out = (new_state, conv_flag, rates.photon_loss, rates.lls_loss)
         return out + (rates,) if return_rates else out
 
     return iteration
+
+
+def subbox_iteration(call, r_idx: int, n_radii: int, loss_wall):
+    """One convergence iteration (the span ``c2ray.iteration``):
+    `call(r)` sweeps the batch at radius index r and runs the chemistry
+    pass; while a larger radius is left and more than `loss_wall`
+    escapes, the radius doubles and the iteration is redone
+    (evolve_source.F90:114-144), each a sweep of its own.  Returns (the
+    last call's output, its radius index, conv_flag, photon_loss,
+    lls_loss), the scalars read on the host (``c2ray.iteration.read``:
+    where the host waits for the device)."""
+    with span("c2ray.iteration"):
+        count("evolve3d.iterations")
+        while True:
+            count("evolve3d.sweeps")
+            out = call(r_idx)
+            if r_idx + 1 >= n_radii:
+                break
+            with span("c2ray.iteration.read"):
+                contained = float(out[2]) <= loss_wall
+            if contained:
+                break
+            r_idx += 1
+        with span("c2ray.iteration.read"):
+            scalars = (int(out[1]), float(out[2]), float(out[3]))
+    return (out, r_idx) + scalars
 
 
 def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt,
@@ -284,16 +314,11 @@ def evolve3d(cfg: Evolve3DConfig, state: GridState, srcpos, nflux, dt,
             break
         niter += 1
         prev_state = state
-        while True:
-            out = iterations[r_idx](state, srcpos, nflux, dt, **kw)
-            if r_idx + 1 >= len(iterations) or float(out[2]) <= loss_wall:
-                break
-            r_idx += 1
+        out, r_idx, conv_flag, ploss, lls_loss = subbox_iteration(
+            lambda r: iterations[r](state, srcpos, nflux, dt, **kw), r_idx,
+            len(iterations), loss_wall)
         radius_used = radii[r_idx] if adaptive else 0
         state = out[0]
-        conv_flag = int(out[1])
-        ploss = float(out[2])
-        lls_loss = float(out[3])
         # mid-iteration checkpoint (write_iteration_dump,
         # evolve.F90:199-212): the pre-iteration state and this
         # iteration's rates determine the post-iteration state

@@ -31,6 +31,7 @@ from ..cooling import CoolingTables, stacked
 from ..rates import rate_coefficients
 from ..state import GridState
 from ..thermal import thermal
+from ..utils.clocks import count
 from .source_sweep import RateGrids
 
 # c2ray_parameters.f90:36,44
@@ -46,10 +47,6 @@ MAX_CHEM_ITER = 400
 # (c2ray_tpu/sweep/global_pass.py:38-48).
 DAMP_AFTER = 50
 DAMP_FACTOR = 0.5
-
-# chemistry passes run through the CUDA kernel: isothermal, heating
-launches = 0
-launches_heat = 0
 
 # The chemistry kernel's input rows, in its order (csrc/chemistry.cu:
 # Row): GridState fields, then RateGrids fields; t_final and phiheat are
@@ -311,7 +308,6 @@ def chemistry_pass_cuda(cfg: ChemistryConfig, state: GridState,
     every input row where it lies (`kernel_rows`: a pointer and a stride
     each); the heating cooling table is built once (`kernel_cooling_table`).
     """
-    global launches, launches_heat
     ndens = state.ndens
     dtype, device = ndens.dtype, ndens.device
     if not ndens.is_cuda:
@@ -358,10 +354,7 @@ def chemistry_pass_cuda(cfg: ChemistryConfig, state: GridState,
              float(cosmo_cool_factor), float(cfg.epsilon), int(cfg.max_iter),
              int(DAMP_AFTER), float(DAMP_FACTOR), cuda_build.stream_of(ndens))
     cuda_build.check(err, name)
-    if heat:
-        launches_heat += 1
-    else:
-        launches += 1
+    count("launches.chemistry.heat" if heat else "launches.chemistry")
     new_state = state._replace(
         h_int0=out[0], h_int1=out[1], he_int0=out[2], he_int1=out[3],
         he_int2=out[4], h_av0=out[5], h_av1=out[6], he_av0=out[7],

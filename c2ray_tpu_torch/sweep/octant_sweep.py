@@ -31,33 +31,22 @@ engine.
 """
 
 import ctypes
-import sys
 
 import numpy as np
 import torch
 
 from .. import constants as const
 from .. import cuda_build
+from ..utils.clocks import count
 from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
 from .source_sweep import (_ABU, _BLOCK, RateGrids, SourceFields,
                            SweepConfig, _base_cols, _cell_rates,
                            _check_kernel_inputs, _kernel_tables,
                            _route_args, _same_device, _scalars,
-                           _source_group, count_launch, stack_sweep_fields)
+                           _source_group, launch_counter,
+                           stack_sweep_fields)
 
-# sweeps run through the octant kernel, one count per octant_sweep_cuda
-# call (which launches one kernel per plane) in the counter of its
-# variant: the fixed quadrature rule isothermal or heating, the tau
-# tables, the "auto" blocks
-launches = 0
-launches_heat = 0
-launches_table = 0
-launches_table_heat = 0
-launches_auto = 0
-launches_auto_heat = 0
-# plane launches of the octant kernel by lanes per cell
 PLANE_LANES = (1, 2, 4, 8)        # kPlaneLanes of csrc/octant_sweep.cu
-launches_lanes = {G: 0 for G in PLANE_LANES}
 
 
 def _octant_signs():
@@ -356,9 +345,11 @@ def octant_sweep_cuda(cfg: SweepConfig, fstack, srcpos, nflux):
              float(cfg.max_coldensh), *route_ptrs,
              cuda_build.stream_of(fields))
     cuda_build.check(err, name)
-    count_launch(sys.modules[__name__], kt)
+    # one count a call (a kernel per plane), by route and variant, and
+    # the plane launches by lanes per cell
+    count(launch_counter("octant_sweep", kt))
     for G, n in zip(*np.unique(plan[plan[:, 2] > 0, 3], return_counts=True)):
-        launches_lanes[int(G)] += int(n)
+        count(f"launches.octant_sweep.lanes{int(G)}", int(n))
     return slab, partials.sum(dim=1)
 
 

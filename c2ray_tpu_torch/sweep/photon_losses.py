@@ -32,10 +32,8 @@ import torch
 
 from .. import constants as const
 from .. import cuda_build
+from ..utils.clocks import count
 from .source_sweep import RateGrids, SourceFields
-
-# redistributions run through the CUDA kernel
-launches = 0
 
 # the neutral-density floor of the JAX function (evolve_point.F90:676-681)
 DENSITY_FLOOR = 1.0e-30
@@ -168,7 +166,6 @@ def _launch(tables, rates: RateGrids, fields: SourceFields, vol_over_scale,
             floor) -> torch.Tensor:
     """distribute_photon_losses_cuda's launch; returns the band table the
     entry packed on the card (what `band_table` computes)."""
-    global launches
     _check(rates)
     nd = fields.ndens
     dtype, device = nd.dtype, nd.device
@@ -213,7 +210,7 @@ def _launch(tables, rates: RateGrids, fields: SourceFields, vol_over_scale,
              float(floor), *(P(t) for t in outs), rstride,
              cuda_build.stream_of(nd))
     cuda_build.check(err, name)
-    launches += 1
+    count("launches.photon_losses")
     return tab
 
 

@@ -26,34 +26,19 @@ order.
 """
 
 import ctypes
-import sys
 
 import torch
 
 from .. import constants as const
 from .. import cuda_build
+from ..utils.clocks import count, span
 from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
 # stack_sweep_fields, _kernel_tables, _source_group and sweep_heats are
 # also this module's names for its callers (the tests, chip_smoke.py)
 from .source_sweep import (_ABU, RateGrids, SourceFields, SweepConfig,
                            _cell_rates, _kernel_tables, _route_args,
                            _same_device, _scalars, _source_group,
-                           count_launch, stack_sweep_fields, sweep_heats)
-
-# sweeps run through the CUDA kernel, one count per trace_cuda call
-# (which launches the 3 * Rf stage kernels of one sweep) in the counter
-# of its variant: with a per-cell LLS grid, else with band tracking,
-# else heating, else isothermal -- on the fixed quadrature rule; the
-# tau tables and the "auto" blocks count in their own counters
-# (isothermal / heating), a per-cell LLS grid among them
-launches = 0
-launches_heat = 0
-launches_lls = 0
-launches_track = 0
-launches_table = 0
-launches_table_heat = 0
-launches_auto = 0
-launches_auto_heat = 0
+                           launch_counter, stack_sweep_fields, sweep_heats)
 
 def trace_extents(M: int, radius=None):
     """Forward / backward trace extents (Rf, Rb): +M/2 / -(M/2-1) by
@@ -93,6 +78,7 @@ def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     lloss = torch.zeros(S, dtype=dtype, device=device)
     plb = (torch.zeros((S, cfg.tables.sigma_HI.shape[0]), dtype=dtype,
                        device=device) if track else None)
+    count("sweep.zeroed_bytes", _nbytes(cd, slab, ploss, lloss, plb))
     lls_cells = None if lls is None else lls.reshape(-1)
 
     def flat_of(off):
@@ -243,7 +229,6 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     tables sit in shared memory, and the losses reduce per block with no
     atomics.
     """
-    global launches, launches_heat, launches_lls, launches_track
     if not fstack.is_cuda:
         raise ValueError("the sweep kernel takes CUDA tensors")
     _same_device(fstack, srcpos, nflux, cfg)
@@ -297,19 +282,24 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
              float(cfg.max_coldensh), *route_ptrs,
              cuda_build.stream_of(fields))
     cuda_build.check(err, name)
-    if kt.K < 0:
-        count_launch(sys.modules[__name__], kt)
-    elif lls is not None:
-        launches_lls += 1
-    elif track:
-        launches_track += 1
-    elif heat:
-        launches_heat += 1
+    # one count a call (the 3 * Rf stage kernels of one sweep) in the
+    # counter of its variant: the route's on the tau tables and the
+    # "auto" blocks, else with a per-cell LLS grid, else with band
+    # tracking, else the fixed rule's (isothermal or heating)
+    if kt.K >= 0 and (lls is not None or track):
+        count("launches.pyramid_sweep." + ("lls" if lls is not None
+                                           else "track"))
     else:
-        launches += 1
+        count(launch_counter("pyramid_sweep", kt))
+    count("sweep.zeroed_bytes", _nbytes(cd, slab, partials, band_partials))
     losses = partials.sum(dim=1)
     plb = band_partials.sum(dim=1) if track else None
     return slab, losses[:, 0], losses[:, 1], plb
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
@@ -337,7 +327,8 @@ def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
     (with one group, the plain sum over sources).
     """
     M = cfg.mesh
-    fstack = stack_sweep_fields(cfg, fields)
+    with span("c2ray.sweep.stack"):
+        fstack = stack_sweep_fields(cfg, fields)
     dtype, device = fstack.dtype, fstack.device
     Rf, Rb = trace_extents(M, radius)
     if fstack.is_cuda:
@@ -359,15 +350,20 @@ def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
     for g0 in range(0, S, group):
         sp = srcpos_batch[g0:g0 + group]
         nf = nflux_batch[g0:g0 + group]
-        slab, ploss, lloss, plb_g = trace(cfg, fstack, sp, nf, Rf, Rb, dr,
-                                          vol_over_scale, lls=lls,
-                                          track=track)
-        live = torch.any(nf > 0.0, dim=1)
-        rg = rg + torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
-        pl = pl + torch.where(live, ploss, 0.0).sum()
-        ll = ll + torch.where(live, lloss, 0.0).sum()
-        if track:
-            plb = plb + torch.where(live[:, None], plb_g, 0.0).sum(dim=0)
+        with span("c2ray.sweep.group"):
+            slab, ploss, lloss, plb_g = trace(cfg, fstack, sp, nf, Rf, Rb,
+                                              dr, vol_over_scale, lls=lls,
+                                              track=track)
+        count("sweep.groups")
+        with span("c2ray.sweep.sum"):
+            live = torch.any(nf > 0.0, dim=1)
+            rg = rg + torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
+            pl = pl + torch.where(live, ploss, 0.0).sum()
+            ll = ll + torch.where(live, lloss, 0.0).sum()
+            if track:
+                plb = plb + torch.where(live[:, None], plb_g,
+                                        0.0).sum(dim=0)
+        count("sweep.summed_bytes", _nbytes(slab))
     return RateGrids(phih=rg[:, 0], phihe0=rg[:, 1], phihe1=rg[:, 2],
                      phiheat=rg[:, 3], photon_loss=pl, lls_loss=ll,
                      photon_loss_bands=plb)

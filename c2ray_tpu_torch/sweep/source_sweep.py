@@ -24,7 +24,6 @@ take the route as a template parameter (``csrc/table_rates.cuh``).
 """
 
 import ctypes
-import sys
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
@@ -39,6 +38,7 @@ from ..radiation.quadrature import (QuadTables, packed_band_blocks,
                                     rates_heat, uniform_band_rows)
 from ..radiation.tables import (RadiationTables, pack_tau_columns,
                                 packed_table_route)
+from ..utils.clocks import count
 from .cinterp import cinterp_shell
 from .geometry import ShellTable
 
@@ -47,17 +47,6 @@ MAX_COLDENSH = 2.0e29
 
 # abundance weights per species column, order (HI, HeI, HeII)
 _ABU = (1.0 - const.abu_he, const.abu_he, const.abu_he)
-
-# sweeps run through the shell kernel, one count per shell_sweep_cuda
-# call (which launches one kernel per shell) in the counter of its
-# variant: the fixed quadrature rule isothermal or heating, the tau
-# tables, the "auto" blocks
-launches = 0
-launches_heat = 0
-launches_table = 0
-launches_table_heat = 0
-launches_auto = 0
-launches_auto_heat = 0
 
 # auto source group: a group's column cube and slab (7 values per cell
 # and source) stay under this many bytes
@@ -293,12 +282,11 @@ def _type_args(types):
     return [a for t in types for a in t] + [0, 0, 0] * (3 - len(types))
 
 
-def count_launch(module, kt: KernelTables, prefix="launches"):
-    """Add one to `module`'s counter of the route and variant of `kt`:
-    <prefix>[_table | _auto][_heat]."""
-    route = {ROUTE_TABLE: "_table", ROUTE_BLOCKS: "_auto"}.get(kt.K, "")
-    name = prefix + route + ("_heat" if kt.heat else "")
-    setattr(module, name, getattr(module, name) + 1)
+def launch_counter(library: str, kt: KernelTables) -> str:
+    """The launch counter of `library`'s kernel on the route and variant
+    of `kt`: launches.<library>[.table | .auto][.heat]."""
+    route = {ROUTE_TABLE: ".table", ROUTE_BLOCKS: ".auto"}.get(kt.K, "")
+    return f"launches.{library}{route}" + (".heat" if kt.heat else "")
 
 
 def _route_args(kt: KernelTables):
@@ -516,7 +504,8 @@ def shell_sweep_cuda(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
              float(cfg.max_coldensh), *route_ptrs,
              cuda_build.stream_of(fields))
     cuda_build.check(err, name)
-    count_launch(sys.modules[__name__], kt)
+    # one count a call (a kernel per shell), by route and variant
+    count(launch_counter("shell_sweep", kt))
     losses = partials.sum(dim=1)
     return slab, losses[:, 0], losses[:, 1]
 

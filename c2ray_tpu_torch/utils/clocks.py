@@ -1,19 +1,133 @@
-"""Wall/CPU phase timers.
+"""Wall/CPU phase timers, and the program's spans and counters.
 
-Port of ``c2ray_tpu/utils/clocks.py`` (``code/clocks.f90``):
+`Clocks` ports ``c2ray_tpu/utils/clocks.py`` (``code/clocks.f90``):
 accumulating CPU + wall-clock counters with phase timestamps written to
 a `Timings.log`.  On the GPU a phase boundary can first synchronize the
 device (`torch.cuda.synchronize`), so queued kernels are charged to
-the phase that launched them; `start_device_trace` /
-`stop_device_trace` capture a ``torch.profiler`` trace of the card.
+the phase that launched them.
+
+The tracer is one store per process:
+
+- `count(name, n)` adds to a host integer, always: kernel launches
+  (``launches.<library>[.route][.variant]``), iterations, sweeps, bytes.
+  No counter reads the device.
+- `span(name)` is a context manager around a piece of host work.  Off
+  (the default) it tests one bool and returns a shared no-op context.
+  After `tracing(True)` each span enters
+  ``torch.profiler.record_function(name)``, so in a profiled run it lies
+  on the profiler's host timeline beside the kernels it launches, and is
+  kept in memory with its start and end (``time.time_ns``, the
+  profiler's clock), its parent and the timestep it belongs to.
+- `snapshot()` reads the counters and the kept spans (count, total and
+  self seconds per name; self = total less the children's time), and
+  `reset()` clears both.
+
+No span or counter synchronises, reads the device, allocates on it or
+launches anything.  Span names begin with ``c2ray.``.
 """
 
 import os
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Optional
 
-_TRACE = None
+import torch
+
+# spans kept and annotated (tracing); counters count either way
+_ON = False
+_OFF = nullcontext()
+_COUNTS = {}
+# kept spans: [name, start ns, end ns (0 while open), parent index or -1,
+# slice index, step index, own index]
+_RECORDS = []
+_OPEN = []
+
+
+def tracing(on: bool):
+    """Switch the process's spans on or off."""
+    global _ON
+    _ON = bool(on)
+
+
+def count(name: str, n: int = 1):
+    """Add `n` to counter `name`."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counter(name: str) -> int:
+    """The value of counter `name` (0 if it never counted)."""
+    return _COUNTS.get(name, 0)
+
+
+def span(name: str, slice_index: Optional[int] = None,
+         step_index: Optional[int] = None):
+    """A span of host work.  `slice_index` / `step_index` name the
+    timestep its work belongs to; a span that names none takes its
+    parent's."""
+    if not _ON:
+        return _OFF
+    return _Span(name, slice_index, step_index)
+
+
+class _Span:
+    __slots__ = ("_name", "_ids", "_rf", "_rec")
+
+    def __init__(self, name, slice_index, step_index):
+        self._name = name
+        self._ids = (slice_index, step_index)
+
+    def __enter__(self):
+        sl, st = self._ids
+        parent = _OPEN[-1] if _OPEN else None
+        if parent is not None:
+            sl = parent[4] if sl is None else sl
+            st = parent[5] if st is None else st
+        rec = [self._name, time.time_ns(), 0,
+               -1 if parent is None else parent[6], sl, st, len(_RECORDS)]
+        _RECORDS.append(rec)
+        _OPEN.append(rec)
+        self._rec = rec
+        self._rf = torch.profiler.record_function(self._name)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        self._rec[2] = time.time_ns()
+        if _OPEN and _OPEN[-1] is self._rec:
+            _OPEN.pop()
+        return False
+
+
+def snapshot() -> dict:
+    """{"counters": {name: n}, "spans": {name: {"count", "total_s",
+    "self_s"}}, "records": [(name, start ns, end ns, parent index, slice
+    index, step index)]} of the closed spans kept since the last
+    `reset` (a parent index points into "records", -1 for none)."""
+    child_ns = [0] * len(_RECORDS)
+    for r in _RECORDS:
+        if r[2] and r[3] >= 0:
+            child_ns[r[3]] += r[2] - r[1]
+    spans = {}
+    for r, c in zip(_RECORDS, child_ns):
+        if not r[2]:
+            continue
+        s = spans.setdefault(r[0], {"count": 0, "total_s": 0.0,
+                                    "self_s": 0.0})
+        s["count"] += 1
+        s["total_s"] += (r[2] - r[1]) * 1e-9
+        s["self_s"] += (r[2] - r[1] - c) * 1e-9
+    return {"counters": dict(_COUNTS), "spans": spans,
+            "records": [tuple(r[:6]) for r in _RECORDS]}
+
+
+def reset():
+    """Clear the counters and the kept spans (spans open now are not
+    kept)."""
+    _COUNTS.clear()
+    _RECORDS.clear()
+    _OPEN.clear()
 
 
 @dataclass
@@ -49,8 +163,6 @@ class Clocks:
         attributed to the right phase.
         """
         if sync is not None and getattr(sync, "is_cuda", False):
-            import torch
-
             torch.cuda.synchronize(sync.device)
         now_w, now_c = time.time(), time.process_time()
         dw, dc = now_w - self._last_wall, now_c - self._last_cpu
@@ -69,28 +181,3 @@ class Clocks:
             with open(self.log_path, "a") as f:
                 f.write(f"# total wall={wall:.2f}s cpu={cpu:.2f}s\n")
         return wall, cpu
-
-
-def start_device_trace(logdir: str):
-    """Begin a ``torch.profiler`` trace of the host and the card; the
-    Chrome trace goes to ``logdir/trace.json`` at `stop_device_trace`."""
-    global _TRACE
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(logdir, exist_ok=True)
-    _TRACE = (profile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]), logdir)
-    _TRACE[0].__enter__()
-
-
-def stop_device_trace():
-    """End the trace begun by `start_device_trace`; returns the
-    profiler (its ``key_averages()`` sum the device time by kernel)."""
-    global _TRACE
-    if _TRACE is None:
-        raise RuntimeError("no device trace is running")
-    prof, logdir = _TRACE
-    _TRACE = None
-    prof.__exit__(None, None, None)
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-    return prof

@@ -233,6 +233,8 @@ import time
 import numpy as np
 import torch
 
+from c2ray_tpu_torch.utils import clocks
+
 # the SASS readers and the stamped chemistry build, shared with
 # tools/profile_torch_iteration.py
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -790,71 +792,36 @@ def phase_compare_slice(dev, M=32, heating=False):
     return lls_err, track_err, pl_err
 
 
+# each kernel's launch counter in the program's store (utils/clocks.py),
+# by this script's name for it: <library>[_route][_variant]
+LAUNCH_COUNTERS = {
+    "pyramid_sweep_lls": "launches.pyramid_sweep.lls",
+    "pyramid_sweep_track": "launches.pyramid_sweep.track",
+    "chemistry": "launches.chemistry",
+    "chemistry_heat": "launches.chemistry.heat",
+    "photon_losses": "launches.photon_losses",
+    "halo_pack": "launches.domain_halo.pack",
+    "window_accumulate": "launches.domain_halo.accumulate",
+    "fold_halo": "launches.domain_halo.fold",
+    # the fixed rule, the tau tables and the "auto" blocks, isothermal
+    # and heating, of the three sweep kernels and the 1D kernel
+    **{f"{lib}{route}{sfx}": (f"launches.{lib}" + route.replace("_", ".")
+                              + sfx.replace("_", "."))
+       for lib in ("pyramid_sweep", "shell_sweep", "octant_sweep",
+                   "evolve1d")
+       for route in ("", "_table", "_auto") for sfx in ("", "_heat")}}
+
+
 def launch_counts():
-    from c2ray_tpu_torch.onedim import evolve as ev1
-    from c2ray_tpu_torch.parallel import halo
-    from c2ray_tpu_torch.sweep import (global_pass, octant_sweep,
-                                       photon_losses, pyramid_sweep,
-                                       source_sweep)
-
-    return {"pyramid_sweep": pyramid_sweep.launches,
-            "pyramid_sweep_heat": pyramid_sweep.launches_heat,
-            "pyramid_sweep_lls": pyramid_sweep.launches_lls,
-            "pyramid_sweep_track": pyramid_sweep.launches_track,
-            "chemistry": global_pass.launches,
-            "chemistry_heat": global_pass.launches_heat,
-            "photon_losses": photon_losses.launches,
-            "evolve1d": ev1.launches,
-            "evolve1d_heat": ev1.launches_heat,
-            "evolve1d_table": ev1.launches_table,
-            "evolve1d_table_heat": ev1.launches_table_heat,
-            "evolve1d_auto": ev1.launches_auto,
-            "evolve1d_auto_heat": ev1.launches_auto_heat,
-            "shell_sweep": source_sweep.launches,
-            "shell_sweep_heat": source_sweep.launches_heat,
-            "octant_sweep": octant_sweep.launches,
-            "octant_sweep_heat": octant_sweep.launches_heat,
-            "halo_pack": halo.launches_pack,
-            "window_accumulate": halo.launches_accumulate,
-            "fold_halo": halo.launches_fold,
-            # the tau-table and "auto" routes of the three sweep kernels
-            **{f"{name}{route}{sfx}": getattr(mod, f"launches{route}{sfx}")
-               for name, mod in route_modules().items()
-               for route in ("_table", "_auto") for sfx in ("", "_heat")}}
+    return {k: clocks.counter(v) for k, v in LAUNCH_COUNTERS.items()}
 
 
-def route_modules():
-    """{sweep kernel: its wrapper's module} of the kernels with the
-    tau-table and "auto" routes."""
-    from c2ray_tpu_torch.sweep import octant_sweep, pyramid_sweep, source_sweep
+def plane_lanes():
+    """{lanes per cell: the octant kernel's plane launches} so far."""
+    from c2ray_tpu_torch.sweep.octant_sweep import PLANE_LANES
 
-    return {"pyramid_sweep": pyramid_sweep, "shell_sweep": source_sweep,
-            "octant_sweep": octant_sweep}
-
-
-def reset_launch_counts():
-    from c2ray_tpu_torch.onedim import evolve as ev1
-    from c2ray_tpu_torch.parallel import halo
-    from c2ray_tpu_torch.sweep import (global_pass, octant_sweep,
-                                       photon_losses, pyramid_sweep,
-                                       source_sweep)
-
-    pyramid_sweep.launches = pyramid_sweep.launches_heat = 0
-    pyramid_sweep.launches_lls = pyramid_sweep.launches_track = 0
-    global_pass.launches = global_pass.launches_heat = 0
-    photon_losses.launches = 0
-    ev1.launches = ev1.launches_heat = 0
-    ev1.launches_table = ev1.launches_table_heat = 0
-    ev1.launches_auto = ev1.launches_auto_heat = 0
-    source_sweep.launches = source_sweep.launches_heat = 0
-    octant_sweep.launches = octant_sweep.launches_heat = 0
-    octant_sweep.launches_lanes.update(
-        dict.fromkeys(octant_sweep.launches_lanes, 0))
-    halo.launches_pack = halo.launches_accumulate = halo.launches_fold = 0
-    for mod in route_modules().values():
-        for route in ("_table", "_auto"):
-            for sfx in ("", "_heat"):
-                setattr(mod, f"launches{route}{sfx}", 0)
+    return {G: clocks.counter(f"launches.octant_sweep.lanes{G}")
+            for G in PLANE_LANES}
 
 
 # each kernel's launches over every main-path run that check_launches
@@ -930,7 +897,7 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
     dt = 1.0e14
     iteration = make_evolve3d_iteration(cfg)
 
-    reset_launch_counts()
+    clocks.reset()
     (s, conv, ploss, _), warm = synced(iteration, state0, srcpos, nflux, dt)
     log(f"{name}: warm-up iteration {warm:.3f} s")
     torch.cuda.synchronize()
@@ -1000,10 +967,7 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
                 "chemistry" + sfx)
     check_launches(name, counts, mine)
     if engine == "octant":
-        from c2ray_tpu_torch.sweep import octant_sweep as oc
-
-        log(f"  octant plane launches by lanes per cell: "
-            f"{dict(oc.launches_lanes)}")
+        log(f"  octant plane launches by lanes per cell: {plane_lanes()}")
     for t in (*s, *s_evo):
         if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name} produced non-finite state")
@@ -1398,7 +1362,7 @@ def phase_driver_physics(dev, workdir, ref, mesh=32):
     ionized fraction 0.241; at 33^3, on the shell engine, the plain
     float64 run gives 0.244456).  Returns the launch counts of the card
     run."""
-    reset_launch_counts()
+    clocks.reset()
     got = driver_physics(torch.float32, dev,
                          os.path.join(workdir, f"driver_physics_{mesh}_f32"),
                          mesh=mesh)
@@ -1557,7 +1521,7 @@ def phase_driver_full(dev, workdir, mesh=128, zreds=(9.0, 8.95, 8.9),
             f"flag {r.photcons_flag}")
         return out
 
-    reset_launch_counts()
+    clocks.reset()
     drv.evolve3d, r.run_slice = timed_evolve, recorded_slice
     t0 = time.perf_counter()
     try:
@@ -1859,7 +1823,7 @@ def phase_main_route(dev, route, engine="pyramid", heating=False, mesh=128,
     dt = 1.0e14
     iteration = make_evolve3d_iteration(cfg)
 
-    reset_launch_counts()
+    clocks.reset()
     (s, conv, ploss, _), warm = synced(iteration, s, srcpos, nflux, dt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2121,10 +2085,10 @@ def phase_sweep_redesign(cfg, s, srcpos, nflux):
                    for x, y in zip(a, b))
         ms = event_ms(fn, 3)
         prof = launch_profile(fn, kernel, n_launch, required=False)
-        lanes0 = dict(oc.launches_lanes)
+        lanes0 = plane_lanes()
         fn()
         lanes = {G: n - lanes0[G]
-                 for G, n in oc.launches_lanes.items() if n > lanes0[G]}
+                 for G, n in plane_lanes().items() if n > lanes0[G]}
         log(f"{name} at {M}^3 x {S}, K = {K}: band loop "
             f"per band {mix['ex2']:g} MUFU.EX2, {mix['fp32']:g} float32-pipe, "
             f"{mix['rcp']:g} MUFU.RCP, {mix['expf_reduction']:g} expf "
@@ -2699,7 +2663,7 @@ def phase_parallel_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
     first, spi, halo_counts = {}, {k: [] for k in modes}, {}
     for mode in ("single", "domain", "source", "source", "domain", "single"):
         it, s, sp, nf = modes[mode]
-        reset_launch_counts()
+        clocks.reset()
         out, warm = synced(it, s, sp, nf, dt)
         first.setdefault(mode, out)
         s = out[0]
@@ -2743,7 +2707,7 @@ def phase_parallel_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
     steps = {}
     (s1, st1), w1 = synced(evolve3d, cfg, state0, srcpos, nflux, dt)
     steps["single"] = (w1, st1, s1.h1)
-    reset_launch_counts()
+    clocks.reset()
     (sd, std), wd = synced(domain_evolve3d, pcfg, shard_state_slabs(state0),
                            sp_np, nf_np, dt)
     counts = launch_counts()
@@ -2780,7 +2744,7 @@ def phase_driver_domain(dev, workdir, r10, mesh=128, zreds=(9.0, 8.95, 8.9)):
     cfg = driver_config(dev, workdir, mesh, zreds, results,
                         parallel="domain", n_devices=1)
     r = drv.Run3D(cfg)
-    reset_launch_counts()
+    clocks.reset()
     (all_stats, wall) = synced(r.run)
     counts = launch_counts()
     mine = ("pyramid_sweep_lls", "chemistry_heat", "halo_pack",
@@ -3015,7 +2979,7 @@ def phase_main_1d(dev, mesh=ONED_FULL_MESH, n_steps=12):
     end = torch.cuda.Event(enable_timing=True)
     for name, iso, quad in ONED_MAIN:
         run = oned_run(1, mesh, torch.float32, dev, iso, quad)
-        reset_launch_counts()
+        clocks.reset()
         walls, hosts, counters, capped, event_ms = [], [], [], [], []
         for _ in range(n_steps):
             before = run.state
@@ -3095,7 +3059,7 @@ def phase_auto_1d(dev, compare, plibs=None, mesh=ONED_FULL_MESH):
         run = oned_run(1, mesh, torch.float32, dev, iso, True, "auto")
         ev1._kernel_tables(run.ctx, torch.float32, dev)
         before = run.state
-        reset_launch_counts()
+        clocks.reset()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3266,7 +3230,7 @@ def phase_crosscheck(dev, M=CROSSCHECK_MESH, S_star=CROSSCHECK_S_STAR,
     dens, dr, dt = 1.0e-3, const.kpc, 10.0 * MYR
     sed = SEDConfig(bb=BlackBodySED(T_eff=1.0e5, S_star=S_star))
     t0 = time.perf_counter()
-    reset_launch_counts()
+    clocks.reset()
     problem = OneDProblem(testnum=1, dens_val=dens, temper_val=1e4,
                           isothermal=True)
     rgrid = RadialGrid(r_in=0.0, r_out=M * dr, mesh=4 * M)

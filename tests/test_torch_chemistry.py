@@ -40,6 +40,7 @@ from c2ray_tpu_torch.chemistry import (IonFractions as TIF, IonState as TIS,
                                        prepare_doric_factors as t_factors)
 from c2ray_tpu_torch.rates import rate_coefficients as t_rc
 from c2ray_tpu_torch.sweep.source_sweep import RateGrids as TRG
+from c2ray_tpu_torch.utils.clocks import counter
 
 # one intra-op thread: the suite runs in parallel workers, and at
 # these small shapes torch's per-op thread pool only oversubscribes
@@ -156,10 +157,10 @@ def test_global_chemistry_pass_takes_the_plain_path_on_cpu():
                                                dtype=jnp.float64))
     tr = TRG(*[torch.as_tensor(r, dtype=torch.float64) for r in rates])
     tcfg = t_gp.ChemistryConfig(isothermal=True)
-    before = t_gp.launches
+    before = counter("launches.chemistry")
     new, conv = t_gp.global_chemistry_pass(tcfg, ts, tr, 1.0e14)
     ref, ref_conv, _, _ = t_gp.chemistry_pass_plain(tcfg, ts, tr, 1.0e14)
-    assert t_gp.launches == before
+    assert counter("launches.chemistry") == before
     assert int(conv) == int(ref_conv)
     for a, b in zip(new, ref):
         assert torch.equal(a, b)

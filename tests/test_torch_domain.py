@@ -59,6 +59,7 @@ from c2ray_tpu_torch.parallel.sharding import (ParallelConfig,
                                                make_parallel_iteration)
 from c2ray_tpu_torch.state import begin_timestep
 from c2ray_tpu_torch.sweep import make_evolve3d_iteration
+from c2ray_tpu_torch.utils.clocks import counter
 
 torch.set_num_threads(1)
 
@@ -374,8 +375,9 @@ def test_halo_kernel_wrappers_refuse_cpu_tensors():
     M, S = 4, 2
     f = [torch.ones(S * M * M, dtype=torch.float64) for _ in range(5)]
     rc = torch.zeros((S + 2, M + 2, M + 2, 4), dtype=torch.float64)
-    before = (halo.launches_pack, halo.launches_accumulate,
-              halo.launches_fold)
+    counts = lambda: tuple(counter("launches.domain_halo." + k)
+                           for k in ("pack", "accumulate", "fold"))
+    before = counts()
     with pytest.raises(ValueError, match="CUDA"):
         halo.halo_pack_cuda(f, M, 1e-20)
     with pytest.raises(ValueError, match="CUDA"):
@@ -387,8 +389,7 @@ def test_halo_kernel_wrappers_refuse_cpu_tensors():
     # the dispatchers take the plain versions for CPU tensors
     halo.halo_pack(f, M, 1e-20, pad=1)
     halo.fold_halo(rc, M, (1, 1 + S))
-    assert (halo.launches_pack, halo.launches_accumulate,
-            halo.launches_fold) == before
+    assert counts() == before
 
 
 def test_wrong_device_kind_on_a_gloo_group_raises(tmp_path):

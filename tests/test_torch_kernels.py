@@ -33,6 +33,7 @@ from c2ray_tpu_torch.radiation.bands import F_FACTORS
 from c2ray_tpu_torch.radiation.quadrature import (build_quadrature_tables,
                                                   packed_band_rows)
 from c2ray_tpu_torch.state import initial_grid_state
+from c2ray_tpu_torch.utils.clocks import counter
 from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
                                    SourceFields, SweepConfig,
                                    build_shell_table, evolve3d, global_pass,
@@ -61,6 +62,11 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _launches(*names):
+    """The launch counters launches.<name> of the program's store."""
+    return tuple(counter("launches." + n) for n in names)
 
 
 def _config(M, dtype, device, S_star=3e51, heating=False):
@@ -114,9 +120,9 @@ def test_plain_path_launches_no_kernel():
     cfg = _config(M, torch.float64, "cpu")
     srcpos, nflux = _sources(M, 2, torch.float64, "cpu")
     state = initial_grid_state(np.full((M,) * 3, 1e-4), 0.0, 0.0, 0.0, 1e4)
-    before = (pyramid_sweep.launches, global_pass.launches)
+    before = _launches("pyramid_sweep", "chemistry")
     new, stats = evolve3d(cfg, state, srcpos, nflux, 1.0e14)
-    assert (pyramid_sweep.launches, global_pass.launches) == before
+    assert _launches("pyramid_sweep", "chemistry") == before
     assert stats.n_iterations >= 2
     assert bool(torch.isfinite(new.h1).all())
 
@@ -141,12 +147,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     srcpos, nflux = _sources(M, 1, torch.float64, "cpu")
     rates = pyramid_sweep.sweep_pyramid_source_batch(cfg.sweep, fields,
                                                      srcpos, nflux)
-    before = (pyramid_sweep.launches, global_pass.launches)
+    before = _launches("pyramid_sweep", "chemistry")
     with pytest.raises(ValueError, match="CUDA"):
         pyramid_sweep.trace_cuda(cfg.sweep, fstack, srcpos, nflux, 2, 1)
     with pytest.raises(ValueError, match="CUDA"):
         global_pass.chemistry_pass_cuda(cfg.chem, state, rates, 1.0e14)
-    assert (pyramid_sweep.launches, global_pass.launches) == before
+    assert _launches("pyramid_sweep", "chemistry") == before
 
 
 def test_heating_wrappers_refuse_cpu_tensors():
@@ -159,7 +165,7 @@ def test_heating_wrappers_refuse_cpu_tensors():
     srcpos, nflux = _sources(M, 1, torch.float64, "cpu")
     rates = pyramid_sweep.sweep_pyramid_source_batch(cfg.sweep, fields,
                                                      srcpos, nflux)
-    counts = lambda: (pyramid_sweep.launches_heat, global_pass.launches_heat)
+    counts = lambda: _launches("pyramid_sweep.heat", "chemistry.heat")
     before = counts()
     with pytest.raises(ValueError, match="CUDA"):
         pyramid_sweep.trace_cuda(cfg.sweep, fstack, srcpos, nflux, 2, 1)
@@ -369,7 +375,7 @@ def test_sweep_kernel_matches_plain(cuda_device, dtype, radius, heating):
     fstack = pyramid_sweep.stack_sweep_fields(cfg.sweep, fields)
     srcpos, nflux = _sources(M, 3, dtype, cuda_device)
     Rf, Rb = pyramid_sweep.trace_extents(M, radius)
-    counts = lambda: (pyramid_sweep.launches, pyramid_sweep.launches_heat)
+    counts = lambda: _launches("pyramid_sweep", "pyramid_sweep.heat")
     before = counts()
     k = pyramid_sweep.trace_cuda(cfg.sweep, fstack, srcpos, nflux, Rf, Rb)
     assert counts() == (before[0] + (not heating), before[1] + heating)
@@ -439,7 +445,7 @@ def test_lls_and_track_sweep_kernels_match_plain(cuda_device, dtype, heating,
     rng = np.random.RandomState(3)
     lls64 = torch.as_tensor(10.0 ** rng.uniform(14.0, 17.0, M**3),
                             device=cuda_device)
-    counter = "launches_lls" if variant == "lls" else "launches_track"
+    name = "launches.pyramid_sweep." + variant
     parts = {}
     for dt in (torch.float64, dtype):
         cfg = _config(M, dt, cuda_device, S_star=1e48, heating=heating)
@@ -447,9 +453,9 @@ def test_lls_and_track_sweep_kernels_match_plain(cuda_device, dtype, heating,
               else dict(track=True))
         state = _random_state(M, dt, cuda_device)
         srcpos, nflux = _sources(M, 3, dt, cuda_device)
-        before = getattr(pyramid_sweep, counter)
+        before = counter(name)
         k, p = _traces(cfg.sweep, state, srcpos, nflux, 4, **kw)
-        assert getattr(pyramid_sweep, counter) == before + 1
+        assert counter(name) == before + 1
         parts[dt] = (_parts(k), _parts(p))
     (k64, p64), (k, p) = parts[torch.float64], parts[dtype]
     assert len(k64) == (5 if variant == "track" else 4)
@@ -497,9 +503,9 @@ def test_photon_loss_kernel_matches_plain(cuda_device, dtype, ionized):
             phihe1=z(rates.phihe1)), fields, vos)
         return torch.stack([out.phih, out.phihe0, out.phihe1])
 
-    before = photon_losses.launches
+    before = counter("launches.photon_losses")
     k = added(photon_losses.distribute_photon_losses_cuda)
-    assert photon_losses.launches == before + 1
+    assert counter("launches.photon_losses") == before + 1
     p = added(photon_losses.distribute_photon_losses_plain)
     assert bool(torch.isfinite(k).all()) and float(p.abs().max()) > 0.0
     tol = 1e-12 if dtype == torch.float64 else 1e-5
@@ -521,7 +527,7 @@ def test_chemistry_kernel_matches_plain(cuda_device, dtype, heating):
     # heating: a step short enough that the f64 fixed point converges
     # well before the damped regime (tests/test_torch_chemistry.py)
     dt = 1.0e13 if heating else 1.0e14
-    counts = lambda: (global_pass.launches, global_pass.launches_heat)
+    counts = lambda: _launches("chemistry", "chemistry.heat")
     before = counts()
     k = global_pass.chemistry_pass_cuda(cfg.chem, state, rates, dt)
     assert counts() == (before[0] + (not heating), before[1] + heating)
@@ -592,13 +598,13 @@ def test_photon_loss_kernel_band_counts_and_row_layouts(cuda_device, dtype,
                               phiheat=g[3], photon_loss_bands=plb)
 
     added = lambda r: torch.stack([r.phih, r.phihe0, r.phihe1])
-    before = photon_losses.launches
+    before = counter("launches.photon_losses")
     r1 = photon_losses.distribute_photon_losses_cuda(tables, fresh(), fields,
                                                      vos)
     r2 = fresh()
     tab = photon_losses._launch(tables, r2, fields, vos,
                                 photon_losses.DENSITY_FLOOR)
-    assert photon_losses.launches == before + 2
+    assert counter("launches.photon_losses") == before + 2
     # the table the entry packs on the card is band_table's, to the bit
     assert torch.equal(tab, photon_losses.band_table(tables, plb, n, vos,
                                                      dtype))
@@ -629,11 +635,11 @@ def test_photon_loss_kernel_refuses_more_bands_than_its_capacity(
     rates = source_sweep.RateGrids(
         z, z.clone(), z.clone(), z.clone(), z.sum(), z.sum(),
         torch.ones(nb, dtype=torch.float32, device=cuda_device))
-    before = photon_losses.launches
+    before = counter("launches.photon_losses")
     with pytest.raises(ValueError, match="at most"):
         photon_losses.distribute_photon_losses_cuda(
             _bands_of(cfg.sweep.tables, nb), rates, fields, 1.0)
-    assert photon_losses.launches == before
+    assert counter("launches.photon_losses") == before
 
 
 def _front_pass(M, dtype, device, heating, clump, n_cells, seed=11):
@@ -758,9 +764,9 @@ def _oned_run(variant, mesh, dtype, device):
 
 
 def _oned_counts():
-    return (onedim_evolve.launches, onedim_evolve.launches_heat,
-            onedim_evolve.launches_table, onedim_evolve.launches_table_heat,
-            onedim_evolve.launches_auto, onedim_evolve.launches_auto_heat)
+    return _launches("evolve1d", "evolve1d.heat", "evolve1d.table",
+                     "evolve1d.table.heat", "evolve1d.auto",
+                     "evolve1d.auto.heat")
 
 
 def test_1d_plain_path_launches_no_kernel():
@@ -1005,8 +1011,8 @@ _SHELL_CASES = {"even": (16, None), "odd": (17, None), "subbox": (16, 5)}
 
 
 def _engine_counts():
-    return (source_sweep.launches, source_sweep.launches_heat,
-            octant_sweep.launches, octant_sweep.launches_heat)
+    return _launches("shell_sweep", "shell_sweep.heat", "octant_sweep",
+                     "octant_sweep.heat")
 
 
 def test_shell_and_octant_plain_paths_launch_no_kernel():
@@ -1149,9 +1155,11 @@ def test_octant_kernel_matches_plain_at_every_lane_count(cuda_device, dtype,
     fstack = pyramid_sweep.stack_sweep_fields(cfg, SourceFields(
         state.ndens, state.h_av0, state.h_av1, state.he_av0, state.he_av1))
     srcpos, nflux = _sources(M, S, dtype, cuda_device)
-    before = dict(octant_sweep.launches_lanes)
+    lanes = lambda: {G: counter(f"launches.octant_sweep.lanes{G}")
+                     for G in octant_sweep.PLANE_LANES}
+    before = lanes()
     k = octant_sweep.octant_sweep_cuda(cfg, fstack, srcpos, nflux)
-    ran = {G: n - before[G] for G, n in octant_sweep.launches_lanes.items()}
+    ran = {G: n - before[G] for G, n in lanes().items()}
     again = octant_sweep.octant_sweep_cuda(cfg, fstack, srcpos, nflux)
     assert all(torch.equal(a, b) for a, b in zip(k, again))
     row0, rows, cells = octant_sweep.plane_rows(M)
@@ -1309,15 +1317,15 @@ def test_halo_plain_paths_launch_no_kernel():
 
     c = _halo_case(8, 2, 2, torch.float64, "cpu", 5)
     S, H = c["S"], c["H"]
-    before = (halo.launches_pack, halo.launches_accumulate,
-              halo.launches_fold)
+    before = _launches("domain_halo.pack", "domain_halo.accumulate",
+                       "domain_halo.fold")
     pf = halo.halo_pack(c["fields"], 8, 1e-20, c["left"], c["right"], H)
     halo.window_accumulate(c["rc"], c["cubes"][0], c["starts"][0])
     r4 = halo.fold_halo(c["rc"], 8, (H, H + S), c["recv"], c["chunks"])
     assert pf.shape == (S + 2 * H, 8 + 2 * H, 8 + 2 * H, 5)
     assert r4.shape == (4, S * 64)
-    assert (halo.launches_pack, halo.launches_accumulate,
-            halo.launches_fold) == before
+    assert _launches("domain_halo.pack", "domain_halo.accumulate",
+                     "domain_halo.fold") == before
 
 
 @pytest.mark.gpu
@@ -1336,8 +1344,8 @@ def test_halo_kernels_match_plain(cuda_device, shape, dtype, C):
     M, D, radius = shape
     c = _halo_case(M, D, radius, dtype, cuda_device, C)
     S, H = c["S"], c["H"]
-    before = (halo.launches_pack, halo.launches_accumulate,
-              halo.launches_fold)
+    before = _launches("domain_halo.pack", "domain_halo.accumulate",
+                       "domain_halo.fold")
     for planes in (None, (max(0, S - H), S), (0, min(H, S))):
         args = (c["fields"], M, 1e-20) + ((c["left"], c["right"], H)
                                           if planes is None else
@@ -1356,8 +1364,9 @@ def test_halo_kernels_match_plain(cuda_device, shape, dtype, C):
         assert torch.equal(halo.fold_halo_cuda(*sent),
                            halo.fold_halo_plain(*sent))
     torch.cuda.synchronize()
-    assert (halo.launches_pack - before[0], halo.launches_accumulate
-            - before[1], halo.launches_fold - before[2]) == (3, 3, 3)
+    after = _launches("domain_halo.pack", "domain_halo.accumulate",
+                      "domain_halo.fold")
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 3, 3)
 
 
 # ---- the tau-table and "auto" rate routes of the three sweep kernels
@@ -1414,18 +1423,18 @@ def test_route_sweep_kernels_match_plain(cuda_device, dtype, heating, route,
     1e-5; each call counts one launch of its route's variant."""
     engine = _ROUTE_CASES[case][0]
     M = _ROUTE_CASES[case][1]
-    mod = {"pyramid": pyramid_sweep, "shells": source_sweep,
-           "octant": octant_sweep}[engine]
-    counter = ("launches" + ("_table" if route == "tau" else "_auto")
-               + ("_heat" if heating else ""))
+    library = {"pyramid": "pyramid_sweep", "shells": "shell_sweep",
+               "octant": "octant_sweep"}[engine]
+    name = (f"launches.{library}" + (".table" if route == "tau" else ".auto")
+            + (".heat" if heating else ""))
     parts = {}
     for dt in (torch.float64, dtype):
         cfg = _route_config(M, dt, cuda_device, route, heating)
         state = _random_state(M, dt, cuda_device)
         srcpos, nflux = _sources(M, 3, dt, cuda_device)
-        before = getattr(mod, counter)
+        before = counter(name)
         k, p = _route_traces(case, cfg, state, srcpos, nflux)
-        assert getattr(mod, counter) == before + 1
+        assert counter(name) == before + 1
         parts[dt] = (_parts(k), _parts(p))
     (k64, p64), (k, p) = parts[torch.float64], parts[dtype]
     assert float(p64[0].abs().max()) > 0.0

@@ -20,6 +20,7 @@ from c2ray_tpu_torch.sweep import (build_shell_table, octant_sweep,
                                    sweep_octant_source_batch,
                                    sweep_pyramid_source_batch,
                                    sweep_sources_accumulate)
+from c2ray_tpu_torch.utils.clocks import counter
 from test_torch_shell_sweep import _case, _check, _jfields, _tfields
 
 # one intra-op thread: the suite runs in parallel workers, and at
@@ -36,11 +37,13 @@ def test_octant_matches_jax(heating, lls):
     jcfg, tcfg, fields, srcpos, nflux = _case(M, not heating, lls)
     ref = j_octant(jcfg, _jfields(fields), jnp.asarray(srcpos, jnp.int32),
                    jnp.asarray(nflux))
-    before = (octant_sweep.launches, octant_sweep.launches_heat)
+    counts = lambda: (counter("launches.octant_sweep"),
+                      counter("launches.octant_sweep.heat"))
+    before = counts()
     got = sweep_octant_source_batch(tcfg, _tfields(fields),
                                     torch.as_tensor(srcpos),
                                     torch.as_tensor(nflux))
-    assert (octant_sweep.launches, octant_sweep.launches_heat) == before, \
+    assert counts() == before, \
         "CPU tensors take the plain version"
     _check(got, ref)
     assert float(got.photon_loss) > 0.0

@@ -39,6 +39,7 @@ from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
                                    SourceFields, SweepConfig,
                                    make_evolve3d_iteration, photon_losses,
                                    pyramid_sweep)
+from c2ray_tpu_torch.utils.clocks import counter
 
 # one intra-op thread: the suite runs in parallel workers, and at
 # these small shapes torch's per-op thread pool only oversubscribes
@@ -271,7 +272,7 @@ def test_no_sources_give_zero_rates():
 def test_photon_loss_kernel_refuses_cpu_tensors():
     jcfg, tcfg, js, ts, srcpos, nflux = _setup()
     _, got = _sweeps(jcfg, tcfg, js, ts, srcpos, nflux, 4)
-    before = photon_losses.launches
+    before = counter("launches.photon_losses")
     with pytest.raises(ValueError, match="CUDA"):
         photon_losses.distribute_photon_losses_cuda(
             tcfg.tables, got, _tfields(ts), tcfg.vol / tcfg.flux_scale)
@@ -279,4 +280,4 @@ def test_photon_loss_kernel_refuses_cpu_tensors():
         photon_losses.distribute_photon_losses(
             tcfg.tables, got._replace(photon_loss_bands=None), _tfields(ts),
             1.0)
-    assert photon_losses.launches == before
+    assert counter("launches.photon_losses") == before

@@ -23,6 +23,7 @@ from c2ray_tpu_torch import convert
 from c2ray_tpu_torch.sweep import pyramid_sweep as tps
 from c2ray_tpu_torch.sweep.source_sweep import SourceFields as TFields
 from c2ray_tpu_torch.sweep.source_sweep import SweepConfig as TSweepConfig
+from c2ray_tpu_torch.utils.clocks import counter
 
 # one intra-op thread: the suite runs in parallel workers, and at
 # these small shapes torch's per-op thread pool only oversubscribes
@@ -74,11 +75,12 @@ def test_sweep_matches_jax(radius, lls):
                                    for k, v in fields.items()}),
                   jnp.asarray(srcpos, jnp.int32), jnp.asarray(nflux),
                   radius=radius)
-    before = tps.launches
+    before = counter("launches.pyramid_sweep")
     got = tps.sweep_pyramid_source_batch(
         tcfg, TFields(**{k: torch.as_tensor(v) for k, v in fields.items()}),
         torch.as_tensor(srcpos), torch.as_tensor(nflux), radius=radius)
-    assert tps.launches == before, "CPU tensors take the plain version"
+    assert counter("launches.pyramid_sweep") == before, \
+        "CPU tensors take the plain version"
     _check(got, ref)
     assert float(got.photon_loss) > 0.0
     assert (float(got.lls_loss) > 0.0) == (lls > 0.0)

@@ -31,6 +31,7 @@ from c2ray_tpu_torch.sweep import (build_shell_table, cinterp_shell,
                                    source_sweep, sweep_sources_accumulate)
 from c2ray_tpu_torch.sweep.source_sweep import SourceFields as TFields
 from c2ray_tpu_torch.sweep.source_sweep import SweepConfig as TSweepConfig
+from c2ray_tpu_torch.utils.clocks import counter
 
 # one intra-op thread: the suite runs in parallel workers, and at
 # these small shapes torch's per-op thread pool only oversubscribes
@@ -137,11 +138,13 @@ def test_sweep_sources_accumulate_matches_jax(case, heating, lls):
     jcfg, tcfg, fields, srcpos, nflux = _case(M, not heating, lls)
     ref = j_accumulate(jcfg, j_table(M, radius), _jfields(fields),
                        jnp.asarray(srcpos, jnp.int32), jnp.asarray(nflux))
-    before = (source_sweep.launches, source_sweep.launches_heat)
+    counts = lambda: (counter("launches.shell_sweep"),
+                      counter("launches.shell_sweep.heat"))
+    before = counts()
     got = sweep_sources_accumulate(tcfg, build_shell_table(M, radius),
                                    _tfields(fields), torch.as_tensor(srcpos),
                                    torch.as_tensor(nflux))
-    assert (source_sweep.launches, source_sweep.launches_heat) == before, \
+    assert counts() == before, \
         "CPU tensors take the plain version"
     _check(got, ref)
     assert float(got.photon_loss) > 0.0

@@ -16,7 +16,8 @@
 //
 // Algorithm (the same as the plain version in pyramid_sweep.py): every
 // source owns an outgoing-column cube cd[s] (M^3 x 3, source-centred,
-// zeroed per sweep; index ctr + offset with ctr = M/2 - 1).  Layers
+// not zeroed: every cell is written before it is read; index ctr +
+// offset with ctr = M/2 - 1).  Layers
 // l = 1..Rf run in order; within a layer the x, y, z stages run in
 // order, one launch each over (source, sign, u, v).  A stage-m cell at
 // |offset_m| = l reads its four cinterp corners on layer l-1 along m,
@@ -115,8 +116,8 @@ struct Params {
   const T* nflux;     // (S, 3)
   const T* bands;     // (nbt, stride) live bands of every source type
   const T* lls;       // (M^3) per-cell LLS columns, or null
-  T* cd;              // (S, M, M, M, 3) outgoing columns, zeroed
-  T* slab;            // (S, M^3, 4) per-source rates, zeroed
+  T* cd;              // (S, M, M, M, 3) outgoing columns
+  T* slab;            // (S, M^3, 4) per-source rates, zeroed off the box
   T* partials;        // (S, nslots, 2) photon / LLS loss per block
   T* band_partials;   // (S, nslots, nb_all) band escape per block (kTrack)
   int M, S, Rf, Rb, nslots, nbt, nb_all;

@@ -16,16 +16,21 @@ launches the hand-written kernel ``csrc/pyramid_sweep.cu``, one launch
 per (layer, stage) over (source, sign, u, v).  Both return the same
 per-source rate slabs and losses (optionally the per-band escape and a
 per-cell LLS column), which `sweep_pyramid_source_batch` sums over
-sources in fixed order.
+sources in fixed order: on the card with the hand-written pass
+``csrc/group_accumulate.cu`` (`accumulate_group_cuda`), which reads each
+live slab once into the rate grids.
 
 Memory: cd is S x M^3 x 3 and the slab S x M^3 x 4 values: 470 MB at
 128^3 x 8 sources in float32, 3.8 GB at 256^3.  A batch is swept in
 groups of sources (JAX's `_source_chunk`) so that a group's cd and slab
 stay under `source_sweep._GROUP_BYTES`; the groups' sums are added in
-order.
+order.  The kernel writes every cd cell it reads before reading it and
+every loss slot, so `trace_cuda` zeroes neither; the slab only where the
+extents leave cells of the cube unwritten (`zeroed_buffers`).
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -47,6 +52,37 @@ def trace_extents(M: int, radius=None):
     if radius is None:
         return R, R - 1
     return min(radius, R), min(radius, R - 1)
+
+
+def covers_cube(M: int, Rf: int, Rb: int) -> bool:
+    """Whether the extents [-Rb, Rf] reach every cell of an M-cube along
+    each axis, so that the sweep writes every slab cell exactly once.
+    The stage kernels run the layers 1..Rf, so backward layers beyond
+    Rf would stay unwritten."""
+    return Rb <= Rf and Rf + Rb + 1 >= M
+
+
+def zeroed_buffers(M: int, Rf: int, Rb: int, track: bool) -> tuple:
+    """The buffers a sweep over [-Rb, Rf] must zero: the slab unless the
+    extents cover the cube (cells outside the box read 0), the partials
+    when no stage block runs (Rf = 0), and the band escape, which only
+    blocks holding a boundary cell write.  The kernel writes every other
+    element before anything reads it."""
+    return ((() if covers_cube(M, Rf, Rb) else ("slab",))
+            + (() if Rf >= 1 else ("partials",))
+            + (("band_partials",) if track else ()))
+
+
+def zeroed_bytes(shapes: dict, zeroed, itemsize: int) -> int:
+    """The bytes a sweep zeroes (counter sweep.zeroed_bytes)."""
+    return sum(math.prod(shapes[n]) for n in zeroed) * itemsize
+
+
+def sweep_buffers(shapes: dict, zeroed, dtype, device) -> dict:
+    """The buffers of `shapes`: zeroed where `zeroed` names them, else
+    left as the allocator gives them, for the launches to overwrite."""
+    return {n: (torch.zeros if n in zeroed else torch.empty)(
+        shape, dtype=dtype, device=device) for n, shape in shapes.items()}
 
 
 def trace_plain(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
@@ -260,11 +296,14 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     lib.pyramid_sweep_slots.argtypes = [ctypes.c_int]
     lib.pyramid_sweep_slots.restype = ctypes.c_int
     nslots = max(lib.pyramid_sweep_slots(Rf), 1)
-    cd = torch.zeros((S, M, M, M, 3), dtype=dtype, device=device)
-    slab = torch.zeros((S, M**3, 4), dtype=dtype, device=device)
-    partials = torch.zeros((S, nslots, 2), dtype=dtype, device=device)
-    band_partials = (torch.zeros((S, nslots, nb_all), dtype=dtype,
-                                 device=device) if track else None)
+    shapes = dict(cd=(S, M, M, M, 3), slab=(S, M**3, 4),
+                  partials=(S, nslots, 2))
+    if track:
+        shapes["band_partials"] = (S, nslots, nb_all)
+    zeroed = zeroed_buffers(M, Rf, Rb, track)
+    buf = sweep_buffers(shapes, zeroed, dtype, device)
+    cd, slab, partials = buf["cd"], buf["slab"], buf["partials"]
+    band_partials = buf.get("band_partials")
     name = ("pyramid_sweep_" + ("heat_" if heat else "")
             + ("track_" if track else "")
             + ("f32" if dtype == torch.float32 else "f64"))
@@ -291,7 +330,10 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
                                            else "track"))
     else:
         count(launch_counter("pyramid_sweep", kt))
-    count("sweep.zeroed_bytes", _nbytes(cd, slab, partials, band_partials))
+    count("sweep.zeroed_bytes",
+          zeroed_bytes(shapes, zeroed, fields.element_size()))
+    if "slab" not in zeroed:
+        count("sweep.covering_groups")
     losses = partials.sum(dim=1)
     plb = band_partials.sum(dim=1) if track else None
     return slab, losses[:, 0], losses[:, 1], plb
@@ -300,6 +342,51 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def accumulate_group_plain(rg, slab, live):
+    """Plain version of `accumulate_group_cuda`: rg plus the sum over
+    sources of the slabs (S, M^3, 4), a source that `live` (S,) drops
+    adding 0."""
+    return rg + torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
+
+
+def accumulate_group_cuda(rg, slab, live):
+    """Adds the live sources' slabs (S, M^3, 4) into the rate grids rg
+    (M^3, 4) in place and returns rg: per cell the slabs in source order
+    (0 for a dropped source), then that sum into rg
+    (``csrc/group_accumulate.cu``).  One pass: each live slab read once,
+    rg read and written once; `live` stays on the device."""
+    S = slab.shape[0]
+    if not slab.is_cuda:
+        raise ValueError("the group sum kernel takes CUDA tensors")
+    if (slab.dtype not in (torch.float32, torch.float64)
+            or rg.dtype != slab.dtype or live.dtype != torch.bool):
+        raise TypeError(f"group sum takes float32/float64 slab and rg and "
+                        f"a bool mask, not {slab.dtype}, {rg.dtype}, "
+                        f"{live.dtype}")
+    if (S < 1 or slab.shape[1:] != rg.shape or rg.shape[-1:] != (4,)
+            or live.shape != (S,) or {rg.device, live.device} != {slab.device}
+            or not (rg.is_contiguous() and slab.is_contiguous())
+            or (rg.data_ptr() | slab.data_ptr()) % 16):
+        raise ValueError(f"group sum takes slab (S, n, 4), rg (n, 4) and "
+                         f"live (S,) on one device, slab and rg contiguous "
+                         f"and 16-byte aligned: {tuple(slab.shape)}, "
+                         f"{tuple(rg.shape)}, {tuple(live.shape)}")
+    lib = cuda_build.load("group_accumulate")
+    name = "group_accumulate_" + ("f32" if slab.dtype == torch.float32
+                                  else "f64")
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    P = cuda_build.ptr
+    words = rg.numel() * rg.element_size() // 16
+    err = fn(P(rg), P(slab), P(live.contiguous()), S, words,
+             cuda_build.stream_of(rg))
+    cuda_build.check(err, name)
+    count("launches.group_accumulate")
+    return rg
 
 
 def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
@@ -319,8 +406,8 @@ def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
     place of cfg.coldensh_LLS.  With cfg.track_band_loss the result
     carries photon_loss_bands.
 
-    CUDA tensors go through the kernel, CPU tensors through the plain
-    version; sources whose fluxes are all zero contribute nothing, and a
+    CUDA tensors go through the kernels, CPU tensors through the plain
+    versions; sources whose fluxes are all zero contribute nothing, and a
     batch of no sources gives zero rates without launching anything.
     The batch is swept in groups of `_source_group` sources; each
     group's sum over its sources is added to the total in group order
@@ -332,9 +419,9 @@ def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
     dtype, device = fstack.dtype, fstack.device
     Rf, Rb = trace_extents(M, radius)
     if fstack.is_cuda:
-        trace = trace_cuda
+        trace, accumulate = trace_cuda, accumulate_group_cuda
     elif device.type == "cpu":
-        trace = trace_plain
+        trace, accumulate = trace_plain, accumulate_group_plain
     else:
         raise ValueError(f"no sweep for device {device}")
     track = cfg.track_band_loss
@@ -357,7 +444,7 @@ def sweep_pyramid_source_batch(cfg: SweepConfig, fields: SourceFields,
         count("sweep.groups")
         with span("c2ray.sweep.sum"):
             live = torch.any(nf > 0.0, dim=1)
-            rg = rg + torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
+            rg = accumulate(rg, slab, live)
             pl = pl + torch.where(live, ploss, 0.0).sum()
             ll = ll + torch.where(live, lloss, 0.0).sum()
             if track:

@@ -201,6 +201,19 @@ The last slice (the cross-check and the tools) adds, after phase 13:
    rank) at 128^3 x 8 sources in the source and domain modes: its JSON
    line.
 
+The pyramid engine's batch entry adds each source group's rate slabs
+into the rate grids with the group sum kernel
+(``csrc/group_accumulate.cu``): every pyramid main path above must
+launch it, the shell and octant engines and the domain mode must not.
+After the halo kernels' times:
+
+30. the group sum kernel against its plain version (the masked sum and
+   add) at 128^3 x 8 and 250^3 x 8, float32, and 250^3 x 8 float64,
+   two of the eight sources dropped: equal to the sum in source order
+   to the bit, within 4 S roundings of the masked sum; then its time,
+   the plain version's and the bound ((S + 2) M^3 16-byte rows at
+   3.35 TB/s), every source live.
+
 Each entry of the `kernels` line carries its bound: the larger of the
 bytes the function must move over the card's memory rate and its
 operations over their peak rate (`bound`; for the 1D kernels the
@@ -800,6 +813,7 @@ LAUNCH_COUNTERS = {
     "chemistry": "launches.chemistry",
     "chemistry_heat": "launches.chemistry.heat",
     "photon_losses": "launches.photon_losses",
+    "group_accumulate": "launches.group_accumulate",
     "halo_pack": "launches.domain_halo.pack",
     "window_accumulate": "launches.domain_halo.accumulate",
     "fold_halo": "launches.domain_halo.fold",
@@ -857,6 +871,10 @@ def engine_sweep(engine):
 
 
 ENGINE_KERNEL = {"shells": "shell_sweep", "octant": "octant_sweep"}
+# the pyramid engine's batch entry adds each source group's slabs into
+# the rate grids with the group sum kernel; the other engines sum their
+# own way
+PYRAMID_SUM = {"pyramid": ("group_accumulate",)}
 
 
 def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
@@ -960,11 +978,12 @@ def phase_main(dev, heating=False, mesh=128, n_src=8, n_iter=4,
     if photon_losses:
         check_redistribution(cfg, s, srcpos, nflux, vos)
         mine = ("pyramid_sweep_track", "photon_losses",
-                "chemistry_heat" if heating else "chemistry")
+                "chemistry_heat" if heating else "chemistry",
+                "group_accumulate")
     else:
         sfx = "_heat" if heating else ""
         mine = (ENGINE_KERNEL.get(engine, "pyramid_sweep") + sfx,
-                "chemistry" + sfx)
+                "chemistry" + sfx) + PYRAMID_SUM.get(engine, ())
     check_launches(name, counts, mine)
     if engine == "octant":
         log(f"  octant plane launches by lanes per cell: {plane_lanes()}")
@@ -1483,7 +1502,8 @@ def driver_config(dev, workdir, mesh, zreds, results, **extra):
 
 
 def phase_driver_full(dev, workdir, mesh=128, zreds=(9.0, 8.95, 8.9),
-                      mine=("pyramid_sweep_lls", "chemistry_heat")):
+                      mine=("pyramid_sweep_lls", "chemistry_heat",
+                            "group_accumulate")):
     """Phases 10 and 17: Run3D.run() at full width, heating, float32, on
     a synthetic CubeP3M tree, through the config loader a run file would
     use: 2 slices at 128^3 (the pyramid engine with the per-cell LLS
@@ -1838,7 +1858,8 @@ def phase_main_route(dev, route, engine="pyramid", heating=False, mesh=128,
         f"{warm:.3f} s); conv_flag {int(conv)}, photon_loss "
         f"{float(ploss):.6e}, mean ionized fraction "
         f"{float(s.h_av1.double().mean()):.6e}")
-    check_launches(label, counts, (name, "chemistry" + sfx))
+    check_launches(label, counts,
+                   (name, "chemistry" + sfx) + PYRAMID_SUM.get(engine, ()))
     for t in s:
         if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{label} produced non-finite state")
@@ -2563,6 +2584,65 @@ def phase_compare_halo(dev):
             f"plain to the bit, f64 and f32, 5 and 6 channels")
 
 
+def phase_group_sum(dev, S=8, reps=20):
+    """Phase 30: the group sum kernel (`accumulate_group_cuda`,
+    ``csrc/group_accumulate.cu``) against its plain version, torch's
+    masked sum and add (`accumulate_group_plain`), at the main path's
+    128^3 x 8 and the benchmark's 250^3 x 8, float32 and (250^3)
+    float64: uniform [0, 1) slabs added into uniform grids, sources 2
+    and 5 dropped, source 5's slab NaN (a dropped slab is never read).
+    The kernel equals the sum in source order to the bit and lies
+    within 4 S roundings of the masked sum (torch's order).  Then,
+    every source live, the kernel's and the plain version's device
+    times (CUDA events, mean of `reps` after a warm-up) and the bound:
+    the S slabs read once and the grids read and written once, (S + 2)
+    M^3 16-byte rows at 3.35 TB/s.  Returns {(mesh, dtype): (ms,
+    plain_ms, bound, largest absolute and relative difference from the
+    masked sum)}."""
+    from c2ray_tpu_torch.sweep import pyramid_sweep as ps
+
+    out = {}
+    for M, dtype in ((128, torch.float32), (250, torch.float32),
+                     (250, torch.float64)):
+        what = f"group sum at {M}^3 x {S} {str(dtype)[6:]}"
+        g = torch.Generator(device=dev).manual_seed(M)
+        slab = torch.rand((S, M**3, 4), generator=g, dtype=dtype,
+                          device=dev)
+        rg = torch.rand((M**3, 4), generator=g, dtype=dtype, device=dev)
+        live = torch.ones(S, dtype=torch.bool, device=dev)
+        live[[2, 5]] = False
+        slab[5] = float("nan")
+        acc = torch.zeros_like(rg)
+        for i in range(S):
+            acc = acc + torch.where(live[i], slab[i], 0.0)
+        in_order = rg + acc
+        masked = ps.accumulate_group_plain(rg, slab, live)
+        got = ps.accumulate_group_cuda(rg.clone(), slab, live)
+        if not torch.equal(got, in_order):
+            raise AssertionError(f"{what}: not the sum in source order")
+        torch.testing.assert_close(
+            got, masked, rtol=4 * S * torch.finfo(dtype).eps, atol=0.0,
+            msg=f"{what} vs the masked sum")
+        abs_err = float((got - masked).abs().max())
+        rel = float(((got - masked).abs() / masked.abs()).max())
+        del acc, in_order, masked, got
+        slab[5] = torch.rand((M**3, 4), generator=g, dtype=dtype,
+                             device=dev)
+        live[:] = True
+        ms = event_ms(lambda: ps.accumulate_group_cuda(rg, slab, live), reps)
+        plain_ms = event_ms(lambda: ps.accumulate_group_plain(rg, slab, live),
+                            reps)
+        nbytes = (S + 2) * M**3 * 4 * slab.element_size()
+        b = bound(nbytes, S * M**3 * 4, 0)
+        log(f"{what}: kernel {ms:.4f} ms ({nbytes / ms * 1e-6:.1f} GB/s), "
+            f"plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); equal "
+            f"to the sum in source order, {rel:.3e} relative "
+            f"({abs_err:.3e} absolute) from the masked sum")
+        out[M, dtype] = (ms, plain_ms, b, abs_err, rel)
+        del slab, rg
+    return out
+
+
 def init_nccl(dev, workdir):
     """The NCCL process group of one rank on `dev`, met through a
     FileStore under the script's build directory."""
@@ -2656,8 +2736,10 @@ def phase_parallel_main(dev, heating=False, mesh=128, n_src=8, n_iter=4):
         "source": (make_parallel_iteration(pcfg, return_rates=True), state0,
                    srcpos, nflux)}
     sfx = "_heat" if heating else ""
-    mine = {"single": ("pyramid_sweep" + sfx, "chemistry" + sfx),
-            "source": ("pyramid_sweep" + sfx, "chemistry" + sfx),
+    mine = {"single": ("pyramid_sweep" + sfx, "chemistry" + sfx,
+                       "group_accumulate"),
+            "source": ("pyramid_sweep" + sfx, "chemistry" + sfx,
+                       "group_accumulate"),
             "domain": ("pyramid_sweep" + sfx, "chemistry" + sfx, "halo_pack",
                        "window_accumulate", "fold_halo")}
     first, spi, halo_counts = {}, {k: [] for k in modes}, {}
@@ -3201,7 +3283,8 @@ def phase_physics_1d(dev, main):
 CROSSCHECK_MESH = 128
 CROSSCHECK_S_STAR = 2.0e51
 CROSSCHECK_STEPS = 6
-CROSSCHECK_KERNELS = ("pyramid_sweep", "chemistry", "evolve1d")
+CROSSCHECK_KERNELS = ("pyramid_sweep", "chemistry", "evolve1d",
+                      "group_accumulate")
 
 
 def phase_crosscheck(dev, M=CROSSCHECK_MESH, S_star=CROSSCHECK_S_STAR,
@@ -3754,7 +3837,7 @@ def main():
 
 
 def run_phases(dev, workdir, ref, oned_refs):
-    """Phases 2-29; returns the entries of the `kernels` line.  Phase
+    """Phases 2-30; returns the entries of the `kernels` line.  Phase
     14's CPU runs start, into `oned_refs`, once the 3D main paths
     (phases 4, 5, 8 and 16) have been timed, so that they do not share
     the host with those timings."""
@@ -3854,6 +3937,7 @@ def run_phases(dev, workdir, ref, oned_refs):
                         "kernel times", phase_engine_times, *out[:4], key[0])
              for key, out in eng.items()}
     halo_t = phase("halo kernel times", phase_halo_times, dev)
+    group_t = phase("group sum", phase_group_sum, dev)               # 30.
     redesign = {**phase("sweep redesign", phase_sweep_redesign, cfg, s,
                         srcpos, nflux),                             # 22.
                 **phase("heating sweep redesign", phase_sweep_redesign,
@@ -4005,6 +4089,29 @@ def run_phases(dev, workdir, ref, oned_refs):
              "share_of_bound": b[0] / ms, "library_ms": lib_ms,
              "library_call": ("rc[window].add_(cube)"
                               if lib_ms is not None else None)})
+    # the group sum: launches on the pyramid engine's main paths, time,
+    # plain time and bound at 250^3 x 8 float32 (128^3 and float64 beside)
+    ms, plain_ms, b, abs_err, rel = group_t[250, torch.float32]
+    kernels.append(
+        {"name": "group_accumulate", "route": "cuda",
+         "source": "c2ray_tpu_torch/csrc/group_accumulate.cu",
+         "replaces": "c2ray_tpu/sweep/pyramid_sweep.py:585",
+         "launches": MAIN_PATH_LAUNCHES["group_accumulate"],
+         "launches_of": "every pyramid-engine main-path run that checks "
+                        "its launches (phases 4, 5, 8, 10, 20, 25, 27)",
+         "shape": "250^3 x 8 sources, float32, every source live",
+         "max_abs_err": abs_err,
+         "max_abs_err_of": "against the masked sum (torch's order); the "
+                           "sum in source order to the bit",
+         "max_rel_err_masked_sum": rel,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+         "bound_by": b[1], "share_of_bound": b[0] / ms,
+         "ms_128cube": group_t[128, torch.float32][0],
+         "bound_ms_128cube": group_t[128, torch.float32][2][0],
+         "ms_f64": group_t[250, torch.float64][0],
+         "plain_ms_f64": group_t[250, torch.float64][1],
+         "bound_ms_f64": group_t[250, torch.float64][2][0],
+         "library_ms": None})
     # the tau-table and auto routes: launches, time, plain time and bound
     # on phase 25's runs at 128^3 x 8, the float32 error at 32^3 from
     # phase 24

@@ -120,9 +120,10 @@ def test_plain_path_launches_no_kernel():
     cfg = _config(M, torch.float64, "cpu")
     srcpos, nflux = _sources(M, 2, torch.float64, "cpu")
     state = initial_grid_state(np.full((M,) * 3, 1e-4), 0.0, 0.0, 0.0, 1e4)
-    before = _launches("pyramid_sweep", "chemistry")
+    names = ("pyramid_sweep", "group_accumulate", "chemistry")
+    before = _launches(*names)
     new, stats = evolve3d(cfg, state, srcpos, nflux, 1.0e14)
-    assert _launches("pyramid_sweep", "chemistry") == before
+    assert _launches(*names) == before
     assert stats.n_iterations >= 2
     assert bool(torch.isfinite(new.h1).all())
 

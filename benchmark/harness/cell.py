@@ -8,6 +8,13 @@ once, restarts it from the cell's slice cubes where the cell says so,
 and keeps every attribute the driver changes while it runs; `reset`
 puts them back, the state as a fresh copy of the same tensors, so every
 cycle does the same work.  The reset is inside the window.
+
+A cell whose traffic runs ``Run3D`` in the source-parallel mode
+(``run3d.parallel`` "source") runs as one `Cell` a rank, each in its own
+process inside an initialised process group (`harness.ranks`): rank 0
+makes the inputs and hands their paths to the others, rank 0 decides
+after each cycle whether the window goes on and every rank follows, and
+rank 0 alone keeps what the check judges and traces its cycle.
 """
 
 import gc
@@ -15,6 +22,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import check, probe, spec, trace
 
@@ -27,8 +35,45 @@ from . import check, probe, spec, trace
 # sub-cycle run for hours
 CONTROL_CHEM_ITER = 60
 
-# the kernel libraries the cells launch, built together in set-up
-LIBRARIES = ("pyramid_sweep", "chemistry")
+# the kernel libraries a cell launches, by the sweep engine it runs,
+# built together in set-up (by the parent, before a source-parallel
+# cell's ranks start)
+LIBRARIES = {"pyramid": ("pyramid_sweep", "group_accumulate", "chemistry"),
+             "shells": ("shell_sweep", "chemistry")}
+
+
+def run3d_of(cfg: dict, traffic: dict, mesh=None) -> dict:
+    """The configuration's Run3D keys with the traffic's over them, at
+    `mesh` where it is given: what the generator hands Run3D."""
+    run3d = dict(cfg["run3d"])
+    run3d.update(traffic.get("run3d", {}))
+    if mesh is not None:
+        run3d["mesh"] = int(mesh)
+    return run3d
+
+
+def engine_of(run3d: dict) -> str:
+    """The sweep engine Run3D picks (`sweep.evolve3d.sweep_engine`): the
+    pyramid engine at the full periodic extents, +M/2 / -(M/2 - 1) (an
+    even mesh and no max_subbox below M/2 - 1), else the shells."""
+    M = int(run3d["mesh"])
+    cap = run3d.get("max_subbox")
+    lo = M // 2 - 1 + M % 2
+    if cap is not None:
+        lo = min(lo, int(cap))
+    return "pyramid" if lo == M // 2 - 1 else "shells"
+
+
+def ranks_of(run3d: dict) -> int:
+    """The processes a run takes: n_devices ranks in the source-parallel
+    mode, else one."""
+    mode = run3d.get("parallel")
+    if mode is None:
+        return 1
+    if mode != "source":
+        raise ValueError(f"the benchmark runs Run3D on one rank or in the "
+                         f"source-parallel mode, not parallel={mode!r}")
+    return int(run3d["n_devices"])
 
 
 class Cell:
@@ -48,6 +93,10 @@ class Cell:
         self.mesh = mesh
         self.workdir = workdir
         self.num_slices = int(self.traffic["num_slices"])
+        run3d = run3d_of(self.cfg, self.traffic, mesh)
+        self.engine = engine_of(run3d)
+        self.ranks = ranks_of(run3d)
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
 
     # -- set-up ------------------------------------------------------------
     def setup(self, warmup=True):
@@ -58,12 +107,18 @@ class Cell:
         t0 = time.perf_counter()
         self.port = probe.Port()
         if self.device.type == "cuda":
-            _build(self.port.cuda_build, LIBRARIES)
+            build_libraries(self.engine)
         t["import_build_s"] = time.perf_counter() - t0
-        gen = spec.generator(self.cfg["generator"])
-        self.inputs = gen.make(self.cfg, self.traffic, self.seed,
-                               self.workdir, device=self.device,
-                               mesh=self.mesh)
+        # rank 0 writes the inputs once; the ranks read the same files
+        inputs = [None]
+        if self.rank == 0:
+            gen = spec.generator(self.cfg["generator"])
+            inputs[0] = gen.make(self.cfg, self.traffic, self.seed,
+                                 self.workdir, device=self.device,
+                                 mesh=self.mesh)
+        if self.ranks > 1:
+            dist.broadcast_object_list(inputs, src=0)
+        self.inputs = inputs[0]
         run3d = dict(self.inputs["run3d"])
         run3d["device"] = str(self.device)
         if self.device.type == "cpu":
@@ -72,6 +127,10 @@ class Cell:
         self.run3d = run3d
         t["inputs_s"] = time.perf_counter() - t0 - sum(t.values())
         self.run = Run3D(run3d_config_from_dict(run3d))
+        picked = self.port.evolve.sweep_engine(self.run.evolve_cfg)
+        if picked != self.engine:
+            raise RuntimeError(f"Run3D sweeps with the {picked} engine, "
+                               f"the benchmark built {self.engine}")
         if self.inputs["restart_z"] is not None:
             self.run.restart_from_slice(self.inputs["restart_z"])
         t["run3d_s"] = time.perf_counter() - t0 - sum(t.values())
@@ -81,7 +140,8 @@ class Cell:
         self._initial_state = self.run.state
         if self.fault is not None:
             self.fault(self.port)
-        self.probe = probe.Probe(self.port).install(self.run)
+        self.probe = probe.Probe(self.port, ranks=self.ranks).install(
+            self.run)
         if warmup:
             self.warm_up()
         t["warmup_s"] = time.perf_counter() - t0 - sum(t.values())
@@ -117,26 +177,39 @@ class Cell:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def rank0_says(self, flag: bool) -> bool:
+        """Rank 0's `flag`, on every rank (one broadcast of an int)."""
+        if self.ranks == 1:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                         device=self.device)
+        dist.broadcast(t, src=0)
+        return bool(int(t))
+
     # -- the window --------------------------------------------------------
     def window(self, seconds: float, spans=False):
-        """Whole cycles until `seconds` have passed, at least one; the
-        first keeps what the check judges.  Returns (wall seconds,
-        cycles, steps)."""
+        """Whole cycles until `seconds` have passed on rank 0, at least
+        one; the first keeps (on rank 0) what the check judges.  Returns
+        (wall seconds, cycles, steps)."""
         p = self.probe
         p.spans = spans
         p.reset_counts()
         rng = np.random.default_rng(self.seed)
         last = int(rng.integers(self.steps_per_cycle))
-        self.capture = probe.Capture(
-            start=0, last=last,
-            n_sample=int(self.traffic["check"]["sources"]), rng=rng,
-            steps_per_slice=self.run.config.steps_per_slice)
-        t0 = time.perf_counter()
+        self.capture = None
+        if self.rank == 0:
+            self.capture = probe.Capture(
+                start=0, last=last,
+                n_sample=int(self.traffic["check"]["sources"]), rng=rng,
+                steps_per_slice=self.run.config.steps_per_slice)
+        if self.ranks > 1:
+            dist.barrier()
+        t0 = self.window_t0 = time.perf_counter()
         cycles = 0
         while True:
             self.cycle(self.capture if cycles == 0 else None)
             cycles += 1
-            if time.perf_counter() - t0 >= seconds:
+            if self.rank0_says(time.perf_counter() - t0 >= seconds):
                 break
         wall = time.perf_counter() - t0
         if p.steps != cycles * self.steps_per_cycle:
@@ -164,36 +237,46 @@ class Cell:
             self.cycle()
             walls.append(time.perf_counter() - t0)
 
-        prof = trace.profile(timed_cycle)
+        # rank 0's cycle under the profiler; the other ranks run theirs
+        prof = trace.profile(timed_cycle) if self.rank == 0 else None
+        if prof is None:
+            timed_cycle()
         iterations, traces = p.iterations, list(p.traces)
         chem_passes = p.chem_passes
+        launched = dict(sweep_kernels=sum(p.trace_launches),
+                        chem_passes=chem_passes)
         layers = spec.layers()
-        summary = trace.summarize(prof, {k: v["kernels"]
-                                         for k, v in layers.items()})
-        del prof
-        launched = dict(
-            sweep_kernels=sum(1 + 3 * rf for _, rf, _, _ in traces),
-            chem_passes=chem_passes)
-        fallback = {}
-        for lname, ld in layers.items():
-            want = launched.get(ld.get("launches_counted_as"), 0)
-            got = summary["layer_launches"].get(lname, 0)
-            if self.device.type == "cuda" and want and got < want:
-                fallback[lname] = ld["library"]
+        summary, fallback = None, {}
+        libs = self.port.cuda_build._LIBS
+        if prof is not None:
+            summary = trace.summarize(prof, {k: v["kernels"]
+                                             for k, v in layers.items()})
+            del prof
+            for lname, ld in layers.items():
+                want = launched.get(ld.get("launches_counted_as"), 0)
+                got = summary["layer_launches"].get(lname, 0)
+                if self.device.type == "cuda" and want and got < want:
+                    # the layer's libraries this cell loaded (a layer
+                    # file names one, or a list: one per sweep engine)
+                    lib = ld["library"]
+                    names = [n for n in (lib if isinstance(lib, list)
+                                         else [lib]) if n in libs]
+                    if names:
+                        fallback[lname] = names
         timed = {}
-        if fallback:
+        if self.rank0_says(bool(fallback)):
             timers = {}
-            libs = self.port.cuda_build._LIBS
-            for lname, lib in fallback.items():
-                timers[lname] = trace.EventTimer(libs[lib])
-                libs[lib] = timers[lname]
+            for lname, names in fallback.items():
+                for n in names:
+                    timers[lname, n] = trace.EventTimer(libs[n])
+                    libs[n] = timers[lname, n]
             try:
                 self.cycle()
             finally:
-                for lname, lib in fallback.items():
-                    libs[lib] = timers[lname]._lib
-            for lname, t in timers.items():
-                timed[lname] = t.seconds()
+                for (lname, n), t in timers.items():
+                    libs[n] = t._lib
+            for lname, names in fallback.items():
+                timed[lname] = sum(timers[lname, n].seconds() for n in names)
                 summary["busy_s"] += max(
                     0.0, timed[lname]
                     - summary["layer_device_s"].get(lname, 0.0))
@@ -259,12 +342,14 @@ def _program_flux_scale(run3d) -> float:
     return float(sum(s["S_star"] for s in run3d["sed"].values()))
 
 
-def _build(cuda_build, names):
-    """The kernel libraries the cell launches, built together into the
-    port's fixed build directory inside the checkout."""
+def build_libraries(engine: str):
+    """The kernel libraries a cell of `engine` launches, built together
+    into the port's fixed build directory inside the checkout."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from c2ray_tpu_torch import cuda_build
+
+    names = LIBRARIES[engine]
     with ThreadPoolExecutor(len(names)) as pool:
         for f in [pool.submit(cuda_build.load, n) for n in names]:
             f.result()
-

@@ -2,8 +2,9 @@
 file conventions.
 
 From ``c2ray_tpu/nbody.py`` (numpy host code, the same as the JAX
-package's), cut to the member of the `nbody` module family that the
-cells run: ``code/cubep3m.F90`` (CubeP3M catalogs + unit system).
+package's): every member of the `nbody` module family, the test
+backends, ``code/cubep3m.F90`` (CubeP3M catalogs + unit system),
+PMFAST, LG and GADGET.
 """
 
 from dataclasses import dataclass
@@ -84,6 +85,24 @@ def _eds_sequence(z_start, timestep, num, cosmology):
     return -1.0 + (1.0 + z_start) * (t0 / (t0 + nz * timestep)) ** (2.0 / 3.0)
 
 
+def test_nbody(cosmology=DEFAULT_COSMOLOGY) -> NBodyInterface:
+    """Synthetic test backend: 5 slices from z=9 spaced 10 Myr,
+    10 Mpc/h box (test.F90:47,90-109)."""
+    return NBodyInterface(
+        nbody_type="test", boxsize=10.0, cosmology=cosmology,
+        zred_array=_eds_sequence(9.0, 1e7 * const.YEAR, 5, cosmology))
+
+
+def test4_nbody(cosmology=DEFAULT_COSMOLOGY, data_dir="../TEST4/"
+                ) -> NBodyInterface:
+    """Iliev Test-4 backend: 9 slices from z=8.8492 spaced 0.05 Myr,
+    0.5 Mpc/h box (test4.F90:46-51)."""
+    return NBodyInterface(
+        nbody_type="test4", boxsize=0.5, cosmology=cosmology,
+        zred_array=_eds_sequence(8.8492, 0.05e6 * const.YEAR, 9, cosmology),
+        dir_dens=data_dir, dir_src=data_dir, id_str="test4 res")
+
+
 def cubep3m_nbody(redshift_file, boxsize=244.0, n_box=8000,
                   cosmology=DEFAULT_COSMOLOGY, base_dir="../",
                   source_dir="./sources/") -> NBodyInterface:
@@ -103,3 +122,51 @@ def cubep3m_nbody(redshift_file, boxsize=244.0, n_box=8000,
         dir_clump=base_dir + "coarser_densities/halos_included/",
         dir_LLS=base_dir + "halos/",
         dir_src=source_dir, id_str=id_str)
+
+
+def pmfast_nbody(redshift_file, boxsize=100.0, n_box=3248,
+                 cosmology=DEFAULT_COSMOLOGY, base_dir="../"
+                 ) -> NBodyInterface:
+    """PMFAST backend (pmfast.F90, legacy)."""
+    with open(redshift_file) as f:
+        n = int(f.readline().split()[0])
+        zred = np.array([float(f.readline().split()[0]) for _ in range(n)])
+    return NBodyInterface(
+        nbody_type="pmfast", boxsize=boxsize, n_box=n_box,
+        cosmology=cosmology, zred_array=zred,
+        dir_dens=base_dir + "coarser_densities/",
+        dir_src=base_dir + "sources/")
+
+
+def lg_nbody(redshift_file, boxsize, cosmology=DEFAULT_COSMOLOGY,
+             base_dir="../", id_str="LG") -> NBodyInterface:
+    """LG (constrained Local Group GADGET simulation) backend.
+
+    The reference's `LG.F90` nbody module is absent from the tree (only
+    `mat_ini_LG.F90` / `sourceprops_LG.F90` survive), so this is
+    reconstructed from the module contract those files import
+    (mat_ini_LG.F90:17-18): `nbody_type="LG"`, slice-numbered density
+    files `<nz:03d>rho_<id_str>.dat` in "M0Mpc3" mass-density units
+    with an unformatted header (read by io.readers.read_lg_density_file),
+    and an `id_str` that selects the `dmdens_cic` naming variant
+    (mat_ini_LG.F90:185-191).
+    """
+    with open(redshift_file) as f:
+        n = int(f.readline().split()[0])
+        zred = np.array([float(f.readline().split()[0]) for _ in range(n)])
+    return NBodyInterface(
+        nbody_type="LG", boxsize=boxsize, cosmology=cosmology,
+        zred_array=zred, dir_dens=base_dir, dir_src=base_dir,
+        id_str=id_str)
+
+
+def gadget_nbody(redshift_file, boxsize, cosmology=DEFAULT_COSMOLOGY,
+                 base_dir="../") -> NBodyInterface:
+    """GADGET backend skeleton (gadget.F90; the reference marks this
+    variant not working, files_for_3D/Makefile:21)."""
+    with open(redshift_file) as f:
+        n = int(f.readline().split()[0])
+        zred = np.array([float(f.readline().split()[0]) for _ in range(n)])
+    return NBodyInterface(
+        nbody_type="gadget", boxsize=boxsize, cosmology=cosmology,
+        zred_array=zred, dir_dens=base_dir, dir_src=base_dir)

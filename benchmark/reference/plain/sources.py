@@ -178,3 +178,16 @@ def apply_suppression_and_luminosities(
         nflux[:, 2] = qso_luminosity_to_nflux(
             catalog.qso_lum[active], sed)
     return SourceList(srcpos=pos.astype(np.int32), nflux=nflux), stats
+
+
+def qso_luminosity_to_nflux(lum_2kev, sed: SEDConfig):
+    """erg/s at 2 keV -> normalised photon rate
+    (QPL_Luminosity_convert, sourceprops_cubep3m.F90:674-709)."""
+    qso = sed.qso
+    Emin = qso.min_freq / const.ev2fr
+    Emax = qso.max_freq / const.ev2fr
+    delta_E = (Emax - Emin) * const.ev2erg
+    alpha = qso.index - 1.0
+    nphot = (-1.0 / delta_E * lum_2kev / (2000.0 ** (-alpha))
+             / alpha * (Emax ** (-alpha) - Emin ** (-alpha)))
+    return nphot / qso.S_star

@@ -10,6 +10,11 @@ and then runs the plain sweep, the plain chemistry pass and the photon
 budget in the dtype it is given: float64 for the reference, a lower
 precision for the control.  It takes no tensor the program made except
 the states it is handed to judge, and imports nothing of the program.
+
+It sweeps with the engine the configuration selects, as ``Run3D``
+does: the pyramid sweep at the full periodic extents (an even mesh, no
+max_subbox below M/2 - 1), else the L1-shell sweep; either with the
+step's own cell size and LLS column.
 """
 
 import os
@@ -23,16 +28,18 @@ from .plain.cosmology import COSMOLOGIES, CosmoClock
 from .plain.io.fortran_records import read_unformatted_cube
 from .plain.io.readers import _zred_str, read_density_file, read_halo_catalog
 from .plain.material import LLSModel, protect_ionization_fractions
-from .plain.nbody import cubep3m_nbody
+from .plain.nbody import (cubep3m_nbody, gadget_nbody, pmfast_nbody,
+                          test4_nbody, test_nbody)
 from .plain.photonstats import photon_budget, species_inventory
 from .plain.radiation.quadrature import build_quadrature_tables
-from .plain.radiation.sed import BlackBodySED, SEDConfig
+from .plain.radiation.sed import BlackBodySED, PowerLawSED, SEDConfig
 from .plain.rates import rate_coefficients
 from .plain.sources import HaloSourceModel, apply_suppression_and_luminosities
 from .plain.state import GridState, begin_timestep, finish_timestep
 from .plain.state import initial_grid_state
 from .plain.sweep.global_pass import ChemistryConfig, chemistry_pass_plain
 from .plain.sweep.pyramid_sweep import trace_extents, trace_plain
+from .plain.sweep.shell_sweep import build_shell_table, shell_plain
 from .plain.sweep.source_sweep import (RateGrids, SourceFields, SweepConfig,
                                        stack_sweep_fields)
 
@@ -42,14 +49,53 @@ from .plain.sweep.source_sweep import (RateGrids, SourceFields, SweepConfig,
 GROUP = 4
 
 
+# the N-body backends of a Run3D configuration dictionary, by type, with
+# the defaults of the program's configuration loader
+_NBODY = {
+    "test": lambda d, cosmo: test_nbody(cosmo),
+    "test4": lambda d, cosmo: test4_nbody(cosmo,
+                                          d.get("data_dir", "../TEST4/")),
+    "cubep3m": lambda d, cosmo: cubep3m_nbody(
+        d["redshift_file"], boxsize=d.get("boxsize", 244.0),
+        n_box=d.get("n_box", 8000), cosmology=cosmo,
+        base_dir=d.get("base_dir", "../"),
+        source_dir=d.get("source_dir", "./sources/")),
+    "pmfast": lambda d, cosmo: pmfast_nbody(
+        d["redshift_file"], boxsize=d.get("boxsize", 100.0),
+        n_box=d.get("n_box", 3248), cosmology=cosmo,
+        base_dir=d.get("base_dir", "../")),
+    "gadget": lambda d, cosmo: gadget_nbody(
+        d["redshift_file"], boxsize=d["boxsize"], cosmology=cosmo,
+        base_dir=d.get("base_dir", "../")),
+}
+
+
 def _nbody(run3d: dict):
     nb = dict(run3d["nbody"])
-    cosmo = COSMOLOGIES[run3d["cosmology"]]
-    if nb["type"] != "cubep3m":
-        raise ValueError(f"the reference reads CubeP3M trees, not {nb['type']!r}")
-    return cubep3m_nbody(nb["redshift_file"], boxsize=nb["boxsize"],
-                         n_box=nb["n_box"], cosmology=cosmo,
-                         base_dir=nb["base_dir"], source_dir=nb["source_dir"])
+    kind = nb.pop("type")
+    if kind not in _NBODY:
+        raise ValueError(f"no N-body backend {kind!r}; one of {sorted(_NBODY)}")
+    return _NBODY[kind](nb, COSMOLOGIES[run3d["cosmology"]])
+
+
+def _sed(d: dict) -> SEDConfig:
+    """The SED of a configuration dictionary: a blackbody (`bb`), a power
+    law (`pl`) and a quasar power law (`qso`), each where it is given."""
+    unknown = set(d) - {"bb", "pl", "qso"}
+    if unknown:
+        raise ValueError(f"unknown SED components {sorted(unknown)}")
+    pl = lambda k: PowerLawSED(**d[k]) if k in d else None
+    return SEDConfig(bb=BlackBodySED(**d["bb"]) if "bb" in d else None,
+                     pl=pl("pl"), qso=pl("qso"))
+
+
+def sweep_engine(mesh: int, max_subbox=None) -> str:
+    """"pyramid" at the full periodic extents, +M/2 / -(M/2 - 1), else
+    "shells" (evolve_source.F90:103-109)."""
+    lo = mesh // 2 - 1 + mesh % 2
+    if max_subbox is not None:
+        lo = min(lo, int(max_subbox))
+    return "pyramid" if lo == mesh // 2 - 1 else "shells"
 
 
 class Reference:
@@ -65,11 +111,10 @@ class Reference:
         self.nbody = _nbody(run3d)
         self.cosmo = self.nbody.cosmology
         self.isothermal = bool(run3d.get("isothermal", True))
+        self.cosmological = bool(run3d.get("cosmological", True))
         self.t0 = float(run3d.get("initial_temperature", 1.0e4))
         self.steps_per_slice = int(run3d.get("steps_per_slice", 2))
-        if set(run3d["sed"]) != {"bb"}:
-            raise ValueError("the reference takes a blackbody SED only")
-        sed = SEDConfig(bb=BlackBodySED(**run3d["sed"]["bb"]))
+        sed = _sed(run3d["sed"])
         self.tables, self.sed, self.bands = build_quadrature_tables(
             sed, isothermal=self.isothermal, dtype=dtype, device=self.device)
         self.flux_scale = self.bands.flux_scale
@@ -84,6 +129,10 @@ class Reference:
             M_grid=self.nbody.M_grid, Omega_B=self.cosmo.Omega_B,
             Omega0=self.cosmo.Omega0, **hm)
         self.lls_type = int(run3d.get("lls", {}).get("type_of_LLS", 0))
+        max_subbox = run3d.get("max_subbox")
+        self.engine = sweep_engine(M, max_subbox)
+        self.shells = (build_shell_table(M, max_subbox)
+                       if self.engine == "shells" else None)
         # `chem_max_iter` cuts the fixed point short (the control only:
         # in bfloat16 its 1% test is never met, and the iterate sits at
         # the precision's noise floor once the damping has begun)
@@ -101,11 +150,16 @@ class Reference:
         """Per step of a cycle from the initial state: the slice, z1, its
         dt, the proper cell size, the density factor since the slice's
         file was read, the cooling factor and the LLS column per cell,
-        as Run3D's clock and cosmo_evol give them (C2Ray.F90:238-380)."""
+        as Run3D's clock and cosmo_evol give them (C2Ray.F90:238-380).
+        A run that is not cosmological keeps the comoving cell size, the
+        density as read and the first LLS column, and cools by no
+        expansion (c2ray_parameters.f90:84)."""
         zs = self.nbody.zred_array
         clock = CosmoClock.init(self.cosmo, float(zs[0]))
-        clock, zf0, _ = clock.redshift_evol(0.0)
-        dr = self.dr_comoving * zf0
+        dr = self.dr_comoving
+        if self.cosmological:
+            clock, zf0, _ = clock.redshift_evol(0.0)
+            dr *= zf0
         lls = LLSModel(type_of_LLS=self.lls_type).initialised(
             float(zs[0]), dr, self.cosmo)
         out = []
@@ -116,7 +170,7 @@ class Reference:
             factor = 1.0
             for step in range(self.steps_per_slice):
                 clock, zf, _ = clock.redshift_evol(t1 + (step + 0.5) * dt)
-                if zf != 1.0:
+                if self.cosmological and zf != 1.0:
                     factor /= zf**3
                     lls = lls.evolve(zf)
                     dr *= zf
@@ -124,7 +178,7 @@ class Reference:
                 out.append(dict(
                     slice=nz, z1=z1, dt=float(dt), dr=float(dr),
                     ndens_factor=factor,
-                    ccf=None if self.isothermal
+                    ccf=None if self.isothermal or not self.cosmological
                     else clock.cosmo_cool_factor(),
                     lls=float(col) if float(col) > 0.0 else None))
         return out
@@ -167,13 +221,22 @@ class Reference:
                 self._t(src.nflux))
 
     def total_source_rate(self, nflux) -> float:
-        return float(torch.sum(nflux[:, 0].double())) * self.sed.bb.S_star
+        """Photons/s of all sources: each type's normalised fluxes times
+        its S_star (Run3D._total_source_rate)."""
+        total = 0.0
+        for j, sq in enumerate((self.sed.bb, self.sed.pl, self.sed.qso)):
+            if sq is not None:
+                total += float(torch.sum(nflux[:, j].double())) * sq.S_star
+        return total
 
     # -- the iteration -----------------------------------------------------
     def _sweep_cfg(self, step):
         return SweepConfig(tables=self.tables, mesh=self.mesh, dr=step["dr"],
                            isothermal=self.isothermal,
-                           flux_scale=self.flux_scale, has_bb=True)
+                           flux_scale=self.flux_scale,
+                           has_bb=self.sed.bb is not None,
+                           has_pl=self.sed.pl is not None,
+                           has_qso=self.sed.qso is not None)
 
     def _lls_grid(self, step):
         if step["lls"] is None:
@@ -193,16 +256,23 @@ class Reference:
 
     def source_slabs(self, state, srcpos, nflux, radius, step):
         """Per-source traces: yields (index, slab (M^3, 4), photon loss,
-        LLS loss) for each source, the losses in photons/s."""
+        LLS loss) for each source, the losses in photons/s.  `radius`
+        cuts the pyramid sweep's extents; the shell sweep runs its
+        table's."""
         cfg, fstack, Rf, Rb, vos = self._trace(state, srcpos, nflux, radius,
                                                step)
         lls = self._lls_grid(step)
         for g0 in range(0, srcpos.shape[0], GROUP):
             sp = srcpos[g0:g0 + GROUP].to(self.device)
             nf = self._t(nflux[g0:g0 + GROUP])
-            slab, pl, ll, _ = trace_plain(cfg, fstack, sp, nf, Rf, Rb,
-                                          dr=step["dr"], vol_over_scale=vos,
-                                          lls=lls)
+            if self.shells is not None:
+                slab, pl, ll = shell_plain(cfg, self.shells, fstack, sp, nf,
+                                           dr=step["dr"],
+                                           vol_over_scale=vos, lls=lls)
+            else:
+                slab, pl, ll, _ = trace_plain(cfg, fstack, sp, nf, Rf, Rb,
+                                              dr=step["dr"],
+                                              vol_over_scale=vos, lls=lls)
             for i in range(sp.shape[0]):
                 yield (g0 + i, slab[i], float(pl[i]) * self.flux_scale,
                        float(ll[i]) * self.flux_scale)

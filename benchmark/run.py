@@ -28,17 +28,14 @@ _T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
-import math  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
-import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "c2ray_tpu")
 
 
 def parse(argv):
@@ -50,113 +47,41 @@ def parse(argv):
     return ap.parse_args(argv)
 
 
-def forbidden_modules() -> list:
-    return sorted({m.split(".")[0] for m in list(sys.modules)}
-                  & set(FORBIDDEN))
-
-
-def card() -> dict:
-    import torch
-
-    out = {"kind": torch.cuda.get_device_name(0)}
-    try:
-        q = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=20, check=False)
-        out["power_limit"] = q.stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.TimeoutExpired):
-        out["power_limit"] = "not read"
-    return out
-
-
-def log(*a):
-    print(*a, file=sys.stderr, flush=True)
-
-
 def run_cell(name, seed, seconds, traced, device="cuda", mesh=None,
              workdir=None, t_start=None, fault=None, overrides=None):
     """One run of cell `name`; returns (result dict, compared numbers
-    [(name, value, limit)]).  `device`, `mesh`, `overrides` (traffic
-    keys) and `fault` serve the tests, which run the harness on the CPU
-    at a few cells with the port's plain versions, and with a fault
-    planted under the timed path."""
-    import torch
-
-    from harness import spec
-    from harness.cell import Cell
+    [(name, value, limit)]).  A cell in the source-parallel mode runs on
+    its n_devices ranks, one process each in a process group (NCCL on
+    the cards, gloo on the CPU), after this process has built the
+    kernel libraries once.  `device`, `mesh`, `overrides` (traffic keys)
+    and `fault` serve the tests, which run the harness on the CPU at a
+    few cells with the port's plain versions, and with a fault planted
+    under the timed path (`fault(port)`, on every rank: a module-level
+    function)."""
+    from harness import ranks, spec
+    from harness.cell import build_libraries, engine_of, ranks_of, run3d_of
 
     t_start = _T_START if t_start is None else t_start
+    traffic = spec.traffic(name)
+    traffic.update(overrides or {})
+    cfg = spec.config(spec.cell(spec.benchmark(), name)["config"])
+    run3d = run3d_of(cfg, traffic, mesh)
     own = workdir is None
     workdir = workdir or tempfile.mkdtemp(prefix="c2ray_bench_")
+    args = (name, seed, seconds, traced, device, mesh, workdir, t_start,
+            fault, overrides)
     try:
-        cell = Cell(name, seed, device=device, mesh=mesh, workdir=workdir,
-                    overrides=overrides, fault=fault)
-        cell.setup()
-        log(f"set-up: {cell.timings}")
+        if run3d.get("parallel") is None:
+            out = ranks.part(*args)
+            return out["result"], out["compared"]
+        from c2ray_tpu_torch.parallel.launch import launch
+
         if device != "cpu":
-            torch.cuda.reset_peak_memory_stats()
-        setup_s = time.perf_counter() - t_start
-        wall, cycles, steps = cell.window(seconds, spans=bool(traced))
-        log(f"window: {wall:.3f} s, {cycles} cycles, {steps} steps, "
-            f"{cell.probe.iterations} iterations")
-        if traced:
-            log("steps (wall s, iterations, subbox radius): "
-                + ", ".join(f"({w:.4f}, {n}, {r})"
-                            for w, n, r in cell.probe.step_walls))
-        metrics = {}
-        dev = {"platform": "gpu" if device != "cpu" else "cpu",
-               "kind": (torch.cuda.get_device_name(0) if device != "cpu"
-                        else "cpu"),
-               "count": 1}
-        if device != "cpu":
-            dev["power_limit"] = card()["power_limit"]
-        result = {"correct": False, "attempted": steps, "failed": 0}
-        if traced:
-            t0 = time.perf_counter()
-            tr = cell.traced(wall, cycles)
-            log(f"traced cycle: {tr['profiled_wall_s']:.3f} s, read in "
-                f"{time.perf_counter() - t0:.3f} s; events fallback "
-                f"{tr['events_fallback']}; launches {tr['launched']}, "
-                f"recorded {tr['summary']['layer_launches']}; device s by "
-                f"layer {tr['summary']['layer_device_s']}; busy "
-                f"{tr['summary']['busy_s']}; not counted "
-                f"{tr['summary']['skipped']}")
-            for m in spec.metrics_of(cell.spec, name, "per_layer"):
-                v = spec.metric_reader(m["name"]).read(tr)
-                if v is not None:
-                    metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-            dev["busy_s"] = tr["summary"]["busy_s"]
-            dev["window_s"] = tr["profiled_wall_s"]
-            result["breakdown"] = {
-                "device_ops": [[k, v] for k, v in
-                               tr["summary"]["device_ops"]],
-                "idle_gaps": [[k, v] for k, v in
-                              tr["summary"]["idle_gaps"]]}
-        else:
-            metrics["step_s"] = {"value": wall / steps, "unit": "s"}
-            metrics["setup_s"] = {"value": setup_s, "unit": "s"}
-        dev["memory_peak_bytes"] = (int(torch.cuda.max_memory_allocated())
-                                    if device != "cpu" else 0)
-        cell.release()
-        t0 = time.perf_counter()
-        ref = cell.reference()
-        detail = {}
-        nums, _, _ = cell.judged(ref, detail=detail)
-        log(f"reference: {time.perf_counter() - t0:.3f} s")
-        for k in nums:
-            part = {d: v for d, v in detail.items() if d.startswith(k + ".")}
-            if part:
-                worst = max(part, key=lambda d: part[d])
-                log(f"worst part of {k}: {worst} {part[worst]!r}")
-        limits = cell.traffic["check"]["limits"]
-        compared = [(k, nums[k], limits.get(k)) for k in nums]
-        correct = all(lim is not None and math.isfinite(v) and v <= lim
-                      for _, v, lim in compared)
-        result.update(correct=correct, metrics=metrics, device=dev)
-        result["check"] = {k: {"value": v, "limit": lim}
-                           for k, v, lim in compared}
-        return result, compared
+            build_libraries(engine_of(run3d))
+        parts = launch(ranks.part, ranks_of(run3d), args=args,
+                       device="cpu" if device == "cpu" else "cuda",
+                       threads=1 if device == "cpu" else 4)
+        return ranks.merge(parts)
     finally:
         if own:
             shutil.rmtree(workdir, ignore_errors=True)
@@ -183,6 +108,8 @@ def main(argv=None):
     torch.set_num_threads(4)
     result, compared = run_cell(args.workload, args.seed, args.seconds,
                                 args.trace)
+    from harness.ranks import forbidden_modules
+
     found = forbidden_modules()
     if found:
         print(f"modules that must not load: {found}", file=sys.stderr)

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 from harness import spec
+from harness.cell import ranks_of, run3d_of
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -70,12 +71,17 @@ def test_cells_configs_and_files():
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["name"] == f"{w['config']}.{w['traffic']}"
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         t = spec.traffic(w["name"])
         assert t["name"] == w["name"]
+        # a cell takes as many cards as Run3D has ranks
+        run3d = run3d_of(spec.config(w["config"]), t)
+        assert ranks_of(run3d) == w["chips"]
         assert set(t["check"]["limits"]) == {"not_finite",
             "start", "sources", "rates_first", "chem_first", "slabs_last",
             "chem_last", "budget"}
+    four = sum(w["chips"] == 4 for w in b["workloads"])
+    assert four <= max(1, len(b["workloads"]) // 4)
     for name, layer in spec.layers().items():
         assert layer["kernels"] and layer["library"]
 

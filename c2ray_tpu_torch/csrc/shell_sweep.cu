@@ -23,7 +23,10 @@
 // offset is one cell: the extents span at most M), summed over sources
 // by the caller in fixed order; photon and LLS losses reduce per block
 // into partials, summed in fixed order by the caller: no float atomics,
-// the sweep is deterministic.
+// the sweep is deterministic.  With a per-cell LLS grid (`lls`, else
+// null) the cell being entered adds its own column times the path to
+// the incoming HI column and counts its LLS loss, as csrc/pyramid_sweep.cu
+// does; the cell step takes it as that cell's coldensh_lls.
 //
 // Bound: the K-node exponentials of every live band, cell and source on
 // the SFU, as in csrc/pyramid_sweep.cu (1.589 ms at 128^3 x 8); here
@@ -66,6 +69,7 @@ struct Params {
   const int* srcpos;  // (S, 3)
   const T* nflux;     // (S, 3)
   const T* bands;     // (nbt, stride) live bands of every source type
+  const T* lls;       // (M^3) per-cell LLS columns, or null
   const int* cells;   // (n_cells,) packed offsets sorted by shell
   T* cd;              // (S, M^3, 3) outgoing columns, zeroed
   T* slab;            // (S, M^3, 4) per-source rates, zeroed
@@ -166,6 +170,8 @@ shell_kernel(Params<T> p, long long start, int count, int slot0) {
     StepConsts<T> k = p.k;
     k.tab = tab;
     const size_t flat = (size_t(pos[0]) * M + pos[1]) * M + pos[2];
+    // the LLS column of the cell being entered, or the homogeneous one
+    if (p.lls != nullptr) k.coldensh_lls = p.lls[flat];
     T cd_out[3], r[4], pl = T(0), ll = T(0);
     cell_step<T, kHeat, kK, kCellLanes>(k, p.nflux + 3 * s,
                                         p.fields + flat * 5, cin, pu, dist2,
@@ -195,7 +201,8 @@ inline int shell_blocks(long long count) {
 
 template <typename T, bool kHeat>
 int run_sweep(const T* fields, const int* srcpos, const T* nflux,
-              const T* bands, const int* cells, const long long* starts,
+              const T* bands, const T* lls, const int* cells,
+              const long long* starts,
               T* cd, T* slab, T* partials, int M, int S, int n_shells, int K,
               int ntypes, const int cols[3], const int nbs[3],
               const int los[3], double dr, double vol_over_scale,
@@ -204,7 +211,7 @@ int run_sweep(const T* fields, const int* srcpos, const T* nflux,
               cudaStream_t stream) {
   Params<T> p;
   p.fields = fields; p.srcpos = srcpos; p.nflux = nflux; p.bands = bands;
-  p.cells = cells; p.cd = cd; p.slab = slab; p.partials = partials;
+  p.lls = lls; p.cells = cells; p.cd = cd; p.slab = slab; p.partials = partials;
   p.M = M; p.S = S;
   p.k.bt.K = K; p.k.bt.ntypes = ntypes;
   p.nbt = 0;
@@ -269,15 +276,17 @@ int shell_sweep_slots(const long long* starts, int n_shells) {
   return n;
 }
 
-// Returns the cudaError_t of the launches (0 on success).  `starts` is a
-// host array of n_shells + 1 offsets into `cells`; `route` the host ints
-// of parse_route (table_rates.cuh: the fixed rule, the "auto" blocks or
-// the tau tables, whose device tables photo, heat_tab and hbin are then
-// read; else null).
+// Returns the cudaError_t of the launches (0 on success).  `lls` is the
+// (M^3) per-cell LLS columns or null (then coldensh_lls, homogeneous);
+// `starts` is a host array of n_shells + 1 offsets into `cells`; `route`
+// the host ints of parse_route (table_rates.cuh: the fixed rule, the
+// "auto" blocks or the tau tables, whose device tables photo, heat_tab
+// and hbin are then read; else null).
 #define C2RAY_SHELL_ENTRY(NAME, T, HEAT)                                     \
   int NAME(const T* fields, const int* srcpos, const T* nflux,              \
-           const T* bands, const int* cells, const long long* starts,       \
-           T* cd, T* slab, T* partials, int M, int S, int n_shells, int K,  \
+           const T* bands, const T* lls, const int* cells,                  \
+           const long long* starts, T* cd, T* slab, T* partials, int M,     \
+           int S, int n_shells, int K,                                      \
            int ntypes, int col0, int nb0, int lo0, int col1, int nb1,       \
            int lo1, int col2, int nb2, int lo2, double dr,                  \
            double vol_over_scale, double coldensh_lls, double max_coldensh, \
@@ -287,8 +296,9 @@ int shell_sweep_slots(const long long* starts, int n_shells) {
     const int nbs[3] = {nb0, nb1, nb2};                                     \
     const int los[3] = {lo0, lo1, lo2};                                     \
     return c2ray::run_sweep<T, HEAT>(                                       \
-        fields, srcpos, nflux, bands, cells, starts, cd, slab, partials, M, \
-        S, n_shells, K, ntypes, cols, nbs, los, dr, vol_over_scale,         \
+        fields, srcpos, nflux, bands, lls, cells, starts, cd, slab,         \
+        partials, M, S, n_shells, K, ntypes, cols, nbs, los, dr,            \
+        vol_over_scale,                                                     \
         coldensh_lls, max_coldensh, route, photo, heat_tab, hbin,           \
         static_cast<cudaStream_t>(stream));                                 \
   }

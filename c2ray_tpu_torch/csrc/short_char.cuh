@@ -109,9 +109,10 @@ struct StepConsts {
   T dr, vol_over_scale, coldensh_lls, max_coldensh;
 };
 
-// One cell of a sweep (evolve0D, evolve_point.F90:177-315): the
-// homogeneous LLS column added to cin's HI column, cd_out = cin + base
-// column x path.  With `deposit`, also the cell's rates into rates[4]
+// One cell of a sweep (evolve0D, evolve_point.F90:177-315): the LLS
+// column k.coldensh_lls (the homogeneous one, or the cell's own, which
+// the shell kernel puts there) added to cin's HI column, cd_out = cin +
+// base column x path.  With `deposit`, also the cell's rates into rates[4]
 // (zero where shielded: cin_HI >= max_coldensh; the heat in rates[3], 0
 // when isothermal), its escape into `ploss` when it lies on the trace
 // boundary, and its LLS absorption into `lloss`; without, the band

@@ -123,8 +123,9 @@ def make_parallel_iteration(pcfg: ParallelConfig, radius: int = None,
     `state` is the whole grid, the same on every rank; srcpos / nflux
     the padded list (`pad_sources`), whose rank-d block of rows rank d
     traces; the results are the same on every rank.  The engine is
-    `sweep_engine(cfg)`; `radius`, `dr`, `vol_over_scale` and `lls_grid`
-    reach the pyramid engine only, as in `make_evolve3d_iteration`."""
+    `sweep_engine(cfg)`; as in `make_evolve3d_iteration`, `radius`
+    reaches the pyramid engine only, `dr`, `vol_over_scale` and
+    `lls_grid` the pyramid and shell engines."""
     del split_chem
     cfg = pcfg.cfg
     group = pcfg.group
@@ -140,7 +141,9 @@ def make_parallel_iteration(pcfg: ParallelConfig, radius: int = None,
             return sweep_octant_source_batch(cfg.sweep, fields, srcpos, nflux)
         if engine == "shells":
             return sweep_sources_accumulate(cfg.sweep, shells, fields, srcpos,
-                                            nflux)
+                                            nflux, dr=dr,
+                                            vol_over_scale=vol_over_scale,
+                                            lls_grid=lls_grid)
         return sweep_pyramid_source_batch(cfg.sweep, fields, srcpos, nflux,
                                           radius=radius, dr=dr,
                                           vol_over_scale=vol_over_scale,

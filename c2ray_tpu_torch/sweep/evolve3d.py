@@ -139,10 +139,11 @@ def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None,
     (JAX evolve3d.py:182-184); `lls_grid` (mesh^3,) gives each cell's
     LLS column.
 
-    The engine is `sweep_engine(cfg)`.  As in JAX, `radius`, `dr`,
-    `vol_over_scale` and `lls_grid` reach the pyramid engine only: the
-    octant and shell engines trace the configuration's cell size and
-    homogeneous LLS column (ROADMAP Queue 3)."""
+    The engine is `sweep_engine(cfg)`.  `radius` reaches the pyramid
+    engine only; `dr`, `vol_over_scale` and `lls_grid` the pyramid and
+    shell engines (JAX's shell engine drops them: a decided deviation,
+    ROADMAP Queue 3).  The octant engine, as JAX's, traces the
+    configuration's cell size and homogeneous LLS column."""
     engine = sweep_engine(cfg)
     if cfg.add_photon_losses and not (engine == "pyramid"
                                       and cfg.sweep.track_band_loss):
@@ -158,7 +159,9 @@ def make_evolve3d_iteration(cfg: Evolve3DConfig, radius=None,
             return sweep_octant_source_batch(cfg.sweep, fields, srcpos, nflux)
         if engine == "shells":
             return sweep_sources_accumulate(cfg.sweep, shells, fields, srcpos,
-                                            nflux)
+                                            nflux, dr=dr,
+                                            vol_over_scale=vol_over_scale,
+                                            lls_grid=lls_grid)
         return sweep_pyramid_source_batch(cfg.sweep, fields, srcpos, nflux,
                                           radius=radius, dr=dr,
                                           vol_over_scale=vol_over_scale,

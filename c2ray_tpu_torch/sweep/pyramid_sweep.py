@@ -41,7 +41,7 @@ from .cinterp import MIN_WEIGHT_DENOM, SQRT2, SQRT3, _SIGMAS
 # stack_sweep_fields, _kernel_tables, _source_group and sweep_heats are
 # also this module's names for its callers (the tests, chip_smoke.py)
 from .source_sweep import (_ABU, RateGrids, SourceFields, SweepConfig,
-                           _cell_rates, _kernel_tables, _route_args,
+                           _cell_rates, _kernel_tables, _nbytes, _route_args,
                            _same_device, _scalars, _source_group,
                            launch_counter, stack_sweep_fields, sweep_heats)
 
@@ -330,6 +330,8 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
                                            else "track"))
     else:
         count(launch_counter("pyramid_sweep", kt))
+    # the source cells' launch, then three stages a layer
+    count("sweep.kernels", 1 + 3 * Rf)
     count("sweep.zeroed_bytes",
           zeroed_bytes(shapes, zeroed, fields.element_size()))
     if "slab" not in zeroed:
@@ -337,11 +339,6 @@ def trace_cuda(cfg: SweepConfig, fstack, srcpos, nflux, Rf: int, Rb: int,
     losses = partials.sum(dim=1)
     plb = band_partials.sum(dim=1) if track else None
     return slab, losses[:, 0], losses[:, 1], plb
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors
-               if t is not None)
 
 
 def accumulate_group_plain(rg, slab, live):

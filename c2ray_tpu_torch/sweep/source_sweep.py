@@ -13,9 +13,12 @@ shell).  Both keep a per-source outgoing-column cube in absolute
 coordinates and return per-source rate slabs and losses, which
 `sweep_sources_accumulate` sums over sources in fixed order.
 
-Like JAX's, the shell engine takes the cell size and the LLS column from
-the configuration only (ROADMAP Queue 3): `evolve3d`'s `dr`,
-`vol_over_scale` and `lls_grid` reach the pyramid engine alone.
+The shell kernels take the cell size and the LLS column from the
+configuration: `sweep_sources_accumulate` puts a step's `dr` and per-cell
+`lls_grid` into it (`dataclasses.replace`), so a cosmological step
+sweeps at its own cell size and LLS column, as the pyramid engine does.
+JAX's shell engine keeps the first step's (a decided deviation, ROADMAP
+Queue 3).
 
 Every engine takes either rate route of JAX's `_cell_rates`: quadrature
 tables (`QuadTables`, a fixed rule or the "auto" blocks) or the tau
@@ -24,7 +27,8 @@ take the route as a template parameter (``csrc/table_rates.cuh``).
 """
 
 import ctypes
-from dataclasses import dataclass, field
+import math
+from dataclasses import dataclass, field, replace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -38,7 +42,7 @@ from ..radiation.quadrature import (QuadTables, packed_band_blocks,
                                     rates_heat, uniform_band_rows)
 from ..radiation.tables import (RadiationTables, pack_tau_columns,
                                 packed_table_route)
-from ..utils.clocks import count
+from ..utils.clocks import count, span
 from .cinterp import cinterp_shell
 from .geometry import ShellTable
 
@@ -86,6 +90,10 @@ class SweepConfig:
     # of the photon-loss redistribution (sweep/photon_losses.py;
     # pyramid engine only)
     track_band_loss: bool = False
+    # shell engine: (mesh^3,) LLS column of each cell, in place of
+    # coldensh_LLS (the step's, put here by sweep_sources_accumulate)
+    lls_grid: Optional[torch.Tensor] = field(default=None, compare=False,
+                                             repr=False)
     # the kernels' packed tables (`_kernel_tables`), made at the first
     # launch and kept for the next ones; a configuration made from this
     # one by dataclasses.replace shares them, keyed by the tables' identity
@@ -357,10 +365,13 @@ def shell_sweep_plain(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     """Plain PyTorch version of the shell kernel.
 
     fstack: (M, M, M, 5) stacked fields; srcpos: (S, 3) int; nflux:
-    (S, 3).  Returns (slab (S, M^3, 4) per-source rates in absolute
-    coordinates, photon_loss (S,), lls_loss (S,)): JAX's
+    (S, 3).  The cell size is cfg.dr, the LLS column of each cell
+    cfg.lls_grid (mesh^3,) where given, else the homogeneous
+    cfg.coldensh_LLS.  Returns (slab (S, M^3, 4) per-source rates in
+    absolute coordinates, photon_loss (S,), lls_loss (S,)): JAX's
     `_sweep_one_source_stacked` (source_sweep.py:138-248) for each
-    source."""
+    source, with the per-cell LLS column of the pyramid engine's
+    `trace_plain`."""
     _same_device(fstack, srcpos, nflux, cfg)
     M = fstack.shape[0]
     _check_extents(shells, M)
@@ -368,6 +379,7 @@ def shell_sweep_plain(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     S = srcpos.shape[0]
     dtype, device = fstack.dtype, fstack.device
     dr, vos = _scalars(cfg, dtype, device, None, None)
+    lls_cells = _lls_cells(cfg, n, dtype, device)
     abu = torch.tensor(_ABU, dtype=dtype, device=device)
     f = fstack.reshape(n, 5)
     sp = srcpos.to(dtype=torch.long)
@@ -378,6 +390,7 @@ def shell_sweep_plain(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     slab = torch.zeros((S, n, 4), dtype=dtype, device=device)
     ploss = torch.zeros(S, dtype=dtype, device=device)
     lloss = torch.zeros(S, dtype=dtype, device=device)
+    count("sweep.zeroed_bytes", _nbytes(cd, slab, ploss, lloss))
 
     def flat_of(pos):
         return (pos[..., 0] * M + pos[..., 1]) * M + pos[..., 2]
@@ -407,11 +420,15 @@ def shell_sweep_plain(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
         dist2 = o[:, 0] ** 2 + o[:, 1] ** 2 + o[:, 2] ** 2
         vol_ratio = 4.0 * const.pi * dist2 * path_units
 
-        # LLS fog adds to the incoming HI column
-        # (evolve_point.F90:177-180)
-        lls_add = None
-        if cfg.coldensh_LLS > 0.0:
+        # the LLS column of the cell being entered adds to the incoming
+        # HI column (evolve_point.F90:177-180), or the homogeneous one
+        if lls_cells is not None:
+            lls_add = lls_cells[flat] * path_units
+        elif cfg.coldensh_LLS > 0.0:
             lls_add = cfg.coldensh_LLS * path_units
+        else:
+            lls_add = None
+        if lls_add is not None:
             cd_in[..., 0] += lls_add
 
         fc = f[flat]                                          # (S, W, 5)
@@ -445,6 +462,24 @@ def shell_sweep_plain(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     return slab, ploss, lloss
 
 
+def _lls_cells(cfg: SweepConfig, n: int, dtype, device):
+    """cfg.lls_grid as (n,) values of the fields' dtype and device, or
+    None."""
+    if cfg.lls_grid is None:
+        return None
+    lls = cfg.lls_grid.reshape(-1)
+    if lls.shape != (n,) or lls.dtype != dtype or lls.device != device:
+        raise ValueError(f"lls_grid must be ({n},) {dtype} on {device}, "
+                         f"not {tuple(lls.shape)} {lls.dtype} on "
+                         f"{lls.device}")
+    return lls.contiguous()
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 _DEVICE_CELLS = {}
 
 
@@ -468,12 +503,14 @@ def shell_sweep_cuda(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     its heating branch too.  Bound on the card by the K-node
     exponentials, as the pyramid kernel; each cell gathers its corners
     from the source's column cube, and the kernel walks the compact
-    table (no thread on padding).
+    table (no thread on padding).  With cfg.lls_grid the kernel reads
+    each entered cell's LLS column, as the pyramid kernel does.
     """
     _check_kernel_inputs(fstack, srcpos, nflux, cfg)
     M, S = fstack.shape[0], srcpos.shape[0]
     _check_extents(shells, M)
     dtype, device = fstack.dtype, fstack.device
+    lls = _lls_cells(cfg, M**3, dtype, device)
     kt = _kernel_tables(cfg, dtype)
     K, type_ints, route, route_ptrs = _route_args(kt)
     cells = _device_cells(shells, device)
@@ -493,12 +530,13 @@ def shell_sweep_cuda(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     name = ("shell_sweep_" + ("heat_" if kt.heat else "")
             + ("f32" if dtype == torch.float32 else "f64"))
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
                    + [ctypes.c_double] * 4 + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     P = cuda_build.ptr
-    err = fn(P(fields), P(sp), P(nfl), P(kt.packed), P(cells), starts_p,
-             P(cd), P(slab), P(partials), M, S, shells.n_shells, K,
+    err = fn(P(fields), P(sp), P(nfl), P(kt.packed),
+             ctypes.c_void_p(None) if lls is None else P(lls), P(cells),
+             starts_p, P(cd), P(slab), P(partials), M, S, shells.n_shells, K,
              *type_ints, float(cfg.dr),
              float(cfg.vol / cfg.flux_scale), float(cfg.coldensh_LLS),
              float(cfg.max_coldensh), *route_ptrs,
@@ -506,6 +544,9 @@ def shell_sweep_cuda(cfg: SweepConfig, shells: ShellTable, fstack, srcpos,
     cuda_build.check(err, name)
     # one count a call (a kernel per shell), by route and variant
     count(launch_counter("shell_sweep", kt))
+    # the source cells' launch, then one a shell
+    count("sweep.kernels", 1 + shells.n_shells)
+    count("sweep.zeroed_bytes", _nbytes(cd, slab, partials))
     losses = partials.sum(dim=1)
     return slab, losses[:, 0], losses[:, 1]
 
@@ -547,7 +588,9 @@ def sweep_one_source(cfg: SweepConfig, shells: ShellTable,
 def sweep_sources_accumulate(cfg: SweepConfig, shells: ShellTable,
                              fields: SourceFields,
                              srcpos_batch, nflux_batch,
-                             batch_size: Optional[int] = None) -> RateGrids:
+                             batch_size: Optional[int] = None, dr=None,
+                             vol_over_scale=None,
+                             lls_grid=None) -> RateGrids:
     """Trace a batch of sources through the shell engine, accumulating
     rates.
 
@@ -558,10 +601,27 @@ def sweep_sources_accumulate(cfg: SweepConfig, shells: ShellTable,
     `batch_size` at a time (default cfg.source_batch, or with 0 the
     pyramid engine's `_source_group`); each group's sum over its sources
     is added to the total in group order.
+
+    `dr` (the step's cell size) and `lls_grid` (mesh^3,) (each cell's
+    LLS column, in place of cfg.coldensh_LLS) go into the configuration
+    the traces take.  Their volume factor is then dr^3/flux_scale, the
+    `vol_over_scale` evolve3d computes beside `dr`; a `vol_over_scale`
+    that differs from it raises ValueError.
     """
     M = cfg.mesh
-    fstack = stack_sweep_fields(cfg, fields)
+    with span("c2ray.sweep.stack"):
+        fstack = stack_sweep_fields(cfg, fields)
     dtype, device = fstack.dtype, fstack.device
+    if dr is not None:
+        cfg = replace(cfg, dr=float(dr))
+    if vol_over_scale is not None and not math.isclose(
+            float(vol_over_scale), cfg.vol / cfg.flux_scale, rel_tol=1e-9):
+        raise ValueError(
+            f"the shell engine's volume factor is dr^3/flux_scale = "
+            f"{cfg.vol / cfg.flux_scale:.9g}, not {float(vol_over_scale):.9g}")
+    if lls_grid is not None:
+        cfg = replace(cfg, lls_grid=torch.as_tensor(
+            lls_grid, dtype=dtype, device=device).reshape(-1))
     trace = _shell_trace(fstack)
     rg = torch.zeros((M**3, 4), dtype=dtype, device=device)
     pl = torch.zeros((), dtype=dtype, device=device)
@@ -572,10 +632,14 @@ def sweep_sources_accumulate(cfg: SweepConfig, shells: ShellTable,
     for g0 in range(0, S, max(1, group)):
         sp = srcpos_batch[g0:g0 + group]
         nf = nflux_batch[g0:g0 + group]
-        slab, ploss, lloss = trace(cfg, shells, fstack, sp, nf)
-        live = torch.any(nf > 0.0, dim=1)
-        rg = rg + torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
-        pl = pl + torch.where(live, ploss, 0.0).sum()
-        ll = ll + torch.where(live, lloss, 0.0).sum()
+        with span("c2ray.sweep.group"):
+            slab, ploss, lloss = trace(cfg, shells, fstack, sp, nf)
+        count("sweep.groups")
+        with span("c2ray.sweep.sum"):
+            live = torch.any(nf > 0.0, dim=1)
+            rg = rg + torch.where(live[:, None, None], slab, 0.0).sum(dim=0)
+            pl = pl + torch.where(live, ploss, 0.0).sum()
+            ll = ll + torch.where(live, lloss, 0.0).sum()
+        count("sweep.summed_bytes", _nbytes(slab))
     return RateGrids(phih=rg[:, 0], phihe0=rg[:, 1], phihe1=rg[:, 2],
                      phiheat=rg[:, 3], photon_loss=pl, lls_loss=ll)

@@ -83,8 +83,9 @@ The shell and octant slice adds, after phase 8:
    extents), 33^3 (odd) and 32^3 under build_shell_table(32, 8), the
    octant kernel at 32^3, 3 sources (one at a grid edge), float64 and
    float32, isothermal and heating, without and with a homogeneous LLS
-   column; then the shell, octant and pyramid kernels against each
-   other at 32^3 in float64 (rtol 1e-10);
+   column; the shell kernel at 203^3 at 1.3 times the cell size with a
+   per-cell LLS grid; then the shell, octant and pyramid kernels against
+   each other at 32^3 in float64 (rtol 1e-10);
 16. the bench configuration of phase 4 (128^3 x 8, float32) on
    engine="shells" and engine="octant", isothermal and heating, timed
    as in 4 and 5, each new kernel variant launched;
@@ -94,8 +95,8 @@ The shell and octant slice adds, after phase 8:
    after phase 10, `Run3D.run()` at 203^3 (the radiative-transfer grid
    of Iliev et al. 2006, MNRAS 369, 1625), heating, float32, on phase
    10's synthetic tree with 64 halos, 1 slice x 2 steps, on the shell
-   engine (which, as in the JAX package, takes no LLS grid: its LLS
-   loss is 0).
+   engine, which sweeps each step at its own cell size and per-cell LLS
+   column (the JAX package's shell engine takes neither).
 
 Then the shell and octant kernels' times at 128^3 x 8, last.
 
@@ -1508,7 +1509,7 @@ def phase_driver_full(dev, workdir, mesh=128, zreds=(9.0, 8.95, 8.9),
     a synthetic CubeP3M tree, through the config loader a run file would
     use: 2 slices at 128^3 (the pyramid engine with the per-cell LLS
     sweep), 1 slice at 203^3 (the RT grid of Iliev et al. 2006, odd: the
-    shell engine, which takes no LLS grid).  Cuts from a production run:
+    shell engine, at each step's cell size and per-cell LLS column).  Cuts from a production run:
     64 halos instead of a full catalog, 1-2 slices (the script's time
     limit); the seeded tree stands in for N-body outputs the repository
     does not hold.  The kernels in `mine` must have been launched, no
@@ -1615,19 +1616,26 @@ def engine_trace_fns(engine, table=None):
     return with_lls(oc.octant_sweep_cuda), with_lls(oc.octant_sweep_plain)
 
 
-def compare_engine(cfg64, cfg32, M, dev, engine, table, lls):
+def compare_engine(cfg64, cfg32, M, dev, engine, table, lls, dr_factor=1.0,
+                   lls_grid=None):
     """One case of phase 15: the engine's kernel vs its plain version on
     3 random sources (one at a grid edge), float64 within rtol 1e-10 and
     float32 within twice the plain float32 error against float64 plus
     1e-5, each part (rates, heat, photon and LLS loss) on its own scale.
-    Returns the worst float32 relative error of the kernel."""
+    The shell engine may sweep at `dr_factor` times the configuration's
+    cell size and with `lls_grid` (numpy, M^3), a per-cell LLS column,
+    as a cosmological Run3D step gives them.  Returns the worst float32
+    relative error of the kernel."""
     from c2ray_tpu_torch.sweep import pyramid_sweep as ps
 
     kern, plain = engine_trace_fns(engine, table)
     out = {}
     for name, cfg, dtype in (("f64", cfg64, torch.float64),
                              ("f32", cfg32, torch.float32)):
-        sweep = dataclasses.replace(cfg.sweep, coldensh_LLS=lls)
+        sweep = dataclasses.replace(
+            cfg.sweep, coldensh_LLS=lls, dr=dr_factor * cfg.sweep.dr,
+            lls_grid=(None if lls_grid is None else
+                      torch.as_tensor(lls_grid, dtype=dtype, device=dev)))
         state, srcpos, nflux = random_case(M, 3, dtype, dev, seed=5)
         fstack = ps.stack_sweep_fields(sweep, fields_of(state))
         unit = sweep.flux_scale / cfg64.sweep.flux_scale
@@ -1636,7 +1644,9 @@ def compare_engine(cfg64, cfg32, M, dev, engine, table, lls):
     (k64, p64), (k32, p32) = out["f64"], out["f32"]
     extents = ("full" if table is None
                else f"{table.lo[0]}..{table.hi[0]}")
-    label = f"{engine} {M}^3 extents {extents} lls={lls:g}"
+    label = (f"{engine} {M}^3 extents {extents} lls={lls:g}"
+             + (f" dr x{dr_factor:g}" if dr_factor != 1.0 else "")
+             + (" lls grid" if lls_grid is not None else ""))
     for a, b, w in zip(k64, p64, SWEEP_PARTS):
         scale = float(b.abs().max())
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10 * scale,
@@ -1658,7 +1668,10 @@ def phase_compare_engines(dev):
     """Phase 15: the shell kernel vs its plain version at 32^3 (full
     extents), 33^3 (odd) and 32^3 under build_shell_table(32, 8), the
     octant kernel at 32^3, each float64 and float32, isothermal and
-    heating, without and with a homogeneous LLS column; then the shell,
+    heating, without and with a homogeneous LLS column; the shell kernel
+    at 203^3 (full extents: phase 17's driver grid) at 1.3 times the
+    configuration's cell size with a per-cell LLS grid, as a
+    cosmological step sweeps; then the shell,
     octant and pyramid kernels against each other at 32^3 in float64
     (rates, heat and photon loss within rtol 1e-10: the JAX package's
     own pyramid-vs-octant tolerance).  Returns the worst float32 error
@@ -1671,7 +1684,7 @@ def phase_compare_engines(dev):
         sfx = "_heat" if heating else ""
         cfgs = {M: tuple(setup(M, 1e48, 5e4, 10.0, dt, dev, heating)[0]
                          for dt in (torch.float64, torch.float32))
-                for M in (32, 33)}
+                for M in (32, 33, 203)}
         cases = [("shells", 32, build_shell_table(32)),
                  ("shells", 33, build_shell_table(33)),
                  ("shells", 32, build_shell_table(32, 8)),
@@ -1681,6 +1694,12 @@ def phase_compare_engines(dev):
                 e = compare_engine(*cfgs[M], M, dev, engine, table, lls)
                 key = ENGINE_KERNEL[engine] + sfx
                 worst[key] = max(worst.get(key, 0.0), e)
+        # a type-2 LLS grid as phase 7's, 1e14-1e17 cm^-2 a cell
+        grid = 10.0 ** np.random.RandomState(8).uniform(14.0, 17.0, 203**3)
+        e = compare_engine(*cfgs[203], 203, dev, "shells",
+                           build_shell_table(203), 0.0, dr_factor=1.3,
+                           lls_grid=grid)
+        worst["shell_sweep" + sfx] = max(worst["shell_sweep" + sfx], e)
         sweep = cfgs[32][0].sweep
         state, srcpos, nflux = random_case(32, 3, torch.float64, dev, seed=5)
         fstack = ps.stack_sweep_fields(sweep, fields_of(state))

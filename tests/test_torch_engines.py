@@ -7,10 +7,11 @@ conv_flag equal, fields within rtol 1e-9 and a 1e-11 absolute floor
 (tests/test_torch_evolve3d.py's tolerance).  The engine-selection rules
 of JAX evolve3d.py:119-130 and :275; Run3D at an odd mesh (17^3) and
 under max_subbox (16^3, radius 5) against JAX's Run3D with the helpers
-of tests/test_torch_driver3d.py.  And the parity the port keeps with a
-fault of the reference (ROADMAP Queue 3): the octant and shell engines
-ignore the iteration's `dr`, `vol_over_scale` and `lls_grid`, in both
-packages.
+of tests/test_torch_driver3d.py.  And where the port parts from a fault
+of the reference (ROADMAP Queue 3): JAX's octant and shell engines
+ignore the iteration's `dr`, `vol_over_scale` and `lls_grid`; the port's
+shell engine takes them (a decided deviation), its octant engine keeps
+the parity.
 """
 
 from dataclasses import replace
@@ -24,6 +25,7 @@ from c2ray_tpu import constants as const
 from c2ray_tpu.radiation import BlackBodySED, SEDConfig
 from c2ray_tpu.radiation.quadrature import build_quadrature_tables
 from c2ray_tpu.sources import SourceList as JSourceList
+from c2ray_tpu.state import GridState as JGridState
 from c2ray_tpu.state import initial_grid_state as j_state
 from c2ray_tpu.sweep import SweepConfig as JSweepConfig
 from c2ray_tpu.sweep import build_shell_table as j_table
@@ -32,7 +34,7 @@ from c2ray_tpu.sweep.evolve3d import evolve3d as j_evolve3d
 from c2ray_tpu.sweep.evolve3d import \
     make_evolve3d_iteration as j_make_iteration
 from c2ray_tpu.sweep.global_pass import ChemistryConfig as JChemConfig
-from c2ray_tpu_torch import convert
+from c2ray_tpu_torch import convert, driver
 from c2ray_tpu_torch.sources import SourceList
 from c2ray_tpu_torch.sweep import (ChemistryConfig, Evolve3DConfig,
                                    SweepConfig, build_shell_table, evolve3d,
@@ -136,24 +138,40 @@ def test_engine_selection():
 
 @pytest.mark.parametrize("engine,M", [("shells", 9), ("octant", 8)])
 def test_ignored_dr_and_lls_grid_parity(engine, M):
-    """The octant and shell engines trace the configuration's dr and
+    """JAX's octant and shell engines trace the configuration's dr and
     homogeneous LLS column: an iteration given another `dr` (with its
     dr^3/flux_scale) and a per-cell `lls_grid` returns exactly what it
-    returns without them -- in JAX (evolve3d.py:153-156) and, kept for
-    parity, in the port.  The pyramid engine uses them."""
+    returns without them (evolve3d.py:153-156).  The port's octant
+    engine keeps that parity; its shell engine uses them (a decided
+    deviation, ROADMAP Queue 3): the iteration equals, to the bit, one
+    whose configuration carries that dr and LLS grid, and differs from
+    the one without.  The pyramid engine uses them too."""
     jcfg, tcfg, js, srcpos, nflux = _setup(M, engine, lls=1.0e15)
     dt, dr = 1.0e14, 1.7 * tcfg.sweep.dr
     vos = dr**3 / tcfg.sweep.flux_scale
     grid = np.full(M**3, 3.0e16)
+    grid[::3] = 0.0
     ts = convert.grid_state_from_numpy(js)
     sp, nf = torch.as_tensor(srcpos), torch.as_tensor(nflux)
     t_it = make_evolve3d_iteration(tcfg)
     base = t_it(ts, sp, nf, dt)
     moved = t_it(ts, sp, nf, dt, dr=dr, vol_over_scale=vos,
                  lls_grid=torch.as_tensor(grid))
-    for a, b in zip(moved[0], base[0]):
-        assert torch.equal(a, b)
-    assert [float(x) for x in moved[1:4]] == [float(x) for x in base[1:4]]
+    if engine == "octant":
+        for a, b in zip(moved[0], base[0]):
+            assert torch.equal(a, b)
+        assert [float(x) for x in moved[1:4]] == [float(x)
+                                                  for x in base[1:4]]
+    else:
+        carried = make_evolve3d_iteration(replace(tcfg, sweep=replace(
+            tcfg.sweep, dr=dr, lls_grid=torch.as_tensor(grid))))(
+                ts, sp, nf, dt)
+        for a, b in zip(moved[0], carried[0]):
+            assert torch.equal(a, b)
+        assert [float(x) for x in moved[1:4]] == [float(x)
+                                                  for x in carried[1:4]]
+        assert not torch.equal(moved[0].h_av1, base[0].h_av1)
+        assert float(moved[3]) != float(base[3]) > 0.0
     jsp, jnf = jnp.asarray(srcpos, jnp.int32), jnp.asarray(nflux)
     j_it = j_make_iteration(jcfg)
     j_base = j_it(js, jsp, jnf, jnp.asarray(dt))
@@ -173,13 +191,19 @@ def test_ignored_dr_and_lls_grid_parity(engine, M):
 
 
 @pytest.mark.parametrize("mesh,max_subbox", [(17, None), (16, 5)])
-def test_run3d_shell_engine_matches_jax(tmp_path, mesh, max_subbox):
+def test_run3d_shell_engine_matches_jax(tmp_path, monkeypatch, mesh,
+                                        max_subbox):
     """One slice of tests/test_torch_driver3d.py's synthetic test backend
     at an odd mesh, and under a max_subbox below mesh/2 - 1: both run
-    the shell engine (with the first step's dr, ROADMAP Queue 3).  At
-    least 16^3: below 4000 cells evolve3d's convergence criterion is 0
-    cells and every step runs 500 iterations."""
-    spec = dict(_SLICE, mesh=mesh, max_subbox=max_subbox)
+    the shell engine.  Not cosmological, the cell size and LLS column
+    stay put and the port's slice equals JAX's.  Cosmological, with the
+    type-1 LLS column, each step has its own cell size and column, which
+    JAX's shell engine drops (ROADMAP Queue 3): each step of the port
+    equals JAX's evolve3d on the step's inputs with that cell size and
+    column in JAX's configuration.  At least 16^3: below 4000 cells
+    evolve3d's convergence criterion is 0 cells and every step runs 500
+    iterations."""
+    spec = dict(_SLICE, mesh=mesh, max_subbox=max_subbox, cosmological=False)
     jr, tr = _runs(tmp_path, spec, f"shells{mesh}")
     assert sweep_engine(tr.evolve_cfg) == "shells"
     assert tr.evolve_cfg.shells.lo == jr.evolve_cfg.shells.lo
@@ -194,3 +218,32 @@ def test_run3d_shell_engine_matches_jax(tmp_path, mesh, max_subbox):
     _same_outputs(jr.config.results_dir, tr.config.results_dir)
     h1 = tr.state.h1.reshape((mesh,) * 3).numpy()
     assert h1[8, 8, 8] > 0.9
+
+    spec = dict(_SLICE, mesh=mesh, max_subbox=max_subbox,
+                lls={"type_of_LLS": 1}, streams={})
+    jr, tr = _runs(tmp_path, spec, f"cosmo{mesh}")
+    steps = []
+    port_evolve = driver.evolve3d
+
+    def kept(cfg, state, srcpos, nflux, dt, **kw):
+        out = port_evolve(cfg, state, srcpos, nflux, dt, **kw)
+        steps.append((state, srcpos, nflux, dt, kw, out))
+        return out
+    monkeypatch.setattr(driver, "evolve3d", kept)
+    tr.init_uniform_material()
+    tr.run_slice(0, SourceList(*SOURCES))
+    assert len(steps) == 2
+    drs = [kw["dr"] for _, _, _, _, kw, _ in steps]
+    assert drs[0] != drs[1] != tr.evolve_cfg.sweep.dr
+    for state, srcpos, nflux, dt, kw, (t_new, t_st) in steps:
+        lls = kw["lls_grid"]
+        assert lls is not None and float(lls[0]) > 0.0
+        assert torch.equal(lls, torch.full_like(lls, float(lls[0])))
+        jcfg = replace(jr.evolve_cfg, sweep=replace(
+            jr.evolve_cfg.sweep, dr=kw["dr"], coldensh_LLS=float(lls[0])))
+        j_new, j_st = j_evolve3d(
+            jcfg, JGridState(*(jnp.asarray(x.numpy()) for x in state)),
+            jnp.asarray(srcpos.numpy()), jnp.asarray(nflux.numpy()), dt)
+        _same_stats([t_st], [j_st])
+        assert t_st.lls_loss > 0.0
+        _close_state(t_new, j_new)
